@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch port runs on the GPU: build, check, drive.
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each on stdout:
+
+1. device — the card's name and power limit, TF32 off for matmuls and cuDNN.
+2. build  — ``nvcc`` builds every kernel of the port from ``csrc/``.
+3. kernel — each kernel's wrapper on the card against its plain PyTorch
+   version on the same inputs (every loss, f32 and bf16 X, ragged and exact
+   small shapes, the GLMix fixed-effect shape and the 262,144 x 2,048
+   shape), bit-identical repeat calls, and autograd through the
+   ``autograd.Function``.
+4. timing — CUDA-event medians of the kernel, its plain version and the
+   one-call-per-pass PyTorch yardstick, beside the HBM bound.
+5. glmix  — the port's main path at full width: MovieLens-1M-shaped data
+   (1,000,209 rows, 6,040 users, 3,706 movies, 64 global features), a
+   fixed-effect plus per-user logistic GLM, L-BFGS + L2, two coordinate
+   descent sweeps on the card, then the published GameModel scores the
+   data. Kernel launch counts are zeroed just before the run and read
+   just after. A small GLMix also runs on the card and on the CPU, and the
+   two must agree.
+
+Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
+no result line is printed. Without CUDA, or outside the repository, it
+exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# Device-memory rates for the HBM bound (NVIDIA data sheets) and the f32
+# CUDA-core peak of the H100 SXM.
+HBM_BYTES_PER_S = {"sxm": 3.35e12, "pcie": 2.0e12}
+F32_FLOPS_PER_S = 67e12
+GLMIX_SHAPE = (1_000_209, 64)
+BIG_SHAPE = (262_144, 2_048)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: {msg}", file=sys.stderr, flush=True)
+    sys.exit(2)
+
+
+def movielens_data(rng, n, n_users, n_movies, d_global):
+    """MovieLens-shaped synthetic GameDataset: power-law users, uniform
+    movies, dense global features, one-hot movie features for the per-user
+    coordinate (the recipe of bench.py:581 ``_movielens_data``)."""
+    import scipy.sparse as sp
+
+    from photon_ml_tpu_torch.game.dataset import GameDataset
+
+    users = (rng.zipf(1.3, size=n) % n_users).astype(np.int64)
+    movies = rng.integers(0, n_movies, n)
+    Xg = (rng.normal(size=(n, d_global)) / np.sqrt(d_global)).astype(
+        np.float32)
+    wg = rng.normal(size=d_global).astype(np.float32)
+    logits = Xg @ wg + 0.5 * rng.normal(size=n_users)[users].astype(
+        np.float32)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logits))).astype(np.float64)
+    one = np.ones(n, np.float32)
+    data = GameDataset(responses=y, feature_shards={
+        "global": sp.csr_matrix(Xg),
+        "per_user": sp.csr_matrix((one, (np.arange(n), movies)),
+                                  shape=(n, n_movies)),
+    })
+    data.encode_ids("userId", users)
+    return data
+
+
+def glmix_coordinates(data, device, active_cap=128, feature_cap=128,
+                      num_buckets=4):
+    """Fixed effect (L-BFGS + L2, lambda 10, 40 iterations) + per-user
+    random effect (lambda 1, 20 iterations), tolerance 1e-7."""
+    from photon_ml_tpu_torch.game.coordinate import (
+        FixedEffectCoordinate, RandomEffectCoordinate)
+    from photon_ml_tpu_torch.game.dataset import (
+        RandomEffectDataConfiguration, build_fixed_effect_dataset,
+        build_random_effect_dataset)
+    from photon_ml_tpu_torch.game.random_effect import (
+        RandomEffectOptimizationProblem)
+    from photon_ml_tpu_torch.optimize.config import (
+        GLMOptimizationConfiguration, OptimizerType, RegularizationContext,
+        RegularizationType, TaskType)
+    from photon_ml_tpu_torch.optimize.problem import GLMOptimizationProblem
+
+    def l2(lam, iters):
+        return GLMOptimizationConfiguration(
+            max_iterations=iters, tolerance=1e-7, regularization_weight=lam,
+            optimizer_type=OptimizerType.LBFGS,
+            regularization_context=RegularizationContext(
+                RegularizationType.L2))
+
+    task = TaskType.LOGISTIC_REGRESSION
+    re_cfg = RandomEffectDataConfiguration(
+        random_effect_type="userId", feature_shard_id="per_user",
+        num_active_data_points_upper_bound=active_cap,
+        num_features_to_keep_upper_bound=feature_cap)
+    return {
+        "fixed": FixedEffectCoordinate(
+            dataset=build_fixed_effect_dataset(data, "global",
+                                               device=device),
+            problem=GLMOptimizationProblem(config=l2(10.0, 40), task=task)),
+        "per-user": RandomEffectCoordinate(
+            dataset=build_random_effect_dataset(
+                data, re_cfg, num_buckets=num_buckets, device=device),
+            problem=RandomEffectOptimizationProblem(config=l2(1.0, 20),
+                                                    task=task)),
+    }
+
+
+def kernel_inputs(torch, n, d, seed, device):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, d), dtype=np.float32)
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    off = (rng.normal(size=n) * 0.1).astype(np.float32)
+    wt = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
+    w = (rng.normal(size=d) * (0.5 / np.sqrt(d))).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return t(X), t(y), t(off), t(wt), t(w)
+
+
+def check_sums(torch, loss, X, y, off, wt, w, shift, scaled: bool):
+    """Kernel against the plain version on the same inputs; returns the
+    largest |delta| of the vector sum and the worst tolerance ratio."""
+    from photon_ml_tpu_torch.ops.pallas_kernels import (
+        fused_value_gradient_sums, fused_value_gradient_sums_reference)
+
+    got = fused_value_gradient_sums(loss, X, y, off, wt, w, shift,
+                                    device=X.device)
+    torch.cuda.synchronize()
+    again = fused_value_gradient_sums(loss, X, y, off, wt, w, shift,
+                                      device=X.device)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{loss.name}: two calls are not bit-identical")
+    ref = fused_value_gradient_sums_reference(loss, X, y, off, wt, w, shift)
+    torch.cuda.synchronize()
+    v, vec, pre = (t.double() for t in got)
+    rv, rvec, rpre = (t.double() for t in ref)
+    if scaled:
+        # sums of 1e5-1e6 f32 terms in another order: |delta| is held
+        # against 1e-5 * sum_i |term_i|, per entry
+        Xa = X.float()
+        z = Xa @ w + off + shift
+        l, d1 = loss.loss_and_d1(z, y)
+        r = (wt * d1).double()
+        tol_vec = 1e-5 * (r.abs().float() @ Xa.abs()).double()
+        tol_val = 1e-5 * (wt * l).abs().double().sum()
+        tol_pre = 1e-5 * r.abs().sum()
+        worst = max(float(((vec - rvec).abs() / tol_vec).max()),
+                    float((v - rv).abs() / tol_val),
+                    float((pre - rpre).abs() / tol_pre))
+        del Xa
+    else:
+        # the small cases of tests/test_pallas.py: value rel 2e-5,
+        # prefactor rel 2e-5 / abs 1e-4, vector rtol = atol = 2e-4
+        worst = max(float((v - rv).abs() / (2e-5 * rv.abs())),
+                    float((pre - rpre).abs()
+                          / (1e-4 + 2e-5 * rpre.abs())),
+                    float(((vec - rvec).abs()
+                           / (2e-4 + 2e-4 * rvec.abs())).max()))
+    max_abs = float((vec - rvec).abs().max())
+    if not worst <= 1.0 or not np.isfinite(worst):
+        raise AssertionError(f"{loss.name} {X.dtype} {tuple(X.shape)}: "
+                             f"kernel disagrees with its plain version "
+                             f"(worst delta/tolerance {worst:.3g})")
+    return max_abs, worst
+
+
+def cuda_median_ms(torch, fn, reps=25, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def main() -> int:
+    t_all = time.perf_counter()
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs the GPU")
+    if not os.path.isdir(os.path.join(REPO, "photon_ml_tpu_torch", "csrc")):
+        fail("run from a checkout of the repository (photon_ml_tpu_torch/ "
+             "not found beside this script)")
+    sys.path.insert(0, REPO)
+
+    from photon_ml_tpu_torch.game.coordinate_descent import (
+        HOT_LOOP_STATS, reset_hot_loop_stats, run_coordinate_descent)
+    from photon_ml_tpu_torch.ops import kernels_build
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.ops.losses import LOSSES, get_loss
+    from photon_ml_tpu_torch.optimize import common as opt_common
+    from photon_ml_tpu_torch.optimize.config import TaskType
+
+    dev = torch.device("cuda", 0)
+
+    # -- 1. device ---------------------------------------------------------
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    hbm = HBM_BYTES_PER_S["pcie" if "pcie" in name.lower() else "sxm"]
+    emit({"phase": "device", "name": name, "nvidia_smi": smi,
+          "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "hbm_bytes_per_s": hbm,
+          "seconds": time.perf_counter() - t0})
+
+    # -- 2. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    kernels_build.build_all()
+    for kname, info in kernels_build.BUILD_INFO.items():
+        print(f"[{kname}] {info['log']}", file=sys.stderr, flush=True)
+    emit({"phase": "build",
+          "kernels": {k: v["seconds"]
+                      for k, v in kernels_build.BUILD_INFO.items()},
+          "seconds": time.perf_counter() - t0})
+
+    # -- 3. kernel against its plain version ---------------------------------
+    t0 = time.perf_counter()
+    shapes = [((700, 128), False), ((1024, 256), False), (GLMIX_SHAPE, True),
+              (BIG_SHAPE, True)]
+    worst_all = 0.0
+    cases = 0
+    for si, ((n, d), scaled) in enumerate(shapes):
+        X, y, off, wt, w = kernel_inputs(torch, n, d, seed=si, device=dev)
+        shift = torch.tensor(0.31, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            Xc = X.to(dtype)
+            for lname in sorted(LOSSES):
+                _, worst = check_sums(torch, get_loss(lname), Xc, y, off,
+                                      wt, w, shift, scaled)
+                worst_all = max(worst_all, worst)
+                cases += 1
+            del Xc
+        if not scaled:
+            # autograd through the autograd.Function equals vector_sum
+            wg = w.clone().requires_grad_(True)
+            loss = get_loss("logistic")
+            val, vec, _ = pk.fused_value_gradient_sums(loss, X, y, off, wt,
+                                                       wg, shift, device=dev)
+            (grad,) = torch.autograd.grad(val, wg)
+            torch.cuda.synchronize()
+            if not torch.allclose(grad, vec, rtol=2e-4, atol=2e-4):
+                raise AssertionError("autograd gradient != vector_sum")
+        del X, y, off, wt, w
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "name": "fused_value_gradient_sums",
+          "cases": cases, "worst_delta_over_tolerance": worst_all,
+          "deterministic": True, "autograd": True,
+          "seconds": time.perf_counter() - t0})
+
+    # -- 4. timing -------------------------------------------------------------
+    t0 = time.perf_counter()
+    timings = {}
+    loss = get_loss("logistic")
+    for (n, d) in (GLMIX_SHAPE, BIG_SHAPE):
+        X, y, off, wt, w = kernel_inputs(torch, n, d, seed=11, device=dev)
+        shift = torch.tensor(0.0, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            Xc = X.to(dtype).contiguous()
+            wl = w.to(dtype)
+
+            def library(Xc=Xc, wl=wl):
+                z = torch.matmul(Xc, wl).float() + off + shift
+                r = wt * loss.d1(z, y)
+                return ((wt * loss.loss(z, y)).sum(),
+                        torch.matmul(r.to(Xc.dtype), Xc), r.sum())
+
+            kernel_ms = cuda_median_ms(torch, lambda: pk._launch(
+                loss, Xc, y, off, wt, w, shift))
+            plain_ms = cuda_median_ms(
+                torch, lambda: pk.fused_value_gradient_sums_reference(
+                    loss, Xc, y, off, wt, w, shift))
+            library_ms = cuda_median_ms(torch, library)
+            nbytes = n * d * Xc.element_size() + 12 * n + 4 * d
+            bytes_ms = 1e3 * nbytes / hbm
+            ops_ms = 1e3 * 4.0 * n * d / F32_FLOPS_PER_S
+            rec = {"n": n, "d": d, "dtype": str(dtype).split(".")[-1],
+                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bytes": nbytes,
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations",
+                   "achieved_gb_per_s": nbytes / kernel_ms / 1e6}
+            timings[(n, d, rec["dtype"])] = rec
+            emit({"phase": "timing", **rec})
+            del Xc, wl
+        del X, y, off, wt, w
+        torch.cuda.empty_cache()
+    emit({"phase": "timing_done", "seconds": time.perf_counter() - t0})
+
+    # -- 5. GLMix end to end at full width -----------------------------------
+    t0 = time.perf_counter()
+    task = TaskType.LOGISTIC_REGRESSION
+    # (a) small GLMix: the card's run agrees with the CPU's
+    small = movielens_data(np.random.default_rng(3), 40_000, 500, 300, 64)
+    objs = {}
+    for where in ("cpu", "cuda"):
+        coords = glmix_coordinates(small, where, active_cap=32,
+                                   feature_cap=32)
+        res = run_coordinate_descent(
+            coords, 2, task, small.responses, small.weights, small.offsets,
+            device=where)
+        objs[where] = [s.objective for s in res.states]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(objs["cpu"],
+                                                  objs["cuda"]))
+    if not rel <= 1e-4:
+        raise AssertionError(f"small GLMix: card and CPU objectives differ "
+                             f"(rel {rel:.3g}): {objs}")
+    emit({"phase": "glmix_small_vs_cpu", "objectives_cpu": objs["cpu"],
+          "objectives_cuda": objs["cuda"], "max_rel_diff": rel,
+          "seconds": time.perf_counter() - t0})
+
+    # (b) full width
+    t0 = time.perf_counter()
+    n, n_users, n_movies = 1_000_209, 6040, 3706
+    data = movielens_data(np.random.default_rng(7), n, n_users, n_movies, 64)
+    coords = glmix_coordinates(data, dev)
+    torch.cuda.synchronize()
+    build_secs = time.perf_counter() - t0
+    re_ds = coords["per-user"].dataset
+    torch.cuda.reset_peak_memory_stats()
+    pk.reset_launch_count()
+    reset_hot_loop_stats()
+    opt_common.reset_solver_syncs()
+    t1 = time.perf_counter()
+    res = run_coordinate_descent(
+        coords, 2, task, data.responses, data.weights, data.offsets,
+        device=dev, logger=lambda s: print(s, file=sys.stderr, flush=True))
+    torch.cuda.synchronize()
+    train_secs = time.perf_counter() - t1
+    launches = pk.launch_count()
+    solver_syncs = opt_common.SOLVER_SYNCS["count"]
+    hot = dict(HOT_LOOP_STATS)
+    peak = torch.cuda.max_memory_allocated()
+    sweeps = []
+    for it in range(2):
+        upd = [s for s in res.states if s.iteration == it]
+        sweeps.append({
+            "sweep": it, "objective": upd[-1].objective,
+            "seconds": sum(s.seconds for s in upd),
+            "fixed_iterations": upd[0].tracker.result.iterations,
+            "re_counts_by_convergence":
+                upd[1].tracker.counts_by_convergence()})
+    if launches <= 0:
+        raise AssertionError("the GLMix run never launched the kernel")
+    if not all(np.isfinite(s["objective"]) for s in sweeps):
+        raise AssertionError(f"non-finite objective: {sweeps}")
+    if not sweeps[1]["objective"] <= sweeps[0]["objective"] * (1 + 1e-6):
+        raise AssertionError(f"objective rose between sweeps: {sweeps}")
+    scores = res.model.score(data, device=dev)
+    if scores.shape != (n,) or not bool(torch.isfinite(scores).all()):
+        raise AssertionError("published GameModel scores are not finite")
+    emit({"phase": "glmix", "n": n, "users": n_users, "movies": n_movies,
+          "d_global": 64,
+          "re_buckets": [list(b.X.shape) for b in re_ds.buckets],
+          "build_secs": build_secs, "train_secs": train_secs,
+          "sweeps": sweeps, "kernel_launches": launches,
+          "updates": hot["updates"],
+          "epilogue_fetches_per_update":
+              hot["epilogue_fetches"] / hot["updates"],
+          "solver_syncs": solver_syncs,
+          "host_syncs_per_update":
+              (hot["epilogue_fetches"] + solver_syncs) / hot["updates"],
+          "max_memory_allocated": peak,
+          "score_mean": float(scores.mean()),
+          "seconds": time.perf_counter() - t0})
+
+    # (c) the fixed-effect objective on the real GLMix batch, kernel
+    # against plain version (after the counts were read)
+    fe = coords["fixed"]
+    batch = fe.dataset.with_offsets(coords["per-user"].score(
+        res.model.models["per-user"].coefficients_projected))
+    w_fe = res.model.models["fixed"].model.coefficients.means.contiguous()
+    main_err, main_worst = check_sums(
+        torch, get_loss("logistic"), batch.X, batch.labels, batch.offsets,
+        batch.weights, w_fe, torch.zeros((), device=dev), scaled=True)
+    emit({"phase": "glmix_batch_kernel_vs_plain", "max_abs_err": main_err,
+          "worst_delta_over_tolerance": main_worst,
+          "seconds": time.perf_counter() - t0})
+
+    # -- 6. kernels line, card line, result ----------------------------------
+    main = timings[(GLMIX_SHAPE[0], GLMIX_SHAPE[1], "float32")]
+    emit({"kernels": [{
+        "name": "fused_value_gradient_sums",
+        "route": "cuda",
+        "source": "photon_ml_tpu_torch/csrc/fused_value_gradient.cu",
+        "replaces": "photon_ml_tpu/ops/pallas_kernels.py:144",
+        "launches": launches,
+        "max_abs_err": main_err,
+        "ms": main["kernel_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "checked": True,
+    }], "seconds_total": time.perf_counter() - t_all})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,1 @@
+"""game layer of the PyTorch port (see the package docstring)."""

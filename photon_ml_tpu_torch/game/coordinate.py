@@ -1,0 +1,188 @@
+"""GAME coordinates: per-coordinate update/score units.
+
+Port of ``photon_ml_tpu/game/coordinate.py:67-290`` — the trackers,
+``FixedEffectCoordinate`` and ``RandomEffectCoordinate``. Each coordinate's
+state is its coefficient tensor (``[D]`` for the fixed effect in
+normalized space, the compact ``[E, D_red]`` block for a random effect).
+Down-sampling is not ported: a rate below 1 raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.game.dataset import (
+    FixedEffectDataset,
+    RandomEffectDataset,
+)
+from photon_ml_tpu_torch.game.models import (
+    FixedEffectModel,
+    RandomEffectModelInProjectedSpace,
+)
+from photon_ml_tpu_torch.game.random_effect import (
+    CONVERGENCE_CODE_NAMES,
+    RandomEffectOptimizationProblem,
+    score_random_effect,
+)
+from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
+from photon_ml_tpu_torch.optimize.common import DeferredOptimizationResult
+from photon_ml_tpu_torch.optimize.problem import GLMOptimizationProblem
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class FixedEffectTracker:
+    """Fixed-effect solve record; the history stays on the device until
+    :meth:`materialize` (one fetch)."""
+
+    result: DeferredOptimizationResult
+
+    def materialize(self) -> "FixedEffectTracker":
+        self.result._force()
+        return self
+
+    def summary(self) -> str:
+        return (f"fixed effect: {self.result.convergence_reason.name}, "
+                f"{self.result.iterations} iterations")
+
+
+@dataclasses.dataclass
+class RandomEffectTracker:
+    """Per-entity iteration counts, final values and convergence codes;
+    device tensors until :meth:`materialize` fetches them in one read."""
+
+    iterations: object  # [E]
+    final_values: object  # [E]
+    convergence_codes: object  # [E] int8
+
+    def materialize(self) -> "RandomEffectTracker":
+        if isinstance(self.iterations, torch.Tensor):
+            it, v, c = (t.cpu().numpy() for t in (
+                self.iterations, self.final_values, self.convergence_codes))
+            self.iterations, self.final_values = it, v
+            self.convergence_codes = c
+        return self
+
+    def counts_by_convergence(self) -> dict[str, int]:
+        """reason name -> entity count (countsByConvergence)."""
+        self.materialize()
+        codes, counts = np.unique(self.convergence_codes, return_counts=True)
+        return {CONVERGENCE_CODE_NAMES[int(c)]: int(n)
+                for c, n in zip(codes, counts)}
+
+    def summary(self) -> str:
+        it = self.materialize().iterations
+        counts = self.counts_by_convergence()
+        return (f"random effect: {len(it)} entities, iterations "
+                f"min/mean/max = {it.min()}/{it.mean():.1f}/{it.max()}, "
+                "convergence " + "/".join(
+                    f"{k}={v}" for k, v in sorted(counts.items())))
+
+
+Tracker = Union[FixedEffectTracker, RandomEffectTracker]
+
+
+@dataclasses.dataclass
+class FixedEffectCoordinate:
+    """Global GLM coordinate over the full sample batch."""
+
+    dataset: FixedEffectDataset
+    problem: GLMOptimizationProblem
+
+    def __post_init__(self):
+        if self.problem.config.down_sampling_rate < 1.0:
+            raise NotImplementedError("down-sampling is not ported yet")
+
+    @property
+    def num_samples(self) -> int:
+        return self.dataset.num_samples
+
+    @property
+    def device(self) -> torch.device:
+        return self.dataset.batch.X.device
+
+    def initial_state(self) -> Tensor:
+        """Zero f32 coefficients in normalized space."""
+        return torch.zeros(self.dataset.batch.num_features,
+                           dtype=torch.float32, device=self.device)
+
+    def update(self, coefs: Optional[Tensor], extra_scores: Tensor
+               ) -> tuple[Tensor, Tracker]:
+        """Re-optimize on the offset-adjusted batch; no blocking read of
+        the solve history (it stays in the tracker)."""
+        batch = self.dataset.with_offsets(extra_scores)
+        result = self.problem.run_lazy(batch, initial=coefs)
+        return result.coefficients, FixedEffectTracker(result)
+
+    def score(self, coefs: Tensor) -> Tensor:
+        """Sample-axis margins x.w through the normalization algebra."""
+        w_eff, shift = self.problem.normalization.effective_coefficients(
+            coefs)
+        zero_off = self.dataset.batch._replace(
+            offsets=torch.zeros_like(self.dataset.base_offsets))
+        return zero_off.margins(w_eff, shift)
+
+    def regularization_value_device(self, coefs: Tensor):
+        return self.problem.regularization_value_device(coefs)
+
+    def publish(self, coefs: Tensor) -> FixedEffectModel:
+        means = self.problem.normalization.transform_model_coefficients(coefs)
+        return FixedEffectModel(
+            model=GeneralizedLinearModel(Coefficients(means=means),
+                                         self.problem.task),
+            feature_shard_id=self.dataset.shard_id)
+
+
+@dataclasses.dataclass
+class RandomEffectCoordinate:
+    """Per-entity GLM coordinate; its state is the projected-space block."""
+
+    dataset: RandomEffectDataset
+    problem: RandomEffectOptimizationProblem
+
+    def __post_init__(self):
+        if self.problem.config.down_sampling_rate < 1.0:
+            raise NotImplementedError("down-sampling is not ported yet")
+
+    @property
+    def num_samples(self) -> int:
+        return self.dataset.num_samples
+
+    @property
+    def device(self) -> torch.device:
+        b = self.dataset.buckets
+        return (b[0].X if b is not None else self.dataset.X).device
+
+    def initial_state(self) -> Tensor:
+        return torch.zeros((self.dataset.num_entities,
+                            self.dataset.reduced_dim), dtype=torch.float32,
+                           device=self.device)
+
+    def update(self, coefs: Optional[Tensor], extra_scores: Tensor
+               ) -> tuple[Tensor, Tracker]:
+        offsets = self.dataset.offsets_with(extra_scores)
+        new_coefs, iters, values, codes = self.problem.run(
+            self.dataset, offsets, initial=coefs)
+        return new_coefs, RandomEffectTracker(iters, values, codes)
+
+    def score(self, coefs: Tensor) -> Tensor:
+        return score_random_effect(self.dataset, coefs)
+
+    def regularization_value_device(self, coefs: Tensor):
+        return self.problem.regularization_value_device(coefs)
+
+    def publish(self, coefs: Tensor) -> RandomEffectModelInProjectedSpace:
+        return RandomEffectModelInProjectedSpace(
+            random_effect_type=self.dataset.config.random_effect_type,
+            feature_shard_id=self.dataset.config.feature_shard_id,
+            entity_codes=self.dataset.entity_codes,
+            coefficients_projected=coefs,
+            projectors=self.dataset.projectors)
+
+
+Coordinate = Union[FixedEffectCoordinate, RandomEffectCoordinate]

@@ -1,0 +1,129 @@
+"""GAME models: fixed effect, random effect (raw and projected), composite.
+
+Port of ``photon_ml_tpu/game/models.py:51-194`` and ``:276-299``. Scoring
+stays on the host with scipy's CSR products, as in the JAX package, and the
+result is handed back as an f32 tensor on the requested device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.game.dataset import GameDataset
+from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
+from photon_ml_tpu_torch.projector.projectors import IndexMapProjectors
+
+Tensor = torch.Tensor
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def _on(device, a: np.ndarray) -> Tensor:
+    return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                           device=resolve_device(device))
+
+
+def _match(keys: np.ndarray, queries: np.ndarray) -> np.ndarray:
+    """Row in ``keys`` for each query (len(keys) where absent)."""
+    e = len(keys)
+    if e == 0 or len(queries) == 0:
+        return np.full(len(queries), e, dtype=np.int64)
+    order = np.argsort(keys, kind="stable")
+    sorted_keys = keys[order]
+    pos = np.clip(np.searchsorted(sorted_keys, queries), 0, e - 1)
+    found = sorted_keys[pos] == queries
+    return np.where(found, order[pos], e)
+
+
+def rowwise_sparse_dot(mat, w_rows: np.ndarray) -> np.ndarray:
+    """Per-row ``sum_j x_ij w_ij`` for CSR ``mat`` against dense per-row
+    coefficient rows ``w_rows`` (``models.py:80-90``)."""
+    return np.asarray(mat.multiply(w_rows).sum(axis=1)).ravel()
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedEffectModel:
+    """GLM over one feature shard."""
+
+    model: GeneralizedLinearModel
+    feature_shard_id: str
+
+    def score(self, data: GameDataset, device="cuda") -> Tensor:
+        mat = data.feature_shards[self.feature_shard_id]
+        return _on(device, mat @ _host(self.model.coefficients.means))
+
+    @property
+    def coefficients(self) -> Coefficients:
+        return self.model.coefficients
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomEffectModel:
+    """Per-entity coefficient block in RAW shard space; rows of unseen
+    entities score 0 (cold start)."""
+
+    random_effect_type: str
+    feature_shard_id: str
+    entity_codes: np.ndarray
+    coefficients: Tensor  # [E, D_raw]
+
+    def score(self, data: GameDataset, device="cuda") -> Tensor:
+        coefs = _host(self.coefficients)
+        if coefs.shape[0] == 0:
+            return _on(device, np.zeros(data.num_samples))
+        codes = data.id_columns[self.random_effect_type]
+        local = _match(self.entity_codes, codes)
+        mat = data.feature_shards[self.feature_shard_id]
+        padded = np.vstack([coefs, np.zeros((1, coefs.shape[1]),
+                                            dtype=coefs.dtype)])
+        return _on(device, rowwise_sparse_dot(mat, padded[local]))
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomEffectModelInProjectedSpace:
+    """Coefficients in each entity's reduced space + the projector back to
+    raw space (``to_raw``)."""
+
+    random_effect_type: str
+    feature_shard_id: str
+    entity_codes: np.ndarray
+    coefficients_projected: Tensor  # [E, D_red]
+    projectors: Optional[IndexMapProjectors] = None
+
+    def to_raw(self) -> RandomEffectModel:
+        proj = _host(self.coefficients_projected)
+        if self.projectors is not None:
+            dense = self.projectors.scatter_coefficients(proj).dense()
+        else:
+            dense = proj
+        return RandomEffectModel(
+            random_effect_type=self.random_effect_type,
+            feature_shard_id=self.feature_shard_id,
+            entity_codes=self.entity_codes,
+            coefficients=torch.from_numpy(np.ascontiguousarray(dense)))
+
+    def score(self, data: GameDataset, device="cuda") -> Tensor:
+        return self.to_raw().score(data, device=device)
+
+
+@dataclasses.dataclass
+class GameModel:
+    """coordinateId -> model; total score = sum of coordinate scores."""
+
+    models: dict
+
+    def score(self, data: GameDataset, device="cuda") -> Tensor:
+        device = resolve_device(device)
+        total = torch.zeros(data.num_samples, dtype=torch.float32,
+                            device=device)
+        for m in self.models.values():
+            total = total + m.score(data, device=device)
+        return total

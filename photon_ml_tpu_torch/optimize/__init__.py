@@ -1,0 +1,1 @@
+"""optimize layer of the PyTorch port (see the package docstring)."""

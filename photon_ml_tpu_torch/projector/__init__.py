@@ -1,0 +1,1 @@
+"""projector layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,132 @@
+"""The PyTorch port's boundaries: no JAX inside it, no silent CPU fallback.
+
+- ``photon_ml_tpu_torch`` and ``chip_smoke.py`` import nothing of ``jax``
+  or ``photon_ml_tpu`` (checked by importing every submodule in a fresh
+  interpreter, and by an AST scan of the sources).
+- On a host without CUDA the entry points, called without
+  ``device="cpu"``, raise ``RuntimeError`` instead of running on the CPU.
+- The kernel path has no ``try`` that could fall back, and the JAX
+  package's ``PHOTON_DISABLE_PALLAS`` switch is not honoured by the port.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import photon_ml_tpu_torch
+from photon_ml_tpu_torch import convert
+from photon_ml_tpu_torch.game import coordinate_descent as tcd
+from photon_ml_tpu_torch.game import dataset as tds
+from photon_ml_tpu_torch.game.models import GameModel
+from photon_ml_tpu_torch.ops import losses as tl
+from photon_ml_tpu_torch.ops import pallas_kernels as tpk
+from photon_ml_tpu_torch.optimize import config as tcfg
+
+torch.set_num_threads(1)
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = pathlib.Path(photon_ml_tpu_torch.__file__).resolve().parent
+SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    return (module == "jax" or module.startswith("jax.")
+            or module == "photon_ml_tpu"
+            or module.startswith("photon_ml_tpu."))
+
+
+def test_importing_every_submodule_leaves_jax_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "import photon_ml_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'photon_ml_tpu' or "
+        "m.startswith('photon_ml_tpu.'))\n"
+        "print(len([m for m in sys.modules "
+        "if m.startswith('photon_ml_tpu_torch.')]), bad)\n")
+    # -I: a fresh interpreter that reads no PYTHON* variables or user site
+    out = subprocess.run([sys.executable, "-I", "-c", code],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.split(" ", 1)
+    assert int(count) >= 17
+    assert bad.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_sources_import_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), \
+            f"{path.name}:{node.lineno} imports {names}"
+
+
+def test_kernel_path_has_no_fallback():
+    for name in ("ops/pallas_kernels.py", "ops/kernels_build.py",
+                 "ops/aggregators.py"):
+        tree = ast.parse((PKG / name).read_text())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
+    for path in SOURCES:
+        assert "PHOTON_DISABLE_PALLAS" not in path.read_text(), path.name
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a host without CUDA")
+
+
+def _tiny_dataset():
+    import scipy.sparse as sp
+
+    data = tds.GameDataset(
+        responses=np.array([0.0, 1.0, 1.0]),
+        feature_shards={"g": sp.csr_matrix(np.eye(3, dtype=np.float32))})
+    data.encode_ids("u", np.array([0, 0, 1]))
+    return data
+
+
+def test_entry_points_refuse_cpu_without_being_asked(no_cuda, monkeypatch):
+    data = _tiny_dataset()
+    # a refused call must not start building on the CPU
+    monkeypatch.setattr(tds, "csr_to_batch", lambda *a, **k: pytest.fail(
+        "dataset build ran on the CPU"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tds.build_fixed_effect_dataset(data, "g")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tds.build_random_effect_dataset(
+            data, tds.RandomEffectDataConfiguration("u", "g"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcd.run_coordinate_descent({}, 1, tcfg.TaskType.LOGISTIC_REGRESSION,
+                                   np.zeros(3), np.ones(3), np.zeros(3))
+    t = torch.zeros(3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpk.fused_value_gradient_sums(tl.get_loss("logistic"),
+                                      torch.zeros(3, 2), t, t, t,
+                                      torch.zeros(2), torch.tensor(0.0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GameModel({}).score(data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.states_from_numpy({"a": np.zeros(2)})
+    assert tpk.launch_count() == 0
+
+
+def test_kernel_build_is_not_triggered_by_import():
+    from photon_ml_tpu_torch.ops import kernels_build
+
+    assert kernels_build._LIBS == {}
