@@ -11,18 +11,30 @@ Phases, one JSON line each on stdout:
 2. build  — ``nvcc`` builds every kernel of the port from ``csrc/``.
 3. kernel — each kernel's wrapper on the card against its plain PyTorch
    version on the same inputs (every loss, f32 and bf16 X, ragged and exact
-   small shapes, the GLMix fixed-effect shape and the 262,144 x 2,048
-   shape), bit-identical repeat calls, and autograd through the
-   ``autograd.Function``.
-4. timing — CUDA-event medians of the kernel, its plain version and the
-   one-call-per-pass PyTorch yardstick, beside the HBM bound.
+   small shapes that reach every geometry of the stream path and the
+   staged path's unvectorised load, the GLMix fixed-effect shape and the
+   262,144 x 2,048 shape), on every pass-1 path that takes the shape
+   (the public wrapper on the path it picks, ``_launch`` on the other),
+   bit-identical repeat calls on each path, autograd through the
+   ``autograd.Function`` on each path, and the refusal of a stream request
+   for a shape the stream path cannot take.
+4. timing — CUDA-event medians of the kernel's wrapper, its plain
+   version and the one-call-per-pass PyTorch yardstick, beside the HBM
+   bound, two ways: one call at a time (``kernel_ms``, ``plain_ms``,
+   ``library_ms``: a caller's single call, the host's work before the
+   launch included) and ten calls back to back (``device_ms``,
+   ``plain_device_ms``, ``library_device_ms``: the device's time per
+   call, as long as the host issues a call faster than the device runs
+   it, which ``host_ms`` shows). At the GLMix shape both pass-1 paths
+   are timed in turns (stream, staged, staged, stream); the 262,144 x
+   2,048 shape is staged only.
 5. glmix  — the port's main path at full width: MovieLens-1M-shaped data
    (1,000,209 rows, 6,040 users, 3,706 movies, 64 global features), a
    fixed-effect plus per-user logistic GLM, L-BFGS + L2, two coordinate
    descent sweeps on the card, then the published GameModel scores the
    data. Kernel launch counts are zeroed just before the run and read
-   just after. A small GLMix also runs on the card and on the CPU, and the
-   two must agree.
+   just after; every launch must have taken the stream path. A small
+   GLMix also runs on the card and on the CPU, and the two must agree.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
@@ -45,8 +57,20 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # CUDA-core peak of the H100 SXM.
 HBM_BYTES_PER_S = {"sxm": 3.35e12, "pcie": 2.0e12}
 F32_FLOPS_PER_S = 67e12
+# Clock cycles of the spin that holds the device while timed calls are
+# queued: about 10 ms at the H100's 1.98 GHz, longer than the host takes
+# to issue ten calls of the plain version (some 20 PyTorch ops each).
+SPIN_CYCLES = 20_000_000
 GLMIX_SHAPE = (1_000_209, 64)
 BIG_SHAPE = (262_144, 2_048)
+# (shape, tolerance scaled to the sum of |terms|): the small shapes reach
+# every stream geometry (1 to 32 lanes a row in f32 or bf16, one and two
+# vectors a lane, segments that are not whole, a ragged last batch) and
+# the staged path's unvectorised load (d = 63).
+CHECK_SHAPES = [((700, 128), False), ((1024, 256), False),
+                ((1000, 96), False), ((1001, 24), False),
+                ((1001, 8), False), ((777, 256), False),
+                ((777, 63), False), (GLMIX_SHAPE, True), (BIG_SHAPE, True)]
 
 
 def emit(obj) -> None:
@@ -136,20 +160,41 @@ def kernel_inputs(torch, n, d, seed, device):
     return t(X), t(y), t(off), t(wt), t(w)
 
 
-def check_sums(torch, loss, X, y, off, wt, w, shift, scaled: bool):
-    """Kernel against the plain version on the same inputs; returns the
-    largest |delta| of the vector sum and the worst tolerance ratio."""
-    from photon_ml_tpu_torch.ops.pallas_kernels import (
-        fused_value_gradient_sums, fused_value_gradient_sums_reference)
+def paths_for(X) -> list:
+    """Every pass-1 path that takes X's shape: staged always, stream
+    where its rows fit."""
+    from photon_ml_tpu_torch.ops.pallas_kernels import kernel_path
 
-    got = fused_value_gradient_sums(loss, X, y, off, wt, w, shift,
-                                    device=X.device)
+    aligned = X.data_ptr() % 16 == 0
+    return (["stream", "staged"]
+            if kernel_path(X.shape[1], X.dtype, aligned) == "stream"
+            else ["staged"])
+
+
+def check_sums(torch, loss, X, y, off, wt, w, shift, scaled: bool,
+               path=None):
+    """Kernel against the plain version on the same inputs: through the
+    public wrapper when ``path`` is None (the path it picks for X), else
+    on the named path. Returns the largest |delta| of the vector sum and
+    the worst tolerance ratio."""
+    from photon_ml_tpu_torch.ops.pallas_kernels import (
+        _launch, fused_value_gradient_sums,
+        fused_value_gradient_sums_reference)
+
+    def kernel():
+        if path is None:
+            return fused_value_gradient_sums(loss, X, y, off, wt, w, shift,
+                                             device=X.device)
+        return _launch(loss, X, y, off, wt, w, shift, path=path)
+
+    got = kernel()
     torch.cuda.synchronize()
-    again = fused_value_gradient_sums(loss, X, y, off, wt, w, shift,
-                                      device=X.device)
+    again = kernel()
     torch.cuda.synchronize()
+    where = path or "wrapper's path"
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError(f"{loss.name}: two calls are not bit-identical")
+        raise AssertionError(f"{loss.name} {where}: two calls are not "
+                             f"bit-identical")
     ref = fused_value_gradient_sums_reference(loss, X, y, off, wt, w, shift)
     torch.cuda.synchronize()
     v, vec, pre = (t.double() for t in got)
@@ -178,26 +223,49 @@ def check_sums(torch, loss, X, y, off, wt, w, shift, scaled: bool):
                            / (2e-4 + 2e-4 * rvec.abs())).max()))
     max_abs = float((vec - rvec).abs().max())
     if not worst <= 1.0 or not np.isfinite(worst):
-        raise AssertionError(f"{loss.name} {X.dtype} {tuple(X.shape)}: "
-                             f"kernel disagrees with its plain version "
-                             f"(worst delta/tolerance {worst:.3g})")
+        raise AssertionError(f"{loss.name} {X.dtype} {tuple(X.shape)} "
+                             f"{where}: kernel disagrees with its plain "
+                             f"version (worst delta/tolerance {worst:.3g})")
     return max_abs, worst
 
 
-def cuda_median_ms(torch, fn, reps=25, warmup=3):
+def cuda_times(torch, fn, reps=25, inner=1, warmup=3) -> dict:
+    """CUDA-event time per call of ``inner`` calls back to back (``ms``),
+    median over ``reps`` turns, and the host's time to issue a call
+    (``host_ms``).
+
+    One call at a time (``inner`` 1) the event time holds the host's work
+    before the launch, as a caller's single call does. Back to back a
+    spin kernel (``spin_ms`` on the device) holds the device first, so
+    that the calls are queued before the timed window opens and the event
+    time is the device's alone. A turn whose calls took the host longer
+    to issue than the spin lasted is left out of the median;
+    ``queued_share`` is the share of turns kept.
+    """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    turns = []
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        if inner > 1:
+            s.record()
+            torch.cuda._sleep(SPIN_CYCLES)
         a.record()
-        fn()
+        t = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        issue_ms = (time.perf_counter() - t) * 1e3
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+        spin_ms = s.elapsed_time(a) if inner > 1 else float("inf")
+        turns.append((a.elapsed_time(b) / inner, issue_ms / inner,
+                      spin_ms, issue_ms < spin_ms))
+    kept = [t for t in turns if t[3]] or turns
+    return {"ms": float(np.median([t[0] for t in kept])),
+            "host_ms": float(np.median([t[1] for t in turns])),
+            "spin_ms": float(np.median([t[2] for t in turns])),
+            "queued_share": sum(t[3] for t in turns) / len(turns)}
 
 
 def main() -> int:
@@ -251,23 +319,27 @@ def main() -> int:
 
     # -- 3. kernel against its plain version ---------------------------------
     t0 = time.perf_counter()
-    shapes = [((700, 128), False), ((1024, 256), False), (GLMIX_SHAPE, True),
-              (BIG_SHAPE, True)]
     worst_all = 0.0
-    cases = 0
-    for si, ((n, d), scaled) in enumerate(shapes):
+    cases = {"stream": 0, "staged": 0}
+    autograd_paths = set()
+    for si, ((n, d), scaled) in enumerate(CHECK_SHAPES):
         X, y, off, wt, w = kernel_inputs(torch, n, d, seed=si, device=dev)
         shift = torch.tensor(0.31, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             Xc = X.to(dtype)
-            for lname in sorted(LOSSES):
-                _, worst = check_sums(torch, get_loss(lname), Xc, y, off,
-                                      wt, w, shift, scaled)
-                worst_all = max(worst_all, worst)
-                cases += 1
+            paths = paths_for(Xc)
+            for path in paths:
+                # the wrapper on the path it picks, _launch on the other
+                named = None if path == paths[0] else path
+                for lname in sorted(LOSSES):
+                    _, worst = check_sums(torch, get_loss(lname), Xc, y,
+                                          off, wt, w, shift, scaled, named)
+                    worst_all = max(worst_all, worst)
+                    cases[path] += 1
             del Xc
         if not scaled:
-            # autograd through the autograd.Function equals vector_sum
+            # autograd through the autograd.Function equals vector_sum, on
+            # the path the wrapper picks for this shape
             wg = w.clone().requires_grad_(True)
             loss = get_loss("logistic")
             val, vec, _ = pk.fused_value_gradient_sums(loss, X, y, off, wt,
@@ -276,11 +348,25 @@ def main() -> int:
             torch.cuda.synchronize()
             if not torch.allclose(grad, vec, rtol=2e-4, atol=2e-4):
                 raise AssertionError("autograd gradient != vector_sum")
+            autograd_paths.add(paths_for(X)[0])
+        if d % 4:
+            # the stream path refuses a row that is not whole vectors
+            try:
+                pk._launch(get_loss("logistic"), X, y, off, wt, w, shift,
+                           path="stream")
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError(f"stream path took d={d}")
         del X, y, off, wt, w
         torch.cuda.empty_cache()
+    if autograd_paths != set(cases):
+        raise AssertionError(f"autograd checked on {autograd_paths} only")
     emit({"phase": "kernel", "name": "fused_value_gradient_sums",
-          "cases": cases, "worst_delta_over_tolerance": worst_all,
-          "deterministic": True, "autograd": True,
+          "cases": sum(cases.values()), "cases_by_path": cases,
+          "worst_delta_over_tolerance": worst_all,
+          "deterministic": True, "autograd_paths": sorted(autograd_paths),
+          "stream_refuses_partial_vector_rows": True,
           "seconds": time.perf_counter() - t0})
 
     # -- 4. timing -------------------------------------------------------------
@@ -300,24 +386,60 @@ def main() -> int:
                 return ((wt * loss.loss(z, y)).sum(),
                         torch.matmul(r.to(Xc.dtype), Xc), r.sum())
 
-            kernel_ms = cuda_median_ms(torch, lambda: pk._launch(
-                loss, Xc, y, off, wt, w, shift))
-            plain_ms = cuda_median_ms(
-                torch, lambda: pk.fused_value_gradient_sums_reference(
-                    loss, Xc, y, off, wt, w, shift))
-            library_ms = cuda_median_ms(torch, library)
+            paths = paths_for(Xc)
+            # both paths in turns on the same inputs: A, B, B, A; each
+            # turn one call at a time, then ten back to back
+            single = {p: [] for p in paths}
+            back = {p: [] for p in paths}
+            for p in paths + paths[::-1]:
+                def run(p=p):
+                    return pk._launch(loss, Xc, y, off, wt, w, shift, path=p)
+                single[p].append(cuda_times(torch, run)["ms"])
+                back[p].append(cuda_times(torch, run, reps=15, inner=10))
+
+            def plain():
+                return pk.fused_value_gradient_sums_reference(
+                    loss, Xc, y, off, wt, w, shift)
+            plain_ms = cuda_times(torch, plain)["ms"]
+            plain_dev = cuda_times(torch, plain, reps=15, inner=10)
+            library_ms = cuda_times(torch, library)["ms"]
+            library_dev = cuda_times(torch, library, reps=15, inner=10)
             nbytes = n * d * Xc.element_size() + 12 * n + 4 * d
             bytes_ms = 1e3 * nbytes / hbm
             ops_ms = 1e3 * 4.0 * n * d / F32_FLOPS_PER_S
-            rec = {"n": n, "d": d, "dtype": str(dtype).split(".")[-1],
-                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bytes": nbytes,
-                   "bound_ms": max(bytes_ms, ops_ms),
-                   "bound_by": "bytes" if bytes_ms >= ops_ms
-                   else "operations",
-                   "achieved_gb_per_s": nbytes / kernel_ms / 1e6}
-            timings[(n, d, rec["dtype"])] = rec
-            emit({"phase": "timing", **rec})
+            bound_ms = max(bytes_ms, ops_ms)
+            dt = str(dtype).split(".")[-1]
+            for p in paths:
+                kernel_ms = float(np.mean(single[p]))
+                device_ms = float(np.mean([r["ms"] for r in back[p]]))
+                timings[(n, d, dt, p)] = {
+                    "n": n, "d": d, "dtype": dt, "path": p,
+                    "kernel_ms": kernel_ms, "kernel_ms_runs": single[p],
+                    "device_ms": device_ms,
+                    "device_ms_runs": [r["ms"] for r in back[p]],
+                    "host_ms": float(np.mean([r["host_ms"]
+                                              for r in back[p]])),
+                    "spin_ms": back[p][0]["spin_ms"],
+                    "queued_share": min(r["queued_share"]
+                                        for r in back[p]),
+                    "plain_ms": plain_ms,
+                    "plain_device_ms": plain_dev["ms"],
+                    "plain_queued_share": plain_dev["queued_share"],
+                    "library_ms": library_ms,
+                    "library_device_ms": library_dev["ms"],
+                    "library_queued_share": library_dev["queued_share"],
+                    "bytes": nbytes, "bound_ms": bound_ms,
+                    "bound_by": "bytes" if bytes_ms >= ops_ms
+                    else "operations",
+                    "share_of_bound": bound_ms / kernel_ms,
+                    "device_share_of_bound": bound_ms / device_ms,
+                    "achieved_gb_per_s": nbytes / kernel_ms / 1e6,
+                    # the staged path's time over this path's, same run
+                    "staged_over_this": float(np.mean(single["staged"]))
+                    / kernel_ms,
+                    "staged_over_this_device": float(np.mean(
+                        [r["ms"] for r in back["staged"]])) / device_ms}
+                emit({"phase": "timing", **timings[(n, d, dt, p)]})
             del Xc, wl
         del X, y, off, wt, w
         torch.cuda.empty_cache()
@@ -364,6 +486,7 @@ def main() -> int:
     torch.cuda.synchronize()
     train_secs = time.perf_counter() - t1
     launches = pk.launch_count()
+    by_path = dict(pk.fused_value_gradient_sums.launches_by_path)
     solver_syncs = opt_common.SOLVER_SYNCS["count"]
     hot = dict(HOT_LOOP_STATS)
     peak = torch.cuda.max_memory_allocated()
@@ -378,6 +501,9 @@ def main() -> int:
                 upd[1].tracker.counts_by_convergence()})
     if launches <= 0:
         raise AssertionError("the GLMix run never launched the kernel")
+    if by_path["staged"] != 0 or by_path["stream"] != launches:
+        raise AssertionError(f"the GLMix fixed effect left the stream "
+                             f"path: {by_path}")
     if not all(np.isfinite(s["objective"]) for s in sweeps):
         raise AssertionError(f"non-finite objective: {sweeps}")
     if not sweeps[1]["objective"] <= sweeps[0]["objective"] * (1 + 1e-6):
@@ -390,6 +516,7 @@ def main() -> int:
           "re_buckets": [list(b.X.shape) for b in re_ds.buckets],
           "build_secs": build_secs, "train_secs": train_secs,
           "sweeps": sweeps, "kernel_launches": launches,
+          "launches_by_path": by_path,
           "updates": hot["updates"],
           "epilogue_fetches_per_update":
               hot["epilogue_fetches"] / hot["updates"],
@@ -409,12 +536,14 @@ def main() -> int:
     main_err, main_worst = check_sums(
         torch, get_loss("logistic"), batch.X, batch.labels, batch.offsets,
         batch.weights, w_fe, torch.zeros((), device=dev), scaled=True)
-    emit({"phase": "glmix_batch_kernel_vs_plain", "max_abs_err": main_err,
+    emit({"phase": "glmix_batch_kernel_vs_plain",
+          "path": paths_for(batch.X)[0], "max_abs_err": main_err,
           "worst_delta_over_tolerance": main_worst,
           "seconds": time.perf_counter() - t0})
 
     # -- 6. kernels line, card line, result ----------------------------------
-    main = timings[(GLMIX_SHAPE[0], GLMIX_SHAPE[1], "float32")]
+    main = timings[(*GLMIX_SHAPE, "float32", "stream")]
+    staged = timings[(*BIG_SHAPE, "float32", "staged")]
     emit({"kernels": [{
         "name": "fused_value_gradient_sums",
         "route": "cuda",
@@ -427,6 +556,12 @@ def main() -> int:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
+        "device_ms": main["device_ms"],
+        "paths": {p: {"ms": r["kernel_ms"], "device_ms": r["device_ms"],
+                      "bound_ms": r["bound_ms"],
+                      "shape": [r["n"], r["d"]], "dtype": r["dtype"],
+                      "launches": by_path[p]}
+                  for p, r in (("stream", main), ("staged", staged))},
         "checked": True,
     }], "seconds_total": time.perf_counter() - t_all})
     print(smi, flush=True)

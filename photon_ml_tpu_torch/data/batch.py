@@ -15,6 +15,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+
 Tensor = torch.Tensor
 
 
@@ -65,8 +67,11 @@ def dense_batch(X: np.ndarray, labels: np.ndarray,
                 offsets: Optional[np.ndarray] = None,
                 weights: Optional[np.ndarray] = None,
                 dtype: torch.dtype = torch.float32,
-                device="cpu") -> DenseBatch:
-    """Batch from host arrays; metadata is at least f32 (``batch.py:149``)."""
+                device=DEFAULT_DEVICE) -> DenseBatch:
+    """Batch from host arrays on ``device`` (the card unless the caller
+    asks for the CPU; raises without CUDA); metadata is at least f32
+    (``batch.py:149``)."""
+    device = resolve_device(device)
     n = X.shape[0]
     meta = acc_dtype_for(dtype)
     return DenseBatch(

@@ -37,7 +37,8 @@ SIGNATURES = {
         "photon_fused_value_gradient": (
             _C.c_int,
             [_P, _C.c_int, _P, _P, _P, _P, _P, _C.c_longlong, _C.c_int,
-             _C.c_int, _C.c_int, _P, _P, _P, _P, _P, _P, _P]),
+             _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
+             _P, _P, _P, _P, _P, _P, _P]),
         "photon_fused_vg_rows_per_tile": (_C.c_int, [_C.c_int]),
         "photon_cuda_error_string": (_C.c_char_p, [_C.c_int]),
     },

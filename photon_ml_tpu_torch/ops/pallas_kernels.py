@@ -18,9 +18,18 @@ design matrix X once for both ``X.w`` and ``X^T r``:
   (``:219-231``).
 - :func:`pallas_supported` is the gate (``:63-84``) with the same
   thresholds; a CUDA device stands in for the TPU backend test.
+- :func:`kernel_path` picks the kernel's pass-1 path: ``"stream"`` (rows
+  held in registers, for rows of at most 1 KB that are whole 16-byte
+  vectors in an aligned X — the GLMix fixed effect's 64 f32 columns) or
+  ``"staged"`` (row tiles through shared memory, every other shape);
+  :func:`stream_geometry` is the stream path's split of a row over lanes.
+  Launches are counted per path in
+  ``fused_value_gradient_sums.launches_by_path``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -35,9 +44,13 @@ MAX_PALLAS_DIM = 4096
 # kernel's gain is HBM traffic, so it engages only at real sizes.
 MIN_PALLAS_ELEMENTS = 1 << 21
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PATHS = {"staged": 0, "stream": 1}
+#: Widest row (bytes) the stream path holds in registers.
+STREAM_MAX_ROW_BYTES = 1024
 # Upper bound of resident pass-1 CTAs per SM (2048 threads / 256): sizes
 # the partials scratch; the launcher picks the grid from the occupancy.
 _CTAS_PER_SM = 8
+_MAX_CTAS: dict[int, int] = {}  # device index -> partials scratch rows
 
 
 def pallas_supported(n: int, d: int, dtype: torch.dtype, device) -> bool:
@@ -48,6 +61,38 @@ def pallas_supported(n: int, d: int, dtype: torch.dtype, device) -> bool:
     if dtype not in _KERNEL_DTYPES:
         return False
     return d <= MAX_PALLAS_DIM and n * d >= MIN_PALLAS_ELEMENTS
+
+
+def kernel_path(d: int, dtype: torch.dtype, x_aligned: bool) -> str:
+    """The kernel's pass-1 path for rows of ``d`` values of ``dtype``:
+    ``"stream"`` when a row is at most 1 KB of whole 16-byte vectors and X
+    is 16-byte aligned, else ``"staged"``."""
+    row_bytes = d * dtype.itemsize
+    if (x_aligned and row_bytes <= STREAM_MAX_ROW_BYTES
+            and row_bytes % 16 == 0):
+        return "stream"
+    return "staged"
+
+
+class StreamGeometry(NamedTuple):
+    """How the stream path splits a row over a warp's lanes: a segment of
+    ``lanes_per_row`` lanes holds one row, lane ``p`` of it loads the
+    row's 16-byte vectors ``p + v * lanes_per_row`` for
+    ``v < vecs_per_lane`` (those past the row's end are not loaded), and a
+    warp load covers ``rows_per_load`` consecutive rows."""
+
+    lanes_per_row: int
+    vecs_per_lane: int
+    rows_per_load: int
+
+
+def stream_geometry(d: int, dtype: torch.dtype) -> StreamGeometry:
+    """The stream path's geometry for a row of ``d`` values of ``dtype``
+    that it takes: the row's 16-byte vectors rounded up to a power of two
+    of lanes (at most 32), and as many vectors per lane as that leaves."""
+    vecs = d * dtype.itemsize // 16
+    lanes = min(1 << (vecs - 1).bit_length(), 32)
+    return StreamGeometry(lanes, -(-vecs // lanes), 32 // lanes)
 
 
 def fused_value_gradient_sums_reference(
@@ -64,9 +109,16 @@ def fused_value_gradient_sums_reference(
 
 
 def _launch(loss: PointwiseLoss, X: Tensor, labels: Tensor, offsets: Tensor,
-            weights: Tensor, w_eff: Tensor, margin_shift: Tensor
-            ) -> tuple[Tensor, Tensor, Tensor]:
-    """Check the operands, launch both passes on the current stream."""
+            weights: Tensor, w_eff: Tensor, margin_shift: Tensor,
+            path: str | None = None) -> tuple[Tensor, Tensor, Tensor]:
+    """Check the operands, launch both passes on the current stream and
+    count the launch.
+
+    ``path`` is :func:`kernel_path`'s choice when None; naming one runs
+    that path or raises (the CUDA side refuses a stream request for a
+    shape it cannot take). Only ``chip_smoke.py`` names one, to hold each
+    path against the plain version and time one against the other.
+    """
     if X.dim() != 2 or X.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"kernel takes a 2-D f32/bf16 X, got "
                          f"{tuple(X.shape)} {X.dtype}")
@@ -84,30 +136,43 @@ def _launch(loss: PointwiseLoss, X: Tensor, labels: Tensor, offsets: Tensor,
                              f"tensor, got {tuple(t.shape)} {t.dtype}")
     if margin_shift.dtype != torch.float32 or margin_shift.numel() != 1:
         raise ValueError("margin_shift must be one f32 element")
+    if path is None:
+        path = kernel_path(d, X.dtype, X.data_ptr() % 16 == 0)
+    if path not in _PATHS:
+        raise ValueError(f"path must be one of {sorted(_PATHS)}, got "
+                         f"{path!r}")
+    geom = (stream_geometry(d, X.dtype) if path == "stream"
+            else StreamGeometry(0, 0, 0))
     lib = kernels_build.load("fused_value_gradient")
     dev = X.device
-    max_ctas = _CTAS_PER_SM * torch.cuda.get_device_properties(
-        dev).multi_processor_count
+    max_ctas = _MAX_CTAS.get(dev.index)
+    if max_ctas is None:
+        max_ctas = _MAX_CTAS[dev.index] = _CTAS_PER_SM * \
+            torch.cuda.get_device_properties(dev).multi_processor_count
     f32 = dict(dtype=torch.float32, device=dev)
-    part_vec = torch.empty((max_ctas, d), **f32)
-    part_val = torch.empty(max_ctas, **f32)
-    part_pre = torch.empty(max_ctas, **f32)
+    # pass 1's partials in one buffer: vectors [max_ctas, d], then the
+    # values and prefactors [max_ctas] each; pass 2 reads them on the same
+    # stream before the allocator can hand the buffer out again
+    part = torch.empty(max_ctas * (d + 2), **f32)
     out_vec = torch.empty(d, **f32)
     out_val = torch.empty((), **f32)
     out_pre = torch.empty((), **f32)
-    shift = margin_shift.reshape(()).contiguous()
+    part_vec = part.data_ptr()
+    part_val = part_vec + 4 * max_ctas * d
     rc = lib.photon_fused_value_gradient(
         X.data_ptr(), _KERNEL_DTYPES[X.dtype], labels.data_ptr(),
         offsets.data_ptr(), weights.data_ptr(), w_eff.data_ptr(),
-        shift.data_ptr(), n, d, loss.code, max_ctas, part_vec.data_ptr(),
-        part_val.data_ptr(), part_pre.data_ptr(), out_vec.data_ptr(),
+        margin_shift.data_ptr(), n, d, loss.code, _PATHS[path],
+        geom.lanes_per_row, geom.vecs_per_lane, max_ctas, part_vec,
+        part_val, part_val + 4 * max_ctas, out_vec.data_ptr(),
         out_val.data_ptr(), out_pre.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.photon_cuda_error_string(rc).decode()
-        raise RuntimeError(f"fused_value_gradient launch failed: {msg} "
-                           f"({rc})")
+        raise RuntimeError(f"fused_value_gradient {path} launch failed: "
+                           f"{msg} ({rc})")
     fused_value_gradient_sums.launches += 1
+    fused_value_gradient_sums.launches_by_path[path] += 1
     return out_val, out_vec, out_pre
 
 
@@ -159,18 +224,23 @@ def fused_value_gradient_sums(
                             margin_shift)
 
 
-#: Kernel launches since the last reset (plain-version calls never count).
+#: Kernel launches since the last reset (plain-version calls never count),
+#: in all and by pass-1 path.
 fused_value_gradient_sums.launches = 0
+fused_value_gradient_sums.launches_by_path = dict.fromkeys(_PATHS, 0)
 
 
 def reset_launch_count() -> None:
     fused_value_gradient_sums.launches = 0
+    fused_value_gradient_sums.launches_by_path = dict.fromkeys(_PATHS, 0)
 
 
 def launch_count() -> int:
     return fused_value_gradient_sums.launches
 
 
-__all__ = ["MAX_PALLAS_DIM", "MIN_PALLAS_ELEMENTS", "pallas_supported",
-           "fused_value_gradient_sums", "fused_value_gradient_sums_reference",
-           "reset_launch_count", "launch_count"]
+__all__ = ["MAX_PALLAS_DIM", "MIN_PALLAS_ELEMENTS", "STREAM_MAX_ROW_BYTES",
+           "pallas_supported", "kernel_path", "StreamGeometry",
+           "stream_geometry", "fused_value_gradient_sums",
+           "fused_value_gradient_sums_reference", "reset_launch_count",
+           "launch_count"]

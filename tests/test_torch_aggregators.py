@@ -131,11 +131,11 @@ def test_dense_batch_and_score_batch_match_jax():
 
     X, y, off, wt, coef, _ = _arrays((50, 6), seed=3)
     jb = jdense(X, y, off, wt, dtype=jnp.float32)
-    tb = tdense(X, y, off, wt, dtype=torch.float32)
+    tb = tdense(X, y, off, wt, dtype=torch.float32, device="cpu")
     for f in ("X", "labels", "offsets", "weights"):
         np.testing.assert_array_equal(getattr(tb, f).numpy(),
                                       np.asarray(getattr(jb, f)))
-    tb1 = tdense(X, y)
+    tb1 = tdense(X, y, device="cpu")
     assert float(tb1.weights.sum()) == 50
     assert float(tb1.offsets.abs().sum()) == 0
     jm = jglm.GeneralizedLinearModel(jglm.Coefficients(jnp.asarray(coef)),

@@ -126,6 +126,20 @@ def test_entry_points_refuse_cpu_without_being_asked(no_cuda, monkeypatch):
     assert tpk.launch_count() == 0
 
 
+def test_dense_batch_defaults_to_the_card(no_cuda):
+    from photon_ml_tpu_torch.data.batch import dense_batch
+
+    X = np.arange(6, dtype=np.float32).reshape(3, 2)
+    y = np.array([0.0, 1.0, 1.0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dense_batch(X, y)
+    batch = dense_batch(X, y, device="cpu")
+    assert batch.X.device.type == "cpu"
+    assert torch.equal(batch.X, torch.from_numpy(X))
+    assert torch.equal(batch.labels, torch.tensor([0.0, 1.0, 1.0]))
+    assert torch.equal(batch.weights, torch.ones(3))
+
+
 def test_kernel_build_is_not_triggered_by_import():
     from photon_ml_tpu_torch.ops import kernels_build
 
