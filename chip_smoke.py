@@ -28,13 +28,25 @@ Phases, one JSON line each on stdout:
    it, which ``host_ms`` shows). At the GLMix shape both pass-1 paths
    are timed in turns (stream, staged, staged, stream); the 262,144 x
    2,048 shape is staged only.
-5. glmix  — the port's main path at full width: MovieLens-1M-shaped data
-   (1,000,209 rows, 6,040 users, 3,706 movies, 64 global features), a
-   fixed-effect plus per-user logistic GLM, L-BFGS + L2, two coordinate
+5. glmix  — the port's library path at full width: MovieLens-1M-shaped
+   data (1,000,209 rows, 6,040 users, 3,706 movies, 64 global features),
+   a fixed-effect plus per-user logistic GLM, L-BFGS + L2, two coordinate
    descent sweeps on the card, then the published GameModel scores the
    data. Kernel launch counts are zeroed just before the run and read
    just after; every launch must have taken the stream path. A small
    GLMix also runs on the card and on the CPU, and the two must agree.
+6. driver — the same GLMix through the port's own drivers: the recipe
+   written as GAME Avro by the port's writer (100,000 training and 20,000
+   validation rows, full width), ``cli.game_training_driver.run`` (the
+   work of its ``main``) on the card (feature maps, Avro load, two sweeps
+   with validation after every update, metrics.json, the GAME Avro
+   model), then ``cli.game_scoring_driver.run`` on ``best/`` over the
+   validation Avro.
+   The driver appends an intercept, so the fixed effect has 65 f32
+   columns and its launches must all take the path ``kernel_path`` picks
+   for them (staged); the scores must equal the library's score of the
+   reloaded model, and the scoring driver's AUC the validation AUC that
+   metrics.json records for the best state.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
@@ -62,7 +74,14 @@ F32_FLOPS_PER_S = 67e12
 # to issue ten calls of the plain version (some 20 PyTorch ops each).
 SPIN_CYCLES = 20_000_000
 GLMIX_SHAPE = (1_000_209, 64)
+# the GLMix fixed effect through the drivers: 64 features + the intercept
+DRIVER_SHAPE = (1_000_209, 65)
 BIG_SHAPE = (262_144, 2_048)
+# rows of the driver phase's Avro fixture (training, validation): the one
+# cut against the 1,000,209-row configuration, made for the pure-Python
+# Avro writer's cost; the widths are the configuration's
+DRIVER_ROWS = (100_000, 20_000)
+DRIVER_SECTIONS = "global:globalFeatures|user:userFeatures"
 # (shape, tolerance scaled to the sum of |terms|): the small shapes reach
 # every stream geometry (1 to 32 lanes a row in f32 or bf16, one and two
 # vectors a lane, segments that are not whole, a ragged last batch) and
@@ -70,7 +89,9 @@ BIG_SHAPE = (262_144, 2_048)
 CHECK_SHAPES = [((700, 128), False), ((1024, 256), False),
                 ((1000, 96), False), ((1001, 24), False),
                 ((1001, 8), False), ((777, 256), False),
-                ((777, 63), False), (GLMIX_SHAPE, True), (BIG_SHAPE, True)]
+                ((777, 63), False), (GLMIX_SHAPE, True),
+                ((DRIVER_ROWS[0], 65), True), (DRIVER_SHAPE, True),
+                (BIG_SHAPE, True)]
 
 
 def emit(obj) -> None:
@@ -268,6 +289,214 @@ def cuda_times(torch, fn, reps=25, inner=1, warmup=3) -> dict:
             "queued_share": sum(t[3] for t in turns) / len(turns)}
 
 
+def driver_schema():
+    from photon_ml_tpu_torch.io import schemas
+
+    return {
+        "name": "GameRecord", "type": "record", "namespace": "chip_smoke",
+        "fields": [
+            {"name": "uid", "type": ["null", "string"], "default": None},
+            {"name": "response", "type": "double"},
+            {"name": "offset", "type": ["null", "double"], "default": None},
+            {"name": "weight", "type": ["null", "double"], "default": None},
+            {"name": "metadataMap",
+             "type": ["null", {"type": "map", "values": "string"}],
+             "default": None},
+            {"name": "globalFeatures",
+             "type": {"type": "array", "items": schemas.FEATURE}},
+            {"name": "userFeatures",
+             "type": {"type": "array", "items": "FeatureAvro"}},
+        ],
+    }
+
+
+def write_movielens_avro(train_path, val_path, n_train, n_val, n_users,
+                         n_movies, d_global, seed=7):
+    """``movielens_data``'s recipe for ``n_train + n_val`` rows as GAME
+    Avro, written by the port's writer: 64 dense features ``g<j>`` in
+    ``globalFeatures``, the movie one-hot (``movie``, term = movie id) in
+    ``userFeatures``, ``userId`` in ``metadataMap``; the first
+    ``n_train`` rows train, the rest validate."""
+    from photon_ml_tpu_torch.io.avro import write_container
+
+    rng = np.random.default_rng(seed)
+    n = n_train + n_val
+    users = (rng.zipf(1.3, size=n) % n_users).astype(np.int64)
+    movies = rng.integers(0, n_movies, n)
+    Xg = (rng.normal(size=(n, d_global)) / np.sqrt(d_global)).astype(
+        np.float32)
+    wg = rng.normal(size=d_global).astype(np.float32)
+    logits = Xg @ wg + 0.5 * rng.normal(size=n_users)[users].astype(
+        np.float32)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logits))).astype(np.float64)
+    names = [f"g{j}" for j in range(d_global)]
+    rows, labels = Xg.astype(np.float64).tolist(), y.tolist()
+    users_s, movies_s = users.astype(str), movies.astype(str)
+
+    def records(lo, hi):
+        for i in range(lo, hi):
+            yield {"uid": str(i), "response": labels[i], "offset": None,
+                   "weight": None, "metadataMap": {"userId": users_s[i]},
+                   "globalFeatures": [{"name": nm, "term": "", "value": v}
+                                      for nm, v in zip(names, rows[i])],
+                   "userFeatures": [{"name": "movie", "term": movies_s[i],
+                                     "value": 1.0}]}
+
+    schema = driver_schema()
+    write_container(train_path, schema, records(0, n_train))
+    write_container(val_path, schema, records(n_train, n))
+
+
+def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
+                 n_movies=3706, d_global=64):
+    """The GLMix main path through the port's drivers (phase 6). Returns
+    the phase record, the kernel launches of the training run and the
+    kernel-vs-plain check on the driver's own fixed-effect batch; raises
+    on any failed check, the kernel's last."""
+    import shutil
+
+    from photon_ml_tpu_torch.cli import game_scoring_driver as tsd
+    from photon_ml_tpu_torch.cli import game_training_driver as ttd
+    from photon_ml_tpu_torch.game.dataset import build_fixed_effect_dataset
+    from photon_ml_tpu_torch.io.data_format import load_game_dataset_avro
+    from photon_ml_tpu_torch.io.model_io import load_scored_items
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.ops.losses import get_loss
+    from photon_ml_tpu_torch.serve.scoring import load_scoring_model
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    train, val = (os.path.join(workdir, f"{k}.avro")
+                  for k in ("train", "validate"))
+    out, score_out = (os.path.join(workdir, k) for k in ("train_out",
+                                                          "score_out"))
+    t0 = time.perf_counter()
+    write_movielens_avro(train, val, *rows, n_users, n_movies, d_global)
+    avro_write_secs = time.perf_counter() - t0
+    argv = [
+        "--train-input-dirs", train, "--validate-input-dirs", val,
+        "--output-dir", out, "--task-type", "LOGISTIC_REGRESSION",
+        "--feature-shard-id-to-feature-section-keys-map", DRIVER_SECTIONS,
+        "--updating-sequence", "fixed,perUser", "--num-iterations", "2",
+        "--fixed-effect-data-configurations", "fixed:global,1",
+        "--fixed-effect-optimization-configurations",
+        "fixed:40,1e-7,10,1,LBFGS,L2",
+        "--random-effect-data-configurations", "perUser:userId,user,1,128",
+        "--random-effect-optimization-configurations",
+        "perUser:20,1e-7,1,1,LBFGS,L2",
+        "--random-effect-block-buckets", "4",
+        "--evaluator-type", "AUC,LOGISTIC_LOSS,AUC:userId",
+        "--device", str(dev)]
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    pk.reset_launch_count()
+    t0 = time.perf_counter()
+    trainer = ttd.run(argv)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    driver_secs = time.perf_counter() - t0
+    launches = pk.launch_count()
+    by_path = dict(pk.fused_value_gradient_sums.launches_by_path)
+    peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+            else None)
+
+    record = json.load(open(os.path.join(out, "metrics.json")))
+    (grid,) = record["grid"]
+    states = grid["states"]
+    if len(states) != 4 or any(
+            set(s["validation_metrics"] or {}) != {"AUC", "LOGISTIC_LOSS",
+                                                   "AUC:userId"}
+            for s in states):
+        raise AssertionError(f"metrics.json lacks per-state validation "
+                             f"metrics: {states}")
+    sweep_obj = [[s["objective"] for s in states if s["iteration"] == it][-1]
+                 for it in range(2)]
+    if not all(o is not None and np.isfinite(o) for o in sweep_obj):
+        raise AssertionError(f"non-finite objective: {sweep_obj}")
+    if not sweep_obj[1] <= sweep_obj[0] * (1 + 1e-6):
+        raise AssertionError(f"objective rose between sweeps: {sweep_obj}")
+    best_auc = record["best"]["metric"]
+    best_states = [i for i, s in enumerate(states)
+                   if s["validation_metrics"]["AUC"] == best_auc]
+    if not best_states:
+        raise AssertionError("no state holds the best validation AUC")
+
+    scorer = tsd.run(["--input-data-dirs", val,
+                       "--game-model-input-dir", os.path.join(out, "best"),
+                       "--output-dir", score_out,
+                       "--feature-shard-id-to-feature-section-keys-map",
+                       DRIVER_SECTIONS, "--random-effect-id-set", "userId",
+                       "--evaluator-type", "AUC", "--device", str(dev)])
+    scored = load_scored_items(os.path.join(score_out, "scores",
+                                            "part-00000.avro"))
+    scores = np.asarray([r["predictionScore"] for r in scored])
+    if scores.shape != (rows[1],) or not np.isfinite(scores).all():
+        raise AssertionError("scored rows are missing or not finite")
+    # the library's score of the reloaded model on the same dataset
+    model, maps = load_scoring_model(os.path.join(out, "best"), {})
+    sections = {k: [v] for k, v in (x.split(":") for x in
+                                    DRIVER_SECTIONS.split("|"))}
+    vdata = load_game_dataset_avro(val, sections, maps, id_types=["userId"],
+                                   response_required=False)
+    lib = model.score(vdata, device=dev).cpu().numpy().astype(np.float64)
+    score_gap = float(np.abs(lib - scores).max())
+    if not score_gap <= 1e-5:
+        raise AssertionError(f"scoring driver vs library score: "
+                             f"{score_gap:.3g}")
+    auc_gap = abs(scorer.metrics["AUC"] - best_auc)
+    if not auc_gap <= 1e-6:
+        raise AssertionError(f"scoring driver AUC {scorer.metrics['AUC']} "
+                             f"!= best validation AUC {best_auc}")
+
+    # the kernel on the driver's own fixed-effect batch, against its plain
+    # version (after the counts were read)
+    fe = build_fixed_effect_dataset(trainer.train_data, "global",
+                                    device=dev)
+    X = fe.batch.X
+    expected = pk.kernel_path(X.shape[1], X.dtype, X.data_ptr() % 16 == 0)
+    w_fe = trainer.best_result.model.models["fixed"].model.coefficients \
+        .means.to(dev).contiguous()
+    check = None
+    if dev.type == "cuda":
+        err, worst = check_sums(
+            torch, get_loss("logistic"), X, fe.batch.labels,
+            fe.batch.offsets, fe.batch.weights, w_fe,
+            torch.zeros((), device=dev), scaled=True)
+        check = {"shape": list(X.shape), "path": expected,
+                 "max_abs_err": err, "worst_delta_over_tolerance": worst}
+    secs = trainer.phase_seconds
+    phase = {
+        "phase": "driver", "nvidia_smi": smi,
+        "reduced": {"rows": {"train": rows[0], "validate": rows[1],
+                             "configuration": 1_000_209},
+                    "why": "pure-Python Avro writer cost of the fixture"},
+        "users": n_users, "movies": n_movies, "d_global": d_global,
+        "fixed_effect_columns": int(X.shape[1]),
+        "avro_write_secs": avro_write_secs,
+        "feature_map_secs": secs["prepareFeatureMaps"],
+        "load_secs": secs["prepareGameDataSet"],
+        "train_secs": secs["train grid[0]"],
+        "train_secs_per_update": [s["seconds"] for s in states],
+        "model_write_secs": secs["saveModels"],
+        "training_driver_secs": driver_secs,
+        "score_secs": scorer.phase_seconds,
+        "objectives": [s["objective"] for s in states],
+        "validation_metrics": [s["validation_metrics"] for s in states],
+        "best_metric": best_auc, "scoring_driver_auc": scorer.metrics["AUC"],
+        "score_vs_library_max_abs": score_gap,
+        "kernel_launches": launches, "launches_by_path": by_path,
+        "expected_path": expected,
+        "max_memory_allocated": peak,
+        "kernel_check": check,
+    }
+    if launches <= 0 or by_path[expected] != launches:
+        raise AssertionError(f"the driver's fixed effect did not launch "
+                             f"the kernel on the {expected} path: {by_path}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return phase, launches, by_path, check
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -373,10 +602,12 @@ def main() -> int:
     t0 = time.perf_counter()
     timings = {}
     loss = get_loss("logistic")
-    for (n, d) in (GLMIX_SHAPE, BIG_SHAPE):
+    for (n, d) in (GLMIX_SHAPE, DRIVER_SHAPE, BIG_SHAPE):
         X, y, off, wt, w = kernel_inputs(torch, n, d, seed=11, device=dev)
         shift = torch.tensor(0.0, device=dev)
-        for dtype in (torch.float32, torch.bfloat16):
+        # the driver's shape runs in f32 only, as the driver does
+        for dtype in ((torch.float32,) if (n, d) == DRIVER_SHAPE
+                      else (torch.float32, torch.bfloat16)):
             Xc = X.to(dtype).contiguous()
             wl = w.to(dtype)
 
@@ -541,16 +772,26 @@ def main() -> int:
           "worst_delta_over_tolerance": main_worst,
           "seconds": time.perf_counter() - t0})
 
-    # -- 6. kernels line, card line, result ----------------------------------
+    # -- 6. GLMix through the port's drivers ---------------------------------
+    t0 = time.perf_counter()
+    phase, driver_launches, driver_by_path, driver_check = driver_phase(
+        torch, dev, smi, os.path.join(REPO, "photon_ml_tpu_torch", "_build",
+                                      "driver_phase"))
+    phase["seconds"] = time.perf_counter() - t0
+    emit(phase)
+
+    # -- 7. kernels line, card line, result ----------------------------------
     main = timings[(*GLMIX_SHAPE, "float32", "stream")]
+    driver = timings[(*DRIVER_SHAPE, "float32", driver_check["path"])]
     staged = timings[(*BIG_SHAPE, "float32", "staged")]
     emit({"kernels": [{
         "name": "fused_value_gradient_sums",
         "route": "cuda",
         "source": "photon_ml_tpu_torch/csrc/fused_value_gradient.cu",
         "replaces": "photon_ml_tpu/ops/pallas_kernels.py:144",
-        "launches": launches,
-        "max_abs_err": main_err,
+        "launches": launches + driver_launches,
+        "launches_by_run": {"glmix": by_path, "driver": driver_by_path},
+        "max_abs_err": max(main_err, driver_check["max_abs_err"]),
         "ms": main["kernel_ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
@@ -560,8 +801,20 @@ def main() -> int:
         "paths": {p: {"ms": r["kernel_ms"], "device_ms": r["device_ms"],
                       "bound_ms": r["bound_ms"],
                       "shape": [r["n"], r["d"]], "dtype": r["dtype"],
-                      "launches": by_path[p]}
+                      "launches": by_path[p] + driver_by_path[p]}
                   for p, r in (("stream", main), ("staged", staged))},
+        "rows": [{k: r[k] for k in (
+            "n", "d", "dtype", "path", "kernel_ms", "device_ms", "plain_ms",
+            "plain_device_ms", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by", "share_of_bound",
+            "device_share_of_bound")} for r in timings.values()],
+        "driver_shape": {"shape": list(DRIVER_SHAPE), "path": driver["path"],
+                         "ms": driver["kernel_ms"],
+                         "device_ms": driver["device_ms"],
+                         "bound_ms": driver["bound_ms"],
+                         "share_of_bound": driver["share_of_bound"],
+                         "device_share_of_bound":
+                             driver["device_share_of_bound"]},
         "checked": True,
     }], "seconds_total": time.perf_counter() - t_all})
     print(smi, flush=True)

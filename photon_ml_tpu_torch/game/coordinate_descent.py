@@ -4,7 +4,9 @@ Port of ``photon_ml_tpu/game/coordinate_descent.py`` — ``_canonical_sum``
 (``:189-196``), ``make_update_epilogue`` (``:208-261``),
 ``CoordinateDescentState``/``Result`` (``:361-382``),
 ``run_coordinate_descent`` (``:412-``) with ``pipeline_depth=0`` and
-``block_size=1``, and ``publish_game_model`` (``:1258-1261``).
+``block_size=1`` and its per-update validation (``:606-617``, ``:863-883``:
+score the published model on the validation data, evaluate, keep the best
+model by the first metric), and ``publish_game_model`` (``:1258-1261``).
 
 Per (sweep, coordinate in ids order): the other coordinates' scores are
 injected as offsets, the coordinate re-solves, re-scores, and ONE fused
@@ -15,8 +17,8 @@ outputs come back in ONE host fetch per update (``HOT_LOOP_STATS``). The
 solvers' own loop-exit reads are counted in
 ``optimize.common.SOLVER_SYNCS``.
 
-Checkpointing, ``RecoveryPolicy``, stop/preemption, pipelined and block
-sweeps and validation wait for later slices; passing them raises
+Checkpointing, ``RecoveryPolicy``, stop/preemption and pipelined and
+block sweeps wait for later slices; passing them raises
 ``NotImplementedError``.
 """
 
@@ -84,12 +86,15 @@ class CoordinateDescentState:
     objective: float
     seconds: float
     tracker: Tracker
+    validation_metrics: Optional[dict] = None
 
 
 @dataclasses.dataclass
 class CoordinateDescentResult:
     model: GameModel
     states: list
+    best_model: Optional[GameModel] = None
+    best_metric: Optional[float] = None
 
 
 def publish_game_model(coordinates: dict, states: dict) -> GameModel:
@@ -107,6 +112,9 @@ def run_coordinate_descent(
     initial_states: Optional[dict] = None,
     logger: Optional[Callable[[str], None]] = None,
     validation_data=None,
+    validation_evaluator: Optional[Callable[[Tensor], dict]] = None,
+    validation_metric: Optional[str] = None,
+    higher_is_better: bool = True,
     checkpoint_manager=None,
     recovery=None,
     resume_snapshot=None,
@@ -123,10 +131,14 @@ def run_coordinate_descent(
     starts coordinates (``convert.states_from_numpy`` carries states from
     the JAX package); a warm-started coordinate contributes its score from
     the first update on.
+
+    With ``validation_data`` (a ``GameDataset``) and ``validation_evaluator``
+    (device scores -> ``{metric: value}``) every update scores the
+    published model on the validation data and records the metrics; the
+    model that is best by ``validation_metric`` is kept as ``best_model``.
     """
     device = resolve_device(device)
-    for name, value in (("validation_data", validation_data),
-                        ("checkpoint_manager", checkpoint_manager),
+    for name, value in (("checkpoint_manager", checkpoint_manager),
                         ("recovery", recovery),
                         ("resume_snapshot", resume_snapshot),
                         ("stop", stop)):
@@ -166,6 +178,9 @@ def run_coordinate_descent(
         states[cid]) for cid in ids}
 
     history: list[CoordinateDescentState] = []
+    best_model = best_metric = None
+    validate = (validation_data is not None
+                and validation_evaluator is not None)
     for it in range(num_iterations):
         sweep_start = len(history)
         for cid in ids:
@@ -192,12 +207,26 @@ def run_coordinate_descent(
             dt = time.time() - t0
             log(lambda: f"iter {it} coordinate {cid}: objective="
                 f"{objective:.6f} ({dt:.2f}s) — {tracker.summary()}")
+            metrics = None
+            if validate:
+                model = publish_game_model(coordinates, states)
+                metrics = validation_evaluator(
+                    model.score(validation_data, device=device))
+                log(lambda: f"iter {it} coordinate {cid}: validation "
+                    f"{metrics}")
+                if validation_metric is not None:
+                    m = metrics[validation_metric]
+                    if best_metric is None or (
+                            m > best_metric if higher_is_better
+                            else m < best_metric):
+                        best_metric, best_model = m, model
             history.append(CoordinateDescentState(
                 iteration=it, coordinate_id=cid, objective=objective,
-                seconds=dt, tracker=tracker))
+                seconds=dt, tracker=tracker, validation_metrics=metrics))
         # sweep boundary: drain this sweep's lazy trackers
         for h in history[sweep_start:]:
             h.tracker.materialize()
 
     return CoordinateDescentResult(
-        model=publish_game_model(coordinates, states), states=history)
+        model=publish_game_model(coordinates, states), states=history,
+        best_model=best_model, best_metric=best_metric)

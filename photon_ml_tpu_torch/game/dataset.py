@@ -3,7 +3,8 @@
 Port of ``photon_ml_tpu/game/dataset.py`` — ``GameDataset`` (``:59-114``),
 ``csr_to_batch``'s dense branch and ``build_fixed_effect_dataset``
 (``:153-185``), ``balanced_entity_order`` (``:193-234``),
-``RandomEffectDataConfiguration`` (``:243-313``) and the in-RAM
+``RandomEffectDataConfiguration`` with its CLI ``parse`` (``:243-313``),
+``FixedEffectDataConfiguration`` (``:316-329``) and the in-RAM
 ``build_random_effect_dataset`` (``:333-978``) with INDEX_MAP projection and
 ``(N, D)`` entity bucketing. The host-side grouping, reservoir split,
 projector build and packing are numpy, identical to the JAX package's; the
@@ -48,7 +49,8 @@ def canonicalized_csr(mat):
 @dataclasses.dataclass
 class GameDataset:
     """Columnar GAME dataset (host side): responses/offsets/weights, one CSR
-    per feature shard, dictionary-encoded entity id columns."""
+    per feature shard, dictionary-encoded entity id columns, and the raw
+    uid strings when the records carry them."""
 
     responses: np.ndarray
     feature_shards: dict
@@ -56,6 +58,7 @@ class GameDataset:
     weights: Optional[np.ndarray] = None
     id_columns: dict = dataclasses.field(default_factory=dict)
     id_vocabs: dict = dataclasses.field(default_factory=dict)
+    uids: Optional[np.ndarray] = None
 
     def __post_init__(self):
         n = len(self.responses)
@@ -79,6 +82,22 @@ class GameDataset:
         vocab, codes = np.unique(np.asarray(raw_ids), return_inverse=True)
         self.id_columns[id_type] = codes.astype(np.int64)
         self.id_vocabs[id_type] = vocab
+
+    def recode_ids(self, id_type: str, vocab: np.ndarray) -> None:
+        """Re-encode an id column against another dataset's ``vocab``:
+        ids found there take its codes, the others follow in sorted order
+        from ``len(vocab)`` on. A model trained on that dataset then scores
+        these rows by code."""
+        raw = np.asarray(self.id_vocabs[id_type]).astype(str)[
+            self.id_columns[id_type]]
+        known = np.asarray(vocab).astype(str)
+        extra = np.setdiff1d(raw, known)
+        full = np.concatenate([known, extra])
+        order = np.argsort(full, kind="stable")
+        self.id_columns[id_type] = order[
+            np.searchsorted(full[order], raw)].astype(np.int64)
+        self.id_vocabs[id_type] = np.concatenate(
+            [np.asarray(vocab, dtype=object), extra.astype(object)])
 
 
 def _to_device(a: np.ndarray, device, dtype=None) -> Tensor:
@@ -183,9 +202,30 @@ def balanced_entity_order(counts: np.ndarray, num_bins: int,
 
 
 @dataclasses.dataclass(frozen=True)
+class FixedEffectDataConfiguration:
+    """data/FixedEffectDataConfiguration.scala:23 —
+    ``shardId[,minPartitions]``."""
+
+    feature_shard_id: str
+    min_num_partitions: int = 1
+
+    @staticmethod
+    def parse(s: str) -> "FixedEffectDataConfiguration":
+        parts = [p.strip() for p in s.split(",")]
+        return FixedEffectDataConfiguration(
+            feature_shard_id=parts[0],
+            min_num_partitions=int(parts[1]) if len(parts) > 1 else 1)
+
+
+@dataclasses.dataclass(frozen=True)
 class RandomEffectDataConfiguration:
-    """Per-coordinate data knobs (``dataset.py:242-262``); the CLI string
-    parser waits for the drivers' slice."""
+    """Per-coordinate data knobs (``dataset.py:242-262``).
+
+    CLI string (data/RandomEffectDataConfiguration.scala:80):
+    ``idType,featureShardId,numPartitions[,activeBound[,passiveBound
+    [,featuresToSamplesRatio[,projector]]]]`` with ``-``/``none`` meaning
+    unset and a negative bound meaning unbounded.
+    """
 
     random_effect_type: str
     feature_shard_id: str
@@ -195,6 +235,35 @@ class RandomEffectDataConfiguration:
     num_features_to_samples_ratio_upper_bound: Optional[float] = None
     num_features_to_keep_upper_bound: Optional[int] = None
     projector: ProjectorConfig = ProjectorConfig(ProjectorType.INDEX_MAP)
+
+    @staticmethod
+    def parse(s: str) -> "RandomEffectDataConfiguration":
+        parts = [p.strip() for p in s.split(",")]
+        if len(parts) < 3:
+            raise ValueError(
+                f"random-effect data config needs at least idType,shard,"
+                f"numPartitions: {s!r}")
+
+        def unset(i):
+            return i >= len(parts) or parts[i] in ("", "-", "none", "None")
+
+        def opt(i, kind):
+            if unset(i):
+                return None
+            v = kind(parts[i])
+            return None if v < 0 else v
+
+        proj = ProjectorConfig(ProjectorType.INDEX_MAP)
+        if len(parts) > 6 and parts[6] not in ("", "-", "none"):
+            proj = ProjectorConfig.parse(parts[6])
+        return RandomEffectDataConfiguration(
+            random_effect_type=parts[0],
+            feature_shard_id=parts[1],
+            num_partitions=int(parts[2]),
+            num_active_data_points_upper_bound=opt(3, int),
+            num_passive_data_points_lower_bound=opt(4, int),
+            num_features_to_samples_ratio_upper_bound=opt(5, float),
+            projector=proj)
 
 
 @dataclasses.dataclass

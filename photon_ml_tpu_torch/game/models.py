@@ -1,6 +1,8 @@
 """GAME models: fixed effect, random effect (raw and projected), composite.
 
-Port of ``photon_ml_tpu/game/models.py:51-194`` and ``:276-299``. Scoring
+Port of ``photon_ml_tpu/game/models.py:51-194`` and ``:276-299``. A
+random-effect model loaded from disk carries its raw ``entity_ids`` and
+scores a dataset through that dataset's own id vocabulary. Scoring
 stays on the host with scipy's CSR products, as in the JAX package, and the
 result is handed back as an f32 tensor on the requested device.
 """
@@ -43,6 +45,18 @@ def _match(keys: np.ndarray, queries: np.ndarray) -> np.ndarray:
     return np.where(found, order[pos], e)
 
 
+def _codes_via_ids(ids: np.ndarray, vocab: np.ndarray,
+                   codes: np.ndarray) -> np.ndarray:
+    """Model row for each dataset row (dictionary ``codes`` into ``vocab``)
+    matched by raw id, compared as python strings (``models.py:63-77``);
+    len(ids) where the entity has no model."""
+    ids_s = np.asarray([str(x) for x in np.asarray(ids).ravel()],
+                       dtype=object)
+    vocab_s = np.asarray([str(x) for x in np.asarray(vocab).ravel()],
+                         dtype=object)
+    return _match(ids_s, vocab_s[np.asarray(codes)])
+
+
 def rowwise_sparse_dot(mat, w_rows: np.ndarray) -> np.ndarray:
     """Per-row ``sum_j x_ij w_ij`` for CSR ``mat`` against dense per-row
     coefficient rows ``w_rows`` (``models.py:80-90``)."""
@@ -68,19 +82,27 @@ class FixedEffectModel:
 @dataclasses.dataclass(frozen=True)
 class RandomEffectModel:
     """Per-entity coefficient block in RAW shard space; rows of unseen
-    entities score 0 (cold start)."""
+    entities score 0 (cold start). ``entity_ids`` (the raw id per block
+    row) is set on models loaded from disk: they match rows by raw id
+    through the dataset's vocabulary instead of by dataset code."""
 
     random_effect_type: str
     feature_shard_id: str
     entity_codes: np.ndarray
     coefficients: Tensor  # [E, D_raw]
+    entity_ids: Optional[np.ndarray] = None
 
     def score(self, data: GameDataset, device="cuda") -> Tensor:
         coefs = _host(self.coefficients)
         if coefs.shape[0] == 0:
             return _on(device, np.zeros(data.num_samples))
         codes = data.id_columns[self.random_effect_type]
-        local = _match(self.entity_codes, codes)
+        if self.entity_ids is not None:
+            local = _codes_via_ids(self.entity_ids,
+                                   data.id_vocabs[self.random_effect_type],
+                                   codes)
+        else:
+            local = _match(self.entity_codes, codes)
         mat = data.feature_shards[self.feature_shard_id]
         padded = np.vstack([coefs, np.zeros((1, coefs.shape[1]),
                                             dtype=coefs.dtype)])
@@ -127,3 +149,7 @@ class GameModel:
         for m in self.models.values():
             total = total + m.score(data, device=device)
         return total
+
+    @property
+    def coordinate_ids(self) -> list[str]:
+        return list(self.models)

@@ -1,0 +1,349 @@
+"""GAME / GLM model files and scored items — the reference's on-disk contract.
+
+Port of ``photon_ml_tpu/io/model_io.py`` — ``glm_to_record``/
+``record_to_glm`` (``:80-143``), ``save_game_model``/``load_game_model``
+for fixed-effect and random-effect coordinates (``:161-326``; raw and
+INDEX_MAP-projected random effects, which are written in raw space) and
+``save_scored_items``/``load_scored_items`` (``:392-476``). The directory
+layout (ModelProcessingUtils.scala:44-106)::
+
+    <dir>/fixed-effect/<name>/id-info                  (1 line: featureShardId)
+    <dir>/fixed-effect/<name>/coefficients/part-00000.avro
+    <dir>/random-effect/<name>/id-info                 (2 lines: reType, shardId)
+    <dir>/random-effect/<name>/coefficients/part-*.avro
+
+Coefficient files hold ``BayesianLinearModelAvro`` records (one per fixed
+effect, modelId "fixed-effect"; one per entity, modelId = raw entity id)
+with the JVM model class name the reference reflects on. Records are the
+JAX package's byte for byte; only the random sync marker of each file
+differs. Scores are encoded by the pure-Python writer (the JAX package's
+native ``score_encoder.cpp`` comes in a later slice), in the same blocks.
+Matrix-factorization models and the legacy text models come later too.
+"""
+
+from __future__ import annotations
+
+import io
+import logging
+import os
+import zlib
+from typing import Iterable, Optional
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.io import schemas
+from photon_ml_tpu_torch.io.avro import (
+    DEFAULT_SYNC_INTERVAL,
+    SYNC_SIZE,
+    BinaryEncoder,
+    _names_index,
+    compile_writer,
+    parse_schema,
+    read_directory,
+    read_records,
+    write_container,
+    write_container_header,
+)
+from photon_ml_tpu_torch.io.index_map import (
+    IndexMap,
+    feature_key,
+    split_feature_key,
+)
+from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
+from photon_ml_tpu_torch.optimize.config import TaskType
+
+logger = logging.getLogger(__name__)
+
+# Directory-layout constants (reference avro/Constants.scala:22-25).
+ID_INFO = "id-info"
+COEFFICIENTS = "coefficients"
+FIXED_EFFECT = "fixed-effect"
+RANDOM_EFFECT = "random-effect"
+DEFAULT_AVRO_FILE_NAME = "part-00000.avro"
+
+# JVM class-name interop (avro/AvroUtils.scala:208 setModelClass /
+# :231 Class.forName), written verbatim both ways.
+_MODEL_CLASS_BY_TASK = {
+    TaskType.LOGISTIC_REGRESSION:
+        "com.linkedin.photon.ml.supervised.classification."
+        "LogisticRegressionModel",
+    TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM:
+        "com.linkedin.photon.ml.supervised.classification."
+        "SmoothedHingeLossLinearSVMModel",
+    TaskType.LINEAR_REGRESSION:
+        "com.linkedin.photon.ml.supervised.regression.LinearRegressionModel",
+    TaskType.POISSON_REGRESSION:
+        "com.linkedin.photon.ml.supervised.regression.PoissonRegressionModel",
+}
+_TASK_BY_MODEL_CLASS = {v: k for k, v in _MODEL_CLASS_BY_TASK.items()}
+
+
+def _host64(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t, dtype=np.float64)
+
+
+def _vector_to_name_term_values(vec: np.ndarray, index_map: IndexMap
+                                ) -> list[dict]:
+    """Sparse (name, term, value) entries for the nonzeros of ``vec``
+    (avro/AvroUtils.scala convertVectorAsArrayOfNameTermValueAvros)."""
+    out = []
+    for idx in np.flatnonzero(vec):
+        key = index_map.key_of(int(idx))
+        if key is None:
+            continue
+        name, term = split_feature_key(key)
+        out.append({"name": name, "term": term, "value": float(vec[idx])})
+    return out
+
+
+def glm_to_record(model_id: str, model: GeneralizedLinearModel,
+                  index_map: IndexMap) -> dict:
+    """BayesianLinearModelAvro dict for one GLM
+    (avro/AvroUtils.scala:172-194)."""
+    record = {
+        "modelId": model_id,
+        "modelClass": _MODEL_CLASS_BY_TASK[model.task],
+        "means": _vector_to_name_term_values(
+            _host64(model.coefficients.means), index_map),
+        "variances": None,
+        "lossFunction": "",
+    }
+    if model.coefficients.variances is not None:
+        record["variances"] = _vector_to_name_term_values(
+            _host64(model.coefficients.variances), index_map)
+    return record
+
+
+def record_to_glm(record: dict, index_map: Optional[IndexMap] = None,
+                  load_variances: bool = False,
+                  default_task: TaskType = TaskType.LINEAR_REGRESSION
+                  ) -> tuple[GeneralizedLinearModel, IndexMap]:
+    """Rebuild a GLM (f32 CPU tensors) from a BayesianLinearModelAvro dict
+    (avro/AvroUtils.scala:203-241). Without an index map, a compact one is
+    built from the record's own features (the load-without-index
+    contract)."""
+    if index_map is None:
+        keys = [feature_key(f["name"], f["term"]) for f in record["means"]]
+        keys += [feature_key(f["name"], f["term"])
+                 for f in record.get("variances") or []]
+        index_map = IndexMap.from_keys(keys)
+
+    def dense(entries) -> torch.Tensor:
+        v = np.zeros(len(index_map))
+        for f in entries:
+            j = index_map.index_of(feature_key(f["name"], f["term"]))
+            if j >= 0:
+                v[j] = f["value"]
+        return torch.from_numpy(v.astype(np.float32))
+
+    variances = None
+    if load_variances and record.get("variances"):
+        variances = dense(record["variances"])
+    task = _TASK_BY_MODEL_CLASS.get(record.get("modelClass") or "",
+                                    default_task)
+    return GeneralizedLinearModel(
+        Coefficients(means=dense(record["means"]), variances=variances),
+        task), index_map
+
+
+def _write_id_info(path: str, lines: list[str]) -> None:
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def _read_id_info(path: str) -> list[str]:
+    with open(path) as fh:
+        return [ln for ln in fh.read().splitlines() if ln]
+
+
+def save_game_model(model, output_dir: str,
+                    index_maps: dict[str, IndexMap],
+                    entity_vocabs: Optional[dict[str, np.ndarray]] = None,
+                    num_output_files: int = 1,
+                    task: TaskType = TaskType.LINEAR_REGRESSION) -> None:
+    """Write a GameModel in the reference's directory layout.
+
+    ``entity_vocabs[reType]`` maps the dataset's entity codes to raw ids
+    for random-effect coordinates whose models still hold codes; a model
+    that carries ``entity_ids`` needs no vocab.
+    """
+    from photon_ml_tpu_torch.game.models import (
+        FixedEffectModel,
+        RandomEffectModel,
+        RandomEffectModelInProjectedSpace,
+    )
+
+    for name, sub in model.models.items():
+        if isinstance(sub, RandomEffectModelInProjectedSpace):
+            sub = sub.to_raw()
+        if isinstance(sub, FixedEffectModel):
+            out = os.path.join(output_dir, FIXED_EFFECT, name)
+            os.makedirs(os.path.join(out, COEFFICIENTS), exist_ok=True)
+            _write_id_info(os.path.join(out, ID_INFO), [sub.feature_shard_id])
+            record = glm_to_record(FIXED_EFFECT, sub.model,
+                                   index_maps[sub.feature_shard_id])
+            write_container(
+                os.path.join(out, COEFFICIENTS, DEFAULT_AVRO_FILE_NAME),
+                schemas.BAYESIAN_LINEAR_MODEL, [record])
+        elif isinstance(sub, RandomEffectModel):
+            out = os.path.join(output_dir, RANDOM_EFFECT, name)
+            os.makedirs(os.path.join(out, COEFFICIENTS), exist_ok=True)
+            _write_id_info(os.path.join(out, ID_INFO),
+                           [sub.random_effect_type, sub.feature_shard_id])
+            index_map = index_maps[sub.feature_shard_id]
+            coefs = _host64(sub.coefficients)
+            if sub.entity_ids is not None:
+                raw_ids = np.asarray(sub.entity_ids)
+            else:
+                vocab = (entity_vocabs or {}).get(sub.random_effect_type)
+                if vocab is None:
+                    raise ValueError(
+                        f"random effect '{name}' has no entity_ids and no "
+                        f"vocab for '{sub.random_effect_type}' was passed")
+                raw_ids = np.asarray(vocab)[np.asarray(sub.entity_codes)]
+            records = [
+                {"modelId": str(raw_ids[e]),
+                 "modelClass": _MODEL_CLASS_BY_TASK[task],
+                 "means": _vector_to_name_term_values(coefs[e], index_map),
+                 "variances": None, "lossFunction": ""}
+                for e in range(coefs.shape[0])]
+            # partitioned output (numberOfOutputFilesForRandomEffectModel)
+            chunks = np.array_split(np.arange(len(records)),
+                                    max(1, num_output_files))
+            for part, idxs in enumerate(chunks):
+                if len(chunks) > 1 and len(idxs) == 0:
+                    continue
+                write_container(
+                    os.path.join(out, COEFFICIENTS, f"part-{part:05d}.avro"),
+                    schemas.BAYESIAN_LINEAR_MODEL,
+                    [records[i] for i in idxs])
+        else:
+            raise TypeError(f"cannot serialize coordinate model {type(sub)}")
+
+
+def load_game_model(input_dir: str,
+                    index_maps: Optional[dict[str, IndexMap]] = None,
+                    task: TaskType = TaskType.LINEAR_REGRESSION):
+    """Load a GameModel directory (ModelProcessingUtils.scala:106-170).
+    Returns ``(GameModel, {shardId: IndexMap})``; index maps are rebuilt
+    compactly from the model files when not provided. Random-effect models
+    come back with their raw ``entity_ids``."""
+    from photon_ml_tpu_torch.game.models import (
+        FixedEffectModel,
+        GameModel,
+        RandomEffectModel,
+    )
+
+    index_maps = dict(index_maps or {})
+    models: dict = {}
+
+    fixed_dir = os.path.join(input_dir, FIXED_EFFECT)
+    if os.path.isdir(fixed_dir):
+        for name in sorted(os.listdir(fixed_dir)):
+            inner = os.path.join(fixed_dir, name)
+            (shard_id,) = _read_id_info(os.path.join(inner, ID_INFO))
+            _, records = read_directory(os.path.join(inner, COEFFICIENTS))
+            glm, imap = record_to_glm(records[0], index_maps.get(shard_id),
+                                      load_variances=True,
+                                      default_task=task)
+            index_maps.setdefault(shard_id, imap)
+            models[name] = FixedEffectModel(glm, shard_id)
+
+    re_dir = os.path.join(input_dir, RANDOM_EFFECT)
+    empty_shards: dict = {}  # shard_id -> first empty coordinate seen
+    if os.path.isdir(re_dir):
+        for name in sorted(os.listdir(re_dir)):
+            inner = os.path.join(re_dir, name)
+            re_type, shard_id = _read_id_info(os.path.join(inner, ID_INFO))
+            # no coefficients dir: a valid empty coordinate (zero entities)
+            coeff_dir = os.path.join(inner, COEFFICIENTS)
+            records = (read_directory(coeff_dir)[1]
+                       if os.path.isdir(coeff_dir) else [])
+            imap = index_maps.get(shard_id)
+            if imap is None:
+                keys = sorted({feature_key(f["name"], f["term"])
+                               for r in records for f in r["means"]})
+                imap = IndexMap.from_keys(keys)
+                if records:
+                    index_maps[shard_id] = imap
+                else:
+                    empty_shards.setdefault(shard_id, name)
+            # per-entity variances are not loaded, as in the reference
+            rows = [record_to_glm(r, imap, default_task=task)[0]
+                    .coefficients.means for r in records]
+            coefs = (torch.stack(rows) if rows
+                     else torch.zeros((0, len(imap)), dtype=torch.float32))
+            models[name] = RandomEffectModel(
+                random_effect_type=re_type,
+                feature_shard_id=shard_id,
+                entity_codes=np.arange(len(records)),
+                coefficients=coefs,
+                entity_ids=np.asarray([r["modelId"] for r in records],
+                                      dtype=object))
+
+    for shard_id, name in empty_shards.items():
+        if shard_id not in index_maps:
+            logger.warning(
+                "random-effect coordinate %r is empty and no index map was "
+                "supplied for feature shard %r; the shard is omitted from "
+                "the returned index maps", name, shard_id)
+
+    if not models:
+        raise FileNotFoundError(f"no models under {input_dir}")
+    return GameModel(models), index_maps
+
+
+def save_scored_items(path: str, scores, model_id: str,
+                      uids: Optional[Iterable] = None,
+                      labels: Optional[np.ndarray] = None,
+                      weights: Optional[np.ndarray] = None) -> None:
+    """ScoringResultAvro output (avro/data/ScoreProcessingUtils.scala),
+    one deflate block per ``DEFAULT_SYNC_INTERVAL`` records."""
+    scores = _host64(scores)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    schema = parse_schema(schemas.SCORING_RESULT)
+    writer = compile_writer(schema, _names_index(schema))
+    uid_list = None if uids is None else [str(u) for u in uids]
+    n = len(scores)
+    blocks = []
+    for lo in range(0, n, DEFAULT_SYNC_INTERVAL):
+        hi = min(lo + DEFAULT_SYNC_INTERVAL, n)
+        buf = io.BytesIO()
+        enc = BinaryEncoder(buf)
+        for i in range(lo, hi):
+            writer(enc, {
+                "uid": None if uid_list is None else uid_list[i],
+                "label": None if labels is None else float(labels[i]),
+                "modelId": model_id,
+                "predictionScore": float(scores[i]),
+                "weight": None if weights is None else float(weights[i]),
+                "metadataMap": None})
+        blocks.append((hi - lo, buf.getvalue()))
+    _write_container_raw(path, schema, blocks)
+
+
+def _write_container_raw(path: str, schema, blocks: list) -> None:
+    """Container framing around already-encoded record streams, one Avro
+    block per (count, record_bytes) entry (``model_io.py:443-472``)."""
+    schema = parse_schema(schema)
+    sync = os.urandom(SYNC_SIZE)
+    with open(path, "wb") as fh:
+        write_container_header(fh, schema, "deflate", sync)
+        for count, record_bytes in blocks:
+            if not count:
+                continue
+            packed = zlib.compress(record_bytes)[2:-1]  # raw deflate
+            head = io.BytesIO()
+            henc = BinaryEncoder(head)
+            henc.write_long(count)
+            henc.write_long(len(packed))
+            fh.write(head.getvalue())
+            fh.write(packed)
+            fh.write(sync)
+
+
+def load_scored_items(path: str) -> list[dict]:
+    return read_records(path)

@@ -1,0 +1,68 @@
+"""Interop Avro schemas — the reference's on-disk data/model formats.
+
+Port of the feature, model and score schemas of
+``photon_ml_tpu/io/schemas.py`` (copies: the port imports nothing of the
+JAX package), Python-dict renditions of photon-avro-schemas/src/main/avro/
+in the reference: ``FeatureAvro`` (a GAME row's feature sections),
+``BayesianLinearModelAvro`` + ``NameTermValueAvro`` (coefficient models)
+and ``ScoringResultAvro`` (scores). The training-example, latent-factor
+and feature-summary schemas come with the drivers that use them.
+"""
+
+NAMESPACE = "com.linkedin.photon.avro.generated"
+
+NAME_TERM_VALUE = {
+    "name": "NameTermValueAvro",
+    "namespace": NAMESPACE,
+    "type": "record",
+    "fields": [
+        {"name": "name", "type": "string"},
+        {"name": "term", "type": "string"},
+        {"name": "value", "type": "double"},
+    ],
+}
+
+FEATURE = {
+    "name": "FeatureAvro",
+    "namespace": NAMESPACE,
+    "type": "record",
+    "fields": [
+        {"name": "name", "type": "string"},
+        {"name": "term", "type": "string"},
+        {"name": "value", "type": "double"},
+    ],
+}
+
+
+BAYESIAN_LINEAR_MODEL = {
+    "name": "BayesianLinearModelAvro",
+    "namespace": NAMESPACE,
+    "type": "record",
+    "fields": [
+        {"name": "modelId", "type": "string"},
+        {"name": "modelClass", "type": ["null", "string"], "default": None},
+        {"name": "means",
+         "type": {"type": "array", "items": NAME_TERM_VALUE}},
+        {"name": "variances",
+         "type": ["null", {"type": "array", "items": "NameTermValueAvro"}],
+         "default": None},
+        {"name": "lossFunction", "type": ["null", "string"], "default": None},
+    ],
+}
+
+
+SCORING_RESULT = {
+    "name": "ScoringResultAvro",
+    "namespace": NAMESPACE,
+    "type": "record",
+    "fields": [
+        {"name": "uid", "type": ["null", "string"], "default": None},
+        {"name": "label", "type": ["null", "double"], "default": None},
+        {"name": "modelId", "type": "string"},
+        {"name": "predictionScore", "type": "double"},
+        {"name": "weight", "type": ["null", "double"], "default": None},
+        {"name": "metadataMap",
+         "type": ["null", {"type": "map", "values": "string"}],
+         "default": None},
+    ],
+}

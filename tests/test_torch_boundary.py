@@ -3,8 +3,11 @@
 - ``photon_ml_tpu_torch`` and ``chip_smoke.py`` import nothing of ``jax``
   or ``photon_ml_tpu`` (checked by importing every submodule in a fresh
   interpreter, and by an AST scan of the sources).
+  Every package of the port (``cli``, ``io``, ``evaluation``, ``serve``,
+  ``utils`` among them) is walked.
 - On a host without CUDA the entry points, called without
-  ``device="cpu"``, raise ``RuntimeError`` instead of running on the CPU.
+  ``device="cpu"`` (or the drivers without ``--device cpu``), raise
+  ``RuntimeError`` instead of running on the CPU.
 - The kernel path has no ``try`` that could fall back, and the JAX
   package's ``PHOTON_DISABLE_PALLAS`` switch is not honoured by the port.
 """
@@ -58,8 +61,17 @@ def test_importing_every_submodule_leaves_jax_out():
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 17
+    assert int(count) >= 36
     assert bad.strip() == "[]"
+
+
+def test_every_port_package_is_walked():
+    subpackages = {p.parent.name for p in PKG.rglob("__init__.py")}
+    assert {"cli", "io", "evaluation", "serve", "utils", "game", "ops",
+            "optimize"} <= subpackages
+    walked = {p.relative_to(PKG).parts[0] for p in SOURCES
+              if p.is_relative_to(PKG)}
+    assert subpackages - {PKG.name} <= walked
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
@@ -123,6 +135,35 @@ def test_entry_points_refuse_cpu_without_being_asked(no_cuda, monkeypatch):
         GameModel({}).score(data)
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.states_from_numpy({"a": np.zeros(2)})
+    assert tpk.launch_count() == 0
+
+
+def test_drivers_refuse_cpu_without_being_asked(no_cuda, monkeypatch,
+                                                tmp_path):
+    from photon_ml_tpu_torch.cli import game_scoring_driver as tsd
+    from photon_ml_tpu_torch.cli import game_training_driver as ttd
+
+    # a refused run must not start reading data or training on the CPU
+    monkeypatch.setattr(ttd.GameTrainingDriver, "run", lambda self: pytest.fail(
+        "the training driver ran on the CPU"))
+    monkeypatch.setattr(tsd.GameScoringDriver, "run", lambda self: pytest.fail(
+        "the scoring driver ran on the CPU"))
+    sections = "global:globalFeatures"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttd.main(["--train-input-dirs", str(tmp_path / "t.avro"),
+                  "--output-dir", str(tmp_path / "out"),
+                  "--task-type", "LOGISTIC_REGRESSION",
+                  "--feature-shard-id-to-feature-section-keys-map", sections,
+                  "--updating-sequence", "fixed",
+                  "--fixed-effect-data-configurations", "fixed:global,1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsd.main(["--input-data-dirs", str(tmp_path / "t.avro"),
+                  "--game-model-input-dir", str(tmp_path / "model"),
+                  "--output-dir", str(tmp_path / "score"),
+                  "--feature-shard-id-to-feature-section-keys-map",
+                  sections])
+    assert not os.path.exists(tmp_path / "out")
+    assert not os.path.exists(tmp_path / "score")
     assert tpk.launch_count() == 0
 
 

@@ -17,7 +17,7 @@ from photon_ml_tpu_torch.ops import pallas_kernels as tpk
 
 torch.set_num_threads(1)
 
-WIDTHS = [1, 4, 24, 63, 64, 96, 128, 256, 257, 512, 2048, 4096]
+WIDTHS = [1, 4, 24, 63, 64, 65, 96, 128, 256, 257, 512, 2048, 4096]
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -73,6 +73,44 @@ def test_main_path_width_streams():
     assert tpk.kernel_path(64, torch.float32, True) == "stream"
     assert tpk.stream_geometry(64, torch.float32) == (16, 1, 2)
     assert tpk.stream_geometry(512, torch.bfloat16) == (32, 2, 1)
+
+
+def test_driver_width_is_staged():
+    """Through the GAME drivers the GLMix fixed effect gains the intercept
+    column: 65 f32 values, 260-byte rows that are not whole 16-byte
+    vectors, so every launch takes the staged path."""
+    assert tpk.kernel_path(65, torch.float32, True) == "staged"
+    assert tpk.kernel_path(65, torch.bfloat16, True) == "staged"
+
+
+def _cuda_stream_geometry(d, itemsize):
+    """``stream_geometry`` + ``launch_stream_geometry`` of
+    ``csrc/fused_value_gradient.cu`` for an aligned X: the (lanes,
+    vectors a lane) the CUDA side launches, or None where it refuses."""
+    row_bytes = d * itemsize
+    if row_bytes > 1024 or row_bytes % 16:
+        return None
+    vecs = row_bytes // 16
+    p = 1
+    while p < vecs and p < 32:
+        p <<= 1
+    vpl = -(-vecs // p)
+    if vpl == 2:
+        return (p, 2) if p == 32 else None
+    return (p, 1) if vpl == 1 and p in (1, 2, 4, 8, 16, 32) else None
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_stream_choice_is_one_the_cuda_side_takes(dtype):
+    """For every width the kernel takes, the stream path is picked exactly
+    where the CUDA side launches it, with the geometry it derives."""
+    for d in range(1, tpk.MAX_PALLAS_DIM + 1):
+        want = _cuda_stream_geometry(d, dtype.itemsize)
+        path = tpk.kernel_path(d, dtype, True)
+        assert (path == "stream") == (want is not None), d
+        if want is not None:
+            geom = tpk.stream_geometry(d, dtype)
+            assert (geom.lanes_per_row, geom.vecs_per_lane) == want, d
 
 
 def _args(n, d, seed=0):
