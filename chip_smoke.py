@@ -47,6 +47,18 @@ Phases, one JSON line each on stdout:
    for them (staged); the scores must equal the library's score of the
    reloaded model, and the scoring driver's AUC the validation AUC that
    metrics.json records for the best state.
+7. resume — (a) the glmix phase's data, coordinates built afresh, two
+   sweeps with a checkpoint after every update and ``cd.update@1.1`` armed
+   to raise; fresh coordinates resume from the restored snapshot at
+   (sweep 1, coordinate 1), and their final states must equal phase 5's
+   uninterrupted run bit for bit. (b) the crash/resume drill
+   (``photon_ml_tpu_torch/tools/crash_resume_drill.py``) on the card: six
+   driver processes on a 40,000 / 5,000-row Avro fixture at full width
+   (reference, a real kill mid-sweep, resume, a SIGTERM, relaunch, an
+   all-corrupt checkpoint directory), exit codes 0/19/75/0/0/3, the
+   resumed and relaunched runs bit-exact to the reference in states,
+   scores and objectives, and every finishing process launching the
+   kernel on the path ``kernel_path`` picks for 65 f32 columns.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
@@ -81,6 +93,11 @@ BIG_SHAPE = (262_144, 2_048)
 # cut against the 1,000,209-row configuration, made for the pure-Python
 # Avro writer's cost; the widths are the configuration's
 DRIVER_ROWS = (100_000, 20_000)
+# rows of the resume phase's drill fixture: cut further, since six driver
+# processes each decode the Avro again, but not below the kernel's gate:
+# 40,000 x 65 = 2.6M elements passes ``pallas_supported``'s 2**21, where
+# at 20,000 rows the fixed effect takes the plain two-pass form
+DRILL_ROWS = (40_000, 5_000)
 DRIVER_SECTIONS = "global:globalFeatures|user:userFeatures"
 # (shape, tolerance scaled to the sum of |terms|): the small shapes reach
 # every stream geometry (1 to 32 lanes a row in f32 or bf16, one and two
@@ -289,64 +306,6 @@ def cuda_times(torch, fn, reps=25, inner=1, warmup=3) -> dict:
             "queued_share": sum(t[3] for t in turns) / len(turns)}
 
 
-def driver_schema():
-    from photon_ml_tpu_torch.io import schemas
-
-    return {
-        "name": "GameRecord", "type": "record", "namespace": "chip_smoke",
-        "fields": [
-            {"name": "uid", "type": ["null", "string"], "default": None},
-            {"name": "response", "type": "double"},
-            {"name": "offset", "type": ["null", "double"], "default": None},
-            {"name": "weight", "type": ["null", "double"], "default": None},
-            {"name": "metadataMap",
-             "type": ["null", {"type": "map", "values": "string"}],
-             "default": None},
-            {"name": "globalFeatures",
-             "type": {"type": "array", "items": schemas.FEATURE}},
-            {"name": "userFeatures",
-             "type": {"type": "array", "items": "FeatureAvro"}},
-        ],
-    }
-
-
-def write_movielens_avro(train_path, val_path, n_train, n_val, n_users,
-                         n_movies, d_global, seed=7):
-    """``movielens_data``'s recipe for ``n_train + n_val`` rows as GAME
-    Avro, written by the port's writer: 64 dense features ``g<j>`` in
-    ``globalFeatures``, the movie one-hot (``movie``, term = movie id) in
-    ``userFeatures``, ``userId`` in ``metadataMap``; the first
-    ``n_train`` rows train, the rest validate."""
-    from photon_ml_tpu_torch.io.avro import write_container
-
-    rng = np.random.default_rng(seed)
-    n = n_train + n_val
-    users = (rng.zipf(1.3, size=n) % n_users).astype(np.int64)
-    movies = rng.integers(0, n_movies, n)
-    Xg = (rng.normal(size=(n, d_global)) / np.sqrt(d_global)).astype(
-        np.float32)
-    wg = rng.normal(size=d_global).astype(np.float32)
-    logits = Xg @ wg + 0.5 * rng.normal(size=n_users)[users].astype(
-        np.float32)
-    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logits))).astype(np.float64)
-    names = [f"g{j}" for j in range(d_global)]
-    rows, labels = Xg.astype(np.float64).tolist(), y.tolist()
-    users_s, movies_s = users.astype(str), movies.astype(str)
-
-    def records(lo, hi):
-        for i in range(lo, hi):
-            yield {"uid": str(i), "response": labels[i], "offset": None,
-                   "weight": None, "metadataMap": {"userId": users_s[i]},
-                   "globalFeatures": [{"name": nm, "term": "", "value": v}
-                                      for nm, v in zip(names, rows[i])],
-                   "userFeatures": [{"name": "movie", "term": movies_s[i],
-                                     "value": 1.0}]}
-
-    schema = driver_schema()
-    write_container(train_path, schema, records(0, n_train))
-    write_container(val_path, schema, records(n_train, n))
-
-
 def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
                  n_movies=3706, d_global=64):
     """The GLMix main path through the port's drivers (phase 6). Returns
@@ -363,6 +322,8 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     from photon_ml_tpu_torch.ops import pallas_kernels as pk
     from photon_ml_tpu_torch.ops.losses import get_loss
     from photon_ml_tpu_torch.serve.scoring import load_scoring_model
+    from photon_ml_tpu_torch.tools.crash_resume_drill import (
+        driver_argv, write_movielens_avro)
 
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
@@ -373,21 +334,7 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     t0 = time.perf_counter()
     write_movielens_avro(train, val, *rows, n_users, n_movies, d_global)
     avro_write_secs = time.perf_counter() - t0
-    argv = [
-        "--train-input-dirs", train, "--validate-input-dirs", val,
-        "--output-dir", out, "--task-type", "LOGISTIC_REGRESSION",
-        "--feature-shard-id-to-feature-section-keys-map", DRIVER_SECTIONS,
-        "--updating-sequence", "fixed,perUser", "--num-iterations", "2",
-        "--fixed-effect-data-configurations", "fixed:global,1",
-        "--fixed-effect-optimization-configurations",
-        "fixed:40,1e-7,10,1,LBFGS,L2",
-        "--random-effect-data-configurations", "perUser:userId,user,1,128",
-        "--random-effect-optimization-configurations",
-        "perUser:20,1e-7,1,1,LBFGS,L2",
-        "--random-effect-block-buckets", "4",
-        "--evaluator-type", "AUC,LOGISTIC_LOSS,AUC:userId",
-        "--device", str(dev)]
-
+    argv = driver_argv(train, val, out, str(dev))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     pk.reset_launch_count()
@@ -495,6 +442,141 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
                              f"the kernel on the {expected} path: {by_path}")
     shutil.rmtree(workdir, ignore_errors=True)
     return phase, launches, by_path, check
+
+
+def resume_phase(torch, dev, data, want, workdir):
+    """Phase 7 (a): the glmix run killed mid-sweep by an injected fault
+    and resumed in fresh coordinates from its newest snapshot. ``want`` is
+    phase 5's final state per coordinate; the resumed run must end on it
+    bit for bit. Returns the record and the launches of both segments."""
+    import shutil
+
+    from photon_ml_tpu_torch.game.coordinate_descent import (
+        HOT_LOOP_STATS, reset_hot_loop_stats, run_coordinate_descent)
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.optimize.config import TaskType
+    from photon_ml_tpu_torch.utils import checkpoint as ck
+    from photon_ml_tpu_torch.utils import faults
+
+    task = TaskType.LOGISTIC_REGRESSION
+    shutil.rmtree(workdir, ignore_errors=True)
+    mgr = ck.CheckpointManager(workdir)
+    ck.reset_checkpoint_stats()
+    reset_hot_loop_stats()
+    faults.disarm_all()
+
+    def run(**kw):
+        """Two sweeps in fresh coordinates, launch counts zeroed just
+        before."""
+        coords = glmix_coordinates(data, dev)
+        torch.cuda.synchronize()
+        pk.reset_launch_count()
+        t = time.perf_counter()
+        res = run_coordinate_descent(
+            coords, 2, task, data.responses, data.weights, data.offsets,
+            device=dev, checkpoint_manager=mgr,
+            checkpoint_every_coordinates=1, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    faults.arm("cd.update", "raise", tag="1.1")
+    try:
+        run()
+    except faults.InjectedFault:
+        pass
+    else:
+        raise AssertionError("the armed cd.update@1.1 fault did not fire")
+    finally:
+        faults.disarm_all()
+    crash_by_path = dict(pk.fused_value_gradient_sums.launches_by_path)
+    saves = dict(ck.CHECKPOINT_STATS)
+    fetches = HOT_LOOP_STATS["snapshot_fetches"]
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    snap = mgr.restore()
+    restore_secs = time.perf_counter() - t
+    point = (snap["sweep"], snap["coordinate_index"])
+    if point != (1, 1):
+        raise AssertionError(f"resume point {point}, expected (1, 1)")
+    res, resumed_secs = run(resume_snapshot=snap)
+    resumed_by_path = dict(pk.fused_value_gradient_sums.launches_by_path)
+    got = {"fixed": res.model.models["fixed"].model.coefficients.means,
+           "per-user": res.model.models["per-user"].coefficients_projected}
+    equal = {cid: bool(torch.equal(got[cid], want[cid])) for cid in want}
+    if not all(equal.values()):
+        raise AssertionError(f"resumed final states differ from phase 5's "
+                             f"uninterrupted run: {equal}")
+    if dev.type == "cuda" and (sum(crash_by_path.values()) <= 0
+                               or crash_by_path["staged"] != 0
+                               or resumed_by_path["staged"] != 0):
+        raise AssertionError(f"resume phase left the stream path: "
+                             f"{crash_by_path} / {resumed_by_path}")
+    if fetches != saves["saves"]:
+        raise AssertionError(f"{fetches} snapshot fetches for "
+                             f"{saves['saves']} snapshots")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {
+        "rows": int(data.num_samples), "resume_point": list(point),
+        "snapshot_bytes": saves["bytes"],
+        "snapshots_before_kill": saves["saves"],
+        "save_secs_mean": saves["save_seconds"] / saves["saves"],
+        "snapshot_fetches_before_kill": fetches,
+        "restore_secs": restore_secs,
+        "resumed_updates": [[s.iteration, s.coordinate_id]
+                            for s in res.states],
+        "resumed_objective": res.states[-1].objective,
+        "resumed_train_secs": resumed_secs,
+        "launches_by_path": {"before_kill": crash_by_path,
+                             "resumed": resumed_by_path},
+        "final_states_equal_phase5": equal,
+    }, crash_by_path, resumed_by_path
+
+
+def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
+                d_global=64):
+    """Phase 7 (b): the crash/resume drill through the drivers on the
+    card, six processes on an Avro fixture at full width. Returns the
+    record and the launches by role; raises on any failed check."""
+    import shutil
+
+    from photon_ml_tpu_torch.tools import crash_resume_drill as drill
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    fixture = os.path.join(workdir, "fixture")
+    t = time.perf_counter()
+    drill.write_fixture(fixture, rows=rows, n_users=n_users,
+                        n_movies=n_movies, d_global=d_global)
+    write_secs = time.perf_counter() - t
+    record = drill.run_drill(fixture, os.path.join(workdir, "roles"),
+                             device=str(dev), timeout=600)
+    roles, launches = {}, {}
+    for r, v in record["roles"].items():
+        w = v["worker"] or {}
+        roles[r] = {"exit": v["exit"], "wall_secs": v["wall_secs"],
+                    **{k: w.get(k) for k in (
+                        "launches_by_path", "snapshot_bytes", "snapshots",
+                        "save_secs", "restore_secs", "phase_seconds")},
+                    "worker_secs": w.get("wall_secs")}
+        if w:
+            launches[r] = w["launches_by_path"]
+    ref = record["roles"]["reference"]["worker"]
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {
+        "reduced": {"rows": {"train": rows[0], "validate": rows[1],
+                             "configuration": 1_000_209},
+                    "why": "six driver processes each decode the Avro "
+                           "again (pure-Python decoder); the training rows "
+                           "keep the fixed effect above the kernel's gate "
+                           "of 2**21 elements"},
+        "sweeps": drill.SWEEPS, "fixture_write_secs": write_secs,
+        "fixed_effect_columns": ref["fixed_effect_columns"],
+        "expected_path": ref["expected_path"], "roles": roles,
+        "snapshot_step": record["snapshot_step"],
+        "states_compared_after_resume":
+            record["states_compared_after_resume"],
+        "corrupted_steps": record["corrupted_steps"],
+        "drill_secs": record["seconds"],
+    }, launches
 
 
 def main() -> int:
@@ -742,6 +824,10 @@ def main() -> int:
     scores = res.model.score(data, device=dev)
     if scores.shape != (n,) or not bool(torch.isfinite(scores).all()):
         raise AssertionError("published GameModel scores are not finite")
+    # phase 7 resumes this run and must land on these states
+    glmix_final = {
+        "fixed": res.model.models["fixed"].model.coefficients.means,
+        "per-user": res.model.models["per-user"].coefficients_projected}
     emit({"phase": "glmix", "n": n, "users": n_users, "movies": n_movies,
           "d_global": 64,
           "re_buckets": [list(b.X.shape) for b in re_ds.buckets],
@@ -780,7 +866,34 @@ def main() -> int:
     phase["seconds"] = time.perf_counter() - t0
     emit(phase)
 
-    # -- 7. kernels line, card line, result ----------------------------------
+    # -- 7. resume: in process at full size, then real process deaths ------
+    t0 = time.perf_counter()
+    build = os.path.join(REPO, "photon_ml_tpu_torch", "_build")
+    in_process, resume_crash, resume_resumed = resume_phase(
+        torch, dev, data, glmix_final, os.path.join(build, "resume_phase"))
+    in_process["seconds"] = time.perf_counter() - t0
+    print("resume in process: " + json.dumps(in_process), file=sys.stderr,
+          flush=True)
+    t1 = time.perf_counter()
+    drill_rec, drill_launches = drill_phase(dev,
+                                            os.path.join(build, "drill"))
+    drill_rec["seconds"] = time.perf_counter() - t1
+    emit({"phase": "resume", "nvidia_smi": smi, "in_process": in_process,
+          "drill": drill_rec,
+          "metric_determinism": (
+              "training floats (states, scores, objectives) are compared "
+              "bit for bit; validation metrics and best_metric to 1e-12 "
+              "relative, since a metric's segment sums on the card are "
+              "atomic f64 adds in no fixed order"),
+          "seconds": time.perf_counter() - t0})
+
+    # -- 8. kernels line, card line, result ----------------------------------
+    runs = {"glmix": by_path, "driver": driver_by_path,
+            "resume_before_kill": resume_crash,
+            "resume_resumed": resume_resumed,
+            **{f"drill_{r}": v for r, v in drill_launches.items()}}
+    total_by_path = {p: sum(r[p] for r in runs.values())
+                     for p in by_path}
     main = timings[(*GLMIX_SHAPE, "float32", "stream")]
     driver = timings[(*DRIVER_SHAPE, "float32", driver_check["path"])]
     staged = timings[(*BIG_SHAPE, "float32", "staged")]
@@ -789,8 +902,8 @@ def main() -> int:
         "route": "cuda",
         "source": "photon_ml_tpu_torch/csrc/fused_value_gradient.cu",
         "replaces": "photon_ml_tpu/ops/pallas_kernels.py:144",
-        "launches": launches + driver_launches,
-        "launches_by_run": {"glmix": by_path, "driver": driver_by_path},
+        "launches": sum(total_by_path.values()),
+        "launches_by_run": runs,
         "max_abs_err": max(main_err, driver_check["max_abs_err"]),
         "ms": main["kernel_ms"],
         "plain_ms": main["plain_ms"],
@@ -801,7 +914,7 @@ def main() -> int:
         "paths": {p: {"ms": r["kernel_ms"], "device_ms": r["device_ms"],
                       "bound_ms": r["bound_ms"],
                       "shape": [r["n"], r["d"]], "dtype": r["dtype"],
-                      "launches": by_path[p] + driver_by_path[p]}
+                      "launches": total_by_path[p]}
                   for p, r in (("stream", main), ("staged", staged))},
         "rows": [{k: r[k] for k in (
             "n", "d", "dtype", "path", "kernel_ms", "device_ms", "plain_ms",

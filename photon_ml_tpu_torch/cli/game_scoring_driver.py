@@ -8,10 +8,12 @@ responses, the summed coordinate score on ``--device``,
 ``scores/part-00000.avro`` (ScoringResultAvro) and, when every row has a
 response, the evaluators with one device fetch.
 
-The flags are the JAX driver's plus ``--device`` (default ``cuda``). Not
-ported yet, and refused with ``NotImplementedError`` through
-``clean_abort``: ``--num-processes > 1``, ``--offheap-indexmap-dir``,
-``--max-shard-loss-frac`` and the telemetry flags.
+The flags are the JAX driver's plus ``--device`` (default ``cuda``).
+``--max-shard-loss-frac`` quarantines corrupt or unreadable part files
+within its budget, as the JAX driver does (``:196-213``); over it the run
+ends with exit 3. Not ported yet, and refused with
+``NotImplementedError`` through ``clean_abort``: ``--num-processes > 1``,
+``--offheap-indexmap-dir`` and the telemetry flags.
 """
 
 from __future__ import annotations
@@ -25,7 +27,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.cli import clean_abort, clean_abort_types
+from photon_ml_tpu_torch.cli import (
+    build_event_bus,
+    build_ingest_policy,
+    clean_abort,
+    clean_abort_types,
+)
 from photon_ml_tpu_torch.cli.args import (
     add_device_flag,
     add_observability_flags,
@@ -86,8 +93,6 @@ def check_unported(ns: argparse.Namespace) -> None:
         ("--num-processes", ns.num_processes > 1, "multi-process scoring"),
         ("--offheap-indexmap-dir", ns.offheap_indexmap_dir,
          "the off-heap index store"),
-        ("--max-shard-loss-frac", ns.max_shard_loss_frac != 0,
-         "degraded ingest"),
         ("--trace-dir", ns.trace_dir, "telemetry"),
         ("--telemetry-endpoint", ns.telemetry_endpoint, "telemetry"),
         ("--device-telemetry", ns.device_telemetry, "telemetry"),
@@ -117,6 +122,8 @@ class GameScoringDriver:
         self.metrics: dict[str, float] = {}
         #: phase name -> wall seconds of the last run
         self.phase_seconds: dict[str, float] = {}
+        #: the IngestPolicy of the last load
+        self.ingest = None
 
     def run(self) -> np.ndarray:
         ns = self.ns
@@ -139,12 +146,19 @@ class GameScoringDriver:
             | {e.id_type for e in self.evaluators if e.id_type})
         with timed_phase("prepareGameDataSet", self.logger,
                          self.phase_seconds):
+            self.ingest = build_ingest_policy(
+                ns.max_shard_loss_frac,
+                events=build_event_bus(self.logger.warn),
+                warn=self.logger.warn)
             data = load_game_dataset_avro(
                 resolve_input_paths(ns.input_data_dirs, ns.date_range,
                                     ns.date_range_days_ago),
                 self.section_keys, index_maps, id_types=id_types,
-                response_required=False)
-        self.logger.info(f"scoring {data.num_samples} samples")
+                response_required=False, policy=self.ingest)
+            self.ingest.finish(log=self.logger.warn)
+        self.logger.info(
+            f"scoring {data.num_samples} samples (data coverage "
+            f"{self.ingest.coverage_fraction:.1%})")
 
         with timed_phase("scoreGameDataSet", self.logger,
                          self.phase_seconds):
@@ -178,9 +192,10 @@ class GameScoringDriver:
 
 def run(argv: Optional[Sequence[str]] = None) -> GameScoringDriver:
     """Run the driver; returns it (scores are on disk, metrics in
-    ``driver.metrics``). An unported flag ends the run with the
-    ``PHOTON_ABORT`` line and exit code 3; a missing CUDA device raises
-    ``RuntimeError``."""
+    ``driver.metrics``). A recognized terminal condition (an unported
+    flag, shard loss over budget, a KeyboardInterrupt) ends the run with
+    the ``PHOTON_ABORT`` line and exit code 3; a missing CUDA device
+    raises ``RuntimeError``."""
     ns = parse_args(list(argv) if argv is not None else sys.argv[1:])
     try:
         check_unported(ns)
@@ -190,6 +205,11 @@ def run(argv: Optional[Sequence[str]] = None) -> GameScoringDriver:
     driver = GameScoringDriver(ns)
     try:
         driver.run()
+    except clean_abort_types() as e:
+        raise clean_abort(e, log=driver.logger.error) from None
+    except KeyboardInterrupt:
+        raise clean_abort(KeyboardInterrupt("interrupted by operator"),
+                          log=driver.logger.error) from None
     except Exception as e:
         driver.logger.error(f"GAME scoring failed: {e}")
         raise

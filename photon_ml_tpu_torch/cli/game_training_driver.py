@@ -11,12 +11,19 @@ Port of ``photon_ml_tpu/cli/game_training_driver.py`` — ``parse_args``
 
 The flags and their value formats are the JAX driver's, so one argv runs
 either package; the port adds ``--device`` (default ``cuda``, no fallback
-to the CPU). Flags whose feature is not ported yet raise
-``NotImplementedError`` naming the flag and end the run through
-``clean_abort`` (exit 3): checkpoints, recovery, preemption, multi-process
-runs, the off-heap index store, streamed and factored random effects,
-entity sharding, bf16, quantized collectives, degraded ingest, explicit
-block or pipelined sweeps, variances, lane compaction and telemetry.
+to the CPU). Fault tolerance is wired as the JAX driver wires it
+(``:677-743``, ``:1187-1245``): ``--checkpoint-dir`` (one grid point;
+an existing directory resumes from its newest intact step, and one whose
+steps are all corrupt ends in exit 3 before any data is read),
+``--checkpoint-every-coordinates``, ``--recovery-policy`` and the other
+``--recovery-*`` flags, ``--max-train-seconds``, ``--stop-file`` and
+SIGTERM/SIGINT (exit 75 at the next commit barrier), and
+``--max-shard-loss-frac`` (degraded ingest). Flags whose feature is not
+ported yet raise ``NotImplementedError`` naming the flag and end the run
+through ``clean_abort`` (exit 3): multi-process runs and their
+supervision, the off-heap index store, streamed and factored random
+effects, entity sharding, bf16, quantized collectives, explicit block or
+pipelined sweeps, variances, lane compaction and telemetry.
 
 Validation rows are matched to the trained per-entity models by raw id:
 the validation id columns are re-encoded against the training vocabulary
@@ -38,7 +45,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.cli import clean_abort, clean_abort_types
+from photon_ml_tpu_torch.cli import (
+    build_event_bus,
+    build_ingest_policy,
+    clean_abort,
+    clean_abort_types,
+    preempted_exit,
+)
 from photon_ml_tpu_torch.cli.args import (
     add_device_flag,
     add_observability_flags,
@@ -59,6 +72,7 @@ from photon_ml_tpu_torch.game.coordinate import (
 )
 from photon_ml_tpu_torch.game.coordinate_descent import (
     CoordinateDescentResult,
+    RecoveryPolicy,
     run_coordinate_descent,
 )
 from photon_ml_tpu_torch.game.dataset import (
@@ -83,8 +97,13 @@ from photon_ml_tpu_torch.optimize.config import (
 )
 from photon_ml_tpu_torch.optimize.problem import GLMOptimizationProblem
 from photon_ml_tpu_torch.utils import parse_flag
+from photon_ml_tpu_torch.utils.checkpoint import CheckpointManager
 from photon_ml_tpu_torch.utils.date_range import resolve_input_paths
 from photon_ml_tpu_torch.utils.logging import PhotonLogger, timed_phase
+from photon_ml_tpu_torch.utils.preempt import (
+    PreemptionRequested,
+    StopController,
+)
 
 
 class ModelOutputMode:
@@ -187,11 +206,6 @@ def check_unported(ns: argparse.Namespace) -> None:
     """``NotImplementedError`` for the first flag set that asks for a
     feature the port does not run yet."""
     refuse_unported(ns, [
-        ("--checkpoint-dir", ns.checkpoint_dir, "checkpoint/resume"),
-        ("--checkpoint-every-coordinates",
-         ns.checkpoint_every_coordinates != 0, "checkpoint/resume"),
-        ("--recovery-policy", ns.recovery_policy != "none",
-         "divergence recovery"),
         ("--num-processes", ns.num_processes > 1, "multi-process runs"),
         ("--max-worker-restarts", ns.max_worker_restarts > 0,
          "worker supervision"),
@@ -207,8 +221,6 @@ def check_unported(ns: argparse.Namespace) -> None:
         ("--precision", ns.precision != "f32", "bf16 storage"),
         ("--collective-quant", ns.collective_quant != "none",
          "quantized collectives"),
-        ("--max-shard-loss-frac", ns.max_shard_loss_frac != 0,
-         "degraded ingest"),
         ("--cd-block-size", ns.cd_block_size > 1, "block sweeps"),
         ("--cd-pipeline-depth", (ns.cd_pipeline_depth or 0) >= 1,
          "the pipelined sweep"),
@@ -216,8 +228,6 @@ def check_unported(ns: argparse.Namespace) -> None:
          "coefficient variances"),
         ("--re-lane-compaction-chunk", ns.re_lane_compaction_chunk != 0,
          "lane compaction"),
-        ("--max-train-seconds", ns.max_train_seconds > 0, "preemption"),
-        ("--stop-file", ns.stop_file, "preemption"),
         ("--trace-dir", ns.trace_dir, "telemetry"),
         ("--telemetry-endpoint", ns.telemetry_endpoint, "telemetry"),
         ("--device-telemetry", ns.device_telemetry, "telemetry"),
@@ -261,6 +271,13 @@ class GameTrainingDriver:
         self.index_maps: dict[str, IndexMap] = {}
         self.train_data: Optional[GameDataset] = None
         self.validate_data: Optional[GameDataset] = None
+        self.train_ingest = None  # IngestPolicy of the training load
+        self.validate_ingest = None
+        #: the one event bus of the run: ingest and coordinate descent
+        #: share its listeners
+        self.events = build_event_bus(self.logger.warn)
+        #: the StopController polled by coordinate descent (set by run())
+        self.stop: Optional[StopController] = None
         self.best_result: Optional[CoordinateDescentResult] = None
         #: phase name -> wall seconds of the last run
         self.phase_seconds: dict[str, float] = {}
@@ -281,13 +298,17 @@ class GameTrainingDriver:
                 resolve_input_paths(self.ns.train_input_dirs,
                                     self.ns.train_date_range,
                                     self.ns.train_date_range_days_ago),
-                all_sections)
+                all_sections, policy=self._ingest_policy())
         for shard, sections in self.section_keys.items():
             self.index_maps[shard] = sets.index_map(
                 sections, add_intercept=self.intercept_map.get(shard, True))
         self.logger.info(
             f"feature maps: "
             f"{ {k: len(v) for k, v in self.index_maps.items()} }")
+
+    def _ingest_policy(self):
+        return build_ingest_policy(self.ns.max_shard_loss_frac,
+                                   events=self.events, warn=self.logger.warn)
 
     def _id_types(self) -> list[str]:
         id_types = {cfg.random_effect_type
@@ -299,19 +320,26 @@ class GameTrainingDriver:
         train_paths = resolve_input_paths(
             self.ns.train_input_dirs, self.ns.train_date_range,
             self.ns.train_date_range_days_ago)
+        self.train_ingest = self._ingest_policy()
         self.train_data = load_game_dataset_avro(
             train_paths, self.section_keys, self.index_maps,
-            id_types=self._id_types(), response_required=True)
+            id_types=self._id_types(), response_required=True,
+            policy=self.train_ingest)
+        self.train_ingest.finish(log=self.logger.warn)
         self.logger.info(
             f"train dataset: {self.train_data.num_samples} samples "
-            f"from {len(train_paths)} path(s)")
+            f"from {len(train_paths)} path(s), data coverage "
+            f"{self.train_ingest.coverage_fraction:.1%}")
         if self.ns.validate_input_dirs:
+            self.validate_ingest = self._ingest_policy()
             self.validate_data = load_game_dataset_avro(
                 resolve_input_paths(self.ns.validate_input_dirs,
                                     self.ns.validate_date_range,
                                     self.ns.validate_date_range_days_ago),
                 self.section_keys, self.index_maps,
-                id_types=self._id_types(), response_required=True)
+                id_types=self._id_types(), response_required=True,
+                policy=self.validate_ingest)
+            self.validate_ingest.finish(log=self.logger.warn)
             for cfg in self.random_data_configs.values():
                 t = cfg.random_effect_type
                 self.validate_data.recode_ids(t, self.train_data.id_vocabs[t])
@@ -384,8 +412,38 @@ class GameTrainingDriver:
                     f"{name}: {value:.6f}")
         best = None  # (metric, result, description)
         results = []
-        for gi, (f_cfgs, r_cfgs) in enumerate(itertools.product(
-                self.fixed_opt_grid, self.random_opt_grid)):
+        combos = list(itertools.product(self.fixed_opt_grid,
+                                        self.random_opt_grid))
+        ckpt_mgr = resume_snapshot = None
+        if self.ns.checkpoint_dir:
+            if len(combos) > 1:
+                raise ValueError(
+                    "--checkpoint-dir supports single-grid-point runs only "
+                    f"(got {len(combos)} grid combinations)")
+            ckpt_mgr = CheckpointManager(self.ns.checkpoint_dir)
+            # the newest step that verifies and loads; a directory with
+            # steps but none intact raises, an empty one is a fresh run
+            try:
+                resume_snapshot = ckpt_mgr.restore()
+            except FileNotFoundError:
+                resume_snapshot = None
+            if resume_snapshot is not None:
+                self.logger.info(
+                    f"resuming from checkpoint at sweep "
+                    f"{resume_snapshot.get('sweep', resume_snapshot.get('iteration', 0))} "
+                    f"coordinate "
+                    f"{resume_snapshot.get('coordinate_index', 0)}")
+        recovery = events = None
+        if self.ns.recovery_policy != "none":
+            recovery = RecoveryPolicy(
+                max_retries=self.ns.recovery_max_retries,
+                on_exhausted=self.ns.recovery_policy,
+                damping=self.ns.recovery_damping,
+                max_consecutive_failures=(
+                    self.ns.recovery_max_consecutive_failures),
+                quarantine_after=self.ns.recovery_quarantine_after)
+            events = self.events
+        for gi, (f_cfgs, r_cfgs) in enumerate(combos):
             desc = (f"grid[{gi}]: fixed="
                     f"{ {k: v.render() for k, v in f_cfgs.items()} } "
                     f"random={ {k: v.render() for k, v in r_cfgs.items()} }")
@@ -403,7 +461,17 @@ class GameTrainingDriver:
                                        else None),
                     higher_is_better=(first_spec.better_than(1.0, 0.0)
                                       if first_spec else True),
-                    logger=self.logger, device=self.device)
+                    logger=self.logger,
+                    checkpoint_manager=ckpt_mgr,
+                    checkpoint_every_coordinates=(
+                        self.ns.checkpoint_every_coordinates),
+                    resume_snapshot=resume_snapshot,
+                    recovery=recovery, events=events, stop=self.stop,
+                    device=self.device)
+            if result.quarantined:
+                self.logger.warn(
+                    f"{desc}: quarantined coordinates (frozen at "
+                    f"last-good state): {result.quarantined}")
             results.append((desc, result))
             metric = result.best_metric
             if metric is not None and (
@@ -425,6 +493,10 @@ class GameTrainingDriver:
                 raise FileExistsError(
                     f"output dir {ns.output_dir} is not empty")
         os.makedirs(ns.output_dir, exist_ok=True)
+        if ns.checkpoint_dir and os.path.isdir(ns.checkpoint_dir):
+            # an all-corrupt directory is terminal: refuse before the data
+            # is read (the JAX multi-host driver's pre-flight, :950-959)
+            CheckpointManager(ns.checkpoint_dir).raise_if_all_corrupt()
         with timed_phase("prepareFeatureMaps", self.logger,
                          self.phase_seconds):
             self.prepare_feature_maps()
@@ -434,23 +506,32 @@ class GameTrainingDriver:
         best, results = self.train()
         _, best_result, best_desc = best
         self.logger.info(f"best model: {best_desc}")
+        quarantined_all = sorted({cid for _, r in results
+                                  for cid in r.quarantined})
+        if quarantined_all:
+            self.logger.warn(
+                f"run summary: {len(quarantined_all)} coordinate(s) "
+                f"quarantined (frozen at last-good state): "
+                f"{quarantined_all}")
 
         def _finite(x):
             x = None if x is None else float(x)
             return x if x is not None and math.isfinite(x) else None
 
-        # metrics.json in the JAX driver's schema (:820-858); the port has
-        # no recovery or degraded ingest, so nothing is quarantined and
-        # coverage is whole
+        # metrics.json in the JAX driver's schema (:820-858)
         record = {
             "best": {"description": best_desc,
                      "metric": _finite(best_result.best_metric)},
-            "quarantined": [],
-            "data_coverage": 1.0,
-            "ingest": {"train": None, "validate": None},
+            "quarantined": quarantined_all,
+            "data_coverage": self.train_ingest.coverage_fraction,
+            "ingest": {
+                "train": self.train_ingest.summary(),
+                "validate": (self.validate_ingest.summary()
+                             if self.validate_ingest is not None
+                             else None)},
             "grid": [
                 {"description": desc,
-                 "quarantined": [],
+                 "quarantined": result.quarantined,
                  "states": [
                      {"iteration": s.iteration,
                       "coordinate": s.coordinate_id,
@@ -497,9 +578,12 @@ class GameTrainingDriver:
 
 def run(argv: Optional[Sequence[str]] = None) -> GameTrainingDriver:
     """Run the driver; returns it (``best_result``, ``phase_seconds``; the
-    models and ``metrics.json`` are on disk). An unported flag ends the
-    run with the ``PHOTON_ABORT`` line and exit code 3; a missing CUDA
-    device raises ``RuntimeError``."""
+    models and ``metrics.json`` are on disk). A recognized terminal
+    condition (an unported flag, shard loss over budget, an all-corrupt
+    checkpoint directory, an unrecovered injected fault, a
+    KeyboardInterrupt) ends the run with the ``PHOTON_ABORT`` line and
+    exit code 3; a graceful stop with the ``PHOTON_PREEMPTED`` line and
+    exit code 75; a missing CUDA device raises ``RuntimeError``."""
     ns = parse_args(list(argv) if argv is not None else sys.argv[1:])
     try:
         check_unported(ns)
@@ -507,12 +591,28 @@ def run(argv: Optional[Sequence[str]] = None) -> GameTrainingDriver:
         raise clean_abort(e) from None
     resolve_device(ns.device)
     driver = GameTrainingDriver(ns)
+    # graceful stop: SIGTERM/SIGINT latch the flag (a second delivery
+    # forces), --max-train-seconds counts from now (ingest included),
+    # --stop-file is polled at commit barriers
+    stop = StopController(max_train_seconds=ns.max_train_seconds,
+                          stop_file=ns.stop_file)
+    stop.install_signal_handlers()
+    driver.stop = stop
     try:
         driver.run()
+    except clean_abort_types() as e:
+        raise clean_abort(e, log=driver.logger.error) from None
+    except PreemptionRequested as e:
+        # the final snapshot is on disk: exit 75 so a supervisor requeues
+        raise preempted_exit(e, log=driver.logger.warn) from None
+    except KeyboardInterrupt:
+        raise clean_abort(KeyboardInterrupt("interrupted by operator"),
+                          log=driver.logger.error) from None
     except Exception as e:
         driver.logger.error(f"GAME training failed: {e}")
         raise
     finally:
+        stop.uninstall_signal_handlers()
         driver.logger.close()
     return driver
 

@@ -5,6 +5,9 @@ Port of ``photon_ml_tpu/game/coordinate.py:67-290`` — the trackers,
 state is its coefficient tensor (``[D]`` for the fixed effect in
 normalized space, the compact ``[E, D_red]`` block for a random effect).
 Down-sampling is not ported: a rate below 1 raises ``NotImplementedError``.
+The fixed effect counts its updates in ``_update_count``, as the JAX
+one does (its down-sampling key is seed + count); snapshots carry the
+count under ``update_counts``.
 """
 
 from __future__ import annotations
@@ -93,6 +96,7 @@ class FixedEffectCoordinate:
 
     dataset: FixedEffectDataset
     problem: GLMOptimizationProblem
+    _update_count: int = 0
 
     def __post_init__(self):
         if self.problem.config.down_sampling_rate < 1.0:
@@ -116,6 +120,7 @@ class FixedEffectCoordinate:
         """Re-optimize on the offset-adjusted batch; no blocking read of
         the solve history (it stays in the tracker)."""
         batch = self.dataset.with_offsets(extra_scores)
+        self._update_count += 1
         result = self.problem.run_lazy(batch, initial=coefs)
         return result.coefficients, FixedEffectTracker(result)
 

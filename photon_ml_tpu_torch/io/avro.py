@@ -8,9 +8,13 @@ the port keeps its own copy): schema parsing, the binary encoder/decoder,
 vice versa: both speak the Avro 1.x subset the reference's schemas use
 (primitives, record, enum, array, map, union, fixed).
 
-Left out: the ``fault_point``/``call_with_retry`` hooks, the framing probe
-``check_container_framing`` and shard quarantine (``read_shard`` with an
-ingest policy); they come with fault injection and degraded ingest.
+The records path carries the JAX package's degraded-ingest protocol
+(``:667``, ``:799-894``): ``read_container`` fires ``io.shard_open`` before
+a shard is opened, and ``read_shard`` fires ``io.avro_read`` per attempt,
+retries transient failures and, with an ingest policy, quarantines a shard
+that stays unreadable or decodes corrupt. Left out: the framing probe
+``check_container_framing``, which only the native columnar decoder
+needs.
 """
 
 from __future__ import annotations
@@ -21,6 +25,12 @@ import os
 import struct
 import zlib
 from typing import Any, Iterable, Optional
+
+from photon_ml_tpu_torch.utils.faults import fault_point
+from photon_ml_tpu_torch.utils.retry import (
+    RetryExhaustedError,
+    call_with_retry,
+)
 
 MAGIC = b"Obj\x01"
 SYNC_SIZE = 16
@@ -536,6 +546,7 @@ def write_container(path: str, schema: Any, records: Iterable[dict],
 
 def read_container(path: str) -> tuple[Any, list[Any]]:
     """Read an Avro object container file → (schema, records)."""
+    fault_point("io.shard_open", tag=os.path.basename(path))
     with open(path, "rb") as fh:
         buf = fh.read()
     if buf[:4] != MAGIC:
@@ -618,12 +629,36 @@ def read_container(path: str) -> tuple[Any, list[Any]]:
     return schema, records
 
 
+def read_shard(path: str, policy=None):
+    """One part file under the degraded-ingest protocol: ``io.avro_read``
+    fires per attempt (``corrupt``/``partial`` mutate the shard on disk),
+    transient failures retry, and a shard that stays unreadable or decodes
+    corrupt (``ValueError``, not retried) is quarantined through
+    ``policy`` and ``None`` returned; without a policy the error
+    raises."""
+    def attempt():
+        fault_point("io.avro_read", tag=os.path.basename(path), path=path)
+        return read_container(path)
+
+    try:
+        result = call_with_retry(attempt, site="io.avro_read")
+    except (RetryExhaustedError, ValueError, FileNotFoundError) as e:
+        if policy is None:
+            raise
+        policy.quarantine(path, stage=("decode" if isinstance(e, ValueError)
+                                       else "open"), error=e)
+        return None
+    if policy is not None:
+        policy.record_ok(path)
+    return result
+
+
 def read_records(path: str) -> list[Any]:
     """Records from a container file or a directory of part files —
     whichever ``path`` is."""
     if os.path.isdir(path):
         return read_directory(path)[1]
-    return read_container(path)[1]
+    return read_shard(path)[1]
 
 
 def list_avro_parts(path: str) -> list[str]:
@@ -653,7 +688,7 @@ def read_directory(path: str) -> tuple[Any, list[Any]]:
     schema = None
     records: list[Any] = []
     for part in list_avro_parts(path):
-        s, recs = read_container(part)
+        s, recs = read_shard(part)
         schema = schema or s
         records.extend(recs)
     return schema, records

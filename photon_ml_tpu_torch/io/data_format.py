@@ -13,8 +13,10 @@ DataProcessingUtils.scala:57-215).
 The JAX package decodes through its native columnar reader
 (``io/native_avro.py``) when it can and falls back to this interpreted
 loop; both build the same dataset. The port has only the loop; the native
-decoder, the legacy ``LabeledData``/LibSVM loaders and shard quarantine
-come in later slices.
+decoder and the legacy ``LabeledData``/LibSVM loaders come in later
+slices. With an ingest policy (``data/ingest.py``) the loop reads part
+file by part file and quarantines a corrupt or unreadable one, as the
+JAX package's interpreted fallback does (``:916-935``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from photon_ml_tpu_torch.game.dataset import GameDataset
-from photon_ml_tpu_torch.io.avro import list_avro_parts, read_records
+from photon_ml_tpu_torch.io.avro import list_avro_parts, read_shard
 from photon_ml_tpu_torch.io.index_map import IndexMap, feature_key
 
 # Avro field names (avro/AvroFieldNames.scala:21-28).
@@ -130,17 +132,36 @@ def game_dataset_from_records(
     return ds
 
 
+def _records(paths: Sequence[str], policy=None) -> Iterable[dict]:
+    """The records of the part files of ``paths`` (files, or directories
+    of parts), one file decoded at a time; with ``policy`` a corrupt or
+    unreadable part is quarantined and skipped."""
+    files: list[str] = []
+    for p in paths:
+        files.extend(list_avro_parts(p) if os.path.isdir(p) else [p])
+    if policy is not None:
+        policy.begin(len(files))
+    for f in files:
+        out = read_shard(f, policy=policy)
+        if out is not None:
+            yield from out[1]
+
+
 def load_game_dataset_avro(
         path: str | Sequence[str],
         feature_shard_sections: dict[str, Sequence[str]],
         index_maps: dict[str, IndexMap],
         id_types: Sequence[str] = (),
-        response_required: bool = True) -> GameDataset:
+        response_required: bool = True,
+        policy=None) -> GameDataset:
     """Avro records -> columnar :class:`GameDataset`. ``path`` is a file,
     a directory of part files, or a list of them (the dated
-    daily-partition layout resolves to several directories)."""
-    paths = [path] if isinstance(path, str) else list(path)
-    records = [r for p in paths for r in read_records(p)]
+    daily-partition layout resolves to several directories). ``policy``
+    (an :class:`~photon_ml_tpu_torch.data.ingest.IngestPolicy`) skips a
+    corrupt or unreadable part file instead of failing the load, within
+    its loss budget."""
+    records = list(_records([path] if isinstance(path, str) else path,
+                            policy))
     return game_dataset_from_records(
         records, feature_shard_sections, index_maps,
         id_types=id_types, response_required=response_required)
@@ -165,15 +186,13 @@ class NameAndTermFeatureSets:
         return NameAndTermFeatureSets(sets)
 
     @staticmethod
-    def from_paths(paths: Sequence[str], section_keys: Sequence[str]
-                   ) -> "NameAndTermFeatureSets":
+    def from_paths(paths: Sequence[str], section_keys: Sequence[str],
+                   policy=None) -> "NameAndTermFeatureSets":
         """Feature-map scan over data files, one part file decoded at a
-        time (GAMEDriver.prepareFeatureMapsDefault's distinct() scan)."""
-        files: list[str] = []
-        for p in paths:
-            files.extend(list_avro_parts(p) if os.path.isdir(p) else [p])
-        return NameAndTermFeatureSets.from_records(
-            (r for f in files for r in read_records(f)), section_keys)
+        time (GAMEDriver.prepareFeatureMapsDefault's distinct() scan);
+        ``policy`` quarantines corrupt or unreadable parts."""
+        return NameAndTermFeatureSets.from_records(_records(paths, policy),
+                                                   section_keys)
 
     def index_map(self, section_keys: Sequence[str],
                   add_intercept: bool) -> IndexMap:

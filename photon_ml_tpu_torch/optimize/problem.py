@@ -2,7 +2,9 @@
 
 Port of ``photon_ml_tpu/optimize/problem.py:71-298``: ``objective``,
 ``solve``/``run``/``run_lazy`` (the L-BFGS branch), ``publish`` and
-``regularization_value(_device)``. OWL-QN (L1), TRON, box constraints,
+``regularization_value(_device)``, and the ``optimizer.gradient`` fault
+point on the solver output (``:228``, ``:272``), where a ``nan`` drill
+stands for a diverged solve. OWL-QN (L1), TRON, box constraints,
 variances and the sharded backend wait for later slices and raise
 ``NotImplementedError``.
 """
@@ -31,6 +33,7 @@ from photon_ml_tpu_torch.optimize.config import (
     TaskType,
 )
 from photon_ml_tpu_torch.optimize.lbfgs import minimize_lbfgs
+from photon_ml_tpu_torch.utils.faults import fault_point
 
 Tensor = torch.Tensor
 
@@ -96,6 +99,7 @@ class GLMOptimizationProblem:
         """Train on a batch; returns (model in RAW feature space, result)."""
         x, history, progressed = self.solve(self.objective(), batch,
                                             self._x0(batch, initial))
+        x = fault_point("optimizer.gradient", arrays=x)
         return self.publish(x, history, progressed)
 
     def run_lazy(self, batch, initial: Optional[Tensor] = None
@@ -104,6 +108,7 @@ class GLMOptimizationProblem:
         (``problem.py:239-275``)."""
         x, history, progressed = self.solve(self.objective(), batch,
                                             self._x0(batch, initial))
+        x = fault_point("optimizer.gradient", arrays=x)
         cfg = self.config
         return DeferredOptimizationResult(x, history, progressed,
                                           cfg.max_iterations, cfg.tolerance)

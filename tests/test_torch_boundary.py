@@ -4,10 +4,14 @@
   or ``photon_ml_tpu`` (checked by importing every submodule in a fresh
   interpreter, and by an AST scan of the sources).
   Every package of the port (``cli``, ``io``, ``evaluation``, ``serve``,
-  ``utils`` among them) is walked.
+  ``utils``, ``data``, ``tools`` among them) is walked, and the
+  fault-tolerance modules (``utils/faults``, ``retry``, ``events``,
+  ``checkpoint``, ``preempt``, ``data/ingest``,
+  ``tools/crash_resume_drill``) are named in both checks.
 - On a host without CUDA the entry points, called without
-  ``device="cpu"`` (or the drivers without ``--device cpu``), raise
-  ``RuntimeError`` instead of running on the CPU.
+  ``device="cpu"`` (or the drivers and the crash/resume drill without
+  ``--device cpu``), raise ``RuntimeError`` instead of running on the
+  CPU.
 - The kernel path has no ``try`` that could fall back, and the JAX
   package's ``PHOTON_DISABLE_PALLAS`` switch is not honoured by the port.
 """
@@ -35,6 +39,11 @@ torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(photon_ml_tpu_torch.__file__).resolve().parent
 SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+FAULT_TOLERANCE_MODULES = [
+    "photon_ml_tpu_torch.utils.faults", "photon_ml_tpu_torch.utils.retry",
+    "photon_ml_tpu_torch.utils.events", "photon_ml_tpu_torch.utils.checkpoint",
+    "photon_ml_tpu_torch.utils.preempt", "photon_ml_tpu_torch.data.ingest",
+    "photon_ml_tpu_torch.tools.crash_resume_drill"]
 
 
 def _forbidden(module: str) -> bool:
@@ -53,25 +62,30 @@ def test_importing_every_submodule_leaves_jax_out():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'photon_ml_tpu' or "
         "m.startswith('photon_ml_tpu.'))\n"
+        f"missing = sorted(set({FAULT_TOLERANCE_MODULES!r}) - set(sys.modules))\n"
         "print(len([m for m in sys.modules "
-        "if m.startswith('photon_ml_tpu_torch.')]), bad)\n")
+        "if m.startswith('photon_ml_tpu_torch.')]), missing, bad)\n")
     # -I: a fresh interpreter that reads no PYTHON* variables or user site
     out = subprocess.run([sys.executable, "-I", "-c", code],
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 36
-    assert bad.strip() == "[]"
+    count, rest = out.stdout.split(" ", 1)
+    assert int(count) >= 44
+    assert rest.strip() == "[] []"
 
 
 def test_every_port_package_is_walked():
     subpackages = {p.parent.name for p in PKG.rglob("__init__.py")}
     assert {"cli", "io", "evaluation", "serve", "utils", "game", "ops",
-            "optimize"} <= subpackages
+            "optimize", "data", "tools"} <= subpackages
     walked = {p.relative_to(PKG).parts[0] for p in SOURCES
               if p.is_relative_to(PKG)}
     assert subpackages - {PKG.name} <= walked
+    scanned = {".".join(("photon_ml_tpu_torch",) + p.relative_to(PKG)
+                        .with_suffix("").parts)
+               for p in SOURCES if p.is_relative_to(PKG)}
+    assert set(FAULT_TOLERANCE_MODULES) <= scanned
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
@@ -165,6 +179,20 @@ def test_drivers_refuse_cpu_without_being_asked(no_cuda, monkeypatch,
     assert not os.path.exists(tmp_path / "out")
     assert not os.path.exists(tmp_path / "score")
     assert tpk.launch_count() == 0
+
+
+def test_drill_defaults_to_the_card(no_cuda, tmp_path, monkeypatch):
+    from photon_ml_tpu_torch.tools import crash_resume_drill as drill
+
+    # a refused drill must not start a worker on the CPU
+    monkeypatch.setattr(drill, "_spawn", lambda *a, **k: pytest.fail(
+        "the drill started a worker"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        drill.run_drill(str(tmp_path), str(tmp_path / "roles"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        drill.main(["--fixture-dir", str(tmp_path),
+                    "--workdir", str(tmp_path / "w")])
+    assert not os.path.exists(tmp_path / "roles")
 
 
 def test_dense_batch_defaults_to_the_card(no_cuda):

@@ -15,7 +15,9 @@ like the port; ``tests/test_torch_game.py`` explains why). Then:
 - each scoring driver scores the other's model, and the scores agree to
   1e-5 abs by uid;
 - every flag the port does not run yet ends its driver with
-  ``NotImplementedError`` (exit 3 and one ``PHOTON_ABORT`` line).
+  ``NotImplementedError`` (exit 3 and one ``PHOTON_ABORT`` line); the
+  checkpoint, recovery, stop and degraded-ingest flags run, and
+  ``tests/test_torch_drill.py`` holds them against the JAX drivers.
 """
 
 import json
@@ -291,10 +293,6 @@ def test_python_m_entry_points_run_on_cpu(runs, tmp_path):
 
 
 TRAIN_UNPORTED = [
-    ("--checkpoint-dir", ["--checkpoint-dir", "ckpt"]),
-    ("--checkpoint-every-coordinates",
-     ["--checkpoint-every-coordinates", "2"]),
-    ("--recovery-policy", ["--recovery-policy", "skip"]),
     ("--num-processes", ["--num-processes", "2"]),
     ("--max-worker-restarts", ["--max-worker-restarts", "1"]),
     ("--offheap-indexmap-dir", ["--offheap-indexmap-dir", "idx"]),
@@ -306,14 +304,11 @@ TRAIN_UNPORTED = [
     ("--re-entity-shards", ["--re-entity-shards", "auto"]),
     ("--precision", ["--precision", "bf16"]),
     ("--collective-quant", ["--collective-quant", "int8"]),
-    ("--max-shard-loss-frac", ["--max-shard-loss-frac", "0.5"]),
     ("--cd-block-size", ["--cd-block-size", "2"]),
     ("--cd-pipeline-depth", ["--cd-pipeline-depth", "1"]),
     ("--compute-variance", ["--compute-variance", "true"]),
     ("--re-lane-compaction-chunk", ["--re-lane-compaction-chunk", "4"]),
     ("--re-lane-compaction-chunk", ["--re-lane-compaction-chunk", "auto"]),
-    ("--max-train-seconds", ["--max-train-seconds", "60"]),
-    ("--stop-file", ["--stop-file", "stop"]),
     ("--trace-dir", ["--trace-dir", "trace"]),
     ("--telemetry-endpoint", ["--telemetry-endpoint", "127.0.0.1:1"]),
     ("--device-telemetry", ["--device-telemetry"]),
@@ -340,7 +335,6 @@ def test_training_driver_refuses_unported_flags(tmp_path, capsys, flag,
 SCORE_UNPORTED = [
     ("--num-processes", ["--num-processes", "2"]),
     ("--offheap-indexmap-dir", ["--offheap-indexmap-dir", "idx"]),
-    ("--max-shard-loss-frac", ["--max-shard-loss-frac", "0.5"]),
     ("--trace-dir", ["--trace-dir", "trace"]),
     ("--telemetry-endpoint", ["--telemetry-endpoint", "127.0.0.1:1"]),
     ("--device-telemetry", ["--device-telemetry"]),
