@@ -35,13 +35,18 @@ Phases, one JSON line each on stdout:
    data. Kernel launch counts are zeroed just before the run and read
    just after; every launch must have taken the stream path. A small
    GLMix also runs on the card and on the CPU, and the two must agree.
-6. driver — the same GLMix through the port's own drivers: the recipe
-   written as GAME Avro by the port's writer (100,000 training and 20,000
-   validation rows, full width), ``cli.game_training_driver.run`` (the
+6. driver — the same GLMix through the port's own drivers at full size:
+   the recipe written as GAME Avro by the port's writer (1,000,209
+   training and 200,000 validation rows, full width, as 16 + 4 part files
+   written by a pool of processes), ``cli.game_training_driver.run`` (the
    work of its ``main``) on the card (feature maps, Avro load, two sweeps
    with validation after every update, metrics.json, the GAME Avro
-   model), then ``cli.game_scoring_driver.run`` on ``best/`` over the
-   validation Avro.
+   model), then ``cli.game_scoring_driver`` in a process of its own on
+   ``best/`` over the validation Avro (its peak host RSS is reported).
+   Every part file must be decoded by the native columnar path
+   (``io/data_format.py`` ``INGEST_STATS``: no decline), and one training
+   part is loaded by the records path too, timed against the native
+   path and held equal to it array for array.
    The driver appends an intercept, so the fixed effect has 65 f32
    columns and its launches must all take the path ``kernel_path`` picks
    for them (staged); the scores must equal the library's score of the
@@ -57,8 +62,9 @@ Phases, one JSON line each on stdout:
    (reference, a real kill mid-sweep, resume, a SIGTERM, relaunch, an
    all-corrupt checkpoint directory), exit codes 0/19/75/0/0/3, the
    resumed and relaunched runs bit-exact to the reference in states,
-   scores and objectives, and every finishing process launching the
-   kernel on the path ``kernel_path`` picks for 65 f32 columns.
+   scores and objectives, every finishing process launching the kernel
+   on the path ``kernel_path`` picks for 65 f32 columns and reading every
+   part through the native path (its scan and load seconds reported).
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
@@ -89,10 +95,10 @@ GLMIX_SHAPE = (1_000_209, 64)
 # the GLMix fixed effect through the drivers: 64 features + the intercept
 DRIVER_SHAPE = (1_000_209, 65)
 BIG_SHAPE = (262_144, 2_048)
-# rows of the driver phase's Avro fixture (training, validation): the one
-# cut against the 1,000,209-row configuration, made for the pure-Python
-# Avro writer's cost; the widths are the configuration's
-DRIVER_ROWS = (100_000, 20_000)
+# rows of the driver phase's Avro fixture (training, validation): the
+# configuration's 1,000,209 training rows and a fifth as many to validate,
+# written as 16 + 4 part files; the widths are the configuration's
+DRIVER_ROWS = (1_000_209, 200_000)
 # rows of the resume phase's drill fixture: cut further, since six driver
 # processes each decode the Avro again, but not below the kernel's gate:
 # 40,000 x 65 = 2.6M elements passes ``pallas_supported``'s 2**21, where
@@ -107,8 +113,7 @@ CHECK_SHAPES = [((700, 128), False), ((1024, 256), False),
                 ((1000, 96), False), ((1001, 24), False),
                 ((1001, 8), False), ((777, 256), False),
                 ((777, 63), False), (GLMIX_SHAPE, True),
-                ((DRIVER_ROWS[0], 65), True), (DRIVER_SHAPE, True),
-                (BIG_SHAPE, True)]
+                (DRIVER_SHAPE, True), (BIG_SHAPE, True)]
 
 
 def emit(obj) -> None:
@@ -306,6 +311,127 @@ def cuda_times(torch, fn, reps=25, inner=1, warmup=3) -> dict:
             "queued_share": sum(t[3] for t in turns) / len(turns)}
 
 
+# the scoring driver as its own process. Its peak RSS so far is read after
+# the device's first tensor and after each driver phase, as the larger of
+# the kernel's high-water mark (VmHWM, where /proc gives it) and the most
+# a thread sampling the resident size every 2 ms saw. ru_maxrss is
+# reported beside it, but a child can inherit it from its parent's peak
+# across exec, so it bounds the child's peak only from above.
+SCORING_CHILD = """
+import contextlib, json, os, resource, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from photon_ml_tpu_torch.cli import game_scoring_driver as tsd
+from photon_ml_tpu_torch.io.data_format import INGEST_STATS
+argv = sys.argv[2:]
+page = os.sysconf("SC_PAGE_SIZE")
+seen = [0]
+def resident():
+    with open("/proc/self/statm") as f:
+        return page * int(f.read().split()[1])
+def sample():
+    while True:
+        seen[0] = max(seen[0], resident())
+        time.sleep(0.002)
+threading.Thread(target=sample, daemon=True).start()
+def peak():
+    seen[0] = max(seen[0], resident())
+    with open("/proc/self/status") as f:
+        hwm = [int(ln.split()[1]) * 1024 for ln in f
+               if ln.startswith("VmHWM:")]
+    return max([seen[0]] + hwm)
+rss = {}
+timed = tsd.timed_phase
+@contextlib.contextmanager
+def phase(name, logger=None, record=None):
+    with timed(name, logger, record) as t:
+        yield t
+    rss[name] = peak()
+tsd.timed_phase = phase
+rss["imports"] = peak()
+torch.zeros(1, device=argv[argv.index("--device") + 1])
+rss["device_init"] = peak()
+d = tsd.run(argv)
+rss["end"] = peak()
+print("SCORING_DRIVER " + json.dumps({
+    "metrics": d.metrics, "phase_seconds": d.phase_seconds,
+    "ingest_parts": INGEST_STATS, "max_rss_bytes_after": rss,
+    "ru_maxrss_bytes":
+        1024 * resource.getrusage(resource.RUSAGE_SELF).ru_maxrss}))
+"""
+
+
+def run_scoring_driver(argv) -> dict:
+    """The scoring driver in a process of its own (so that its peak host
+    RSS is its own): returns its metrics, phase seconds, ingest part
+    counts, the peak RSS after each step (``max_rss_bytes_after``) and
+    this process's resident size when it started the child."""
+    with open("/proc/self/statm") as f:
+        parent_rss = os.sysconf("SC_PAGE_SIZE") * int(f.read().split()[1])
+    out = subprocess.run([sys.executable, "-c", SCORING_CHILD, REPO, *argv],
+                         capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("SCORING_DRIVER ")]
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"scoring driver exit {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    return {**json.loads(lines[-1].split(" ", 1)[1]),
+            "parent_rss_bytes": parent_rss}
+
+
+def datasets_equal(a, b) -> bool:
+    """Two GameDatasets equal array for array: every CSR shard, the
+    responses, offsets, weights, uids and id codes and vocabularies."""
+    if set(a.feature_shards) != set(b.feature_shards) \
+            or set(a.id_columns) != set(b.id_columns):
+        return False
+    for k, x in a.feature_shards.items():
+        y = b.feature_shards[k]
+        if x.shape != y.shape or x.dtype != y.dtype or not all(
+                np.array_equal(getattr(x, f), getattr(y, f))
+                for f in ("indptr", "indices", "data")):
+            return False
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("responses", "offsets", "weights", "uids")) \
+        and all(np.array_equal(a.id_columns[t], b.id_columns[t])
+                and np.array_equal(a.id_vocabs[t], b.id_vocabs[t])
+                for t in a.id_columns)
+
+
+def random_effect_scoring(re_model, data) -> dict:
+    """A random-effect model's scores on ``data`` two ways: the dense
+    ``[N, D_raw]`` form the JAX package runs and the port's O(nnz) form,
+    each timed with its peak of traced host allocations (numpy reports
+    its buffers to ``tracemalloc``); raises unless they agree bit for
+    bit."""
+    import tracemalloc
+
+    from photon_ml_tpu_torch.game import models as tm
+
+    coefs = re_model.coefficients.cpu().numpy()
+    local = re_model._lookup(data)
+    mat = data.feature_shards[re_model.feature_shard_id]
+    padded = np.vstack([coefs, np.zeros((1, coefs.shape[1]), coefs.dtype)])
+    out, record = {}, {"rows": int(mat.shape[0]), "nnz": int(mat.nnz),
+                       "d_raw": int(mat.shape[1])}
+    for name, fn in (("dense", lambda: tm.rowwise_sparse_dot(
+                          mat, padded[local])),
+                     ("onnz", lambda: tm.rowwise_sparse_dot_gathered(
+                          mat, padded, local))):
+        tracemalloc.start()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        record[f"{name}_secs"] = time.perf_counter() - t0
+        record[f"{name}_peak_bytes"] = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+    if not np.array_equal(out["dense"], out["onnz"]):
+        raise AssertionError("O(nnz) random-effect scores differ from the "
+                             "dense form's")
+    record["bit_equal"] = True
+    record["onnz_nonzero_rows"] = int(np.count_nonzero(out["onnz"]))
+    return record
+
+
 def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
                  n_movies=3706, d_global=64):
     """The GLMix main path through the port's drivers (phase 6). Returns
@@ -314,29 +440,29 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     on any failed check, the kernel's last."""
     import shutil
 
-    from photon_ml_tpu_torch.cli import game_scoring_driver as tsd
     from photon_ml_tpu_torch.cli import game_training_driver as ttd
     from photon_ml_tpu_torch.game.dataset import build_fixed_effect_dataset
-    from photon_ml_tpu_torch.io.data_format import load_game_dataset_avro
+    from photon_ml_tpu_torch.io import data_format as tdf
     from photon_ml_tpu_torch.io.model_io import load_scored_items
     from photon_ml_tpu_torch.ops import pallas_kernels as pk
     from photon_ml_tpu_torch.ops.losses import get_loss
     from photon_ml_tpu_torch.serve.scoring import load_scoring_model
     from photon_ml_tpu_torch.tools.crash_resume_drill import (
-        driver_argv, write_movielens_avro)
+        FIXTURE_PARTS, driver_argv, write_movielens_avro)
 
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
-    train, val = (os.path.join(workdir, f"{k}.avro")
-                  for k in ("train", "validate"))
+    train, val = (os.path.join(workdir, k) for k in ("train", "validate"))
     out, score_out = (os.path.join(workdir, k) for k in ("train_out",
                                                           "score_out"))
     t0 = time.perf_counter()
-    write_movielens_avro(train, val, *rows, n_users, n_movies, d_global)
+    write_movielens_avro(train, val, *rows, n_users, n_movies, d_global,
+                         parts=FIXTURE_PARTS)
     avro_write_secs = time.perf_counter() - t0
     argv = driver_argv(train, val, out, str(dev))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    tdf.reset_ingest_stats()
     pk.reset_launch_count()
     t0 = time.perf_counter()
     trainer = ttd.run(argv)
@@ -345,8 +471,16 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     driver_secs = time.perf_counter() - t0
     launches = pk.launch_count()
     by_path = dict(pk.fused_value_gradient_sums.launches_by_path)
+    train_ingest = dict(tdf.INGEST_STATS)
     peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
             else None)
+    # every part through the native path: the scan and the load of the
+    # training parts, the load of the validation parts
+    want_parts = 2 * FIXTURE_PARTS[0] + FIXTURE_PARTS[1]
+    if train_ingest != {"native_parts": want_parts, "declined_parts": 0,
+                        "records_parts": 0}:
+        raise AssertionError(f"the training driver's ingest left the "
+                             f"native path: {train_ingest}")
 
     record = json.load(open(os.path.join(out, "metrics.json")))
     (grid,) = record["grid"]
@@ -369,12 +503,19 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     if not best_states:
         raise AssertionError("no state holds the best validation AUC")
 
-    scorer = tsd.run(["--input-data-dirs", val,
-                       "--game-model-input-dir", os.path.join(out, "best"),
-                       "--output-dir", score_out,
-                       "--feature-shard-id-to-feature-section-keys-map",
-                       DRIVER_SECTIONS, "--random-effect-id-set", "userId",
-                       "--evaluator-type", "AUC", "--device", str(dev)])
+    t0 = time.perf_counter()
+    scorer = run_scoring_driver([
+        "--input-data-dirs", val,
+        "--game-model-input-dir", os.path.join(out, "best"),
+        "--output-dir", score_out,
+        "--feature-shard-id-to-feature-section-keys-map", DRIVER_SECTIONS,
+        "--random-effect-id-set", "userId", "--evaluator-type", "AUC",
+        "--device", str(dev)])
+    scoring_driver_secs = time.perf_counter() - t0
+    if scorer["ingest_parts"] != {"native_parts": FIXTURE_PARTS[1],
+                                  "declined_parts": 0, "records_parts": 0}:
+        raise AssertionError(f"the scoring driver's ingest left the native "
+                             f"path: {scorer['ingest_parts']}")
     scored = load_scored_items(os.path.join(score_out, "scores",
                                             "part-00000.avro"))
     scores = np.asarray([r["predictionScore"] for r in scored])
@@ -384,17 +525,45 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     model, maps = load_scoring_model(os.path.join(out, "best"), {})
     sections = {k: [v] for k, v in (x.split(":") for x in
                                     DRIVER_SECTIONS.split("|"))}
-    vdata = load_game_dataset_avro(val, sections, maps, id_types=["userId"],
-                                   response_required=False)
+    vdata = tdf.load_game_dataset_avro(val, sections, maps,
+                                       id_types=["userId"],
+                                       response_required=False)
     lib = model.score(vdata, device=dev).cpu().numpy().astype(np.float64)
+    del vdata
     score_gap = float(np.abs(lib - scores).max())
     if not score_gap <= 1e-5:
         raise AssertionError(f"scoring driver vs library score: "
                              f"{score_gap:.3g}")
-    auc_gap = abs(scorer.metrics["AUC"] - best_auc)
+    auc_gap = abs(scorer["metrics"]["AUC"] - best_auc)
     if not auc_gap <= 1e-6:
-        raise AssertionError(f"scoring driver AUC {scorer.metrics['AUC']} "
-                             f"!= best validation AUC {best_auc}")
+        raise AssertionError(f"scoring driver AUC {scorer['metrics']['AUC']}"
+                             f" != best validation AUC {best_auc}")
+
+    # the final model's per-user scores on the validation rows: the
+    # O(nnz) form against the dense one (best/ may hold an earlier state)
+    re_scoring = random_effect_scoring(
+        trainer.best_result.model.models["perUser"].to_raw(),
+        trainer.validate_data)
+    if not re_scoring["nnz"] or not re_scoring["onnz_nonzero_rows"]:
+        raise AssertionError(f"the per-user scoring check scored "
+                             f"nothing: {re_scoring}")
+
+    # one training part through both ingest paths: the same dataset
+    part = os.path.join(train, "part-00000.avro")
+    load_args = ([part], trainer.section_keys, trainer.index_maps)
+    t0 = time.perf_counter()
+    native = tdf.load_game_dataset_avro(*load_args, id_types=["userId"])
+    native_secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = tdf.load_game_dataset_records(*load_args, id_types=["userId"])
+    records_secs = time.perf_counter() - t0
+    if not datasets_equal(native, plain):
+        raise AssertionError("native and records ingest of one part differ")
+    one_part = {"rows": int(native.num_samples), "native_secs": native_secs,
+                "records_secs": records_secs,
+                "records_over_native": records_secs / native_secs,
+                "datasets_equal": True}
+    del native, plain
 
     # the kernel on the driver's own fixed-effect batch, against its plain
     # version (after the counts were read)
@@ -415,9 +584,10 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     secs = trainer.phase_seconds
     phase = {
         "phase": "driver", "nvidia_smi": smi,
-        "reduced": {"rows": {"train": rows[0], "validate": rows[1],
-                             "configuration": 1_000_209},
-                    "why": "pure-Python Avro writer cost of the fixture"},
+        "rows": {"train": rows[0], "validate": rows[1]},
+        "reduced": {"sweeps": 2,
+                    "why": "depth only: two coordinate-descent sweeps"},
+        "fixture_parts": list(FIXTURE_PARTS),
         "users": n_users, "movies": n_movies, "d_global": d_global,
         "fixed_effect_columns": int(X.shape[1]),
         "avro_write_secs": avro_write_secs,
@@ -427,16 +597,27 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
         "train_secs_per_update": [s["seconds"] for s in states],
         "model_write_secs": secs["saveModels"],
         "training_driver_secs": driver_secs,
-        "score_secs": scorer.phase_seconds,
+        "training_ingest_parts": train_ingest,
+        "score_secs": scorer["phase_seconds"],
+        "scoring_driver_secs": scoring_driver_secs,
+        "scoring_ingest_parts": scorer["ingest_parts"],
+        "scoring_driver_max_rss_bytes": scorer["max_rss_bytes_after"]["end"],
+        "scoring_driver_max_rss_bytes_after": scorer["max_rss_bytes_after"],
+        "scoring_driver_ru_maxrss_bytes": scorer["ru_maxrss_bytes"],
+        "rss_bytes_when_scoring_driver_started": scorer["parent_rss_bytes"],
+        "one_part_records_vs_native": one_part,
+        "random_effect_scoring": re_scoring,
         "objectives": [s["objective"] for s in states],
         "validation_metrics": [s["validation_metrics"] for s in states],
-        "best_metric": best_auc, "scoring_driver_auc": scorer.metrics["AUC"],
+        "best_metric": best_auc,
+        "scoring_driver_auc": scorer["metrics"]["AUC"],
         "score_vs_library_max_abs": score_gap,
         "kernel_launches": launches, "launches_by_path": by_path,
         "expected_path": expected,
         "max_memory_allocated": peak,
         "kernel_check": check,
     }
+    print("driver phase: " + json.dumps(phase), file=sys.stderr, flush=True)
     if launches <= 0 or by_path[expected] != launches:
         raise AssertionError(f"the driver's fixed effect did not launch "
                              f"the kernel on the {expected} path: {by_path}")
@@ -552,22 +733,31 @@ def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
     roles, launches = {}, {}
     for r, v in record["roles"].items():
         w = v["worker"] or {}
+        secs = w.get("phase_seconds") or {}
         roles[r] = {"exit": v["exit"], "wall_secs": v["wall_secs"],
                     **{k: w.get(k) for k in (
                         "launches_by_path", "snapshot_bytes", "snapshots",
-                        "save_secs", "restore_secs", "phase_seconds")},
+                        "save_secs", "restore_secs", "phase_seconds",
+                        "ingest_parts")},
+                    "feature_map_secs": secs.get("prepareFeatureMaps"),
+                    "load_secs": secs.get("prepareGameDataSet"),
                     "worker_secs": w.get("wall_secs")}
         if w:
             launches[r] = w["launches_by_path"]
+        # a finishing worker read every part through the native path
+        if secs and (w["ingest_parts"]["declined_parts"]
+                     or w["ingest_parts"]["records_parts"]
+                     or not w["ingest_parts"]["native_parts"]):
+            raise AssertionError(f"drill {r}: ingest left the native path: "
+                                 f"{w['ingest_parts']}")
     ref = record["roles"]["reference"]["worker"]
     shutil.rmtree(workdir, ignore_errors=True)
     return {
         "reduced": {"rows": {"train": rows[0], "validate": rows[1],
                              "configuration": 1_000_209},
                     "why": "six driver processes each decode the Avro "
-                           "again (pure-Python decoder); the training rows "
-                           "keep the fixed effect above the kernel's gate "
-                           "of 2**21 elements"},
+                           "again; the training rows keep the fixed effect "
+                           "above the kernel's gate of 2**21 elements"},
         "sweeps": drill.SWEEPS, "fixture_write_secs": write_secs,
         "fixed_effect_columns": ref["fixed_effect_columns"],
         "expected_path": ref["expected_path"], "roles": roles,

@@ -4,7 +4,10 @@ Port of ``photon_ml_tpu/game/models.py:51-194`` and ``:276-299``. A
 random-effect model loaded from disk carries its raw ``entity_ids`` and
 scores a dataset through that dataset's own id vocabulary. Scoring
 stays on the host with scipy's CSR products, as in the JAX package, and the
-result is handed back as an f32 tensor on the requested device.
+result is handed back as an f32 tensor on the requested device. A
+random effect scores in O(nnz) (:func:`rowwise_sparse_dot_gathered`),
+where the JAX package builds the dense ``[N, D_raw]`` coefficient rows;
+the scores are the same bit for bit.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
@@ -63,6 +67,21 @@ def rowwise_sparse_dot(mat, w_rows: np.ndarray) -> np.ndarray:
     return np.asarray(mat.multiply(w_rows).sum(axis=1)).ravel()
 
 
+def rowwise_sparse_dot_gathered(mat, table: np.ndarray,
+                                local: np.ndarray) -> np.ndarray:
+    """:func:`rowwise_sparse_dot` against ``table[local]`` in O(nnz): the
+    coefficient is gathered at each stored entry and the products summed
+    per row in CSR storage order, the order of the dense form's sum, so
+    the result is the same bit for bit without the ``[N, D]`` array."""
+    if table.shape[1] != mat.shape[1]:
+        raise ValueError(f"inconsistent shapes: {mat.shape} rows against "
+                         f"coefficients of width {table.shape[1]}")
+    row_of = np.repeat(np.arange(mat.shape[0]), np.diff(mat.indptr))
+    prod = mat.data * table[local[row_of], mat.indices]
+    summed = sp.csr_matrix((prod, mat.indices, mat.indptr), shape=mat.shape)
+    return summed @ np.ones(mat.shape[1], dtype=prod.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class FixedEffectModel:
     """GLM over one feature shard."""
@@ -92,21 +111,26 @@ class RandomEffectModel:
     coefficients: Tensor  # [E, D_raw]
     entity_ids: Optional[np.ndarray] = None
 
+    def _lookup(self, data: GameDataset) -> np.ndarray:
+        """Coefficient row of each dataset row (E, a zero row, where the
+        entity has no model): by raw id for a model read from disk, else
+        by dataset code (``models.py:137-145``)."""
+        codes = data.id_columns[self.random_effect_type]
+        if self.entity_ids is not None:
+            return _codes_via_ids(self.entity_ids,
+                                  data.id_vocabs[self.random_effect_type],
+                                  codes)
+        return _match(self.entity_codes, codes)
+
     def score(self, data: GameDataset, device="cuda") -> Tensor:
         coefs = _host(self.coefficients)
         if coefs.shape[0] == 0:
             return _on(device, np.zeros(data.num_samples))
-        codes = data.id_columns[self.random_effect_type]
-        if self.entity_ids is not None:
-            local = _codes_via_ids(self.entity_ids,
-                                   data.id_vocabs[self.random_effect_type],
-                                   codes)
-        else:
-            local = _match(self.entity_codes, codes)
         mat = data.feature_shards[self.feature_shard_id]
         padded = np.vstack([coefs, np.zeros((1, coefs.shape[1]),
                                             dtype=coefs.dtype)])
-        return _on(device, rowwise_sparse_dot(mat, padded[local]))
+        return _on(device, rowwise_sparse_dot_gathered(
+            mat, padded, self._lookup(data)))
 
 
 @dataclasses.dataclass(frozen=True)

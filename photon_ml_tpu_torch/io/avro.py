@@ -12,9 +12,10 @@ The records path carries the JAX package's degraded-ingest protocol
 (``:667``, ``:799-894``): ``read_container`` fires ``io.shard_open`` before
 a shard is opened, and ``read_shard`` fires ``io.avro_read`` per attempt,
 retries transient failures and, with an ingest policy, quarantines a shard
-that stays unreadable or decodes corrupt. Left out: the framing probe
-``check_container_framing``, which only the native columnar decoder
-needs.
+that stays unreadable or decodes corrupt. ``check_container_framing``
+(``:750``) is the probe the native columnar path (``io/native_avro.py``)
+runs on a shard it declined, to tell a corrupt shard from an unsupported
+schema.
 """
 
 from __future__ import annotations
@@ -627,6 +628,69 @@ def read_container(path: str) -> tuple[Any, list[Any]]:
             raise ValueError(f"{path}: sync marker mismatch (corrupt block)")
         dec.pos += SYNC_SIZE
     return schema, records
+
+
+def check_container_framing(path: str) -> None:
+    """Validate a container's FRAME structure — magic, header metadata,
+    block varints, payload bounds, deflate integrity, sync markers —
+    without decoding a single record. Raises the same
+    ``ValueError``/``OSError`` taxonomy as :func:`read_container` on a
+    corrupt/truncated file and returns None on a well-framed one.
+
+    This is the cheap corrupt-vs-unsupported probe of degraded ingest on
+    the native path: when the native decoder declines a shard, framing
+    errors mean quarantine (the shard is damaged), while a well-framed
+    shard means the schema is outside the decoder's subset (the input
+    goes to the records reader, which also owns the rare
+    frames-ok-but-corrupt-record-bytes case)."""
+    fault_point("io.shard_open", tag=os.path.basename(path))
+    with open(path, "rb") as fh:
+        buf = fh.read()
+    if buf[:4] != MAGIC:
+        raise ValueError(f"{path}: not an Avro container file")
+    dec = BinaryDecoder(buf, 4)
+    meta = {}
+    try:
+        while True:
+            count = dec.read_long()
+            if count == 0:
+                break
+            if count < 0:
+                dec.read_long()
+                count = -count
+            for _ in range(count):
+                k = dec.read_string()
+                meta[k] = dec.read_bytes()
+        parse_schema(meta["avro.schema"].decode())
+    except (IndexError, KeyError, UnicodeDecodeError) as e:
+        raise ValueError(f"{path}: corrupt container header: {e!r}") from e
+    codec = meta.get("avro.codec", b"null").decode()
+    if dec.pos + SYNC_SIZE > len(buf):
+        raise ValueError(f"{path}: truncated before sync marker")
+    sync = buf[dec.pos:dec.pos + SYNC_SIZE]
+    dec.pos += SYNC_SIZE
+    while dec.pos < len(buf):
+        try:
+            count = dec.read_long()
+            size = dec.read_long()
+        except IndexError as e:
+            raise ValueError(
+                f"{path}: truncated block header") from e
+        if count < 0 or size < 0 or dec.pos + size > len(buf):
+            raise ValueError(
+                f"{path}: corrupt block header (count={count}, "
+                f"size={size}, {len(buf) - dec.pos} bytes left)")
+        if codec == "deflate":
+            try:
+                zlib.decompress(buf[dec.pos:dec.pos + size], -15)
+            except zlib.error as e:
+                raise ValueError(
+                    f"{path}: corrupt deflate block: {e}") from e
+        dec.pos += size
+        if buf[dec.pos:dec.pos + SYNC_SIZE] != sync:
+            raise ValueError(
+                f"{path}: sync marker mismatch (corrupt block)")
+        dec.pos += SYNC_SIZE
 
 
 def read_shard(path: str, policy=None):

@@ -1,22 +1,37 @@
-"""GAME ingestion: Avro records -> columnar ``GameDataset``, feature sets.
+"""GAME ingestion: Avro -> columnar ``GameDataset``, feature sets.
 
-Port of the records path of ``photon_ml_tpu/io/data_format.py`` —
-``_id_from_record`` (``:599-610``), ``game_dataset_from_records``
-(``:808-896``), ``load_game_dataset_avro`` (``:899-943``) and
-``NameAndTermFeatureSets`` (``:951-1071``; avro/data/NameAndTermFeature
-SetContainer.scala:38-127). Per record: one sparse row per feature shard
-(the union of its feature sections), response/offset/weight, id columns
-from top-level fields or ``metadataMap``, the intercept appended when the
-shard's index map carries the intercept key (avro/data/
-DataProcessingUtils.scala:57-215).
+Port of the GAME ingestion of ``photon_ml_tpu/io/data_format.py``, both of
+its paths (avro/data/DataProcessingUtils.scala:57-215,
+avro/data/NameAndTermFeatureSetContainer.scala:38-127). Per record: one
+sparse row per feature shard (the union of its feature sections),
+response/offset/weight, id columns from top-level fields or
+``metadataMap``, the intercept appended when the shard's index map
+carries the intercept key.
 
-The JAX package decodes through its native columnar reader
-(``io/native_avro.py``) when it can and falls back to this interpreted
-loop; both build the same dataset. The port has only the loop; the native
-decoder and the legacy ``LabeledData``/LibSVM loaders come in later
-slices. With an ingest policy (``data/ingest.py``) the loop reads part
-file by part file and quarantines a corrupt or unreadable one, as the
-JAX package's interpreted fallback does (``:916-935``).
+- The native columnar path, which every load and feature scan takes
+  first: ``_columnar_part_paths`` (``:128``), ``_QUARANTINED`` and
+  ``_columnar_part_or_quarantine`` (``:155-197``, the framing probe and
+  the ``io.avro_read`` retry), ``_feature_col_ok`` (``:200``),
+  ``_unique_name_terms`` (``:215``), ``_feature_triples`` (``:235``),
+  ``_columnar_game_dataset`` (``:613-805``), the dispatch of
+  ``load_game_dataset_avro`` (``:899-943``) and the columnar scan of
+  ``NameAndTermFeatureSets.from_paths`` (``:970-1016``). Part files are
+  decoded one at a time by ``io/native_avro.py``.
+- The records path, the plain version: ``_id_from_record``
+  (``:599-610``), ``game_dataset_from_records`` (``:808-896``),
+  :func:`load_game_dataset_records` and
+  ``NameAndTermFeatureSets.from_records``. An input goes down it whole
+  when a part's schema is outside the native decoder's subset
+  (``read_columnar`` returns None) or a column the columnar assembly
+  cannot take (a nullable feature section, a numeric uid, a float id),
+  exactly where the JAX package sends it; a failed build of the native
+  library raises instead. :data:`INGEST_STATS` counts the parts each path
+  read.
+
+With an ingest policy (``data/ingest.py``) either path quarantines a
+corrupt or unreadable part file within the loss budget. The saved
+feature sets load under the ``io.index_map`` fault point with retry
+(``:1036-1048``).
 """
 
 from __future__ import annotations
@@ -28,13 +43,38 @@ import numpy as np
 import scipy.sparse as sp
 
 from photon_ml_tpu_torch.game.dataset import GameDataset
-from photon_ml_tpu_torch.io.avro import list_avro_parts, read_shard
+from photon_ml_tpu_torch.io.avro import (
+    check_container_framing,
+    list_avro_parts,
+    read_shard,
+)
 from photon_ml_tpu_torch.io.index_map import IndexMap, feature_key
+from photon_ml_tpu_torch.io.native_avro import (
+    OP_LONG,
+    OP_STRING,
+    arena_strings,
+    read_columnar,
+)
+from photon_ml_tpu_torch.utils.faults import fault_point
+from photon_ml_tpu_torch.utils.retry import (
+    RetryExhaustedError,
+    call_with_retry,
+)
 
 # Avro field names (avro/AvroFieldNames.scala:21-28).
 NAME, TERM, VALUE = "name", "term", "value"
 RESPONSE, OFFSET, WEIGHT, UID = "response", "offset", "weight", "uid"
 META_DATA_MAP = "metadataMap"
+
+#: part files decoded by the native columnar path, declines (a part that
+#: sent its whole input down the records path) and part files read by the
+#: records path, since the last :func:`reset_ingest_stats`
+INGEST_STATS = {"native_parts": 0, "declined_parts": 0, "records_parts": 0}
+
+
+def reset_ingest_stats() -> None:
+    for k in INGEST_STATS:
+        INGEST_STATS[k] = 0
 
 
 def _id_from_record(rec: dict, id_type: str) -> str:
@@ -49,6 +89,313 @@ def _id_from_record(rec: dict, id_type: str) -> str:
                 f"Cannot find id in either record field {id_type!r} or in "
                 f"metadataMap with key {id_type!r}")
     return str(v)
+
+
+# ---------------------------------------------------------------------------
+# The native columnar path
+# ---------------------------------------------------------------------------
+
+
+def _columnar_part_paths(path: str) -> list[str]:
+    """Part files of a file-or-directory input (the records reader's set)."""
+    if os.path.isdir(path):
+        return list_avro_parts(path)
+    return [path]
+
+
+#: "this shard was quarantined: skip it and keep the native path" (distinct
+#: from None, "outside the decoder's subset: read the input as records")
+_QUARANTINED = object()
+
+
+def _columnar_part_or_quarantine(path: str, policy):
+    """``read_columnar`` under the degraded-ingest protocol: the columnar
+    part, ``None`` for a shape the native decoder does not cover (the
+    caller reads the whole input as records), or :data:`_QUARANTINED`
+    when the shard was lost to the policy.
+
+    The native decoder declines corrupt framing with ``None`` instead of
+    raising (the records reader owns the diagnostics), so on a None with a
+    policy active the container framing is probed once, without decoding
+    a record, to tell a corrupt shard (quarantine it, keep the native
+    path for the rest) from an unsupported schema (read as records)."""
+    def attempt():
+        fault_point("io.avro_read", tag=os.path.basename(path), path=path)
+        return read_columnar(path)
+
+    try:
+        part = call_with_retry(attempt, site="io.avro_read")
+    except (RetryExhaustedError, ValueError, FileNotFoundError) as e:
+        if policy is None:
+            raise
+        policy.quarantine(path, stage=("decode" if isinstance(e, ValueError)
+                                       else "open"), error=e)
+        return _QUARANTINED
+    if part is None and policy is not None:
+        # the probe opens the file again, under the same retry as every
+        # other open: a transient EIO mid-probe must not quarantine a
+        # healthy but unsupported shard
+        try:
+            call_with_retry(lambda: check_container_framing(path),
+                            site="io.shard_open")
+        except (RetryExhaustedError, ValueError, FileNotFoundError) as e:
+            policy.quarantine(path,
+                              stage=("decode" if isinstance(e, ValueError)
+                                     else "open"), error=e)
+            return _QUARANTINED
+        return None
+    if part is not None and policy is not None:
+        policy.record_ok(path)
+    return part
+
+
+def _feature_col_ok(col) -> bool:
+    """A feature array column :func:`_feature_triples` can take: record
+    items with string name/term (interned codes) and a numeric value."""
+    if col is None or "subs" not in col:
+        return False
+    subs = col["subs"]
+    if any(k not in subs for k in (NAME, TERM, VALUE)):
+        return False
+    if any(subs[k].get("op") != OP_STRING for k in (NAME, TERM)):
+        return False
+    return subs[VALUE].get("op") != OP_STRING
+
+
+def _unique_name_terms(subs, with_inverse: bool = True):
+    """Interned name/term sub-columns -> (per-entry unique-pair ids,
+    unique (name, term) pair list). ``with_inverse=False`` (the feature
+    scan) skips the per-entry inverse."""
+    name_codes = subs[NAME]["codes"].astype(np.int64)
+    name_uniq = subs[NAME]["uniq"]
+    term_codes = subs[TERM]["codes"]
+    term_uniq = subs[TERM]["uniq"]
+    nt = max(len(term_uniq), 1)
+    pair = name_codes * nt + term_codes
+    if with_inverse:
+        upair, inv_p = np.unique(pair, return_inverse=True)
+    else:
+        upair, inv_p = np.unique(pair), None
+    upairs = [(str(name_uniq[p // nt]), str(term_uniq[p % nt]))
+              for p in upair]
+    return inv_p, upairs
+
+
+def _feature_triples(col, num_prior_rows_total: int):
+    """array<record> feature column -> (row of each entry, unique-key id
+    of each entry, the unique keys, values). Keys are composed once per
+    unique (name, term) pair; the per-entry work is integer arithmetic."""
+    lengths = col["lengths"]
+    values = col["subs"][VALUE]["values"]
+    rows = np.repeat(
+        np.arange(len(lengths), dtype=np.int64) + num_prior_rows_total,
+        lengths)
+    inv_p, upairs = _unique_name_terms(col["subs"])
+    ukeys = [feature_key(n, t) for n, t in upairs]
+    return rows, inv_p, ukeys, values
+
+
+def _columnar_game_dataset(
+        paths: Sequence[str],
+        feature_shard_sections: dict[str, Sequence[str]],
+        index_maps: dict[str, IndexMap],
+        id_types: Sequence[str],
+        response_required: bool,
+        policy=None) -> Optional[GameDataset]:
+    """GAME assembly from native columnar reads, part by part, so that
+    peak memory is the largest part plus the assembled CSR; None sends
+    the input down the records path. Each part's feature keys are mapped
+    through the index maps as it streams by."""
+    sections_needed = sorted({s for secs in feature_shard_sections.values()
+                              for s in secs})
+    resp_parts, off_parts, wt_parts, uids_parts = [], [], [], []
+    have_uid = False
+    ids_parts: dict[str, list] = {t: [] for t in id_types}
+    # per shard: filtered (rows, cols, vals) triples, index-mapped per part
+    shard_acc: dict[str, list] = {s: [] for s in feature_shard_sections}
+    base = 0
+    part_files = [f for p in paths for f in _columnar_part_paths(p)]
+    if policy is not None:
+        policy.begin(len(part_files))
+    for pf in part_files:
+        part = _columnar_part_or_quarantine(pf, policy)
+        if part is _QUARANTINED:
+            continue  # shard lost; the others keep streaming
+        if part is None:
+            INGEST_STATS["declined_parts"] += 1
+            return None
+        schema, count, cols = part
+        if not _columns_supported(schema, cols, sections_needed, id_types,
+                                  response_required):
+            INGEST_STATS["declined_parts"] += 1
+            return None
+
+        r = cols.get(RESPONSE)
+        if r is not None and "values" in r:
+            vals = r["values"].copy()
+            null_mask = r["nulls"] == 1
+            if response_required and null_mask.any():
+                raise ValueError(
+                    f"record {base + int(np.argmax(null_mask))} has no "
+                    f"response field")
+            vals[null_mask] = np.nan
+            resp_parts.append(np.asarray(vals, dtype=float))
+        elif response_required:
+            raise ValueError(f"record {base} has no response field")
+        else:
+            resp_parts.append(np.full(count, np.nan))
+        off = cols.get(OFFSET)
+        off_parts.append(np.asarray(off["values"], dtype=float)
+                         if off is not None and "values" in off
+                         else np.zeros(count))
+        wt = cols.get(WEIGHT)
+        wt_parts.append(np.where(wt["nulls"] == 1, 1.0, wt["values"])
+                        if wt is not None and "values" in wt
+                        else np.ones(count))
+        u = cols.get(UID)
+        if u is not None and "arena" in u:
+            s = arena_strings(u["arena"], u["offsets"], dedup=False)
+            if (u["nulls"] == 0).any():
+                have_uid = True
+            s[u["nulls"] == 1] = ""
+            uids_parts.append(s)
+        else:
+            uids_parts.append(np.full(count, "", dtype=object))
+
+        ids_local = _part_ids(cols, count, id_types)
+        for t in id_types:
+            ids_parts[t].append(ids_local[t])
+
+        for shard, sections in feature_shard_sections.items():
+            imap = index_maps[shard]
+            for sec in sections:
+                rows, keyid, ukeys, values = _feature_triples(
+                    cols[sec], base)
+                ucol = np.asarray([imap.index_of(k) for k in ukeys],
+                                  np.int64)
+                c = ucol[keyid]
+                ok = c >= 0
+                shard_acc[shard].append((rows[ok], c[ok], values[ok]))
+        base += count
+        INGEST_STATS["native_parts"] += 1
+    if base == 0 and not part_files:
+        return None
+
+    n = base
+    responses = (np.concatenate(resp_parts) if resp_parts
+                 else np.full(0, np.nan))
+    offsets = np.concatenate(off_parts) if off_parts else np.zeros(0)
+    weights = np.concatenate(wt_parts) if wt_parts else np.ones(0)
+    ids_obj = {t: (np.concatenate(ids_parts[t]) if ids_parts[t]
+                   else np.zeros(0, dtype=object)) for t in id_types}
+    for t in id_types:
+        missing = np.asarray([v is None for v in ids_obj[t]])
+        if missing.any():
+            raise ValueError(
+                f"Cannot find id in either record field {t!r} or in "
+                f"metadataMap with key {t!r}")
+
+    shards = {}
+    for shard, acc in shard_acc.items():
+        imap = index_maps[shard]
+        rows = (np.concatenate([a[0] for a in acc]) if acc
+                else np.zeros(0, np.int64))
+        cvec = (np.concatenate([a[1] for a in acc]) if acc
+                else np.zeros(0, np.int64))
+        vals = np.concatenate([a[2] for a in acc]) if acc else np.zeros(0)
+        d = len(imap)
+        rc = rows * np.int64(d) + cvec
+        if len(np.unique(rc)) != len(rc):
+            raise ValueError(
+                f"Duplicate feature in a record for shard {shard!r}")
+        intercept_idx = imap.intercept_index
+        if intercept_idx is not None:
+            rows = np.concatenate([rows, np.arange(n, dtype=np.int64)])
+            cvec = np.concatenate(
+                [cvec, np.full(n, intercept_idx, np.int64)])
+            vals = np.concatenate([vals, np.ones(n)])
+        shards[shard] = sp.csr_matrix((vals, (rows, cvec)), shape=(n, d))
+
+    ds = GameDataset(responses=responses, feature_shards=shards,
+                     offsets=offsets, weights=weights)
+    for t in id_types:
+        ds.encode_ids(t, np.asarray([str(v) for v in ids_obj[t]],
+                                    dtype=object))
+    if have_uid:
+        ds.uids = np.concatenate(uids_parts).astype(object)
+    return ds
+
+
+def _columns_supported(schema, cols, sections_needed, id_types,
+                       response_required) -> bool:
+    """Whether the columnar assembly takes a decoded part; where it does
+    not, the records path keeps its own semantics (per-record errors for
+    a null section, ``str()`` of a numeric uid or a float id)."""
+    field_types = {f["name"]: f["type"]
+                   for f in (schema.get("fields", [])
+                             if isinstance(schema, dict) else [])}
+    for sec in sections_needed:
+        if not _feature_col_ok(cols.get(sec)):
+            return False
+        if isinstance(field_types.get(sec), list):
+            return False  # a nullable section
+    u = cols.get(UID)
+    if u is not None and "arena" not in u:
+        return False  # a numeric uid
+    for aux in (OFFSET, WEIGHT):
+        c = cols.get(aux)
+        if c is not None and "values" not in c:
+            return False
+    # top-level ids: strings, or integer columns (str(int) is the records
+    # path's str(v) exactly); float ids are read as records
+    for t in id_types:
+        c = cols.get(t)
+        if c is not None and "arena" not in c and c.get("op") != OP_LONG:
+            return False
+    return not (response_required and (RESPONSE not in cols
+                                       or "values" not in cols[RESPONSE]))
+
+
+def _part_ids(cols, count: int, id_types) -> dict:
+    """id type -> object array of each row's raw id (None where the part
+    has none): the top-level field first, then ``metadataMap``."""
+    ids_local = {t: np.full(count, None, dtype=object) for t in id_types}
+    for t in id_types:
+        c = cols.get(t)
+        if c is None:
+            continue
+        if "arena" in c:
+            s = arena_strings(c["arena"], c["offsets"])
+            ok = (c["nulls"] == 0) & (s != "")
+            ids_local[t][ok] = s[ok]
+        elif "values" in c:
+            iv = c["values"].astype(np.int64)
+            uniq, inv = np.unique(iv, return_inverse=True)
+            s = np.asarray([str(int(u)) for u in uniq], dtype=object)[inv]
+            ok = c["nulls"] == 0
+            ids_local[t][ok] = s[ok]
+    m = cols.get(META_DATA_MAP)
+    if m is not None and "key_codes" in m:
+        pair_rows = np.repeat(np.arange(count, dtype=np.int64), m["lengths"])
+        key_uniq = m["key_uniq"]
+        for t in id_types:
+            matches = np.flatnonzero(key_uniq == t)
+            if len(matches) == 0:
+                continue
+            hit = m["key_codes"] == matches[0]
+            if hit.any():
+                rows_t = pair_rows[hit]
+                vals_t = m["val_uniq"][m["val_codes"][hit]]
+                still = np.asarray(
+                    [ids_local[t][rr] is None for rr in rows_t])
+                # later map entries win, as dict construction does
+                ids_local[t][rows_t[still]] = vals_t[still]
+    return ids_local
+
+
+# ---------------------------------------------------------------------------
+# The records path
+# ---------------------------------------------------------------------------
 
 
 def game_dataset_from_records(
@@ -136,15 +483,28 @@ def _records(paths: Sequence[str], policy=None) -> Iterable[dict]:
     """The records of the part files of ``paths`` (files, or directories
     of parts), one file decoded at a time; with ``policy`` a corrupt or
     unreadable part is quarantined and skipped."""
-    files: list[str] = []
-    for p in paths:
-        files.extend(list_avro_parts(p) if os.path.isdir(p) else [p])
+    files = [f for p in paths for f in _columnar_part_paths(p)]
     if policy is not None:
         policy.begin(len(files))
     for f in files:
         out = read_shard(f, policy=policy)
+        INGEST_STATS["records_parts"] += 1
         if out is not None:
             yield from out[1]
+
+
+def load_game_dataset_records(
+        paths: Sequence[str],
+        feature_shard_sections: dict[str, Sequence[str]],
+        index_maps: dict[str, IndexMap],
+        id_types: Sequence[str] = (),
+        response_required: bool = True,
+        policy=None) -> GameDataset:
+    """The records path of :func:`load_game_dataset_avro`: every record
+    decoded to a dict, then :func:`game_dataset_from_records`."""
+    return game_dataset_from_records(
+        list(_records(paths, policy)), feature_shard_sections, index_maps,
+        id_types=id_types, response_required=response_required)
 
 
 def load_game_dataset_avro(
@@ -156,15 +516,21 @@ def load_game_dataset_avro(
         policy=None) -> GameDataset:
     """Avro records -> columnar :class:`GameDataset`. ``path`` is a file,
     a directory of part files, or a list of them (the dated
-    daily-partition layout resolves to several directories). ``policy``
-    (an :class:`~photon_ml_tpu_torch.data.ingest.IngestPolicy`) skips a
+    daily-partition layout resolves to several directories). The native
+    columnar path reads it unless a part declines, and then the records
+    path reads all of it. ``policy`` (an
+    :class:`~photon_ml_tpu_torch.data.ingest.IngestPolicy`) skips a
     corrupt or unreadable part file instead of failing the load, within
-    its loss budget."""
-    records = list(_records([path] if isinstance(path, str) else path,
-                            policy))
-    return game_dataset_from_records(
-        records, feature_shard_sections, index_maps,
-        id_types=id_types, response_required=response_required)
+    its loss budget, on either path."""
+    paths = [path] if isinstance(path, str) else list(path)
+    fast = _columnar_game_dataset(paths, feature_shard_sections,
+                                  index_maps, id_types, response_required,
+                                  policy=policy)
+    if fast is not None:
+        return fast
+    return load_game_dataset_records(
+        paths, feature_shard_sections, index_maps, id_types=id_types,
+        response_required=response_required, policy=policy)
 
 
 class NameAndTermFeatureSets:
@@ -189,10 +555,35 @@ class NameAndTermFeatureSets:
     def from_paths(paths: Sequence[str], section_keys: Sequence[str],
                    policy=None) -> "NameAndTermFeatureSets":
         """Feature-map scan over data files, one part file decoded at a
-        time (GAMEDriver.prepareFeatureMapsDefault's distinct() scan);
-        ``policy`` quarantines corrupt or unreadable parts."""
-        return NameAndTermFeatureSets.from_records(_records(paths, policy),
-                                                   section_keys)
+        time (GAMEDriver.prepareFeatureMapsDefault's distinct() scan): on
+        the native path the unique name/term tables of each part are the
+        sets, and no per-entry string is built; a part that declines sends
+        the scan to the records path. ``policy`` quarantines corrupt or
+        unreadable parts."""
+        files = [f for p in paths for f in _columnar_part_paths(p)]
+        sets: dict[str, set[tuple[str, str]]] = {
+            k: set() for k in section_keys}
+        if policy is not None:
+            policy.begin(len(files))
+        for f in files:
+            part = _columnar_part_or_quarantine(f, policy)
+            if part is _QUARANTINED:
+                continue
+            cols = None if part is None else part[2]
+            if cols is None or not all(_feature_col_ok(cols.get(k))
+                                       for k in section_keys):
+                INGEST_STATS["declined_parts"] += 1
+                return NameAndTermFeatureSets.from_records(
+                    _records(paths, policy), section_keys)
+            for k in section_keys:
+                _, upairs = _unique_name_terms(cols[k]["subs"],
+                                               with_inverse=False)
+                sets[k].update(upairs)
+            INGEST_STATS["native_parts"] += 1
+        if not files:
+            return NameAndTermFeatureSets.from_records(
+                _records(paths, policy), section_keys)
+        return NameAndTermFeatureSets(sets)
 
     def index_map(self, section_keys: Sequence[str],
                   add_intercept: bool) -> IndexMap:
@@ -214,6 +605,20 @@ class NameAndTermFeatureSets:
     @staticmethod
     def load(directory: str,
              section_keys: Sequence[str]) -> "NameAndTermFeatureSets":
+        """The sets :meth:`save` wrote. They are required state, so a
+        lost file is not quarantined; transient I/O retries (the
+        ``io.index_map`` fault point) and a persistent failure raises
+        ``RetryExhaustedError``, which the drivers end with exit 3."""
+        def attempt():
+            fault_point("io.index_map", tag=os.path.basename(directory))
+            return NameAndTermFeatureSets._load_once(directory,
+                                                     section_keys)
+
+        return call_with_retry(attempt, site="io.index_map")
+
+    @staticmethod
+    def _load_once(directory: str,
+                   section_keys: Sequence[str]) -> "NameAndTermFeatureSets":
         sets: dict[str, set[tuple[str, str]]] = {}
         for section in section_keys:
             pairs = set()

@@ -16,8 +16,9 @@ Coefficient files hold ``BayesianLinearModelAvro`` records (one per fixed
 effect, modelId "fixed-effect"; one per entity, modelId = raw entity id)
 with the JVM model class name the reference reflects on. Records are the
 JAX package's byte for byte; only the random sync marker of each file
-differs. Scores are encoded by the pure-Python writer (the JAX package's
-native ``score_encoder.cpp`` comes in a later slice), in the same blocks.
+differs. Scores are encoded block by block by the port's native encoder
+(``csrc/host/score_encoder.cpp`` through ``io/native_loader.py``), as in
+the JAX package; ``save_scored_items_records`` is the plain version.
 Matrix-factorization models and the legacy text models come later too.
 """
 
@@ -50,6 +51,7 @@ from photon_ml_tpu_torch.io.index_map import (
     feature_key,
     split_feature_key,
 )
+from photon_ml_tpu_torch.io.native_loader import encode_scores_native
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_ml_tpu_torch.optimize.config import TaskType
 
@@ -301,16 +303,36 @@ def save_scored_items(path: str, scores, model_id: str,
                       labels: Optional[np.ndarray] = None,
                       weights: Optional[np.ndarray] = None) -> None:
     """ScoringResultAvro output (avro/data/ScoreProcessingUtils.scala),
-    one deflate block per ``DEFAULT_SYNC_INTERVAL`` records."""
+    one deflate block per ``DEFAULT_SYNC_INTERVAL`` records, each block's
+    records encoded by the native encoder (``model_io.py:390-430``). An
+    encoder that refuses a block raises; nothing switches writers."""
+    def encode(lo, hi, uid_arr):
+        raw = encode_scores_native(
+            scores[lo:hi], model_id,
+            uids=None if uid_arr is None else uid_arr[lo:hi],
+            labels=None if labels is None else labels[lo:hi],
+            weights=None if weights is None else weights[lo:hi])
+        if raw is None:
+            raise RuntimeError(f"the native score encoder refused records "
+                               f"{lo}:{hi} of {path}")
+        return raw
+
     scores = _host64(scores)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    uid_arr = None if uids is None else np.asarray(
+        [str(u) for u in uids], dtype=object)
+    _write_scored_blocks(path, len(scores), encode, uid_arr)
+
+
+def save_scored_items_records(path: str, scores, model_id: str,
+                              uids: Optional[Iterable] = None,
+                              labels: Optional[np.ndarray] = None,
+                              weights: Optional[np.ndarray] = None) -> None:
+    """The plain version of :func:`save_scored_items`: the same blocks,
+    each record encoded by the Avro writer from a dict."""
     schema = parse_schema(schemas.SCORING_RESULT)
     writer = compile_writer(schema, _names_index(schema))
-    uid_list = None if uids is None else [str(u) for u in uids]
-    n = len(scores)
-    blocks = []
-    for lo in range(0, n, DEFAULT_SYNC_INTERVAL):
-        hi = min(lo + DEFAULT_SYNC_INTERVAL, n)
+
+    def encode(lo, hi, uid_list):
         buf = io.BytesIO()
         enc = BinaryEncoder(buf)
         for i in range(lo, hi):
@@ -321,8 +343,20 @@ def save_scored_items(path: str, scores, model_id: str,
                 "predictionScore": float(scores[i]),
                 "weight": None if weights is None else float(weights[i]),
                 "metadataMap": None})
-        blocks.append((hi - lo, buf.getvalue()))
-    _write_container_raw(path, schema, blocks)
+        return buf.getvalue()
+
+    scores = _host64(scores)
+    _write_scored_blocks(path, len(scores), encode,
+                         None if uids is None else [str(u) for u in uids])
+
+
+def _write_scored_blocks(path: str, n: int, encode, uids) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    blocks = []
+    for lo in range(0, n, DEFAULT_SYNC_INTERVAL):
+        hi = min(lo + DEFAULT_SYNC_INTERVAL, n)
+        blocks.append((hi - lo, encode(lo, hi, uids)))
+    _write_container_raw(path, schemas.SCORING_RESULT, blocks)
 
 
 def _write_container_raw(path: str, schema, blocks: list) -> None:

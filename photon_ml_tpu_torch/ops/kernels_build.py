@@ -9,7 +9,10 @@ pointers and the CUDA stream travel as ``c_void_p``. Nothing here touches
 ``torch.utils.cpp_extension``: a plain C interface builds in seconds.
 
 The build is never attempted at import time — only the first kernel
-launch (or an explicit :func:`build_all`) calls it.
+launch (or an explicit :func:`build_all`) calls it. The hashed file name
+and the compile-to-``.tmp``-then-rename step (:func:`cached_library`,
+:func:`start_build`, :func:`finish_build`) are shared with the host
+library of ``io/native_loader.py``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -62,13 +65,47 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
+def cached_library(stem: str, sources: Sequence[str],
+                   flags: Sequence[str], salt: str = "") -> str:
+    """Path under :data:`BUILD_DIR` of the library built from ``sources``
+    with ``flags``: the file name carries a hash of the sources, the flags
+    and ``salt``, so an edit rebuilds and an unchanged build is reused."""
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(flags).encode())
+    h.update(salt.encode())
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+
+
+def start_build(cmd: Sequence[str], out: str) -> tuple:
+    """Start ``cmd`` followed by ``-o <tmp>``, where ``<tmp>`` is a
+    per-process name beside ``out``: processes building the same
+    library at once never write one file. :func:`finish_build` waits for it."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.Popen([*cmd, "-o", tmp], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out, time.perf_counter()
+
+
+def finish_build(job: tuple, what: str) -> dict:
+    """Wait for a :func:`start_build` job and rename its output into place;
+    raises ``RuntimeError`` with the compiler's output when it failed.
+    Returns ``{"seconds": compile wall time, "log": compiler output}``."""
+    proc, tmp, out, t0 = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"build of {what} failed "
+                           f"(rc {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return {"seconds": time.perf_counter() - t0, "log": log}
+
+
+def _lib_path(name: str) -> str:
+    return cached_library(name, [os.path.join(CSRC_DIR, name + ".cu")],
+                          NVCC_FLAGS)
 
 
 def build_all(names: Optional[list] = None) -> dict[str, ctypes.CDLL]:
@@ -76,26 +113,17 @@ def build_all(names: Optional[list] = None) -> dict[str, ctypes.CDLL]:
     library not loaded yet; returns name -> ``ctypes.CDLL``."""
     names = list(SIGNATURES) if names is None else names
     todo = [n for n in names if n not in _LIBS]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
+    jobs = {}
     for name in todo:
         out = _lib_path(name)
         if os.path.exists(out):
             BUILD_INFO[name] = {"seconds": 0.0, "log": "reused " + out}
             continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, name + ".cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu "
-                               f"(rc {proc.returncode}):\n{log}")
-        os.replace(tmp, out)
-        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        jobs[name] = start_build(
+            [_nvcc(), *NVCC_FLAGS, os.path.join(CSRC_DIR, name + ".cu")],
+            out)
+    for name, job in jobs.items():
+        BUILD_INFO[name] = finish_build(job, f"{name}.cu with nvcc")
     for name in todo:
         lib = ctypes.CDLL(_lib_path(name))
         for fn, (restype, argtypes) in SIGNATURES[name].items():

@@ -36,7 +36,9 @@ resume point equal bit for bit. Validation metrics and ``best_metric``
 are held to 1e-12 relative: on the card a metric's segment sums are
 atomic adds in no fixed order (the training floats have no such sum).
 Every worker that finishes prints one JSON line (wall seconds, kernel
-launches by path, snapshot bytes and save seconds); on the card each
+launches by path, snapshot bytes and save seconds, the part files each
+ingest path read, and the driver's phase seconds: the feature-map scan
+and the load among them); on the card each
 finishing worker must have launched the fused kernel, every time on the
 path ``kernel_path`` picks for the fixed effect's width.
 
@@ -61,6 +63,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -111,6 +114,7 @@ def run_worker(argv: list) -> None:
     import torch
 
     from photon_ml_tpu_torch.cli import game_training_driver as ttd
+    from photon_ml_tpu_torch.io.data_format import INGEST_STATS
     from photon_ml_tpu_torch.ops import kernels_build
     from photon_ml_tpu_torch.ops import pallas_kernels as pk
     from photon_ml_tpu_torch.utils.checkpoint import CHECKPOINT_STATS
@@ -126,7 +130,8 @@ def run_worker(argv: list) -> None:
                "snapshot_bytes": CHECKPOINT_STATS["bytes"],
                "snapshots": CHECKPOINT_STATS["saves"],
                "save_secs": CHECKPOINT_STATS["save_seconds"],
-               "restore_secs": CHECKPOINT_STATS["restore_seconds"]}
+               "restore_secs": CHECKPOINT_STATS["restore_seconds"],
+               "ingest_parts": dict(INGEST_STATS)}
         if driver is not None:
             d = len(driver.index_maps["global"])
             rec["fixed_effect_columns"] = d
@@ -145,18 +150,15 @@ def run_worker(argv: list) -> None:
 # -- the drill ---------------------------------------------------------------
 
 
-def write_movielens_avro(train_path: str, val_path: str, n_train: int,
-                         n_val: int, n_users: int, n_movies: int,
-                         d_global: int, seed: int = 7) -> None:
-    """The GLMix recipe (``bench.py:581``) for ``n_train + n_val`` rows as
-    GAME Avro, written by the port's writer: ``d_global`` dense features
-    ``g<j>`` in ``globalFeatures``, the movie one-hot (``movie``, term =
-    movie id) in ``userFeatures``, ``userId`` in ``metadataMap``; the first
-    ``n_train`` rows train, the rest validate."""
-    from photon_ml_tpu_torch.io import schemas
-    from photon_ml_tpu_torch.io.avro import write_container
+#: part files of :func:`write_movielens_avro` as directories: (training,
+#: validation); fixed, so that the fixture does not depend on the host
+FIXTURE_PARTS = (16, 4)
 
-    schema = {
+
+def _glmix_schema() -> dict:
+    from photon_ml_tpu_torch.io import schemas
+
+    return {
         "name": "GameRecord", "type": "record", "namespace": "glmix",
         "fields": [
             {"name": "uid", "type": ["null", "string"], "default": None},
@@ -172,6 +174,48 @@ def write_movielens_avro(train_path: str, val_path: str, n_train: int,
              "type": {"type": "array", "items": "FeatureAvro"}},
         ],
     }
+
+
+def _write_rows(task: tuple) -> None:
+    """Write rows ``lo..`` of the recipe (their features, labels, users and
+    movies) as one Avro container; a process-pool task."""
+    from photon_ml_tpu_torch.io.avro import write_container
+
+    path, lo, Xg, labels, users, movies = task
+    names = [f"g{j}" for j in range(Xg.shape[1])]
+    rows, labels = Xg.astype(np.float64).tolist(), labels.tolist()
+    users_s, movies_s = users.astype(str), movies.astype(str)
+
+    def records():
+        for i in range(len(rows)):
+            yield {"uid": str(lo + i), "response": labels[i], "offset": None,
+                   "weight": None, "metadataMap": {"userId": users_s[i]},
+                   "globalFeatures": [{"name": nm, "term": "", "value": v}
+                                      for nm, v in zip(names, rows[i])],
+                   "userFeatures": [{"name": "movie", "term": movies_s[i],
+                                     "value": 1.0}]}
+
+    write_container(path, _glmix_schema(), records())
+
+
+def write_movielens_avro(train_path: str, val_path: str, n_train: int,
+                         n_val: int, n_users: int, n_movies: int,
+                         d_global: int, seed: int = 7,
+                         parts: Optional[tuple] = None) -> None:
+    """The GLMix recipe (``bench.py:581``) for ``n_train + n_val`` rows as
+    GAME Avro, written by the port's writer: ``d_global`` dense features
+    ``g<j>`` in ``globalFeatures``, the movie one-hot (``movie``, term =
+    movie id) in ``userFeatures``, ``userId`` in ``metadataMap``; the first
+    ``n_train`` rows train, the rest validate.
+
+    With ``parts`` = (training parts, validation parts), e.g.
+    :data:`FIXTURE_PARTS`, each path is a directory of
+    ``part-<k>.avro`` files holding consecutive row ranges in order, and
+    a pool of processes (one per part, at most one per core) writes
+    them; the pool starts its workers with ``spawn``, so a caller
+    with a live CUDA context passes none of it on. Loaded, the directory
+    is the one-file fixture's dataset array for array. Without
+    ``parts`` each path is one file, written in this process."""
     rng = np.random.default_rng(seed)
     n = n_train + n_val
     users = (rng.zipf(1.3, size=n) % n_users).astype(np.int64)
@@ -182,21 +226,27 @@ def write_movielens_avro(train_path: str, val_path: str, n_train: int,
     logits = Xg @ wg + 0.5 * rng.normal(size=n_users)[users].astype(
         np.float32)
     y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logits))).astype(np.float64)
-    names = [f"g{j}" for j in range(d_global)]
-    rows, labels = Xg.astype(np.float64).tolist(), y.tolist()
-    users_s, movies_s = users.astype(str), movies.astype(str)
 
-    def records(lo, hi):
-        for i in range(lo, hi):
-            yield {"uid": str(i), "response": labels[i], "offset": None,
-                   "weight": None, "metadataMap": {"userId": users_s[i]},
-                   "globalFeatures": [{"name": nm, "term": "", "value": v}
-                                      for nm, v in zip(names, rows[i])],
-                   "userFeatures": [{"name": "movie", "term": movies_s[i],
-                                     "value": 1.0}]}
+    def task(path, lo, hi):
+        return path, lo, Xg[lo:hi], y[lo:hi], users[lo:hi], movies[lo:hi]
 
-    write_container(train_path, schema, records(0, n_train))
-    write_container(val_path, schema, records(n_train, n))
+    if parts is None:
+        _write_rows(task(train_path, 0, n_train))
+        _write_rows(task(val_path, n_train, n))
+        return
+    tasks = []
+    for path, lo, hi, k in ((train_path, 0, n_train, parts[0]),
+                            (val_path, n_train, n, parts[1])):
+        os.makedirs(path, exist_ok=True)
+        bounds = np.linspace(lo, hi, k + 1).astype(np.int64)
+        tasks += [task(os.path.join(path, f"part-{i:05d}.avro"),
+                       int(bounds[i]), int(bounds[i + 1]))
+                  for i in range(k)]
+    import multiprocessing
+
+    procs = min(len(tasks), os.cpu_count() or 1)
+    with multiprocessing.get_context("spawn").Pool(procs) as pool:
+        pool.map(_write_rows, tasks, chunksize=1)
 
 
 def write_fixture(directory: str, rows: tuple = (2_000, 500),

@@ -91,13 +91,19 @@ FAULT_POINTS: dict[str, FaultPointInfo] = {
         has_path=True),
     "io.shard_open": FaultPointInfo(
         "before an Avro shard's bytes are opened (io/avro.py "
-        "read_container); tag = shard basename",
+        "read_container and check_container_framing, io/native_avro.py "
+        "_read_blocks); tag = shard basename",
         modes=("raise", "io_error", "flaky", "slow", "delay")),
     "io.avro_read": FaultPointInfo(
-        "per shard at decode time (io/avro.py read_shard); tag = shard "
-        "basename; corrupt/partial mutate the shard on disk",
+        "per shard at decode time (io/avro.py read_shard, io/data_format.py "
+        "_columnar_part_or_quarantine); tag = shard basename; "
+        "corrupt/partial mutate the shard on disk",
         modes=("raise", "io_error", "corrupt", "partial", "flaky"),
         has_path=True),
+    "io.index_map": FaultPointInfo(
+        "on a feature name-and-term set load (io/data_format.py "
+        "NameAndTermFeatureSets.load); tag = directory basename",
+        modes=("raise", "io_error", "flaky", "slow")),
 }
 
 

@@ -7,7 +7,11 @@
   ``utils``, ``data``, ``tools`` among them) is walked, and the
   fault-tolerance modules (``utils/faults``, ``retry``, ``events``,
   ``checkpoint``, ``preempt``, ``data/ingest``,
-  ``tools/crash_resume_drill``) are named in both checks.
+  ``tools/crash_resume_drill``) and the native ingest modules
+  (``io/native_loader``, ``io/native_avro``) are named in both checks.
+- No port source, C++ source or ``chip_smoke.py`` names a path under the
+  JAX package's ``native/``: the port builds its own copies from
+  ``csrc/host/``, and importing it builds nothing.
 - On a host without CUDA the entry points, called without
   ``device="cpu"`` (or the drivers and the crash/resume drill without
   ``--device cpu``), raise ``RuntimeError`` instead of running on the
@@ -19,6 +23,7 @@
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -44,6 +49,9 @@ FAULT_TOLERANCE_MODULES = [
     "photon_ml_tpu_torch.utils.events", "photon_ml_tpu_torch.utils.checkpoint",
     "photon_ml_tpu_torch.utils.preempt", "photon_ml_tpu_torch.data.ingest",
     "photon_ml_tpu_torch.tools.crash_resume_drill"]
+NATIVE_INGEST_MODULES = ["photon_ml_tpu_torch.io.native_loader",
+                         "photon_ml_tpu_torch.io.native_avro"]
+NAMED_MODULES = FAULT_TOLERANCE_MODULES + NATIVE_INGEST_MODULES
 
 
 def _forbidden(module: str) -> bool:
@@ -62,17 +70,19 @@ def test_importing_every_submodule_leaves_jax_out():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'photon_ml_tpu' or "
         "m.startswith('photon_ml_tpu.'))\n"
-        f"missing = sorted(set({FAULT_TOLERANCE_MODULES!r}) - set(sys.modules))\n"
+        f"missing = sorted(set({NAMED_MODULES!r}) - set(sys.modules))\n"
+        "from photon_ml_tpu_torch.io import native_loader\n"
         "print(len([m for m in sys.modules "
-        "if m.startswith('photon_ml_tpu_torch.')]), missing, bad)\n")
+        "if m.startswith('photon_ml_tpu_torch.')]), missing, bad, "
+        "native_loader._lib)\n")
     # -I: a fresh interpreter that reads no PYTHON* variables or user site
     out = subprocess.run([sys.executable, "-I", "-c", code],
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode == 0, out.stderr
     count, rest = out.stdout.split(" ", 1)
-    assert int(count) >= 44
-    assert rest.strip() == "[] []"
+    assert int(count) >= 46
+    assert rest.strip() == "[] [] None"
 
 
 def test_every_port_package_is_walked():
@@ -85,7 +95,18 @@ def test_every_port_package_is_walked():
     scanned = {".".join(("photon_ml_tpu_torch",) + p.relative_to(PKG)
                         .with_suffix("").parts)
                for p in SOURCES if p.is_relative_to(PKG)}
-    assert set(FAULT_TOLERANCE_MODULES) <= scanned
+    assert set(NAMED_MODULES) <= scanned
+
+
+def test_no_port_source_names_the_jax_native_dir():
+    csrc = sorted((PKG / "csrc").rglob("*.c*"))
+    assert {p.name for p in csrc} >= {"fused_value_gradient.cu",
+                                      "avro_columnar.cpp",
+                                      "score_encoder.cpp"}
+    for path in SOURCES + csrc:
+        text = path.read_text()
+        assert not re.search(r"(?<![\w.-])native/", text), path.name
+        assert "native_build" not in text and "native.build" not in text
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)

@@ -14,6 +14,9 @@ like the port; ``tests/test_torch_game.py`` explains why). Then:
   (both hold the f32 values the Avro doubles carry);
 - each scoring driver scores the other's model, and the scores agree to
   1e-5 abs by uid;
+- both drivers decode the fixture natively, and the port's driver on its
+  records path (every part declined) writes the same metrics.json
+  objectives and validation metrics, states and scores;
 - every flag the port does not run yet ends its driver with
   ``NotImplementedError`` (exit 3 and one ``PHOTON_ABORT`` line); the
   checkpoint, recovery, stop and degraded-ingest flags run, and
@@ -34,6 +37,7 @@ from photon_ml_tpu.io import model_io as jio
 from photon_ml_tpu.io.avro import write_container
 from photon_ml_tpu_torch.cli import game_scoring_driver as tsd
 from photon_ml_tpu_torch.cli import game_training_driver as ttd
+from photon_ml_tpu_torch.io import data_format as tdf
 from photon_ml_tpu_torch.io import model_io as tio
 
 torch.set_num_threads(1)
@@ -113,11 +117,14 @@ def runs(tmp_path_factory):
     out = {"jax": str(d / "jax"), "torch": str(d / "torch")}
     with jax.enable_x64(False):
         jax_train_main(base + ["--output-dir", out["jax"]])
+    tdf.reset_ingest_stats()
     result = ttd.run(base + ["--output-dir", out["torch"], "--device",
                              "cpu"]).best_result
+    ingest = dict(tdf.INGEST_STATS)
     metrics = {k: json.load(open(os.path.join(v, "metrics.json")))
                for k, v in out.items()}
-    return dict(dir=d, val=val, out=out, metrics=metrics, result=result)
+    return dict(dir=d, val=val, out=out, metrics=metrics, result=result,
+                base=base, ingest=ingest)
 
 
 def _states(metrics):
@@ -237,6 +244,54 @@ def test_each_scoring_driver_scores_the_others_model(runs, model_side):
         # driver recorded for the state that became best/
         recorded = runs["metrics"]["torch"]["best"]["metric"]
         assert abs(driver.metrics["AUC"] - recorded) <= 1e-6
+
+
+def test_native_ingest_trains_as_the_records_path(runs, tmp_path,
+                                                  monkeypatch):
+    """Both drivers above read the fixture through their native decoders.
+    The port's driver with every part declined (the records path) writes
+    the same objectives and validation metrics, ends on the same states,
+    and its scoring driver writes the same scores."""
+    from photon_ml_tpu.io.native_avro import read_columnar as jax_columnar
+
+    train = str(runs["dir"] / "train.avro")
+    assert jax_columnar(train) is not None and jax_columnar(
+        runs["val"]) is not None
+    # scan + load of the training file, load of the validation file
+    assert runs["ingest"] == {"native_parts": 3, "declined_parts": 0,
+                              "records_parts": 0}
+    score_argv = ["--input-data-dirs", runs["val"],
+                  "--feature-shard-id-to-feature-section-keys-map",
+                  SECTIONS, "--random-effect-id-set", "userId",
+                  "--device", "cpu"]
+    tsd.run(score_argv + ["--game-model-input-dir",
+                          os.path.join(runs["out"]["torch"], "best"),
+                          "--output-dir", str(tmp_path / "score_native")])
+
+    monkeypatch.setattr(tdf, "read_columnar", lambda path: None)
+    tdf.reset_ingest_stats()
+    out = str(tmp_path / "records")
+    result = ttd.run(runs["base"] + ["--output-dir", out, "--device",
+                                     "cpu"]).best_result
+    assert tdf.INGEST_STATS == {"native_parts": 0, "declined_parts": 3,
+                                "records_parts": 3}
+    got = _states(json.load(open(os.path.join(out, "metrics.json"))))
+    want = _states(runs["metrics"]["torch"])
+    assert [(s["iteration"], s["coordinate"], s["objective"],
+             s["validation_metrics"]) for s in got] == [
+        (s["iteration"], s["coordinate"], s["objective"],
+         s["validation_metrics"]) for s in want]
+    held, native = result.best_model.models, runs["result"].best_model.models
+    assert torch.equal(held["fixed"].model.coefficients.means,
+                       native["fixed"].model.coefficients.means)
+    assert torch.equal(held["perUser"].coefficients_projected,
+                       native["perUser"].coefficients_projected)
+    tsd.run(score_argv + ["--game-model-input-dir",
+                          os.path.join(out, "best"),
+                          "--output-dir", str(tmp_path / "score_records")])
+    part = os.path.join("scores", "part-00000.avro")
+    assert tio.load_scored_items(str(tmp_path / "score_records" / part)) \
+        == tio.load_scored_items(str(tmp_path / "score_native" / part))
 
 
 def test_validation_matches_users_by_raw_id(runs, tmp_path):
