@@ -66,6 +66,34 @@ Phases, one JSON line each on stdout:
    on the path ``kernel_path`` picks for 65 f32 columns and reading every
    part through the native path (its scan and load seconds reported).
 
+8. second_order — TRON and OWL-QN (L1 / elastic net) on the card:
+   (a) BASELINE config 2 at ``bench.py``'s shape (262,144 x 2,048 f32, the
+   data of ``bench.py:169 _data()`` with a linear response): linear
+   regression, TRON + L2 through ``GLMOptimizationProblem.run`` with
+   variances (finite, positive), TRON's accepted values never rising, the
+   solution equal to a solve with the kernel gated off within rel 1e-4;
+   (b) BASELINE config 3 at ``bench.py:386-425``'s recipe (Poisson
+   65,536 x 512, elastic net, OWL-QN): ``solve_ms``, ``iterations``,
+   ``nnz_coefficients``, and a solve with the kernel gated off ending
+   after as many iterations, with the same exact zeros, within rel 1e-4;
+   (d) a small GLMix of each new solver on the card
+   and on the CPU, objectives within rel 1e-4; a ``torch.profiler`` pass
+   over one per-user update of L-BFGS, TRON and OWL-QN on phase 5's
+   per-user coordinate (wall seconds, device busy time and idle share,
+   solver reads); (c) the training driver twice on phase 6's
+   fixture (linear TRON + L2 with ``--compute-variance``, Poisson L-BFGS +
+   elastic net; two sweeps, 4 buckets, per-user cap 128): finite
+   objectives, no fixed-effect update raising the objective (a per-user
+   update may: it sees only each user's 128 active rows, in both
+   packages, as ``tests/test_torch_game_second_order.py`` shows; the
+   sweep-end objectives are reported), TRON's accepted
+   fixed-effect values never rising, then the scoring driver on the
+   Poisson run's ``best/``, its POISSON_LOSS equal to the best state's.
+   Every fixed-effect launch of (a)-(d) takes the path
+   ``kernel_path`` picks (staged at 8 KB, 2 KB and 260-byte rows) and is
+   counted by loss. The timing phase has two more rows: Poisson at
+   65,536 x 512 and squared at 262,144 x 2,048, f32.
+
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
 no result line is printed. Without CUDA, or outside the repository, it
@@ -74,8 +102,10 @@ exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -95,6 +125,8 @@ GLMIX_SHAPE = (1_000_209, 64)
 # the GLMix fixed effect through the drivers: 64 features + the intercept
 DRIVER_SHAPE = (1_000_209, 65)
 BIG_SHAPE = (262_144, 2_048)
+# BASELINE config 3 (bench.py:398, Poisson elastic net)
+CONFIG3_SHAPE = (65_536, 512)
 # rows of the driver phase's Avro fixture (training, validation): the
 # configuration's 1,000,209 training rows and a fifth as many to validate,
 # written as 16 + 4 part files; the widths are the configuration's
@@ -113,7 +145,8 @@ CHECK_SHAPES = [((700, 128), False), ((1024, 256), False),
                 ((1000, 96), False), ((1001, 24), False),
                 ((1001, 8), False), ((777, 256), False),
                 ((777, 63), False), (GLMIX_SHAPE, True),
-                (DRIVER_SHAPE, True), (BIG_SHAPE, True)]
+                (DRIVER_SHAPE, True), (CONFIG3_SHAPE, True),
+                (BIG_SHAPE, True)]
 
 
 def emit(obj) -> None:
@@ -152,9 +185,10 @@ def movielens_data(rng, n, n_users, n_movies, d_global):
 
 
 def glmix_coordinates(data, device, active_cap=128, feature_cap=128,
-                      num_buckets=4):
-    """Fixed effect (L-BFGS + L2, lambda 10, 40 iterations) + per-user
-    random effect (lambda 1, 20 iterations), tolerance 1e-7."""
+                      num_buckets=4, case="lbfgs"):
+    """Fixed effect + per-user random effect with the configurations of
+    ``GLMIX_CASES[case]`` (for "lbfgs": L-BFGS + L2, lambda 10 and 40
+    iterations, then lambda 1 and 20 iterations, tolerance 1e-7)."""
     from photon_ml_tpu_torch.game.coordinate import (
         FixedEffectCoordinate, RandomEffectCoordinate)
     from photon_ml_tpu_torch.game.dataset import (
@@ -163,18 +197,13 @@ def glmix_coordinates(data, device, active_cap=128, feature_cap=128,
     from photon_ml_tpu_torch.game.random_effect import (
         RandomEffectOptimizationProblem)
     from photon_ml_tpu_torch.optimize.config import (
-        GLMOptimizationConfiguration, OptimizerType, RegularizationContext,
-        RegularizationType, TaskType)
+        GLMOptimizationConfiguration, TaskType)
     from photon_ml_tpu_torch.optimize.problem import GLMOptimizationProblem
+    from photon_ml_tpu_torch.tools.glmix_cases import GLMIX_CASES
 
-    def l2(lam, iters):
-        return GLMOptimizationConfiguration(
-            max_iterations=iters, tolerance=1e-7, regularization_weight=lam,
-            optimizer_type=OptimizerType.LBFGS,
-            regularization_context=RegularizationContext(
-                RegularizationType.L2))
-
-    task = TaskType.LOGISTIC_REGRESSION
+    glmix = GLMIX_CASES[case]
+    task = TaskType[glmix.task]
+    parse = GLMOptimizationConfiguration.parse
     re_cfg = RandomEffectDataConfiguration(
         random_effect_type="userId", feature_shard_id="per_user",
         num_active_data_points_upper_bound=active_cap,
@@ -183,12 +212,13 @@ def glmix_coordinates(data, device, active_cap=128, feature_cap=128,
         "fixed": FixedEffectCoordinate(
             dataset=build_fixed_effect_dataset(data, "global",
                                                device=device),
-            problem=GLMOptimizationProblem(config=l2(10.0, 40), task=task)),
+            problem=GLMOptimizationProblem(config=parse(glmix.fixed),
+                                           task=task)),
         "per-user": RandomEffectCoordinate(
             dataset=build_random_effect_dataset(
                 data, re_cfg, num_buckets=num_buckets, device=device),
-            problem=RandomEffectOptimizationProblem(config=l2(1.0, 20),
-                                                    task=task)),
+            problem=RandomEffectOptimizationProblem(
+                config=parse(glmix.per_user), task=task)),
     }
 
 
@@ -435,11 +465,10 @@ def random_effect_scoring(re_model, data) -> dict:
 def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
                  n_movies=3706, d_global=64):
     """The GLMix main path through the port's drivers (phase 6). Returns
-    the phase record, the kernel launches of the training run and the
-    kernel-vs-plain check on the driver's own fixed-effect batch; raises
-    on any failed check, the kernel's last."""
-    import shutil
-
+    the phase record, the kernel launches of the training run, the
+    kernel-vs-plain check on the driver's own fixed-effect batch and the
+    fixture's (training, validation) directories, which stay in
+    ``workdir``; raises on any failed check, the kernel's last."""
     from photon_ml_tpu_torch.cli import game_training_driver as ttd
     from photon_ml_tpu_torch.game.dataset import build_fixed_effect_dataset
     from photon_ml_tpu_torch.io import data_format as tdf
@@ -471,6 +500,7 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     driver_secs = time.perf_counter() - t0
     launches = pk.launch_count()
     by_path = dict(pk.fused_value_gradient_sums.launches_by_path)
+    by_loss = launch_counts()["by_loss"]
     train_ingest = dict(tdf.INGEST_STATS)
     peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
             else None)
@@ -613,7 +643,7 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
         "scoring_driver_auc": scorer["metrics"]["AUC"],
         "score_vs_library_max_abs": score_gap,
         "kernel_launches": launches, "launches_by_path": by_path,
-        "expected_path": expected,
+        "launches_by_loss": by_loss, "expected_path": expected,
         "max_memory_allocated": peak,
         "kernel_check": check,
     }
@@ -621,8 +651,10 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     if launches <= 0 or by_path[expected] != launches:
         raise AssertionError(f"the driver's fixed effect did not launch "
                              f"the kernel on the {expected} path: {by_path}")
-    shutil.rmtree(workdir, ignore_errors=True)
-    return phase, launches, by_path, check
+    # the fixture stays for phase 8's driver runs
+    for d in (out, score_out):
+        shutil.rmtree(d, ignore_errors=True)
+    return phase, launches, by_path, check, (train, val)
 
 
 def resume_phase(torch, dev, data, want, workdir):
@@ -630,8 +662,6 @@ def resume_phase(torch, dev, data, want, workdir):
     and resumed in fresh coordinates from its newest snapshot. ``want`` is
     phase 5's final state per coordinate; the resumed run must end on it
     bit for bit. Returns the record and the launches of both segments."""
-    import shutil
-
     from photon_ml_tpu_torch.game.coordinate_descent import (
         HOT_LOOP_STATS, reset_hot_loop_stats, run_coordinate_descent)
     from photon_ml_tpu_torch.ops import pallas_kernels as pk
@@ -718,8 +748,6 @@ def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
     """Phase 7 (b): the crash/resume drill through the drivers on the
     card, six processes on an Avro fixture at full width. Returns the
     record and the launches by role; raises on any failed check."""
-    import shutil
-
     from photon_ml_tpu_torch.tools import crash_resume_drill as drill
 
     shutil.rmtree(workdir, ignore_errors=True)
@@ -767,6 +795,481 @@ def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
         "corrupted_steps": record["corrupted_steps"],
         "drill_secs": record["seconds"],
     }, launches
+
+
+def config2_data(n=BIG_SHAPE[0], d=BIG_SHAPE[1]):
+    """BASELINE config 2's data: ``bench.py:169-177 _data()`` (seed 0,
+    X and w_true), then the linear response y = X w_true + 0.1 N(0, 1),
+    its noise drawn next from the same generator."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    w_true = (rng.normal(size=d) / np.sqrt(d)).astype(np.float32)
+    y = (X @ w_true + 0.1 * rng.normal(size=n)).astype(np.float32)
+    return X, y
+
+
+def config3_data(n=CONFIG3_SHAPE[0], d=CONFIG3_SHAPE[1]):
+    """BASELINE config 3's data, ``bench.py:398-405`` letter for letter."""
+    rng = np.random.default_rng(1)
+    X = (rng.normal(size=(n, d)) / np.sqrt(d)).astype(np.float32)
+    w_true = np.zeros(d, np.float32)
+    w_true[: d // 8] = rng.normal(size=d // 8)  # sparse truth for L1
+    lam = X @ w_true
+    y = rng.poisson(np.exp(np.clip(lam, -6, 3))).astype(np.float32)
+    return X, y
+
+
+def launch_counts() -> dict:
+    """The kernel's launches since the last reset, by path and by loss."""
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+
+    f = pk.fused_value_gradient_sums
+    return {"by_path": dict(f.launches_by_path),
+            "by_loss": {k: v for k, v in f.launches_by_loss.items() if v}}
+
+
+def check_launches(run, counts, path, loss, dev) -> None:
+    """Every launch of ``run`` on ``path`` with ``loss``, and at least one
+    (on the card; CPU tensors launch nothing)."""
+    total = sum(counts["by_path"].values())
+    if dev.type == "cuda" and (total <= 0 or counts["by_path"][path] != total
+                               or counts["by_loss"] != {loss: total}):
+        raise AssertionError(f"{run}: launches {counts}, expected all on "
+                             f"the {path} path with the {loss} loss")
+
+
+def solver_counts() -> dict:
+    """TRON's work and the solvers' blocking reads since the last reset;
+    a CG iteration of the lane-batched loop is one Hessian-vector product
+    call for every lane still in CG."""
+    from photon_ml_tpu_torch.optimize import common, tron
+
+    t = tron.TRON_STATS
+    return {"tron_outer_iterations": t["outer_iterations"],
+            "tron_cg_iterations": t["cg_iterations"],
+            "hessian_vector_calls": t["cg_iterations"],
+            "solver_syncs": common.SOLVER_SYNCS["count"]}
+
+
+def reset_counts(torch, dev) -> None:
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.optimize import common, tron
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    pk.reset_launch_count()
+    tron.reset_tron_stats()
+    common.reset_solver_syncs()
+
+
+def peak_memory(torch, dev):
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def kernel_gated_off():
+    """Every fixed-effect evaluation inside takes the plain two-pass form
+    (the kernel's element gate raised past any shape)."""
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+
+    saved = pk.MIN_PALLAS_ELEMENTS
+    pk.MIN_PALLAS_ELEMENTS = 1 << 62
+    try:
+        yield
+    finally:
+        pk.MIN_PALLAS_ELEMENTS = saved
+
+
+def config2_phase(torch, dev, shape=BIG_SHAPE):
+    """Phase 8 (a): BASELINE config 2 at ``bench.py``'s shape: linear
+    regression, TRON + L2 (lambda 1, 15 iterations, tol 1e-5) through
+    ``GLMOptimizationProblem.run`` with variances; the solution against a
+    solve with the kernel gated off."""
+    from photon_ml_tpu_torch.data.batch import dense_batch
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.optimize.config import (
+        GLMOptimizationConfiguration, TaskType)
+    from photon_ml_tpu_torch.optimize.problem import GLMOptimizationProblem
+
+    t0 = time.perf_counter()
+    X, y = config2_data(*shape)
+    batch = dense_batch(X, y, device=dev)
+    del X
+    sync(torch, dev)
+    data_secs = time.perf_counter() - t0
+    path = pk.kernel_path(shape[1], torch.float32,
+                          batch.X.data_ptr() % 16 == 0)
+    problem = GLMOptimizationProblem(
+        config=GLMOptimizationConfiguration.parse("15,1e-5,1,1,TRON,L2"),
+        task=TaskType.LINEAR_REGRESSION, compute_variances=True)
+
+    def solve(plain):
+        """One timed solve; ``plain`` gates the kernel off."""
+        t0 = time.perf_counter()
+        if plain:
+            with kernel_gated_off():
+                out = problem.run(batch)
+        else:
+            out = problem.run(batch)
+        sync(torch, dev)
+        return out, time.perf_counter() - t0
+
+    # a solve each way first (the first calls' lazy set-up), then the
+    # kernel's solve with the counts zeroed just before and read just
+    # after, then both in turns (kernel, plain, plain, kernel)
+    first_secs = {"kernel": solve(False)[1], "plain": solve(True)[1]}
+    reset_counts(torch, dev)
+    (model, result), _ = solve(False)
+    counts, work = launch_counts(), solver_counts()
+    peak = peak_memory(torch, dev)
+    times = {False: [], True: []}
+    for plain in (False, True, True, False):
+        (m, r), secs = solve(plain)
+        times[plain].append(secs)
+        if plain:
+            plain_model, plain_result = m, r
+    check_launches("config 2", counts, path, "squared", dev)
+    values = result.values
+    if not np.all(np.isfinite(values)) or np.any(np.diff(values) > 0):
+        raise AssertionError(f"config 2: TRON's accepted values rose or "
+                             f"are not finite: {values.tolist()}")
+    var = model.coefficients.variances
+    if var is None or not bool(torch.isfinite(var).all()) \
+            or not bool((var > 0).all()):
+        raise AssertionError("config 2: variances missing, not finite or "
+                             "not positive")
+    w, w_plain = model.coefficients.means, plain_model.coefficients.means
+    rel = float((w - w_plain).norm() / w_plain.norm())
+    if not rel <= 1e-4:
+        raise AssertionError(f"config 2: kernel and plain-path solutions "
+                             f"differ (rel {rel:.3g})")
+    del batch
+    return {
+        "shape": list(shape), "data": "bench.py:169-177 _data() (seed 0) "
+        "X and w_true; y = X w_true + 0.1 N(0, 1)",
+        "config": "LINEAR_REGRESSION, TRON + L2, lambda 1, 15 iterations, "
+                  "tol 1e-5, compute_variances",
+        "data_secs": data_secs, "first_solve_secs": first_secs,
+        "solve_secs": float(np.mean(times[False])),
+        "solve_secs_turns": times[False],
+        "iterations": result.iterations,
+        "convergence": result.convergence_reason.value,
+        "values": values.tolist(), "launches": counts, "path": path,
+        **work, "max_memory_allocated": peak,
+        "variances_finite_positive": True,
+        "variance_range": [float(var.min()), float(var.max())],
+        "plain_path": {"solve_secs": float(np.mean(times[True])),
+                       "solve_secs_turns": times[True],
+                       "iterations": plain_result.iterations,
+                       "value": plain_result.value,
+                       "rel_l2_diff_to_kernel_solution": rel},
+        "value": result.value,
+    }
+
+
+def config3_phase(torch, dev, shape=CONFIG3_SHAPE, reps=3):
+    """Phase 8 (b): BASELINE config 3 at ``bench.py:386-425``'s recipe,
+    letter for letter: Poisson, elastic net (alpha 0.5, lambda 1), L-BFGS
+    so OWL-QN, 50 iterations, tol 1e-7; one warm solve, then ``reps``
+    timed (``solve_ms``), ``iterations`` and ``nnz_coefficients`` as
+    ``bench.py`` reports them; then one solve with the kernel gated off,
+    which must stop after as many iterations with the same exact zeros
+    and a solution within rel 1e-4."""
+    from photon_ml_tpu_torch.data.batch import dense_batch
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.optimize.config import (
+        GLMOptimizationConfiguration, OptimizerType, RegularizationContext,
+        RegularizationType, TaskType)
+    from photon_ml_tpu_torch.optimize.problem import GLMOptimizationProblem
+
+    X, y = config3_data(*shape)
+    batch = dense_batch(X, y, device=dev)
+    path = pk.kernel_path(shape[1], torch.float32,
+                          batch.X.data_ptr() % 16 == 0)
+    cfg = GLMOptimizationConfiguration(
+        max_iterations=50, tolerance=1e-7, regularization_weight=1.0,
+        optimizer_type=OptimizerType.LBFGS,
+        regularization_context=RegularizationContext(
+            RegularizationType.ELASTIC_NET, alpha=0.5))
+    problem = GLMOptimizationProblem(config=cfg,
+                                     task=TaskType.POISSON_REGRESSION)
+    problem.run(batch)  # warm
+    reset_counts(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        model, result = problem.run(batch)
+    sync(torch, dev)
+    dt = (time.perf_counter() - t0) / reps
+    counts, work = launch_counts(), solver_counts()
+    t0 = time.perf_counter()
+    with kernel_gated_off():
+        plain_model, plain_result = problem.run(batch)
+    sync(torch, dev)
+    plain_secs = time.perf_counter() - t0
+    check_launches("config 3", counts, path, "poisson", dev)
+    means = model.coefficients.means
+    if not bool(torch.isfinite(means).all()) \
+            or not np.all(np.isfinite(result.values)):
+        raise AssertionError("config 3: non-finite coefficients or values")
+    plain = plain_model.coefficients.means
+    rel = float((means - plain).norm() / plain.norm())
+    same_zeros = bool(torch.equal(means == 0, plain == 0))
+    if plain_result.iterations != result.iterations or not same_zeros \
+            or not rel <= 1e-4:
+        raise AssertionError(
+            f"config 3: the plain path's solve differs: iterations "
+            f"{plain_result.iterations} vs {result.iterations}, same zeros "
+            f"{same_zeros}, rel {rel:.3g}")
+    return {
+        "shape": list(shape), "data": "bench.py:398-405 (seed 1)",
+        "config": "POISSON_REGRESSION, LBFGS + ELASTIC_NET (OWL-QN), "
+                  "alpha 0.5, lambda 1, 50 iterations, tol 1e-7",
+        "solve_ms": dt * 1e3, "reps": reps,
+        "iterations": result.iterations,
+        "convergence": result.convergence_reason.value,
+        "nnz_coefficients": int((means.abs() > 1e-8).sum()),
+        "exact_zeros": int((means == 0).sum()), "value": result.value,
+        "launches": counts, "path": path,
+        "solver_syncs_per_solve": work["solver_syncs"] / reps,
+        "plain_path": {"solve_secs": plain_secs,
+                       "iterations": plain_result.iterations,
+                       "value": plain_result.value,
+                       "same_exact_zeros": same_zeros,
+                       "rel_l2_diff_to_kernel_solution": rel},
+    }
+
+
+def second_order_driver_phase(torch, dev, train, val, workdir):
+    """Phase 8 (c): the drivers on phase 6's fixture with the second-order
+    argvs (two sweeps, 4 buckets, per-user cap 128), then the scoring
+    driver on the Poisson run's ``best/``. Returns the record and the
+    launches by run."""
+    from photon_ml_tpu_torch.cli import game_training_driver as ttd
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.tools.crash_resume_drill import driver_argv
+    from photon_ml_tpu_torch.tools.glmix_cases import (
+        GLMIX_CASES, SECOND_ORDER_CASES)
+
+    runs, launches, problems = {}, {}, []
+    loss_of = {"linear_tron": "squared", "poisson_enet": "poisson"}
+    for case in SECOND_ORDER_CASES:
+        extra = GLMIX_CASES[case].argv()
+        out = os.path.join(workdir, case)
+        argv = driver_argv(train, val, out, str(dev), extra=extra)
+        reset_counts(torch, dev)
+        t0 = time.perf_counter()
+        trainer = ttd.run(argv)
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        counts, work = launch_counts(), solver_counts()
+        peak = peak_memory(torch, dev)
+        # the fixed effect's columns: the global features + the intercept
+        path = pk.kernel_path(len(trainer.index_maps["global"]),
+                              torch.float32, True)
+        launches[case] = counts
+        record = json.load(open(os.path.join(out, "metrics.json")))
+        (grid,) = record["grid"]
+        states = grid["states"]
+        sweep_obj = [[s["objective"] for s in states
+                      if s["iteration"] == it][-1] for it in range(2)]
+        fixed_values = [s.tracker.result.values.tolist()
+                        for s in trainer.best_result.states
+                        if s.coordinate_id == "fixed"]
+        # every check is run, the failures raised after the record prints
+        try:
+            check_launches(f"driver {case}", counts, path, loss_of[case],
+                           dev)
+        except AssertionError as e:
+            problems.append(str(e))
+        objs = [s["objective"] for s in states]
+        # A fixed-effect update sees every row, so it never raises the
+        # objective. A per-user update sees only the entity's active rows
+        # (the cap of 128) and can raise it through the passive rows, in
+        # the JAX package's drivers as in the port's: the sweep-end
+        # objectives are recorded, not required to fall.
+        fixed_rose = [i for i, st in enumerate(states)
+                      if i and st["coordinate"] == "fixed"
+                      and not objs[i] <= objs[i - 1] * (1 + 1e-6)]
+        if not all(o is not None and np.isfinite(o) for o in objs):
+            problems.append(f"{case}: non-finite objective {objs}")
+        elif fixed_rose:
+            problems.append(f"{case}: a fixed-effect update raised the "
+                            f"objective: {objs}")
+        if case == "linear_tron" and any(
+                np.any(np.diff(v) > 0) for v in fixed_values):
+            problems.append(f"{case}: TRON's accepted values rose: "
+                            f"{fixed_values}")
+        updates = len(states)
+        runs[case] = {
+            "argv_extra": extra, "training_driver_secs": secs,
+            "phase_seconds": trainer.phase_seconds,
+            "secs_per_update": [s["seconds"] for s in states],
+            "objectives": objs, "sweep_end_objectives": sweep_obj,
+            "sweep_end_rose": bool(sweep_obj[1] > sweep_obj[0]),
+            "validation_metrics": [s["validation_metrics"] for s in states],
+            "convergence_counts": [s["convergence_counts"] for s in states],
+            "fixed_effect_iterations": [len(v) - 1 for v in fixed_values],
+            "best_metric": record["best"]["metric"],
+            "launches": counts, "expected_path": path, **work,
+            "solver_syncs_per_update": work["solver_syncs"] / updates,
+            "max_memory_allocated": peak}
+        del trainer
+
+    best = os.path.join(workdir, "poisson_enet", "best")
+    score_out = os.path.join(workdir, "poisson_score")
+    t0 = time.perf_counter()
+    scorer = run_scoring_driver([
+        "--input-data-dirs", val, "--game-model-input-dir", best,
+        "--output-dir", score_out,
+        "--feature-shard-id-to-feature-section-keys-map", DRIVER_SECTIONS,
+        "--random-effect-id-set", "userId",
+        "--evaluator-type", "POISSON_LOSS", "--device", str(dev)])
+    scoring_secs = time.perf_counter() - t0
+    want = runs["poisson_enet"]["best_metric"]
+    got = scorer["metrics"]["POISSON_LOSS"]
+    if not abs(got - want) <= 1e-6 * abs(want):
+        problems.append(f"scoring driver POISSON_LOSS {got} != best "
+                        f"validation POISSON_LOSS {want}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    record = {"runs": runs, "scoring_driver_secs": scoring_secs,
+              "scoring_driver_poisson_loss": got,
+              "scoring_phase_seconds": scorer["phase_seconds"]}
+    print("second-order drivers: " + json.dumps(record), file=sys.stderr,
+          flush=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return record, launches
+
+
+def second_order_small_vs_cpu(torch, n=40_000, users=500, movies=300,
+                              card="cuda"):
+    """Phase 8 (d): a small GLMix of each new solver on the ``card`` and on
+    the CPU (as phase 5's ``glmix_small_vs_cpu``); objectives agree to
+    rel 1e-4. Returns the record and the card's launches by case."""
+    from photon_ml_tpu_torch.game.coordinate_descent import (
+        run_coordinate_descent)
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.ops.losses import get_loss
+    from photon_ml_tpu_torch.optimize.config import TASK_LOSS_NAME, TaskType
+    from photon_ml_tpu_torch.tools.glmix_cases import (
+        GLMIX_CASES, SECOND_ORDER_CASES)
+
+    small = movielens_data(np.random.default_rng(3), n, users, movies, 64)
+    out, launches = {}, {}
+    for case in SECOND_ORDER_CASES:
+        task = TaskType[GLMIX_CASES[case].task]
+        objs = {}
+        for where in ("cpu", card):
+            dev = torch.device(where)
+            coords = glmix_coordinates(small, dev, active_cap=32,
+                                       feature_cap=32, case=case)
+            reset_counts(torch, dev)
+            res = run_coordinate_descent(
+                coords, 2, task, small.responses, small.weights,
+                small.offsets, device=dev)
+            objs[where] = [s.objective for s in res.states]
+            if where == card:
+                launches[case] = launch_counts()
+                X = coords["fixed"].dataset.batch.X
+                check_launches(f"small GLMix {case}", launches[case],
+                               pk.kernel_path(X.shape[1], X.dtype,
+                                              X.data_ptr() % 16 == 0),
+                               get_loss(TASK_LOSS_NAME[task]).name, dev)
+        rel = max(abs(a - b) / abs(a) for a, b in zip(objs["cpu"],
+                                                      objs[card]))
+        if not rel <= 1e-4 or not np.all(np.isfinite(objs[card])):
+            raise AssertionError(f"small GLMix {case}: card and CPU "
+                                 f"objectives differ (rel {rel:.3g}): "
+                                 f"{objs}")
+        out[case] = {"objectives_cpu": objs["cpu"],
+                       "objectives_card": objs[card],
+                       "max_rel_diff": rel, "launches": launches[case]}
+    return out, launches
+
+
+def trace_device_busy_us(prof) -> float | None:
+    """Device busy time of a ``torch.profiler`` trace: the union of its
+    kernel, memcpy and memset intervals; None when it holds none."""
+    import tempfile
+
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        events = json.load(open(f.name)).get("traceEvents", [])
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in (
+                       "kernel", "gpu_memcpy", "gpu_memset"))
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return busy + hi - lo
+
+
+def per_user_profile(torch, dev, dataset, extra_scores, reps=2):
+    """Satellite of phase 8: one per-user update of each solver on phase
+    5's per-user coordinate (1,000,209 rows, 4 buckets), under
+    ``torch.profiler``: wall seconds, device busy time, the device's idle
+    share and the solvers' blocking reads."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_ml_tpu_torch.game.coordinate import RandomEffectCoordinate
+    from photon_ml_tpu_torch.game.random_effect import (
+        RandomEffectOptimizationProblem)
+    from photon_ml_tpu_torch.optimize.config import (
+        GLMOptimizationConfiguration, TaskType)
+    from photon_ml_tpu_torch.tools.glmix_cases import GLMIX_CASES
+
+    out = {}
+    for case, glmix in GLMIX_CASES.items():
+        coord = RandomEffectCoordinate(
+            dataset=dataset, problem=RandomEffectOptimizationProblem(
+                config=GLMOptimizationConfiguration.parse(glmix.per_user),
+                task=TaskType[glmix.task]))
+        coord.update(None, extra_scores)  # warm: allocator, handles
+        sync(torch, dev)
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            coord.update(None, extra_scores)
+            sync(torch, dev)
+            walls.append(time.perf_counter() - t0)
+        reset_counts(torch, dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, tracker = coord.update(None, extra_scores)
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+        work = solver_counts()
+        busy_us = trace_device_busy_us(prof)
+        it = tracker.materialize().iterations
+        out[case] = {
+            "config": f"{glmix.task}, perUser:{glmix.per_user}",
+            "wall_secs_unprofiled": walls, "wall_secs_profiled": wall,
+            "device_busy_secs": None if busy_us is None else busy_us / 1e6,
+            # idle share of the profiled window, and with the same busy
+            # time over the unprofiled wall (the profiler slows the host)
+            "device_idle_share": (None if busy_us is None
+                                  else 1.0 - busy_us / 1e6 / wall),
+            "device_idle_share_unprofiled_wall": (
+                None if busy_us is None
+                else 1.0 - busy_us / 1e6 / float(np.mean(walls))),
+            **work, "entities": int(len(it)),
+            "iterations_max": int(it.max()),
+            "iterations_mean": float(it.mean()),
+            "convergence": tracker.counts_by_convergence()}
+    return out
 
 
 def main() -> int:
@@ -873,17 +1376,24 @@ def main() -> int:
     # -- 4. timing -------------------------------------------------------------
     t0 = time.perf_counter()
     timings = {}
-    loss = get_loss("logistic")
-    for (n, d) in (GLMIX_SHAPE, DRIVER_SHAPE, BIG_SHAPE):
+    f32_bf16 = (torch.float32, torch.bfloat16)
+    # (shape, loss, dtypes): the GLMix shape, the driver's (f32 only, as
+    # the driver runs it), 262,144 x 2,048, and the second-order main
+    # path's losses at their shapes (phase 8 (b) and (a))
+    for (n, d), lname, dtypes in (
+            (GLMIX_SHAPE, "logistic", f32_bf16),
+            (DRIVER_SHAPE, "logistic", (torch.float32,)),
+            (BIG_SHAPE, "logistic", f32_bf16),
+            (CONFIG3_SHAPE, "poisson", (torch.float32,)),
+            (BIG_SHAPE, "squared", (torch.float32,))):
+        loss = get_loss(lname)
         X, y, off, wt, w = kernel_inputs(torch, n, d, seed=11, device=dev)
         shift = torch.tensor(0.0, device=dev)
-        # the driver's shape runs in f32 only, as the driver does
-        for dtype in ((torch.float32,) if (n, d) == DRIVER_SHAPE
-                      else (torch.float32, torch.bfloat16)):
+        for dtype in dtypes:
             Xc = X.to(dtype).contiguous()
             wl = w.to(dtype)
 
-            def library(Xc=Xc, wl=wl):
+            def library(Xc=Xc, wl=wl, loss=loss):
                 z = torch.matmul(Xc, wl).float() + off + shift
                 r = wt * loss.d1(z, y)
                 return ((wt * loss.loss(z, y)).sum(),
@@ -895,12 +1405,12 @@ def main() -> int:
             single = {p: [] for p in paths}
             back = {p: [] for p in paths}
             for p in paths + paths[::-1]:
-                def run(p=p):
+                def run(p=p, loss=loss):
                     return pk._launch(loss, Xc, y, off, wt, w, shift, path=p)
                 single[p].append(cuda_times(torch, run)["ms"])
                 back[p].append(cuda_times(torch, run, reps=15, inner=10))
 
-            def plain():
+            def plain(loss=loss):
                 return pk.fused_value_gradient_sums_reference(
                     loss, Xc, y, off, wt, w, shift)
             plain_ms = cuda_times(torch, plain)["ms"]
@@ -915,8 +1425,8 @@ def main() -> int:
             for p in paths:
                 kernel_ms = float(np.mean(single[p]))
                 device_ms = float(np.mean([r["ms"] for r in back[p]]))
-                timings[(n, d, dt, p)] = {
-                    "n": n, "d": d, "dtype": dt, "path": p,
+                timings[(n, d, dt, p, lname)] = {
+                    "n": n, "d": d, "dtype": dt, "path": p, "loss": lname,
                     "kernel_ms": kernel_ms, "kernel_ms_runs": single[p],
                     "device_ms": device_ms,
                     "device_ms_runs": [r["ms"] for r in back[p]],
@@ -942,7 +1452,7 @@ def main() -> int:
                     / kernel_ms,
                     "staged_over_this_device": float(np.mean(
                         [r["ms"] for r in back["staged"]])) / device_ms}
-                emit({"phase": "timing", **timings[(n, d, dt, p)]})
+                emit({"phase": "timing", **timings[(n, d, dt, p, lname)]})
             del Xc, wl
         del X, y, off, wt, w
         torch.cuda.empty_cache()
@@ -990,6 +1500,7 @@ def main() -> int:
     train_secs = time.perf_counter() - t1
     launches = pk.launch_count()
     by_path = dict(pk.fused_value_gradient_sums.launches_by_path)
+    glmix_by_loss = launch_counts()["by_loss"]
     solver_syncs = opt_common.SOLVER_SYNCS["count"]
     hot = dict(HOT_LOOP_STATS)
     peak = torch.cuda.max_memory_allocated()
@@ -1050,9 +1561,10 @@ def main() -> int:
 
     # -- 6. GLMix through the port's drivers ---------------------------------
     t0 = time.perf_counter()
-    phase, driver_launches, driver_by_path, driver_check = driver_phase(
-        torch, dev, smi, os.path.join(REPO, "photon_ml_tpu_torch", "_build",
-                                      "driver_phase"))
+    driver_dir = os.path.join(REPO, "photon_ml_tpu_torch", "_build",
+                              "driver_phase")
+    phase, driver_launches, driver_by_path, driver_check, fixture = \
+        driver_phase(torch, dev, smi, driver_dir)
     phase["seconds"] = time.perf_counter() - t0
     emit(phase)
 
@@ -1077,16 +1589,51 @@ def main() -> int:
               "atomic f64 adds in no fixed order"),
           "seconds": time.perf_counter() - t0})
 
-    # -- 8. kernels line, card line, result ----------------------------------
+    # -- 8. second-order solvers: BASELINE configs 2 and 3 ----------------
+    t0 = time.perf_counter()
+    cfg2 = config2_phase(torch, dev)
+    torch.cuda.empty_cache()
+    print("config 2: " + json.dumps(cfg2), file=sys.stderr, flush=True)
+    cfg3 = config3_phase(torch, dev)
+    torch.cuda.empty_cache()
+    print("config 3: " + json.dumps(cfg3), file=sys.stderr, flush=True)
+    small2, small2_launches = second_order_small_vs_cpu(torch)
+    print("small vs CPU: " + json.dumps(small2), file=sys.stderr,
+          flush=True)
+    profile = per_user_profile(
+        torch, dev, coords["per-user"].dataset,
+        coords["fixed"].score(glmix_final["fixed"]))
+    print("per-user profile: " + json.dumps(profile), file=sys.stderr,
+          flush=True)
+    drivers2, drivers2_launches = second_order_driver_phase(
+        torch, dev, *fixture, os.path.join(driver_dir, "second_order"))
+    shutil.rmtree(driver_dir, ignore_errors=True)
+    emit({"phase": "second_order", "nvidia_smi": smi, "config2": cfg2,
+          "config3": cfg3, "drivers": drivers2, "small_vs_cpu": small2,
+          "per_user_profile": profile,
+          "peak_memory": {"config2": cfg2["max_memory_allocated"],
+                          **{f"driver_{k}": v["max_memory_allocated"]
+                             for k, v in drivers2["runs"].items()}},
+          "seconds": time.perf_counter() - t0})
+
+    # -- kernels line, card line, result ---------------------------------------
+    second_order_runs = {
+        "config2": cfg2["launches"], "config3": cfg3["launches"],
+        **{f"driver_{k}": v for k, v in drivers2_launches.items()},
+        **{f"small_{k}_cuda": v for k, v in small2_launches.items()}}
     runs = {"glmix": by_path, "driver": driver_by_path,
             "resume_before_kill": resume_crash,
             "resume_resumed": resume_resumed,
-            **{f"drill_{r}": v for r, v in drill_launches.items()}}
+            **{f"drill_{r}": v for r, v in drill_launches.items()},
+            **{k: v["by_path"] for k, v in second_order_runs.items()}}
+    by_loss = {"glmix": glmix_by_loss, "driver": phase["launches_by_loss"],
+               **{k: v["by_loss"] for k, v in second_order_runs.items()}}
     total_by_path = {p: sum(r[p] for r in runs.values())
                      for p in by_path}
-    main = timings[(*GLMIX_SHAPE, "float32", "stream")]
-    driver = timings[(*DRIVER_SHAPE, "float32", driver_check["path"])]
-    staged = timings[(*BIG_SHAPE, "float32", "staged")]
+    main = timings[(*GLMIX_SHAPE, "float32", "stream", "logistic")]
+    driver = timings[(*DRIVER_SHAPE, "float32", driver_check["path"],
+                      "logistic")]
+    staged = timings[(*BIG_SHAPE, "float32", "staged", "logistic")]
     emit({"kernels": [{
         "name": "fused_value_gradient_sums",
         "route": "cuda",
@@ -1094,6 +1641,7 @@ def main() -> int:
         "replaces": "photon_ml_tpu/ops/pallas_kernels.py:144",
         "launches": sum(total_by_path.values()),
         "launches_by_run": runs,
+        "launches_by_loss": by_loss,
         "max_abs_err": max(main_err, driver_check["max_abs_err"]),
         "ms": main["kernel_ms"],
         "plain_ms": main["plain_ms"],
@@ -1107,7 +1655,8 @@ def main() -> int:
                       "launches": total_by_path[p]}
                   for p, r in (("stream", main), ("staged", staged))},
         "rows": [{k: r[k] for k in (
-            "n", "d", "dtype", "path", "kernel_ms", "device_ms", "plain_ms",
+            "n", "d", "dtype", "path", "loss", "kernel_ms", "device_ms",
+            "plain_ms",
             "plain_device_ms", "library_ms", "library_device_ms",
             "bound_ms", "bound_by", "share_of_bound",
             "device_share_of_bound")} for r in timings.values()],

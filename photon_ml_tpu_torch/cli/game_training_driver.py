@@ -18,12 +18,17 @@ steps are all corrupt ends in exit 3 before any data is read),
 ``--checkpoint-every-coordinates``, ``--recovery-policy`` and the other
 ``--recovery-*`` flags, ``--max-train-seconds``, ``--stop-file`` and
 SIGTERM/SIGINT (exit 75 at the next commit barrier), and
-``--max-shard-loss-frac`` (degraded ingest). Flags whose feature is not
-ported yet raise ``NotImplementedError`` naming the flag and end the run
-through ``clean_abort`` (exit 3): multi-process runs and their
-supervision, the off-heap index store, streamed and factored random
-effects, entity sharding, bf16, quantized collectives, explicit block or
-pipelined sweeps, variances, lane compaction and telemetry.
+``--max-shard-loss-frac`` (degraded ingest). Every optimizer string of
+the JAX driver trains (L-BFGS, OWL-QN for L1 and elastic net, TRON), and
+``--compute-variance`` reaches the fixed-effect problem as in the JAX
+driver (``:560-576``); the fixed effect solves through ``run_lazy``, which
+computes no variances there either, so a GAME model carries none. Flags
+whose feature is not ported yet raise ``NotImplementedError`` naming the
+flag and end the run through ``clean_abort`` (exit 3): multi-process runs
+and their supervision, the off-heap index store, streamed and factored
+random effects, entity sharding, bf16, quantized collectives, explicit
+block or pipelined sweeps, lane compaction and telemetry; a
+down-sampling rate below 1 does too.
 
 Validation rows are matched to the trained per-entity models by raw id:
 the validation id columns are re-encoded against the training vocabulary
@@ -224,8 +229,6 @@ def check_unported(ns: argparse.Namespace) -> None:
         ("--cd-block-size", ns.cd_block_size > 1, "block sweeps"),
         ("--cd-pipeline-depth", (ns.cd_pipeline_depth or 0) >= 1,
          "the pipelined sweep"),
-        ("--compute-variance", parse_flag(ns.compute_variance),
-         "coefficient variances"),
         ("--re-lane-compaction-chunk", ns.re_lane_compaction_chunk != 0,
          "lane compaction"),
         ("--trace-dir", ns.trace_dir, "telemetry"),
@@ -360,7 +363,9 @@ class GameTrainingDriver:
                     dataset=ds, problem=GLMOptimizationProblem(
                         config=fixed_cfgs.get(
                             cid, GLMOptimizationConfiguration()),
-                        task=self.task))
+                        task=self.task,
+                        compute_variances=parse_flag(
+                            self.ns.compute_variance)))
             elif cid in self.random_data_configs:
                 ds = build_random_effect_dataset(
                     self.train_data, self.random_data_configs[cid],

@@ -1,11 +1,12 @@
-"""Random-effect solver: one lane-batched L-BFGS over entity blocks.
+"""Random-effect solver: one lane-batched solve over entity blocks.
 
 Port of ``photon_ml_tpu/game/random_effect.py`` — the ``CONV_*`` codes
 (``:67-78``), ``_fit_blocks_impl`` (``:193-296``, the JAX package ``vmap``s
 a single-lane solver over entities; here the ``[E, N, D]`` block is one
-lane-batched solve with the per-lane convergence classification of
-``:258-287``), ``RandomEffectOptimizationProblem.run``/``_run_bucketed``
-(``:739-975``) and the score exchange ``score_active``/``score_passive``/
+lane-batched L-BFGS, OWL-QN or TRON solve with the per-lane convergence
+classification of ``:258-287``, the same for every solver),
+``RandomEffectOptimizationProblem.run``/``_run_bucketed`` (``:739-975``)
+and the score exchange ``score_active``/``score_passive``/
 ``score_random_effect`` (``:978-1058``).
 
 Scatter determinism: each real sample appears at most once per coordinate
@@ -13,8 +14,8 @@ and every padded slot carries an exact zero into the discard slot
 ``num_samples``, so a non-accumulating ``scatter_`` gives the same result
 as ``segment_sum`` in any order.
 
-Lane compaction, the chunk auto-tuner, entity sharding and OWL-QN/TRON wait
-for later slices.
+Lane compaction, the chunk auto-tuner and entity sharding wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -31,11 +32,14 @@ from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.optimize.common import solver_x0
 from photon_ml_tpu_torch.optimize.config import (
     GLMOptimizationConfiguration,
-    OptimizerType,
     TASK_LOSS_NAME,
     TaskType,
 )
-from photon_ml_tpu_torch.optimize.lbfgs import minimize_lbfgs
+from photon_ml_tpu_torch.optimize.problem import (
+    minimize,
+    regularization_penalty,
+    select_solver,
+)
 
 Tensor = torch.Tensor
 
@@ -56,16 +60,23 @@ def _vg(w: Tensor, payload) -> tuple[Tensor, Tensor]:
     return obj.calculate(w, batch)
 
 
+def _hvp(w: Tensor, v: Tensor, payload) -> Tensor:
+    obj, batch = payload
+    return obj.hessian_vector(w, v, batch)
+
+
 def _fit_blocks_impl(X: Tensor, labels: Tensor, offsets: Tensor,
                      weights: Tensor, initial: Tensor, obj: GLMObjective,
-                     max_iter: int, tolerance: float
+                     l1: Tensor, solver: str, max_iter: int,
+                     tolerance: float
                      ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Solve every entity lane of ``X [E, N, D]``; returns (coefs [E, D],
-    iterations [E], final values [E], convergence codes [E] int8)."""
+    """Solve every entity lane of ``X [E, N, D]`` with ``solver``
+    ("lbfgs" / "owlqn" / "tron"; ``l1 [D]`` is OWL-QN's weight); returns
+    (coefs [E, D], iterations [E], final values [E], convergence codes
+    [E] int8)."""
     batch = DenseBatch(X=X, labels=labels, offsets=offsets, weights=weights)
-    x, hist, progressed = minimize_lbfgs(_vg, initial, (obj, batch),
-                                         max_iter=max_iter,
-                                         tolerance=tolerance)
+    x, hist, progressed = minimize(solver, _vg, _hvp, initial, (obj, batch),
+                                   l1, max_iter, tolerance)
     k = hist.num_iterations
     rows = torch.arange(k.shape[0], device=k.device)
     final_value = hist.values[rows, k]
@@ -96,14 +107,6 @@ class RandomEffectOptimizationProblem:
     config: GLMOptimizationConfiguration
     task: TaskType
 
-    def __post_init__(self):
-        cfg = self.config
-        if cfg.optimizer_type != OptimizerType.LBFGS:
-            raise NotImplementedError("only L-BFGS is ported so far")
-        if cfg.regularization_context.l1_weight(
-                cfg.regularization_weight) > 0.0:
-            raise NotImplementedError("L1 (OWL-QN) is not ported yet")
-
     def objective(self) -> GLMObjective:
         cfg = self.config
         return GLMObjective(
@@ -119,17 +122,22 @@ class RandomEffectOptimizationProblem:
         final losses, convergence codes). ``offsets`` is the entity-major
         block (a list per bucket when bucketed)."""
         cfg = self.config
+        solver = select_solver(cfg, self.task)
+        l1 = cfg.regularization_context.l1_weight(cfg.regularization_weight)
         if dataset.buckets is not None:
-            return self._run_bucketed(dataset, offsets, initial)
+            return self._run_bucketed(dataset, offsets, initial, solver, l1)
         e, _, d = dataset.X.shape
         acc = acc_dtype_for(dataset.X.dtype)
         x0 = solver_x0(acc, (e, d), initial, dataset.X.device)
         return _fit_blocks_impl(dataset.X, dataset.labels, offsets.to(acc),
                                 dataset.weights, x0, self.objective(),
-                                cfg.max_iterations, float(cfg.tolerance))
+                                torch.full((d,), l1, dtype=acc,
+                                           device=x0.device),
+                                solver, cfg.max_iterations,
+                                float(cfg.tolerance))
 
     def _run_bucketed(self, dataset: RandomEffectDataset, offsets,
-                      initial: Optional[Tensor]):
+                      initial: Optional[Tensor], solver: str, l1: float):
         """Per-bucket solves assembled into one compact global block in
         bucket-major entity order (``random_effect.py:895-954``)."""
         cfg = self.config
@@ -141,15 +149,16 @@ class RandomEffectOptimizationProblem:
         for bucket, off_b in zip(dataset.buckets, offsets):
             e_b, _, d_b = bucket.X.shape
             nr, start = bucket.num_real, bucket.entity_start
+            dev = bucket.X.device
             if initial_acc is None:
-                x0_b = torch.zeros((e_b, d_b), dtype=acc,
-                                   device=bucket.X.device)
+                x0_b = torch.zeros((e_b, d_b), dtype=acc, device=dev)
             else:
                 x0_b = torch.nn.functional.pad(
                     initial_acc[start:start + nr, :d_b], (0, 0, 0, e_b - nr))
             outs.append(_fit_blocks_impl(
                 bucket.X, bucket.labels, off_b.to(acc), bucket.weights, x0_b,
-                obj, cfg.max_iterations, float(cfg.tolerance)))
+                obj, torch.full((d_b,), l1, dtype=acc, device=dev), solver,
+                cfg.max_iterations, float(cfg.tolerance)))
         pairs = list(zip(dataset.buckets, outs))
         coefs = torch.cat([
             torch.nn.functional.pad(c[:b.num_real],
@@ -162,13 +171,9 @@ class RandomEffectOptimizationProblem:
         return coefs, iters, values, codes
 
     def regularization_value_device(self, coefs: Tensor):
-        """Sum over entities of the L2 penalty as a device scalar; Python
-        ``0.0`` when the config has none."""
-        cfg = self.config
-        l2 = cfg.regularization_context.l2_weight(cfg.regularization_weight)
-        if l2 > 0:
-            return 0.5 * l2 * (coefs * coefs).sum()
-        return 0.0
+        """Sum over entities of the L1 + L2 penalty as a device scalar;
+        Python ``0.0`` when the config has none."""
+        return regularization_penalty(self.config, coefs)
 
     def regularization_value(self, coefs: Tensor) -> float:
         val = self.regularization_value_device(coefs)

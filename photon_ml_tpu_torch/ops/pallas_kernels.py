@@ -24,7 +24,8 @@ design matrix X once for both ``X.w`` and ``X^T r``:
   ``"staged"`` (row tiles through shared memory, every other shape);
   :func:`stream_geometry` is the stream path's split of a row over lanes.
   Launches are counted per path in
-  ``fused_value_gradient_sums.launches_by_path``.
+  ``fused_value_gradient_sums.launches_by_path`` and per loss in
+  ``fused_value_gradient_sums.launches_by_loss``.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 
 from photon_ml_tpu_torch.device import check_on_device, resolve_device
 from photon_ml_tpu_torch.ops import kernels_build
-from photon_ml_tpu_torch.ops.losses import PointwiseLoss
+from photon_ml_tpu_torch.ops.losses import LOSSES, PointwiseLoss
 
 Tensor = torch.Tensor
 
@@ -173,6 +174,7 @@ def _launch(loss: PointwiseLoss, X: Tensor, labels: Tensor, offsets: Tensor,
                            f"{msg} ({rc})")
     fused_value_gradient_sums.launches += 1
     fused_value_gradient_sums.launches_by_path[path] += 1
+    fused_value_gradient_sums.launches_by_loss[loss.name] += 1
     return out_val, out_vec, out_pre
 
 
@@ -224,15 +226,16 @@ def fused_value_gradient_sums(
                             margin_shift)
 
 
-#: Kernel launches since the last reset (plain-version calls never count),
-#: in all and by pass-1 path.
-fused_value_gradient_sums.launches = 0
-fused_value_gradient_sums.launches_by_path = dict.fromkeys(_PATHS, 0)
-
-
 def reset_launch_count() -> None:
+    """Zero the kernel's launch counts (plain-version calls never count):
+    ``fused_value_gradient_sums.launches`` in all, ``launches_by_path``
+    by pass-1 path and ``launches_by_loss`` by loss."""
     fused_value_gradient_sums.launches = 0
     fused_value_gradient_sums.launches_by_path = dict.fromkeys(_PATHS, 0)
+    fused_value_gradient_sums.launches_by_loss = dict.fromkeys(LOSSES, 0)
+
+
+reset_launch_count()
 
 
 def launch_count() -> int:

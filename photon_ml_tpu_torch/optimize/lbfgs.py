@@ -82,6 +82,27 @@ def two_loop_direction(g: Tensor, S: Tensor, Y: Tensor, rho: Tensor,
     return -r
 
 
+def store_pair(S: Tensor, Y: Tensor, rho: Tensor, valid: Tensor,
+               head: Tensor, s: Tensor, y: Tensor, sy: Tensor,
+               store: Tensor):
+    """Write the pair ``(s, y)`` into each ``store`` lane's history slot
+    ``head`` and advance its head; other lanes keep theirs."""
+    lanes = torch.arange(S.shape[0], device=S.device)
+    S_new, Y_new = S.clone(), Y.clone()
+    S_new[lanes, head] = s
+    Y_new[lanes, head] = y
+    S = torch.where(store[:, None, None], S_new, S)
+    Y = torch.where(store[:, None, None], Y_new, Y)
+    rho_new = rho.clone()
+    rho_new[lanes, head] = 1.0 / torch.clamp(sy, min=1e-300)
+    rho = torch.where(store[:, None], rho_new, rho)
+    valid_new = valid.clone()
+    valid_new[lanes, head] = True
+    valid = torch.where(store[:, None], valid_new, valid)
+    head = torch.where(store, (head + 1) % S.shape[1], head)
+    return S, Y, rho, valid, head
+
+
 def minimize_lbfgs(
     value_and_grad_fn: Callable[[Tensor, object], tuple[Tensor, Tensor]],
     x0: Tensor,
@@ -113,7 +134,6 @@ def minimize_lbfgs(
     grad_norms = torch.full_like(values, float("nan"))
     values[:, 0] = f
     grad_norms[:, 0] = g0n
-    lanes = torch.arange(L, device=dev)
 
     while True:
         active = should_continue(it, f, prev_f, _norm(g), f0, g0n,
@@ -146,19 +166,8 @@ def minimize_lbfgs(
         s = x_new - x
         y = g_new - g
         sy = _dot(s, y)
-        store = active & ok & (sy > 1e-10)
-        S_new, Y_new = S.clone(), Y.clone()
-        S_new[lanes, head] = s
-        Y_new[lanes, head] = y
-        S = torch.where(store[:, None, None], S_new, S)
-        Y = torch.where(store[:, None, None], Y_new, Y)
-        rho_new = rho.clone()
-        rho_new[lanes, head] = 1.0 / torch.clamp(sy, min=1e-300)
-        rho = torch.where(store[:, None], rho_new, rho)
-        valid_new = valid.clone()
-        valid_new[lanes, head] = True
-        valid = torch.where(store[:, None], valid_new, valid)
-        head = torch.where(store, (head + 1) % m, head)
+        S, Y, rho, valid, head = store_pair(S, Y, rho, valid, head, s, y,
+                                            sy, active & ok & (sy > 1e-10))
 
         it_new = it + 1
         f_acc = torch.where(ok, f_new, f)

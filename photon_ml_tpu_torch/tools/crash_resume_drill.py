@@ -67,6 +67,8 @@ from typing import Optional
 
 import numpy as np
 
+from photon_ml_tpu_torch.tools.glmix_cases import GLMIX_CASES
+
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SECTIONS = "global:globalFeatures|user:userFeatures"
@@ -81,27 +83,24 @@ METRIC_RTOL = 1e-12
 
 
 def driver_argv(train: str, validate: str, output_dir: str, device: str,
-                num_iterations: int = 2) -> list:
+                num_iterations: int = 2, extra=()) -> list:
     """The GLMix argv of the training driver: fixed effect over the 64
     global features + intercept (L-BFGS + L2, lambda 10, <= 40
     iterations), per-user random effect (active cap 128, lambda 1, <= 20
     iterations, 4 entity buckets), validation by AUC, LOGISTIC_LOSS and
-    per-user AUC after every update."""
+    per-user AUC after every update (the ``lbfgs`` case of
+    :data:`GLMIX_CASES`); ``extra`` flags follow and win (e.g. another
+    case's ``argv()``)."""
     return [
         "--train-input-dirs", train, "--validate-input-dirs", validate,
-        "--output-dir", output_dir, "--task-type", "LOGISTIC_REGRESSION",
+        "--output-dir", output_dir,
         "--feature-shard-id-to-feature-section-keys-map", SECTIONS,
         "--updating-sequence", "fixed,perUser",
         "--num-iterations", str(num_iterations),
         "--fixed-effect-data-configurations", "fixed:global,1",
-        "--fixed-effect-optimization-configurations",
-        "fixed:40,1e-7,10,1,LBFGS,L2",
         "--random-effect-data-configurations", "perUser:userId,user,1,128",
-        "--random-effect-optimization-configurations",
-        "perUser:20,1e-7,1,1,LBFGS,L2",
         "--random-effect-block-buckets", "4",
-        "--evaluator-type", "AUC,LOGISTIC_LOSS,AUC:userId",
-        "--device", device]
+        *GLMIX_CASES["lbfgs"].argv(), "--device", device, *extra]
 
 
 # -- the worker role ---------------------------------------------------------

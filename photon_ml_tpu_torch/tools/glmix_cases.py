@@ -1,0 +1,50 @@
+"""The GLMix configurations that exercise the port's three solvers.
+
+One table, read by ``chip_smoke.py``, :func:`crash_resume_drill.driver_argv`
+and the tests: for each case the task, the fixed-effect and per-user
+optimization configurations in the drivers' ``maxIter,tol,lambda,
+downSamplingRate,OPTIMIZER,REG`` form, the validation evaluators and any
+further training-driver flags.
+
+- ``lbfgs``: logistic regression, L-BFGS + L2 (the main path);
+- ``linear_tron``: linear regression, TRON + L2, with
+  ``--compute-variance`` (BASELINE config 2's family);
+- ``poisson_enet``: Poisson regression, L-BFGS + elastic net (alpha 0.5),
+  so OWL-QN (BASELINE config 3's family).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class GlmixCase:
+    task: str
+    fixed: str
+    per_user: str
+    evaluators: str
+    flags: tuple = ()
+
+    def argv(self) -> list:
+        """The case's training-driver flags."""
+        return ["--task-type", self.task,
+                "--fixed-effect-optimization-configurations",
+                f"fixed:{self.fixed}",
+                "--random-effect-optimization-configurations",
+                f"perUser:{self.per_user}",
+                "--evaluator-type", self.evaluators, *self.flags]
+
+
+GLMIX_CASES = {
+    "lbfgs": GlmixCase("LOGISTIC_REGRESSION", "40,1e-7,10,1,LBFGS,L2",
+                       "20,1e-7,1,1,LBFGS,L2", "AUC,LOGISTIC_LOSS,AUC:userId"),
+    "linear_tron": GlmixCase("LINEAR_REGRESSION", "15,1e-5,10,1,TRON,L2",
+                             "15,1e-5,1,1,TRON,L2", "RMSE,SQUARED_LOSS",
+                             ("--compute-variance", "true")),
+    "poisson_enet": GlmixCase("POISSON_REGRESSION",
+                              "40,1e-7,10,1,LBFGS,ELASTIC_NET",
+                              "20,1e-7,1,1,LBFGS,ELASTIC_NET",
+                              "POISSON_LOSS"),
+}
+SECOND_ORDER_CASES = ("linear_tron", "poisson_enet")

@@ -17,10 +17,16 @@ like the port; ``tests/test_torch_game.py`` explains why). Then:
 - both drivers decode the fixture natively, and the port's driver on its
   records path (every part declined) writes the same metrics.json
   objectives and validation metrics, states and scores;
-- every flag the port does not run yet ends its driver with
-  ``NotImplementedError`` (exit 3 and one ``PHOTON_ABORT`` line); the
-  checkpoint, recovery, stop and degraded-ingest flags run, and
-  ``tests/test_torch_drill.py`` holds them against the JAX drivers.
+- on the second-order argvs (linear TRON + L2 with
+  ``--compute-variance``, Poisson L-BFGS + elastic net) the objectives
+  and validation metrics agree to rel 1e-4 per update, each side reads
+  and scores the other's model, and neither model carries variances;
+- every flag the port does not run yet, and a down-sampling rate below
+  1, ends its driver with ``NotImplementedError`` (exit 3 and one
+  ``PHOTON_ABORT`` line); TRON with L1 and TRON for the smoothed hinge
+  raise ``ValueError`` from both drivers; the checkpoint, recovery, stop
+  and degraded-ingest flags run, and ``tests/test_torch_drill.py`` holds
+  them against the JAX drivers.
 """
 
 import json
@@ -39,6 +45,7 @@ from photon_ml_tpu_torch.cli import game_scoring_driver as tsd
 from photon_ml_tpu_torch.cli import game_training_driver as ttd
 from photon_ml_tpu_torch.io import data_format as tdf
 from photon_ml_tpu_torch.io import model_io as tio
+from photon_ml_tpu_torch.tools.glmix_cases import GLMIX_CASES, SECOND_ORDER_CASES
 
 torch.set_num_threads(1)
 
@@ -246,6 +253,123 @@ def test_each_scoring_driver_scores_the_others_model(runs, model_side):
         assert abs(driver.metrics["AUC"] - recorded) <= 1e-6
 
 
+@pytest.fixture(scope="module")
+def second_order_runs(runs):
+    """Both training drivers on the second-order argvs of chip_smoke.py
+    phase 8 (c) (linear TRON + L2 with ``--compute-variance``, Poisson
+    L-BFGS + elastic net), on the same fixture."""
+    d = runs["dir"]
+    out = {}
+    for case in SECOND_ORDER_CASES:
+        base = [*runs["base"], *GLMIX_CASES[case].argv()]
+        out[case] = {"jax": str(d / f"jax_{case}"),
+                     "torch": str(d / f"torch_{case}")}
+        with jax.enable_x64(False):
+            jax_train_main(base + ["--output-dir", out[case]["jax"]])
+        ttd.run(base + ["--output-dir", out[case]["torch"], "--device",
+                        "cpu"])
+    return out
+
+
+@pytest.mark.parametrize("case", SECOND_ORDER_CASES)
+def test_second_order_objectives_agree_per_update(second_order_runs,
+                                                  case):
+    metrics = {k: json.load(open(os.path.join(v, "metrics.json")))
+               for k, v in second_order_runs[case].items()}
+    js, ts = _states(metrics["jax"]), _states(metrics["torch"])
+    assert len(js) == len(ts) == 4
+    for j, t in zip(js, ts):
+        assert (j["iteration"], j["coordinate"]) == (t["iteration"],
+                                                     t["coordinate"])
+        assert t["objective"] == pytest.approx(j["objective"], rel=1e-4)
+        assert set(t["validation_metrics"]) == set(j["validation_metrics"])
+        for name, v in t["validation_metrics"].items():
+            assert v == pytest.approx(j["validation_metrics"][name],
+                                      rel=1e-4), name
+    objs = [s["objective"] for s in ts]
+    assert all(np.isfinite(objs)) and objs[3] <= objs[1] * (1 + 1e-6)
+
+
+@pytest.mark.parametrize("model_side", ["jax", "torch"])
+@pytest.mark.parametrize("case", SECOND_ORDER_CASES)
+def test_second_order_models_cross_read_and_score(runs, second_order_runs,
+                                                  case, model_side):
+    """Each side reads the other's ``best/`` exactly and scores it to the
+    other side's scores."""
+    best = os.path.join(second_order_runs[case][model_side], "best")
+    with jax.enable_x64(False):
+        jc = _coefs(jio.load_game_model(best)[0])
+    tc = _coefs(tio.load_game_model(best)[0])
+    assert set(jc) == set(tc) == {"fixed", "perUser"}
+    for cid in jc:
+        assert set(jc[cid]) == set(tc[cid])
+        for key in jc[cid]:
+            assert np.array_equal(jc[cid][key], tc[cid][key]), (cid, key)
+    common = ["--input-data-dirs", runs["val"],
+              "--game-model-input-dir", best,
+              "--feature-shard-id-to-feature-section-keys-map", SECTIONS,
+              "--random-effect-id-set", "userId"]
+    out_j = str(runs["dir"] / f"score_{case}_jax_{model_side}")
+    out_t = str(runs["dir"] / f"score_{case}_torch_{model_side}")
+    with jax.enable_x64(False):
+        jax_score_main(common + ["--output-dir", out_j])
+    tsd.run(common + ["--output-dir", out_t, "--device", "cpu"])
+    part = os.path.join("scores", "part-00000.avro")
+    js = {r["uid"]: r["predictionScore"]
+          for r in jio.load_scored_items(os.path.join(out_j, part))}
+    ts = {r["uid"]: r["predictionScore"]
+          for r in tio.load_scored_items(os.path.join(out_t, part))}
+    assert len(ts) == 200 and set(js) == set(ts)
+    assert max(abs(js[u] - ts[u]) for u in js) <= 1e-5
+
+
+def test_compute_variance_leaves_game_models_without_variances(
+        second_order_runs):
+    """The JAX GAME driver passes ``--compute-variance`` to the fixed
+    effect, whose ``run_lazy`` computes no variances, so its model has
+    none; the port carries that over (ROADMAP Queue 3)."""
+    assert "--compute-variance" in GLMIX_CASES["linear_tron"].argv()
+    for side, out in second_order_runs["linear_tron"].items():
+        best = os.path.join(out, "best")
+        with jax.enable_x64(False):
+            jmodel = jio.load_game_model(best)[0]
+        tmodel = tio.load_game_model(best)[0]
+        assert jmodel.models["fixed"].model.coefficients.variances is None
+        assert tmodel.models["fixed"].model.coefficients.variances is None
+
+
+@pytest.mark.parametrize("config", ["fixed:40,1e-7,10,0.5,LBFGS,L2",
+                                    "fixed:15,1e-5,10,0.5,TRON,L2"])
+def test_down_sampling_still_exits_3(runs, tmp_path, capsys, config):
+    argv = [*runs["base"], "--fixed-effect-optimization-configurations",
+            config, "--output-dir", str(tmp_path / "out"), "--device",
+            "cpu"]
+    with pytest.raises(SystemExit) as exc:
+        ttd.main(argv)
+    assert exc.value.code == 3
+    assert "PHOTON_ABORT kind=NotImplementedError: down-sampling" in \
+        capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra", [
+    ["--fixed-effect-optimization-configurations",
+     "fixed:15,1e-5,10,1,TRON,L1"],
+    ["--task-type", "SMOOTHED_HINGE_LOSS_LINEAR_SVM",
+     "--fixed-effect-optimization-configurations",
+     "fixed:15,1e-5,10,1,TRON,L2"],
+], ids=["tron_l1", "smoothed_hinge_tron"])
+def test_refused_optimizers_fail_as_in_the_jax_driver(runs, tmp_path,
+                                                      extra):
+    """TRON with L1 and TRON for the smoothed hinge raise ``ValueError``
+    out of both drivers (no clean-abort exit code in either)."""
+    argv = [*runs["base"], *extra]
+    with jax.enable_x64(False), pytest.raises(ValueError):
+        jax_train_main(argv + ["--output-dir", str(tmp_path / "j")])
+    with pytest.raises(ValueError):
+        ttd.main(argv + ["--output-dir", str(tmp_path / "t"), "--device",
+                         "cpu"])
+
+
 def test_native_ingest_trains_as_the_records_path(runs, tmp_path,
                                                   monkeypatch):
     """Both drivers above read the fixture through their native decoders.
@@ -361,7 +485,6 @@ TRAIN_UNPORTED = [
     ("--collective-quant", ["--collective-quant", "int8"]),
     ("--cd-block-size", ["--cd-block-size", "2"]),
     ("--cd-pipeline-depth", ["--cd-pipeline-depth", "1"]),
-    ("--compute-variance", ["--compute-variance", "true"]),
     ("--re-lane-compaction-chunk", ["--re-lane-compaction-chunk", "4"]),
     ("--re-lane-compaction-chunk", ["--re-lane-compaction-chunk", "auto"]),
     ("--trace-dir", ["--trace-dir", "trace"]),

@@ -138,6 +138,17 @@ def test_cpu_tensors_count_no_launch_on_either_path(d):
         "stream": 0, "staged": 0}
 
 
+@pytest.mark.parametrize("loss", sorted(tl.LOSSES))
+def test_launches_are_counted_by_loss_and_cpu_counts_none(loss):
+    tpk.reset_launch_count()
+    assert tpk.fused_value_gradient_sums.launches_by_loss == dict.fromkeys(
+        tl.LOSSES, 0)
+    tpk.fused_value_gradient_sums(tl.get_loss(loss), *_args(50, 64),
+                                  device="cpu")
+    assert tpk.fused_value_gradient_sums.launches_by_loss == dict.fromkeys(
+        tl.LOSSES, 0)
+
+
 def test_unknown_path_is_refused_before_any_build():
     from photon_ml_tpu_torch.ops import kernels_build
 

@@ -147,7 +147,7 @@ def test_fit_blocks_codes_match_jax(lanes):
         "lbfgs", 15, TOL)
     tc, tit, tv, tk = tre._fit_blocks_impl(
         *map(torch.tensor, lanes), torch.zeros(E, D, dtype=torch.float64),
-        tobj, 15, TOL)
+        tobj, torch.zeros(D, dtype=torch.float64), "lbfgs", 15, TOL)
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     np.testing.assert_array_equal(tit.numpy(), np.asarray(jit))
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-8,
