@@ -89,10 +89,39 @@ Phases, one JSON line each on stdout:
    sweep-end objectives are reported), TRON's accepted
    fixed-effect values never rising, then the scoring driver on the
    Poisson run's ``best/``, its POISSON_LOSS equal to the best state's.
+   These driver runs read the feature sets of phase 6's scan through
+   ``--feature-name-and-term-set-path`` instead of scanning again.
    Every fixed-effect launch of (a)-(d) takes the path
    ``kernel_path`` picks (staged at 8 KB, 2 KB and 260-byte rows) and is
    counted by loss. The timing phase has two more rows: Poisson at
    65,536 x 512 and squared at 262,144 x 2,048, f32.
+9. cd_extensions — the coordinate-descent extensions on phase 5's data
+   (1,000,209 rows, 6,040 users): (a) two sweeps sequential
+   (``pipeline_depth=0``) and two pipelined (1): objectives, final states
+   and scores bit for bit equal, ``HOT_LOOP_STATS`` printed; (b) one
+   per-user update of L-BFGS (phase 5's config), TRON and OWL-QN (phase
+   8's per-user configs) as one dispatch, with lane compaction in chunks
+   of 4 and with the auto-tuned chunk: coefficients, iterations and codes
+   bit for bit equal, with wall and device busy time (``torch.profiler``),
+   the solvers' reads and the lanes of every re-dispatched chunk, and a
+   check at the buckets' shapes that a lane's margins and gradient sums,
+   with the lanes padded as compaction pads them, do not depend on how
+   many lanes share the dispatch; (c) two sweeps in blocks of two
+   coordinates: finite objectives, one epilogue
+   read per two updates, the sweep ends beside (a)'s sequential ones, and
+   a small blocked GLMix on the card and the CPU within rel 1e-4; (d) the
+   blocked pipelined run with a snapshot at every coordinate and
+   ``cd.update@1.1`` raising inside sweep 1's block: snapshots only at
+   block boundaries, and fresh coordinates resumed from the newest equal
+   to (c)'s run bit for bit (states, scores, objectives); (e) the fixed
+   effect down-sampled at rate 0.5 (the binary sampler): the weights the
+   card samples equal the CPU's for the same keys, two sweeps finite, on
+   the stream path; (f) the training driver with the pipelined sweep,
+   blocks of two, auto lane compaction and the fixed effect down-sampled
+   at 0.5 on the drill's 40,000 / 5,000-row fixture of phase 7 (b) (the
+   full fixture would take the script past 750 s): exit 0, finite
+   objectives, one read per block, every launch staged, then the scoring
+   driver on its ``best/``, its AUC the best state's.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
@@ -467,8 +496,10 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     """The GLMix main path through the port's drivers (phase 6). Returns
     the phase record, the kernel launches of the training run, the
     kernel-vs-plain check on the driver's own fixed-effect batch and the
-    fixture's (training, validation) directories, which stay in
-    ``workdir``; raises on any failed check, the kernel's last."""
+    fixture: its (training, validation) directories and the feature sets
+    of the driver's scan, saved for ``--feature-name-and-term-set-path``,
+    which stay in ``workdir``; raises on any failed check, the kernel's
+    last."""
     from photon_ml_tpu_torch.cli import game_training_driver as ttd
     from photon_ml_tpu_torch.game.dataset import build_fixed_effect_dataset
     from photon_ml_tpu_torch.io import data_format as tdf
@@ -648,13 +679,39 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
         "kernel_check": check,
     }
     print("driver phase: " + json.dumps(phase), file=sys.stderr, flush=True)
-    if launches <= 0 or by_path[expected] != launches:
+    if dev.type == "cuda" and (launches <= 0
+                               or by_path[expected] != launches):
         raise AssertionError(f"the driver's fixed effect did not launch "
                              f"the kernel on the {expected} path: {by_path}")
-    # the fixture stays for phase 8's driver runs
+    # the fixture stays for phases 8 and 9, with the feature sets
+    feature_sets = save_feature_sets(trainer.index_maps,
+                                     os.path.join(workdir, "feature_sets"))
     for d in (out, score_out):
         shutil.rmtree(d, ignore_errors=True)
-    return phase, launches, by_path, check, (train, val)
+    return phase, launches, by_path, check, (train, val, feature_sets)
+
+
+def save_feature_sets(index_maps, directory) -> str:
+    """The (name, term) sets behind the driver's index maps, one section a
+    shard as ``DRIVER_SECTIONS`` maps them, saved where
+    ``--feature-name-and-term-set-path`` reads them; the maps they give
+    must equal the driver's."""
+    from photon_ml_tpu_torch.io.data_format import NameAndTermFeatureSets
+    from photon_ml_tpu_torch.io.index_map import (INTERCEPT_KEY,
+                                                  split_feature_key)
+
+    shards = dict(x.split(":") for x in DRIVER_SECTIONS.split("|"))
+    sets = NameAndTermFeatureSets({
+        section: {split_feature_key(k) for k, _ in index_maps[shard].items()
+                  if k != INTERCEPT_KEY}
+        for shard, section in shards.items()})
+    for shard, section in shards.items():
+        if dict(sets.index_map([section], add_intercept=True).items()) != \
+                dict(index_maps[shard].items()):
+            raise AssertionError(f"saved feature sets of {shard} do not "
+                                 f"give the driver's index map")
+    sets.save(directory)
+    return directory
 
 
 def resume_phase(torch, dev, data, want, workdir):
@@ -747,7 +804,8 @@ def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
                 d_global=64):
     """Phase 7 (b): the crash/resume drill through the drivers on the
     card, six processes on an Avro fixture at full width. Returns the
-    record and the launches by role; raises on any failed check."""
+    record, the launches by role and the fixture's (training, validation)
+    files, which stay in ``workdir``; raises on any failed check."""
     from photon_ml_tpu_torch.tools import crash_resume_drill as drill
 
     shutil.rmtree(workdir, ignore_errors=True)
@@ -779,7 +837,7 @@ def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
             raise AssertionError(f"drill {r}: ingest left the native path: "
                                  f"{w['ingest_parts']}")
     ref = record["roles"]["reference"]["worker"]
-    shutil.rmtree(workdir, ignore_errors=True)
+    shutil.rmtree(os.path.join(workdir, "roles"), ignore_errors=True)
     return {
         "reduced": {"rows": {"train": rows[0], "validate": rows[1],
                              "configuration": 1_000_209},
@@ -794,7 +852,8 @@ def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
             record["states_compared_after_resume"],
         "corrupted_steps": record["corrupted_steps"],
         "drill_secs": record["seconds"],
-    }, launches
+    }, launches, tuple(os.path.join(fixture, f)
+                       for f in ("train.avro", "validate.avro"))
 
 
 def config2_data(n=BIG_SHAPE[0], d=BIG_SHAPE[1]):
@@ -1045,11 +1104,12 @@ def config3_phase(torch, dev, shape=CONFIG3_SHAPE, reps=3):
     }
 
 
-def second_order_driver_phase(torch, dev, train, val, workdir):
-    """Phase 8 (c): the drivers on phase 6's fixture with the second-order
-    argvs (two sweeps, 4 buckets, per-user cap 128), then the scoring
-    driver on the Poisson run's ``best/``. Returns the record and the
-    launches by run."""
+def second_order_driver_phase(torch, dev, train, val, feature_sets,
+                              workdir):
+    """Phase 8 (c): the drivers on phase 6's fixture and feature sets with
+    the second-order argvs (two sweeps, 4 buckets, per-user cap 128), then
+    the scoring driver on the Poisson run's ``best/``. Returns the record
+    and the launches by run."""
     from photon_ml_tpu_torch.cli import game_training_driver as ttd
     from photon_ml_tpu_torch.ops import pallas_kernels as pk
     from photon_ml_tpu_torch.tools.crash_resume_drill import driver_argv
@@ -1061,7 +1121,8 @@ def second_order_driver_phase(torch, dev, train, val, workdir):
     for case in SECOND_ORDER_CASES:
         extra = GLMIX_CASES[case].argv()
         out = os.path.join(workdir, case)
-        argv = driver_argv(train, val, out, str(dev), extra=extra)
+        argv = driver_argv(train, val, out, str(dev), extra=[
+            *extra, "--feature-name-and-term-set-path", feature_sets])
         reset_counts(torch, dev)
         t0 = time.perf_counter()
         trainer = ttd.run(argv)
@@ -1270,6 +1331,460 @@ def per_user_profile(torch, dev, dataset, extra_scores, reps=2):
             "iterations_mean": float(it.mean()),
             "convergence": tracker.counts_by_convergence()}
     return out
+
+
+def fresh_coordinates(coords, lane_chunk=0, down_sampling_rate=None):
+    """New coordinate objects over ``coords``' datasets and configs (update
+    counts and chunk tuners start anew): ``lane_chunk`` for every random
+    effect, ``down_sampling_rate`` for the fixed effect."""
+    import dataclasses
+
+    from photon_ml_tpu_torch.game.coordinate import (
+        FixedEffectCoordinate, RandomEffectCoordinate)
+    from photon_ml_tpu_torch.game.random_effect import ChunkAutoTuner
+
+    out = {}
+    for cid, c in coords.items():
+        if isinstance(c, FixedEffectCoordinate):
+            problem = c.problem
+            if down_sampling_rate is not None:
+                problem = dataclasses.replace(problem, config=(
+                    dataclasses.replace(problem.config,
+                                        down_sampling_rate=(
+                                            down_sampling_rate))))
+            out[cid] = FixedEffectCoordinate(dataset=c.dataset,
+                                             problem=problem)
+        else:
+            out[cid] = RandomEffectCoordinate(
+                dataset=c.dataset, problem=dataclasses.replace(
+                    c.problem, lane_compaction_chunk=lane_chunk,
+                    chunk_tuner=ChunkAutoTuner()))
+    return out
+
+
+def final_states(res) -> dict:
+    return {cid: (m.model.coefficients.means if hasattr(m, "model")
+                  else m.coefficients_projected)
+            for cid, m in res.model.models.items()}
+
+
+def runs_equal(torch, a, b, data, dev) -> dict:
+    """Objectives, final states and training scores of two runs, each
+    compared bit for bit."""
+    sa, sb = final_states(a), final_states(b)
+    return {
+        "objectives": ([s.objective for s in a.states]
+                       == [s.objective for s in b.states]),
+        "states": {cid: bool(torch.equal(sa[cid], sb[cid])) for cid in sa},
+        "scores": bool(torch.equal(a.model.score(data, device=dev),
+                                   b.model.score(data, device=dev)))}
+
+
+def all_equal(eq: dict) -> bool:
+    return eq["objectives"] and all(eq["states"].values()) and eq["scores"]
+
+
+def cd_run(torch, dev, data, coords, **kw):
+    """Two sweeps of ``coords`` with the launch, hot-loop and solver counts
+    zeroed just before; returns the result, its seconds and counts."""
+    from photon_ml_tpu_torch.game.coordinate_descent import (
+        HOT_LOOP_STATS, reset_hot_loop_stats, run_coordinate_descent)
+    from photon_ml_tpu_torch.optimize.config import TaskType
+
+    reset_counts(torch, dev)
+    reset_hot_loop_stats()
+    t0 = time.perf_counter()
+    res = run_coordinate_descent(
+        coords, 2, TaskType.LOGISTIC_REGRESSION, data.responses,
+        data.weights, data.offsets, device=dev, **kw)
+    sync(torch, dev)
+    return res, {"secs": time.perf_counter() - t0,
+                 "hot_loop": dict(HOT_LOOP_STATS),
+                 "launches": launch_counts(), **solver_counts()}
+
+
+def lane_count_dependence(torch, dataset, lane_counts=(1, 7, 16, 100)):
+    """Phase 9 (b): does a lane's result depend on how many lanes share the
+    dispatch? At each per-user bucket's shape and at 700 lanes of 128 rows
+    of 2-128 features, on random dense blocks (the buckets' one-hot rows
+    sum exactly in any order, so they could not show it): the margins and
+    the gradient's row sum of gathered lanes against the same lanes of
+    the full dispatch, through ``einsum`` (a batched GEMM), through
+    ``DenseBatch`` (the port's elementwise product and ``sum``), and
+    through ``DenseBatch`` with the lanes padded as lane compaction pads
+    them (``padded_lane_count``). Returns, per shape and form, the lane
+    counts whose lanes differ in any bit."""
+    from photon_ml_tpu_torch.data.batch import DenseBatch
+    from photon_ml_tpu_torch.optimize.common import padded_lane_count
+
+    def forms(X, w, r, port_only=False):
+        zero = torch.zeros_like(r)
+        b = DenseBatch(X, zero, zero, zero)
+        out = {"port_margins": b.margins(w, zero[:, 0]),
+               "port_gradient_sum": b.weighted_feature_sum(r)}
+        if not port_only:
+            out.update(einsum_margins=torch.einsum("end,ed->en", X, w),
+                       einsum_gradient_sum=torch.einsum("end,en->ed", X, r))
+        return out
+
+    out = {}
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    dev = dataset.buckets[0].X.device
+    # the buckets' shapes, then a grid of widths at 700 lanes of 128 rows
+    shapes = [tuple(b.X.shape) for b in dataset.buckets] + [
+        (700, 128, d) for d in (2, 4, 8, 16, 32, 64, 128)]
+    for e, n, d in shapes:
+        X = torch.randn(e, n, d, generator=gen).to(dev)
+        w = torch.randn(e, d, generator=gen).to(dev)
+        r = torch.randn(e, n, generator=gen).to(dev)
+        full = forms(X, w, r)
+        rng = np.random.default_rng(e)
+        differ = {k: [] for k in (*full, "padded_margins",
+                                  "padded_gradient_sum")}
+        counts = (*lane_counts, e // 2) if e != 700 else (1, 2, 4, 8, 16,
+                                                          32, 64)
+        for k_lanes in sorted({min(c, e) for c in counts}):
+            real = np.sort(rng.choice(e, k_lanes, replace=False))
+            pad = padded_lane_count(k_lanes, e, d) - k_lanes
+            rows = torch.as_tensor(real, device=dev)
+            padded = torch.as_tensor(
+                np.concatenate([real, real[:1].repeat(pad)]), device=dev)
+            part = forms(X[rows], w[rows], r[rows])
+            part.update({k.replace("port", "padded"): v[:k_lanes]
+                         for k, v in forms(X[padded], w[padded], r[padded],
+                                           port_only=True).items()})
+            for k in differ:
+                ref = full[k.replace("padded", "port")]
+                if not torch.equal(part[k], ref[rows]):
+                    differ[k].append(k_lanes)
+        out[f"{e}x{n}x{d}"] = differ
+        del X
+    return out
+
+
+def compaction_profile(torch, dev, dataset, extra_scores):
+    """Phase 9 (b): one per-user update of each solver (phase 5's per-user
+    coordinate; the per-user configs of phases 5 and 8) as one dispatch,
+    with chunk 4 and with the auto-tuned chunk: coefficients, iterations
+    and codes bit for bit equal; wall and device busy time (under
+    ``torch.profiler``), the solvers' reads and the active lanes of every
+    re-dispatched chunk."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_ml_tpu_torch.game import random_effect as gre
+    from photon_ml_tpu_torch.game.coordinate import RandomEffectCoordinate
+    from photon_ml_tpu_torch.optimize.config import (
+        GLMOptimizationConfiguration, TaskType)
+    from photon_ml_tpu_torch.tools.glmix_cases import GLMIX_CASES
+
+    out, problems = {}, []
+    for case, glmix in GLMIX_CASES.items():
+        runs, want = {}, None
+        for label, chunk in (("single", 0), ("chunk_4", 4),
+                             ("auto", gre.AUTO_COMPACTION_CHUNK)):
+            coord = RandomEffectCoordinate(
+                dataset=dataset, problem=gre.RandomEffectOptimizationProblem(
+                    config=GLMOptimizationConfiguration.parse(
+                        glmix.per_user),
+                    task=TaskType[glmix.task], lane_compaction_chunk=chunk))
+            if want is None:
+                coord.update(None, extra_scores)  # warm: allocator, handles
+            sync(torch, dev)
+            reset_counts(torch, dev)
+            gre.reset_solve_stats()
+            t0 = time.perf_counter()
+            x, tracker = coord.update(None, extra_scores)
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+            work, stats = solver_counts(), dict(gre.SOLVE_STATS)
+            tracker.materialize()
+            got = (x, tracker.iterations, tracker.convergence_codes)
+            if want is None:
+                want = got
+            equal = (bool(torch.equal(got[0], want[0]))
+                     and np.array_equal(got[1], want[1])
+                     and np.array_equal(got[2], want[2]))
+            if not equal:
+                problems.append(f"{case} {label}: not equal to the single "
+                                f"dispatch")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                coord.update(None, extra_scores)
+                sync(torch, dev)
+                profiled = time.perf_counter() - t0
+            busy_us = trace_device_busy_us(prof)
+            runs[label] = {
+                "wall_secs": wall, "wall_secs_profiled": profiled,
+                "device_busy_secs": (None if busy_us is None
+                                     else busy_us / 1e6),
+                "device_idle_share": (None if busy_us is None
+                                      else 1.0 - busy_us / 1e6 / profiled),
+                "solver_syncs": work["solver_syncs"],
+                "dispatches": stats["dispatches"],
+                "chunks": stats["chunks"],
+                "redispatched_lanes": stats["lane_counts"],
+                "compact_secs": stats["compact_secs"],
+                "equal_to_single": equal}
+        it = want[1]
+        out[case] = {"config": f"{glmix.task}, perUser:{glmix.per_user}",
+                     "entities": int(len(it)),
+                     "iterations_max": int(it.max()),
+                     "iterations_mean": float(it.mean()), "runs": runs}
+    return out, problems
+
+
+def blocked_small_vs_cpu(torch, card, n=40_000, users=500, movies=300):
+    """Phase 9 (c): a small GLMix in blocks of two on the ``card`` and on
+    the CPU; objectives agree to rel 1e-4."""
+    small = movielens_data(np.random.default_rng(3), n, users, movies, 64)
+    objs, launches = {}, None
+    for where in ("cpu", card):
+        d = torch.device(where)
+        coords = glmix_coordinates(small, d, active_cap=32, feature_cap=32)
+        res, counts = cd_run(torch, d, small, coords, block_size=2)
+        objs[where] = [s.objective for s in res.states]
+        if where == card:
+            launches = counts["launches"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(objs["cpu"], objs[card]))
+    if not rel <= 1e-4 or not np.all(np.isfinite(objs[card])):
+        raise AssertionError(f"small blocked GLMix: card and CPU differ "
+                             f"(rel {rel:.3g}): {objs}")
+    return {"objectives_cpu": objs["cpu"], "objectives_card": objs[card],
+            "max_rel_diff": rel, "launches": launches}, launches
+
+
+def blocked_resume(torch, dev, data, coords, want, workdir):
+    """Phase 9 (d): blocks of two, pipelined, a snapshot at every
+    coordinate and ``cd.update@1.1`` raising inside sweep 1's block; fresh
+    coordinates resume from the restored snapshot and must end
+    ``array_equal`` to the uninterrupted blocked run ``want``."""
+    from photon_ml_tpu_torch.utils import checkpoint as ck
+    from photon_ml_tpu_torch.utils import faults
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    mgr = ck.CheckpointManager(workdir)
+    kw = dict(block_size=2, pipeline_depth=1, checkpoint_manager=mgr,
+              checkpoint_every_coordinates=1)
+    faults.disarm_all()
+    faults.arm("cd.update", "raise", tag="1.1")
+    try:
+        cd_run(torch, dev, data, fresh_coordinates(coords), **kw)
+    except faults.InjectedFault:
+        pass
+    else:
+        raise AssertionError("the armed cd.update@1.1 fault did not fire")
+    finally:
+        faults.disarm_all()
+    crash_launches = launch_counts()
+    indices = sorted({mgr.restore(step=s)["coordinate_index"]
+                      for s in mgr.all_steps()})
+    snap = mgr.restore()
+    point = (snap["sweep"], snap["coordinate_index"])
+    if point != (1, 0) or indices != [0]:
+        raise AssertionError(f"blocked snapshots at {indices}, resume "
+                             f"point {point}: expected block boundaries "
+                             f"only, resuming at (1, 0)")
+    res, counts = cd_run(torch, dev, data, fresh_coordinates(coords),
+                         resume_snapshot=snap, **kw)
+    eq = runs_equal(torch, res, want, data, dev)
+    eq["objectives"] = ([s.objective for s in res.states]
+                        == [s.objective for s in want.states][2:])
+    shutil.rmtree(workdir, ignore_errors=True)
+    if not all_equal(eq):
+        raise AssertionError(f"the resumed blocked run differs: {eq}")
+    return {"resume_point": list(point), "snapshot_indices": indices,
+            "equal_to_uninterrupted": eq, "resumed_secs": counts["secs"],
+            "launches": {"before_raise": crash_launches,
+                         "resumed": counts["launches"]}}, \
+        {"before_raise": crash_launches, "resumed": counts["launches"]}
+
+
+def down_sampling_check(torch, dev, data, coords):
+    """Phase 9 (e): the fixed effect at rate 0.5 (logistic: the binary
+    sampler). The weights sampled on the card equal the CPU's for the
+    same keys; two sweeps run finite."""
+    from photon_ml_tpu_torch.sampler.samplers import (
+        binary_classification_down_sample)
+    from photon_ml_tpu_torch.utils.prng import PRNGKey
+
+    batch = coords["fixed"].dataset.batch
+    host = batch._replace(X=batch.X[:1].cpu(), labels=batch.labels.cpu(),
+                          offsets=batch.offsets.cpu(),
+                          weights=batch.weights.cpu())
+    keys = {}
+    for seed in (0, 1):
+        card = binary_classification_down_sample(batch, 0.5, PRNGKey(seed))
+        cpu = binary_classification_down_sample(host, 0.5, PRNGKey(seed))
+        w = card.weights.cpu()
+        if not torch.equal(w, cpu.weights):
+            raise AssertionError(f"down-sampled weights, key {seed}: card "
+                                 f"and CPU differ")
+        neg = host.labels <= 0.5
+        keys[seed] = {"kept_negative_share": float(
+            (w[neg] > 0).double().mean()), "weights_equal": True}
+    sampled = fresh_coordinates(coords, down_sampling_rate=0.5)
+    res, counts = cd_run(torch, dev, data, sampled)
+    objs = [s.objective for s in res.states]
+    if not np.all(np.isfinite(objs)) or sampled["fixed"]._update_count != 2:
+        raise AssertionError(f"down-sampled sweeps: objectives {objs}, "
+                             f"{sampled['fixed']._update_count} updates")
+    check_launches("down-sampled GLMix", counts["launches"], "stream",
+                   "logistic", dev)
+    return {"rate": 0.5, "keys": keys, "objectives": objs,
+            "secs": counts["secs"], "launches": counts["launches"]}, \
+        counts["launches"]
+
+
+def cd_driver_phase(torch, dev, train, val, workdir):
+    """Phase 9 (f): the training driver on the drill's fixture (phase 7
+    (b)) with ``CD_EXTENSION_FLAGS`` (pipelined, blocks of two, auto lane
+    compaction, the fixed effect down-sampled at 0.5), then the scoring
+    driver on its ``best/``."""
+    from photon_ml_tpu_torch.cli import game_training_driver as ttd
+    from photon_ml_tpu_torch.game import random_effect as gre
+    from photon_ml_tpu_torch.game.coordinate_descent import (
+        HOT_LOOP_STATS, reset_hot_loop_stats)
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.tools.crash_resume_drill import driver_argv
+    from photon_ml_tpu_torch.tools.glmix_cases import CD_EXTENSION_FLAGS
+
+    out = os.path.join(workdir, "train_out")
+    argv = driver_argv(train, val, out, str(dev),
+                       extra=list(CD_EXTENSION_FLAGS))
+    reset_counts(torch, dev)
+    reset_hot_loop_stats()
+    gre.reset_solve_stats()
+    t0 = time.perf_counter()
+    trainer = ttd.run(argv)
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    counts, hot = launch_counts(), dict(HOT_LOOP_STATS)
+    solve = dict(gre.SOLVE_STATS)
+    path = pk.kernel_path(len(trainer.index_maps["global"]), torch.float32,
+                          True)
+    check_launches("driver with the CD extensions", counts, path,
+                   "logistic", dev)
+    record = json.load(open(os.path.join(out, "metrics.json")))
+    (grid,) = record["grid"]
+    objs = [s["objective"] for s in grid["states"]]
+    if len(objs) != 4 or not all(o is not None and np.isfinite(o)
+                                 for o in objs):
+        raise AssertionError(f"driver with the CD extensions: objectives "
+                             f"{objs}")
+    if hot["epilogue_fetches"] * 2 != hot["updates"]:
+        raise AssertionError(f"blocks of two: {hot}")
+    scorer = run_scoring_driver([
+        "--input-data-dirs", val,
+        "--game-model-input-dir", os.path.join(out, "best"),
+        "--output-dir", os.path.join(workdir, "score_out"),
+        "--feature-shard-id-to-feature-section-keys-map", DRIVER_SECTIONS,
+        "--random-effect-id-set", "userId", "--evaluator-type", "AUC",
+        "--device", str(dev)])
+    best = record["best"]["metric"]
+    if not abs(scorer["metrics"]["AUC"] - best) <= 1e-6:
+        raise AssertionError(f"scoring driver AUC {scorer['metrics']['AUC']}"
+                             f" != best validation AUC {best}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"argv_extra": list(CD_EXTENSION_FLAGS),
+            "training_driver_secs": secs,
+            "phase_seconds": trainer.phase_seconds,
+            "secs_per_update": [s["seconds"] for s in grid["states"]],
+            "objectives": objs,
+            "validation_metrics": [s["validation_metrics"]
+                                   for s in grid["states"]],
+            "best_metric": best, "scoring_driver_auc":
+                scorer["metrics"]["AUC"],
+            "hot_loop": hot, "solve_stats": solve,
+            "launches": counts, "expected_path": path}, counts
+
+
+def cd_extensions_phase(torch, dev, smi, data, coords, fixture, workdir):
+    """Phase 9: the coordinate-descent extensions on the card. Returns the
+    phase record and the kernel's launches by run."""
+    from photon_ml_tpu_torch.game.random_effect import AUTO_COMPACTION_CHUNK
+
+    t_all = time.perf_counter()
+    launches, secs, mark = {}, {}, [t_all]
+
+    def lap(part):
+        now = time.perf_counter()
+        secs[part], mark[0] = now - mark[0], now
+
+    # (a) pipelined against sequential
+    seq, seq_counts = cd_run(torch, dev, data, fresh_coordinates(coords),
+                             pipeline_depth=0)
+    pipe, pipe_counts = cd_run(torch, dev, data, fresh_coordinates(coords),
+                               pipeline_depth=1)
+    eq = runs_equal(torch, seq, pipe, data, dev)
+    if not all_equal(eq):
+        raise AssertionError(f"pipelined != sequential: {eq}")
+    launches.update(sequential=seq_counts["launches"],
+                    pipelined=pipe_counts["launches"])
+    pipelined = {"equal": eq,
+                 "objectives": [s.objective for s in pipe.states],
+                 "sequential": {k: seq_counts[k] for k in (
+                     "secs", "hot_loop", "solver_syncs")},
+                 "pipelined": {k: pipe_counts[k] for k in (
+                     "secs", "hot_loop", "solver_syncs")}}
+    print("phase 9 (a): " + json.dumps(pipelined), file=sys.stderr,
+          flush=True)
+    lap("a")
+    # (b) lane compaction, one per-user update of each solver
+    extra = coords["fixed"].score(final_states(seq)["fixed"])
+    compaction, problems = compaction_profile(
+        torch, dev, coords["per-user"].dataset, extra)
+    compaction["lane_count_dependence"] = dependence = \
+        lane_count_dependence(torch, coords["per-user"].dataset)
+    print("phase 9 (b): " + json.dumps(compaction), file=sys.stderr,
+          flush=True)
+    if any(v["padded_margins"] or v["padded_gradient_sum"]
+           for v in dependence.values()):
+        problems.append(f"a padded lane's results depend on the lane "
+                        f"count: {dependence}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    lap("b")
+    # (c) blocks of two beside the sequential sweep
+    blk, blk_counts = cd_run(torch, dev, data, fresh_coordinates(coords),
+                             block_size=2)
+    objs = [s.objective for s in blk.states]
+    hot = blk_counts["hot_loop"]
+    if not np.all(np.isfinite(objs)) or \
+            hot["epilogue_fetches"] * 2 != hot["updates"]:
+        raise AssertionError(f"blocked sweep: objectives {objs}, {hot}")
+    small, small_launches = blocked_small_vs_cpu(torch, dev.type)
+    launches.update(blocked=blk_counts["launches"],
+                    small_blocked_cuda=small_launches)
+    blocked = {
+        "objectives": objs, "hot_loop": hot, "secs": blk_counts["secs"],
+        "sweep_end_objectives": {
+            "sequential": [seq.states[1].objective, seq.states[3].objective],
+            "blocked": [objs[1], objs[3]]},
+        "small_vs_cpu": small}
+    lap("c")
+    # (d) resume under blocks
+    resumed, resume_launches = blocked_resume(
+        torch, dev, data, coords, blk, os.path.join(workdir, "ckpt"))
+    launches.update({f"blocked_resume_{k}": v
+                     for k, v in resume_launches.items()})
+    lap("d")
+    # (e) down-sampling
+    down, down_launches = down_sampling_check(torch, dev, data, coords)
+    launches["down_sampled"] = down_launches
+    lap("e")
+    # (f) the drivers, on the drill's fixture
+    driver, driver_launches = cd_driver_phase(
+        torch, dev, *fixture, os.path.join(workdir, "driver"))
+    launches["driver"] = driver_launches
+    lap("f")
+    return {"phase": "cd_extensions", "nvidia_smi": smi,
+            "rows": int(data.num_samples),
+            "auto_compaction_chunk": AUTO_COMPACTION_CHUNK,
+            "pipelined": pipelined, "compaction": compaction,
+            "blocked": blocked, "blocked_resume": resumed,
+            "down_sampling": down, "driver": driver, "part_seconds": secs,
+            "seconds": time.perf_counter() - t_all}, launches
 
 
 def main() -> int:
@@ -1577,8 +2092,8 @@ def main() -> int:
     print("resume in process: " + json.dumps(in_process), file=sys.stderr,
           flush=True)
     t1 = time.perf_counter()
-    drill_rec, drill_launches = drill_phase(dev,
-                                            os.path.join(build, "drill"))
+    drill_rec, drill_launches, drill_fixture = drill_phase(
+        dev, os.path.join(build, "drill"))
     drill_rec["seconds"] = time.perf_counter() - t1
     emit({"phase": "resume", "nvidia_smi": smi, "in_process": in_process,
           "drill": drill_rec,
@@ -1616,7 +2131,15 @@ def main() -> int:
                              for k, v in drivers2["runs"].items()}},
           "seconds": time.perf_counter() - t0})
 
+    # -- 9. coordinate-descent extensions ---------------------------------
+    cd_ext, cd_launches = cd_extensions_phase(
+        torch, dev, smi, data, coords, drill_fixture,
+        os.path.join(build, "cd_extensions"))
+    shutil.rmtree(os.path.join(build, "drill"), ignore_errors=True)
+    emit(cd_ext)
+
     # -- kernels line, card line, result ---------------------------------------
+    cd_runs = {f"cd_{k}": v for k, v in cd_launches.items()}
     second_order_runs = {
         "config2": cfg2["launches"], "config3": cfg3["launches"],
         **{f"driver_{k}": v for k, v in drivers2_launches.items()},
@@ -1625,9 +2148,11 @@ def main() -> int:
             "resume_before_kill": resume_crash,
             "resume_resumed": resume_resumed,
             **{f"drill_{r}": v for r, v in drill_launches.items()},
-            **{k: v["by_path"] for k, v in second_order_runs.items()}}
+            **{k: v["by_path"] for k, v in second_order_runs.items()},
+            **{k: v["by_path"] for k, v in cd_runs.items()}}
     by_loss = {"glmix": glmix_by_loss, "driver": phase["launches_by_loss"],
-               **{k: v["by_loss"] for k, v in second_order_runs.items()}}
+               **{k: v["by_loss"] for k, v in second_order_runs.items()},
+               **{k: v["by_loss"] for k, v in cd_runs.items()}}
     total_by_path = {p: sum(r[p] for r in runs.values())
                      for p in by_path}
     main = timings[(*GLMIX_SHAPE, "float32", "stream", "logistic")]

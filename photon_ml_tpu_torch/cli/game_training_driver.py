@@ -19,16 +19,19 @@ steps are all corrupt ends in exit 3 before any data is read),
 ``--recovery-*`` flags, ``--max-train-seconds``, ``--stop-file`` and
 SIGTERM/SIGINT (exit 75 at the next commit barrier), and
 ``--max-shard-loss-frac`` (degraded ingest). Every optimizer string of
-the JAX driver trains (L-BFGS, OWL-QN for L1 and elastic net, TRON), and
-``--compute-variance`` reaches the fixed-effect problem as in the JAX
-driver (``:560-576``); the fixed effect solves through ``run_lazy``, which
-computes no variances there either, so a GAME model carries none. Flags
-whose feature is not ported yet raise ``NotImplementedError`` naming the
-flag and end the run through ``clean_abort`` (exit 3): multi-process runs
-and their supervision, the off-heap index store, streamed and factored
-random effects, entity sharding, bf16, quantized collectives, explicit
-block or pipelined sweeps, lane compaction and telemetry; a
-down-sampling rate below 1 does too.
+the JAX driver trains (L-BFGS, OWL-QN for L1 and elastic net, TRON), with
+its down-sampling rate (below 1 the fixed effect samples its batch at
+every update), and ``--compute-variance`` reaches the fixed-effect
+problem as in the JAX driver (``:560-576``); the fixed effect solves
+through ``run_lazy``, which computes no variances there either, so a GAME
+model carries none. The coordinate-descent flags are the JAX driver's,
+with its defaults: ``--cd-block-size`` (1), ``--cd-pipeline-depth`` (1
+when unset, ``:741-742``) and ``--re-lane-compaction-chunk`` (0, an int
+or ``auto``; ``_lane_chunk``, ``:500-502``). Flags whose feature is not
+ported yet raise ``NotImplementedError`` naming the flag and end the run
+through ``clean_abort`` (exit 3): multi-process runs and their
+supervision, the off-heap index store, streamed and factored random
+effects, entity sharding, bf16, quantized collectives and telemetry.
 
 Validation rows are matched to the trained per-entity models by raw id:
 the validation id columns are re-encoded against the training vocabulary
@@ -88,6 +91,7 @@ from photon_ml_tpu_torch.game.dataset import (
     build_random_effect_dataset,
 )
 from photon_ml_tpu_torch.game.random_effect import (
+    AUTO_COMPACTION_CHUNK,
     RandomEffectOptimizationProblem,
 )
 from photon_ml_tpu_torch.io.data_format import (
@@ -128,9 +132,9 @@ def _parse_opt_config_grid(s: str) -> list[dict[str,
 
 
 def _int_or_auto(s: str) -> int:
-    """An int, or ``auto`` (-1): the spellings of
-    ``--re-lane-compaction-chunk`` and ``--re-entity-shards``."""
-    return -1 if s.strip().lower() == "auto" else int(s)
+    """An int, or ``auto`` (-1, ``AUTO_COMPACTION_CHUNK``): the spellings
+    of ``--re-lane-compaction-chunk`` and ``--re-entity-shards``."""
+    return AUTO_COMPACTION_CHUNK if s.strip().lower() == "auto" else int(s)
 
 
 def parse_args(argv: Sequence[str]) -> argparse.Namespace:
@@ -161,14 +165,25 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
                    help="(N, D) size buckets for random-effect entity "
                         "blocks")
     p.add_argument("--re-lane-compaction-chunk", type=_int_or_auto,
-                   default=0)
+                   default=0,
+                   help="solve random-effect entity blocks in chunks of "
+                        "this many iterations, re-dispatching only the "
+                        "lanes still unconverged (one host read a "
+                        "chunk; bit-identical results); 0 (default): one "
+                        "dispatch; 'auto': a chunk re-tuned between "
+                        "solves from the lanes' decay")
     p.add_argument("--re-entity-shards", type=_int_or_auto, default=1)
     add_precision_flags(p)
-    p.add_argument("--cd-block-size", type=int, default=1)
+    p.add_argument("--cd-block-size", type=int, default=1,
+                   help="solve this many coordinates of a sweep against "
+                        "the block-start score total, then correct the "
+                        "total with one epilogue (one read a block); 1 "
+                        "(default): the sequential sweep")
     p.add_argument("--cd-pipeline-depth", type=int, default=None,
                    choices=[0, 1],
-                   help="the port runs the sequential sweep (0); the JAX "
-                        "package pins its pipelined sweep bit-exact to it")
+                   help="1 (default when unset): dispatch each block "
+                        "before the previous block's epilogue is read, "
+                        "with the floats of 0, the sequential order")
     p.add_argument("--random-effect-blocks-dir", default=None)
     p.add_argument("--max-shard-loss-frac", type=float, default=0.0)
     p.add_argument("--evaluator-type", default="")
@@ -226,11 +241,6 @@ def check_unported(ns: argparse.Namespace) -> None:
         ("--precision", ns.precision != "f32", "bf16 storage"),
         ("--collective-quant", ns.collective_quant != "none",
          "quantized collectives"),
-        ("--cd-block-size", ns.cd_block_size > 1, "block sweeps"),
-        ("--cd-pipeline-depth", (ns.cd_pipeline_depth or 0) >= 1,
-         "the pipelined sweep"),
-        ("--re-lane-compaction-chunk", ns.re_lane_compaction_chunk != 0,
-         "lane compaction"),
         ("--trace-dir", ns.trace_dir, "telemetry"),
         ("--telemetry-endpoint", ns.telemetry_endpoint, "telemetry"),
         ("--device-telemetry", ns.device_telemetry, "telemetry"),
@@ -284,6 +294,12 @@ class GameTrainingDriver:
         self.best_result: Optional[CoordinateDescentResult] = None
         #: phase name -> wall seconds of the last run
         self.phase_seconds: dict[str, float] = {}
+
+    def _lane_chunk(self) -> int:
+        """``--re-lane-compaction-chunk``: the auto value, or the chunk
+        (a negative one is no chunk)."""
+        c = int(self.ns.re_lane_compaction_chunk)
+        return c if c == AUTO_COMPACTION_CHUNK else max(0, c)
 
     # -- pipeline ----------------------------------------------------------
 
@@ -375,7 +391,8 @@ class GameTrainingDriver:
                     dataset=ds, problem=RandomEffectOptimizationProblem(
                         config=random_cfgs.get(
                             cid, GLMOptimizationConfiguration()),
-                        task=self.task))
+                        task=self.task,
+                        lane_compaction_chunk=self._lane_chunk()))
             else:
                 raise ValueError(
                     f"coordinate {cid!r} in updating sequence has no data "
@@ -472,6 +489,9 @@ class GameTrainingDriver:
                         self.ns.checkpoint_every_coordinates),
                     resume_snapshot=resume_snapshot,
                     recovery=recovery, events=events, stop=self.stop,
+                    block_size=max(1, int(self.ns.cd_block_size)),
+                    pipeline_depth=(1 if self.ns.cd_pipeline_depth is None
+                                    else int(self.ns.cd_pipeline_depth)),
                     device=self.device)
             if result.quarantined:
                 self.logger.warn(

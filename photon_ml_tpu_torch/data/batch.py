@@ -4,7 +4,16 @@ Port of ``photon_ml_tpu/data/batch.py:37-79`` (``DenseBatch``) and ``:149``
 (``dense_batch``). The JAX package vmaps its solvers over entities, so each
 lane sees a 2-D batch; the port writes the entity axis out instead, and the
 same methods take the 3-D ``[E, N, D]`` form (``labels``/``offsets``/
-``weights`` ``[E, N]``, coefficients ``[E, D]``) through ``einsum``.
+``weights`` ``[E, N]``, coefficients ``[E, D]``).
+
+A 2-D batch goes through ``einsum`` (a matrix-vector product). A 3-D batch
+is an elementwise product and a ``sum`` over the row's features (margins)
+or over the entity's rows (the gradient's sum): a batched GEMM would let
+cuBLAS pick its algorithm by the lane count, and on the H100 a lane's
+margins then differ in the last bits between a dispatch of all lanes and
+a compacted dispatch of a few, while the reduction's order per output does
+not depend on the number of outputs. That keeps lane compaction bit-exact
+(``game/random_effect.py``).
 ``EllBatch`` waits for a later slice.
 """
 
@@ -47,20 +56,29 @@ class DenseBatch(NamedTuple):
 
     def margins(self, w_eff: Tensor, margin_shift: Tensor) -> Tensor:
         """x_i . w_eff + margin_shift + offset_i."""
-        z = torch.einsum("...nd,...d->...n", self._X_acc(),
-                         w_eff.to(self.acc_dtype))
+        X, w = self._X_acc(), w_eff.to(self.acc_dtype)
+        if X.dim() == 3:
+            z = (X * w.unsqueeze(-2)).sum(-1)
+        else:
+            z = torch.einsum("nd,d->n", X, w)
         return z + margin_shift.unsqueeze(-1) + self.offsets
 
     def weighted_feature_sum(self, row_scalars: Tensor) -> Tensor:
         """sum_i row_scalars_i * x_i — the gradient's vector sum (X^T r)."""
-        return torch.einsum("...nd,...n->...d", self._X_acc(),
-                            row_scalars.to(self.acc_dtype))
+        return _row_weighted_sum(self._X_acc(),
+                                 row_scalars.to(self.acc_dtype))
 
     def hadamard_square_sum(self, row_scalars: Tensor) -> Tensor:
         """sum_i row_scalars_i * x_i**2 — Hessian-diagonal inner sum."""
         X = self._X_acc()
-        return torch.einsum("...nd,...n->...d", X * X,
-                            row_scalars.to(self.acc_dtype))
+        return _row_weighted_sum(X * X, row_scalars.to(self.acc_dtype))
+
+
+def _row_weighted_sum(X: Tensor, r: Tensor) -> Tensor:
+    """sum over rows of r_i * x_i, per lane for a 3-D ``X``."""
+    if X.dim() == 3:
+        return (X * r.unsqueeze(-1)).sum(-2)
+    return torch.einsum("nd,n->d", X, r)
 
 
 def dense_batch(X: np.ndarray, labels: np.ndarray,

@@ -4,10 +4,13 @@ Port of ``photon_ml_tpu/game/coordinate.py:67-290`` — the trackers,
 ``FixedEffectCoordinate`` and ``RandomEffectCoordinate``. Each coordinate's
 state is its coefficient tensor (``[D]`` for the fixed effect in
 normalized space, the compact ``[E, D_red]`` block for a random effect).
-Down-sampling is not ported: a rate below 1 raises ``NotImplementedError``.
-The fixed effect counts its updates in ``_update_count``, as the JAX
-one does (its down-sampling key is seed + count); snapshots carry the
-count under ``update_counts``.
+A fixed effect whose config has a down-sampling rate below 1 samples its
+batch at every update (``sampler/samplers.py``) with the key
+``PRNGKey(seed + _update_count)``; the count advances on every update,
+sampled or not (``:195-201``), and snapshots carry it under
+``update_counts``, so a resumed or replayed update draws the same rows.
+A random effect accepts such a rate and ignores it, as the JAX coordinate
+does (``:252-266`` has no sampler).
 """
 
 from __future__ import annotations
@@ -33,9 +36,15 @@ from photon_ml_tpu_torch.game.random_effect import (
 )
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_ml_tpu_torch.optimize.common import DeferredOptimizationResult
+from photon_ml_tpu_torch.optimize.config import TaskType
 from photon_ml_tpu_torch.optimize.problem import GLMOptimizationProblem
+from photon_ml_tpu_torch.sampler.samplers import down_sample
+from photon_ml_tpu_torch.utils.prng import PRNGKey
 
 Tensor = torch.Tensor
+
+_CLASSIFICATION_TASKS = (TaskType.LOGISTIC_REGRESSION,
+                         TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM)
 
 
 @dataclasses.dataclass
@@ -96,11 +105,8 @@ class FixedEffectCoordinate:
 
     dataset: FixedEffectDataset
     problem: GLMOptimizationProblem
+    seed: int = 0
     _update_count: int = 0
-
-    def __post_init__(self):
-        if self.problem.config.down_sampling_rate < 1.0:
-            raise NotImplementedError("down-sampling is not ported yet")
 
     @property
     def num_samples(self) -> int:
@@ -117,9 +123,15 @@ class FixedEffectCoordinate:
 
     def update(self, coefs: Optional[Tensor], extra_scores: Tensor
                ) -> tuple[Tensor, Tracker]:
-        """Re-optimize on the offset-adjusted batch; no blocking read of
-        the solve history (it stays in the tracker)."""
+        """Re-optimize on the offset-adjusted (and, below rate 1,
+        down-sampled) batch; no blocking read of the solve history (it
+        stays in the tracker)."""
         batch = self.dataset.with_offsets(extra_scores)
+        rate = self.problem.config.down_sampling_rate
+        if rate < 1.0:
+            batch = down_sample(
+                batch, rate, PRNGKey(self.seed + self._update_count),
+                is_classification=self.problem.task in _CLASSIFICATION_TASKS)
         self._update_count += 1
         result = self.problem.run_lazy(batch, initial=coefs)
         return result.coefficients, FixedEffectTracker(result)
@@ -149,10 +161,6 @@ class RandomEffectCoordinate:
 
     dataset: RandomEffectDataset
     problem: RandomEffectOptimizationProblem
-
-    def __post_init__(self):
-        if self.problem.config.down_sampling_rate < 1.0:
-            raise NotImplementedError("down-sampling is not ported yet")
 
     @property
     def num_samples(self) -> int:

@@ -1,27 +1,41 @@
-"""Coordinate descent: the GAME outer loop, sequential, with checkpoints,
-resume, divergence recovery and graceful stop.
+"""Coordinate descent: the GAME outer loop, with pipelined and block
+sweeps, checkpoints, resume, divergence recovery and graceful stop.
 
-Port of ``photon_ml_tpu/game/coordinate_descent.py`` — ``_canonical_sum``
+Port of ``photon_ml_tpu/game/coordinate_descent.py`` — ``HOT_LOOP_STATS``
+(``:103-106``), ``_InFlight`` (``:158-187``), ``_canonical_sum``
 (``:189-196``), ``make_update_epilogue`` (``:208-261``),
 ``RecoveryPolicy`` (``:265-320``), ``CoordinateDivergenceError``
 (``:86``), ``_damp_toward`` (``:337``), ``_checkpoint_save_contained``
 (``:391``), ``CoordinateDescentState``/``Result`` (``:361-389``),
-``run_coordinate_descent`` (``:412-1256``) with ``pipeline_depth=0`` and
-``block_size=1`` — resume (``:534-595``), per-update validation and the
-best model (``:863-883``), ``save_snapshot`` (``:622-662``) and its
-cadence (``:664``), the sequential retry / skip / abort / quarantine
-ladder (``run_member``, ``:891-1018``), the stop poll at the commit
-barrier (``:1141-1156``), the ``cd.update`` and ``cd.sweep`` fault points —
-and ``publish_game_model`` (``:1258-1261``).
+``run_coordinate_descent`` (``:412-1256``: resume, per-update validation
+and the best model, ``save_snapshot`` and its cadence, dispatch / fetch /
+commit / rollback / resolve of a block, the sequential retry / skip /
+abort / quarantine ladder ``run_member``, ``replay_block_members``,
+``run_block``, the pipelined sweep and the stop poll at the commit
+barrier, the ``cd.update`` and ``cd.sweep`` fault points) — and
+``publish_game_model`` (``:1258-1261``).
 
-Per (sweep, coordinate in ids order): the other coordinates' scores are
-injected as offsets, the coordinate re-solves, re-scores, and ONE fused
-epilogue computes the canonical score total (summed from zero in ids
-order), the training loss, the summed regularization, the objective and
-the finiteness flags; its small outputs come back in ONE host fetch per
-update (``HOT_LOOP_STATS``), from which recovery also reads the flags.
-The solvers' own loop-exit reads are counted in
-``optimize.common.SOLVER_SYNCS``.
+Per (sweep, block of coordinates in ids order): each member solves with
+the other coordinates' scores as offsets, taken from the block-start
+total, then re-scores, and ONE fused epilogue computes the canonical score
+total (summed from zero in ids order with every member's new score), the
+training loss, the summed regularization, the objective and the
+finiteness flags. Its four scalars are copied to the host without
+blocking (a pinned buffer and an event on the card) and read once per
+block (``HOT_LOOP_STATS``). With ``block_size`` 1 a block is one
+coordinate, the sequential sweep.
+
+``pipeline_depth=1`` (the default, as in the JAX package) dispatches the
+next block against the previous epilogue's outputs before that epilogue's
+read: the order of work and the late read of the JAX package. The port's
+solvers block on their own loop-exit reads (``optimize.common.
+SOLVER_SYNCS``), so little work overlaps; the committed floats are those
+of ``pipeline_depth=0``. A divergence found by the late read rolls the
+speculative dispatch back (the down-sampling update counts included) and
+replays it from the last-good state. Pipelining turns itself off while
+validation runs after every update and pauses at checkpoint-cadence
+points; only block boundaries are commit, snapshot and stop barriers, and
+a stop settles the in-flight block before it snapshots.
 
 A snapshot holds everything a bit-exact resume needs, under the JAX
 package's keys: ``sweep``, ``coordinate_index``, ``iteration``, per
@@ -32,8 +46,7 @@ The payload leaves the card in one copy (counted as
 ``HOT_LOOP_STATS["snapshot_fetches"]``). On resume the scores come back
 verbatim and the total is summed again in ids order by the same function
 the epilogue uses, so the resumed run sees the floats the uninterrupted
-one saw. Pipelined and block sweeps wait for a later slice; asking for
-them raises ``NotImplementedError``.
+one saw.
 """
 
 from __future__ import annotations
@@ -64,15 +77,25 @@ from photon_ml_tpu_torch.utils.preempt import PreemptionRequested
 
 Tensor = torch.Tensor
 
-#: Hot-loop telemetry: updates run, blocking epilogue fetches taken, and
-#: snapshot payload fetches (one per snapshot written).
+#: Hot-loop telemetry: updates committed or refused by their read,
+#: epilogue reads (one per block), snapshot payload fetches (one per
+#: snapshot written); host seconds dispatching blocks and waiting in their
+#: reads; the most updates dispatched and not yet read at once
+#: (``max_inflight``), reads taken after a later block was dispatched
+#: (``pipelined_resolves``) and the host seconds between such a block's
+#: dispatch and its read (``overlap_secs``).
 HOT_LOOP_STATS = {"updates": 0, "epilogue_fetches": 0,
-                  "snapshot_fetches": 0}
+                  "snapshot_fetches": 0, "update_dispatch_secs": 0.0,
+                  "epilogue_wait_secs": 0.0, "max_inflight": 0,
+                  "pipelined_resolves": 0, "overlap_secs": 0.0}
 
 
 def reset_hot_loop_stats() -> None:
     HOT_LOOP_STATS.update({"updates": 0, "epilogue_fetches": 0,
-                           "snapshot_fetches": 0})
+                           "snapshot_fetches": 0,
+                           "update_dispatch_secs": 0.0,
+                           "epilogue_wait_secs": 0.0, "max_inflight": 0,
+                           "pipelined_resolves": 0, "overlap_secs": 0.0})
 
 
 class CoordinateDivergenceError(RuntimeError):
@@ -212,16 +235,46 @@ def _checkpoint_save_contained(manager, step: int, snapshot: dict,
         return False
 
 
-@dataclasses.dataclass
-class _Update:
-    """One accepted candidate update, fetched and ready to commit."""
 
-    cand: Tensor
-    tracker: Tracker
-    new_score: Tensor
-    new_reg: object
-    new_total: Tensor
-    objective: float
+
+@dataclasses.dataclass
+class _InFlight:
+    """One dispatched block whose epilogue has not been read yet: its
+    candidates and device outputs, the host copy of its four scalars under
+    way, and what committing or discarding it needs
+    (``update_counts_before`` restores the update counts — a down-sampling
+    coordinate's key positions — that the dispatch advanced)."""
+
+    it: int
+    block: list  # [(ci, cid), ...] in dispatch order
+    attempt: int
+    cands: dict
+    trackers: dict
+    new_scores: dict
+    new_regs: dict
+    new_total: Tensor  # the epilogue's canonical score total
+    host: Tensor  # [objective, train_loss, finite, state_finite]
+    ready: Optional[object]  # CUDA event recorded after the copy
+    update_counts_before: dict
+    snapshot_due: bool
+    # resume point of the enclosing RAW block ("about to run this
+    # coordinate"): quarantined members still count toward the boundary
+    snapshot_next_ci: int
+    t_wall: float
+    t_dispatched: float
+    pipelined: bool = False  # a later block was dispatched before the read
+
+
+def _start_host_copy(values: Tensor) -> tuple[Tensor, Optional[object]]:
+    """Copy ``values`` to the host without blocking: into a pinned buffer
+    with an event behind it on the card; a CPU tensor is already there."""
+    if values.device.type != "cuda":
+        return values, None
+    host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+    host.copy_(values, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
 
 
 def run_coordinate_descent(
@@ -244,7 +297,7 @@ def run_coordinate_descent(
     events: Optional[EventEmitter] = None,
     stop=None,
     block_size: int = 1,
-    pipeline_depth: int = 0,
+    pipeline_depth: int = 1,
     device="cuda",
 ) -> CoordinateDescentResult:
     """Run GAME coordinate descent over ``coordinates`` in dict order (the
@@ -256,27 +309,38 @@ def run_coordinate_descent(
     the JAX package); a warm-started coordinate contributes its score from
     the first update on.
 
+    ``block_size=B`` cuts each sweep into blocks of B coordinates solved
+    against the block-start score total and corrected by one epilogue with
+    all B new scores; ``pipeline_depth=1`` dispatches each block before
+    the previous block's read (``0``: the read first). Both raise
+    ``ValueError`` outside ``B >= 1`` and ``depth`` in {0, 1}.
+
     With ``validation_data`` (a ``GameDataset``) and ``validation_evaluator``
-    (device scores -> ``{metric: value}``) every update scores the
+    (device scores -> ``{metric: value}``) every block scores the
     published model on the validation data and records the metrics; the
     model that is best by ``validation_metric`` is kept as ``best_model``.
 
     With a ``checkpoint_manager`` a snapshot lands after every sweep and,
-    with ``checkpoint_every_coordinates`` = N > 0, after every Nth update;
-    ``resume_snapshot`` (a restored snapshot, of either package) continues
-    from it. With a ``recovery`` policy a non-finite update or an injected
-    fault walks the retry / skip / abort / quarantine ladder, announced on
-    ``events``; without one it propagates. ``stop`` (anything with
-    ``should_stop() -> str | None``) is polled before every update; when
-    it returns a reason a final snapshot is written and
+    with ``checkpoint_every_coordinates`` = N > 0, at the end of every
+    block that crosses an Nth update; ``resume_snapshot`` (a restored
+    snapshot, of either package) continues from it. With a ``recovery``
+    policy a non-finite update or an injected fault walks the retry /
+    skip / abort / quarantine ladder, announced on ``events`` (a block
+    that fails replays its members one at a time); without one it
+    propagates. ``stop`` (anything with ``should_stop() -> str | None``)
+    is polled before every block; when it returns a reason a final
+    snapshot is written and
     :class:`~photon_ml_tpu_torch.utils.preempt.PreemptionRequested`
     carries the resume point.
     """
+    if block_size < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
+    if pipeline_depth not in (0, 1):
+        raise ValueError(
+            f"pipeline_depth must be 0 (sequential) or 1 (double-"
+            f"buffered), got {pipeline_depth}: a deeper pipeline would "
+            f"let an epilogue read age more than one dispatch")
     device = resolve_device(device)
-    if block_size != 1 or pipeline_depth != 0:
-        raise NotImplementedError(
-            "only the sequential sweep (block_size=1, pipeline_depth=0) is "
-            "ported yet")
 
     def log(fn: Callable[[], str]):
         if logger is not None:
@@ -344,8 +408,11 @@ def run_coordinate_descent(
     if initial_best is not None:
         best_metric, best_states = initial_best
         best_model = publish_game_model(coordinates, best_states)
+    # validation needs the committed model after every block, so it runs
+    # the blocks in order (nothing to overlap)
     validate = (validation_data is not None
                 and validation_evaluator is not None)
+    use_pipeline = pipeline_depth > 0 and not validate
     last_saved_step = None
 
     def save_snapshot(sweep: int, next_ci: int) -> None:
@@ -381,67 +448,140 @@ def run_coordinate_descent(
         if saved:  # a failed save is tried again at the next cadence point
             last_saved_step = step
 
-    def snapshot_cadence_due(ci: int, it: int) -> bool:
+    def snapshot_cadence_due(block, it: int) -> bool:
+        """Does this RAW block cross a ``checkpoint_every_coordinates``
+        point? One definition for the success path and every replay."""
         return (checkpoint_manager is not None
                 and checkpoint_every_coordinates > 0
-                and (it * len(ids) + ci + 1)
-                % checkpoint_every_coordinates == 0)
+                and any((it * len(ids) + ci + 1)
+                        % checkpoint_every_coordinates == 0
+                        for ci, _ in block))
 
-    def attempt_update(ci: int, cid: str, it: int, attempt: int) -> _Update:
-        """Solve, score and run the epilogue for one candidate, then THE
-        blocking read of the update: four scalars in one fetch. Raises
-        :class:`CoordinateDivergenceError` (with a recovery policy) when
-        the candidate or the objective is not finite."""
-        coord = coordinates[cid]
-        partial = total - scores[cid]  # sum of the other coordinates
-        cand, tracker = coord.update(states[cid], partial)
-        cand = fault_point("cd.update", tag=f"{it}.{ci}", arrays=cand)
-        if attempt > 0:
-            cand = _damp_toward(states[cid], cand,
-                                recovery.damping ** attempt)
-        new_score = coord.score(cand)
-        new_reg = coord.regularization_value_device(cand)
-        (new_total, objective_d, train_loss_d, _reg_d, finite_d,
-         state_finite_d) = epilogue(
-            tuple(new_score if c == cid else scores[c] for c in ids),
-            tuple(new_reg if c == cid else reg_cache[c] for c in ids),
-            (cand,), labels, weights, offsets)
-        objective, _train_loss, finite, state_finite = torch.stack([
+    def update_counts(block) -> dict:
+        return {cid: getattr(coordinates[cid], "_update_count", None)
+                for _, cid in block}
+
+    def set_update_counts(block, counts: dict) -> None:
+        for _, cid in block:
+            if counts.get(cid) is not None:
+                coordinates[cid]._update_count = counts[cid]
+
+    def dispatch_update(block, it: int, attempt: int, base_total: Tensor,
+                        overlay: dict, snapshot_due: bool = False,
+                        snapshot_next_ci: int = 0) -> _InFlight:
+        """Solve and score every member of ``block`` against
+        ``base_total`` (``overlay`` holds the new score and penalty of a
+        block not yet committed, which the speculative dispatch sees as
+        committed), run the epilogue and start the host copy of its
+        scalars; the read is :func:`fetch_update`. A fault in the middle
+        of a multi-member block restores every member's update count
+        before it propagates: the members replay as fresh attempts."""
+        t_wall, t0 = time.time(), time.perf_counter()
+        counts_before = update_counts(block)
+        cands, trackers, new_scores, new_regs = {}, {}, {}, {}
+        try:
+            for ci, cid in block:
+                coord = coordinates[cid]
+                # the other coordinates' sum, from the block-start total
+                partial = base_total - (overlay[cid][0] if cid in overlay
+                                        else scores[cid])
+                cand, tracker = coord.update(states[cid], partial)
+                cand = fault_point("cd.update", tag=f"{it}.{ci}",
+                                   arrays=cand)
+                if attempt > 0:
+                    cand = _damp_toward(states[cid], cand,
+                                        recovery.damping ** attempt)
+                cands[cid], trackers[cid] = cand, tracker
+                new_scores[cid] = coord.score(cand)
+                new_regs[cid] = coord.regularization_value_device(cand)
+
+            def current(c, new, i, cache):
+                if c in new:
+                    return new[c]
+                return overlay[c][i] if c in overlay else cache[c]
+
+            (new_total, objective_d, train_loss_d, _reg_d, finite_d,
+             state_finite_d) = epilogue(
+                tuple(current(c, new_scores, 0, scores) for c in ids),
+                tuple(current(c, new_regs, 1, reg_cache) for c in ids),
+                tuple(cands[cid] for _, cid in block), labels, weights,
+                offsets)
+        except Exception:
+            if len(block) > 1:
+                set_update_counts(block, counts_before)
+            raise
+        host, ready = _start_host_copy(torch.stack([
             objective_d, train_loss_d, finite_d.to(objective_d.dtype),
-            state_finite_d.to(objective_d.dtype)]).tolist()
+            state_finite_d.to(objective_d.dtype)]))
+        HOT_LOOP_STATS["update_dispatch_secs"] += time.perf_counter() - t0
+        return _InFlight(
+            it=it, block=list(block), attempt=attempt, cands=cands,
+            trackers=trackers, new_scores=new_scores, new_regs=new_regs,
+            new_total=new_total, host=host, ready=ready,
+            update_counts_before=counts_before, snapshot_due=snapshot_due,
+            snapshot_next_ci=snapshot_next_ci, t_wall=t_wall,
+            t_dispatched=time.perf_counter())
+
+    def fetch_update(p: _InFlight) -> tuple[float, float]:
+        """THE read of a block: its four scalars. Raises
+        :class:`CoordinateDivergenceError` (with a recovery policy) when a
+        candidate or the objective is not finite."""
+        t0 = time.perf_counter()
+        if p.pipelined:
+            HOT_LOOP_STATS["pipelined_resolves"] += 1
+            HOT_LOOP_STATS["overlap_secs"] += max(0.0, t0 - p.t_dispatched)
+        if p.ready is not None:
+            p.ready.synchronize()
+        objective, train_loss, finite, state_finite = p.host.tolist()
+        HOT_LOOP_STATS["epilogue_wait_secs"] += time.perf_counter() - t0
         HOT_LOOP_STATS["epilogue_fetches"] += 1
-        HOT_LOOP_STATS["updates"] += 1
+        HOT_LOOP_STATS["updates"] += len(p.block)
         if recovery is not None and not finite:
             what = "state" if not state_finite else "objective"
+            if len(p.block) == 1:
+                raise CoordinateDivergenceError(
+                    f"iter {p.it} coordinate {p.block[0][1]}: non-finite "
+                    f"{what} (attempt {p.attempt})")
             raise CoordinateDivergenceError(
-                f"iter {it} coordinate {cid}: non-finite {what} "
-                f"(attempt {attempt})")
-        return _Update(cand, tracker, new_score, new_reg, new_total,
-                       objective)
+                f"iter {p.it} block {[cid for _, cid in p.block]}: "
+                f"non-finite {what}")
+        return objective, train_loss
 
-    def commit_update(ci: int, cid: str, it: int, upd: _Update, dt: float,
-                      recovered_attempts: int) -> None:
-        """Install an accepted update, validate, record, snapshot on
-        cadence."""
+    def commit_update(p: _InFlight, objective: float,
+                      seconds: Optional[float] = None,
+                      recovered_attempts: int = 0,
+                      allow_snapshot: bool = True) -> None:
+        """Install an accepted block, validate, record, snapshot on
+        cadence (``allow_snapshot=False``: a member replayed inside a
+        block leaves the snapshot to the block's boundary)."""
         nonlocal total, consecutive_failures
         nonlocal best_metric, best_model, best_states
         if recovered_attempts > 0:
-            emit(RecoveryEvent(action="recovered", coordinate_id=cid,
-                               iteration=it, attempts=recovered_attempts))
-            log(lambda: f"iter {it} coordinate {cid}: recovered after "
+            cid0 = p.block[0][1]
+            emit(RecoveryEvent(action="recovered", coordinate_id=cid0,
+                               iteration=p.it, attempts=recovered_attempts))
+            log(lambda: f"iter {p.it} coordinate {cid0}: recovered after "
                 f"{recovered_attempts} retry(ies)")
         consecutive_failures = 0
-        states[cid], scores[cid], reg_cache[cid] = upd.cand, \
-            upd.new_score, upd.new_reg
-        total = upd.new_total
-        log(lambda: f"iter {it} coordinate {cid}: objective="
-            f"{upd.objective:.6f} ({dt:.2f}s) — {upd.tracker.summary()}")
+        for _, cid in p.block:
+            states[cid] = p.cands[cid]
+            scores[cid] = p.new_scores[cid]
+            reg_cache[cid] = p.new_regs[cid]
+        total = p.new_total
+        dt = seconds if seconds is not None else time.time() - p.t_wall
+        per = dt / len(p.block)
+        for _, cid in p.block:
+            log(lambda cid=cid: f"iter {p.it} coordinate {cid}: objective="
+                f"{objective:.6f} ({per:.2f}s) — "
+                f"{p.trackers[cid].summary()}")
         metrics = None
         if validate:
             model = publish_game_model(coordinates, states)
             metrics = validation_evaluator(
                 model.score(validation_data, device=device))
-            log(lambda: f"iter {it} coordinate {cid}: validation {metrics}")
+            what = (f"coordinate {p.block[0][1]}" if len(p.block) == 1
+                    else f"block {[cid for _, cid in p.block]}")
+            log(lambda: f"iter {p.it} {what}: validation {metrics}")
             if validation_metric is not None:
                 m = metrics[validation_metric]
                 if best_metric is None or (
@@ -449,33 +589,53 @@ def run_coordinate_descent(
                         else m < best_metric):
                     best_metric, best_model = m, model
                     best_states = dict(states)
-        history.append(CoordinateDescentState(
-            iteration=it, coordinate_id=cid, objective=upd.objective,
-            seconds=dt, tracker=upd.tracker, validation_metrics=metrics))
-        if snapshot_cadence_due(ci, it):
-            save_snapshot(it, ci + 1)
+        for _, cid in p.block:
+            history.append(CoordinateDescentState(
+                iteration=p.it, coordinate_id=cid, objective=objective,
+                seconds=per, tracker=p.trackers[cid],
+                validation_metrics=metrics))
+        if p.snapshot_due and allow_snapshot:
+            save_snapshot(p.it, p.snapshot_next_ci)
 
-    def run_member(ci: int, cid: str, it: int) -> None:
-        """One guarded coordinate update: the retry / skip / abort /
-        quarantine ladder."""
+    def run_member(ci: int, cid: str, it: int, first_error=None,
+                   allow_snapshots: bool = True, snapshot_due=None,
+                   snapshot_next_ci=None) -> None:
+        """One guarded coordinate update, dispatched and read in turn: the
+        retry / skip / abort / quarantine ladder. ``first_error`` is an
+        attempt-0 failure the pipelined path already caught;
+        ``allow_snapshots=False`` marks a member replayed inside a block
+        (its snapshots wait for the block's boundary);
+        ``snapshot_due``/``snapshot_next_ci`` are the RAW block's."""
         nonlocal consecutive_failures
+        if snapshot_due is None:
+            snapshot_due = snapshot_cadence_due([(ci, cid)], it)
+        if snapshot_next_ci is None:
+            snapshot_next_ci = ci + 1
         t0 = time.time()
         attempt = 0
         skipped = budgeted_skip = quarantine_now = False
+        outcome = None
+        error = first_error
         while True:
-            try:
-                upd = attempt_update(ci, cid, it, attempt)
-                break
-            except (InjectedFault, CoordinateDivergenceError,
-                    FloatingPointError) as e:
-                if recovery is None:
-                    raise
-                error = e
-            emit(FaultEvent(point=getattr(error, "point", "cd.update"),
+            if error is None:
+                try:
+                    p = dispatch_update([(ci, cid)], it, attempt, total, {},
+                                        snapshot_due=snapshot_due,
+                                        snapshot_next_ci=snapshot_next_ci)
+                    outcome = (p, fetch_update(p)[0])
+                    break
+                except (InjectedFault, CoordinateDivergenceError,
+                        FloatingPointError) as e:
+                    if recovery is None:
+                        raise
+                    error = e
+                    continue
+            e, error = error, None
+            emit(FaultEvent(point=getattr(e, "point", "cd.update"),
                             coordinate_id=cid, iteration=it,
-                            message=str(error)))
+                            message=str(e)))
             log(lambda: f"iter {it} coordinate {cid}: FAULT "
-                f"(attempt {attempt}): {error}")
+                f"(attempt {attempt}): {e}")
             attempt += 1
             if attempt <= recovery.max_retries:
                 emit(RecoveryEvent(action="retried", coordinate_id=cid,
@@ -498,7 +658,7 @@ def run_coordinate_descent(
             raise RuntimeError(
                 f"coordinate descent aborted: coordinate {cid} failed "
                 f"{attempt} attempt(s) at iteration {it} (RecoveryPolicy "
-                f"on_exhausted='abort')") from error
+                f"on_exhausted='abort')") from e
         dt = time.time() - t0
         if quarantine_now:
             quarantined.add(cid)
@@ -510,8 +670,8 @@ def run_coordinate_descent(
             log(lambda: f"iter {it} coordinate {cid}: QUARANTINED after "
                 f"{coordinate_failures[cid]} exhausted update(s) — frozen "
                 f"at last-good state, descent continues ({dt:.2f}s)")
-            if checkpoint_manager is not None:
-                save_snapshot(it, ci + 1)
+            if checkpoint_manager is not None and allow_snapshots:
+                save_snapshot(it, snapshot_next_ci)
             return
         if skipped:
             if not budgeted_skip:
@@ -531,26 +691,174 @@ def run_coordinate_descent(
                     f"max_consecutive_failures="
                     f"{recovery.max_consecutive_failures})")
             return
-        commit_update(ci, cid, it, upd, dt, recovered_attempts=attempt)
+        p, objective = outcome
+        commit_update(p, objective, seconds=dt, recovered_attempts=attempt,
+                      allow_snapshot=allow_snapshots)
+
+    def replay_block_members(block, it: int, due_snapshot: bool,
+                             next_ci: int) -> None:
+        """Each member through its own ladder, snapshots deferred; then
+        one snapshot at the RAW block boundary if the block crossed a
+        cadence point or the replay quarantined a member."""
+        q_before = len(quarantined)
+        for ci, cid in block:
+            if cid not in quarantined:
+                run_member(ci, cid, it, allow_snapshots=False)
+        if (checkpoint_manager is not None
+                and (due_snapshot or len(quarantined) > q_before)):
+            save_snapshot(it, next_ci)
+
+    def resolve_update(p: _InFlight, speculative=None) -> bool:
+        """Read and commit one in-flight block, or on a divergence drop
+        into the ladder from the last-good state. True iff it committed as
+        dispatched (a speculative successor is then still valid).
+        ``speculative`` is that successor: on failure it is rolled back
+        FIRST, so no snapshot of the ladder holds its update counts."""
+        try:
+            objective, _ = fetch_update(p)
+            commit_update(p, objective)
+            return True
+        except (CoordinateDivergenceError, FloatingPointError) as e:
+            if recovery is None:
+                raise
+            if speculative is not None:
+                set_update_counts(speculative.block,
+                                  speculative.update_counts_before)
+            if len(p.block) == 1:
+                # the failed read WAS this coordinate's attempt 0
+                ci, cid = p.block[0]
+                run_member(ci, cid, p.it, first_error=e,
+                           snapshot_due=p.snapshot_due,
+                           snapshot_next_ci=p.snapshot_next_ci)
+            else:
+                # the flag covers the whole block: discard it and replay
+                # its members one at a time from the committed state
+                emit(FaultEvent(point="cd.block", iteration=p.it,
+                                message=str(e)))
+                log(lambda: f"iter {p.it}: block "
+                    f"{[cid for _, cid in p.block]} FAULT — replaying "
+                    f"members sequentially: {e}")
+                set_update_counts(p.block, p.update_counts_before)
+                replay_block_members(p.block, p.it, p.snapshot_due,
+                                     p.snapshot_next_ci)
+            return False
+
+    def run_block(raw_block, it: int, first_error=None) -> None:
+        """One RAW block dispatched and read in turn: the unpipelined
+        path, and where a pipelined failure lands. Quarantined members
+        are left out, but the snapshot boundary and cadence stay the RAW
+        block's, so a resume cuts the sweep into the same blocks."""
+        block = [(ci, cid) for ci, cid in raw_block
+                 if cid not in quarantined]
+        if not block:
+            return
+        due = snapshot_cadence_due(raw_block, it)
+        next_ci = raw_block[-1][0] + 1
+        if first_error is None:
+            try:
+                p = dispatch_update(block, it, 0, total, {},
+                                    snapshot_due=due,
+                                    snapshot_next_ci=next_ci)
+            except (InjectedFault, FloatingPointError) as e:
+                if recovery is None:
+                    raise
+                first_error = e
+            else:
+                resolve_update(p)
+                return
+        if len(block) > 1:
+            emit(FaultEvent(point="cd.block", iteration=it,
+                            message=str(first_error)))
+            log(lambda: f"iter {it}: block {[cid for _, cid in block]} "
+                f"FAULT at dispatch — replaying members sequentially: "
+                f"{first_error}")
+            replay_block_members(block, it, due, next_ci)
+        else:
+            run_member(block[0][0], block[0][1], it,
+                       first_error=first_error, snapshot_due=due,
+                       snapshot_next_ci=next_ci)
 
     for it in range(start_iteration, num_iterations):
         fault_point("cd.sweep", tag=str(it))
         sweep_start = len(history)
-        for ci, cid in enumerate(ids):
-            if it == start_iteration and ci < start_coordinate:
-                continue
+        eligible = [(ci, cid) for ci, cid in enumerate(ids)
+                    if not (it == start_iteration and ci < start_coordinate)]
+        blocks = [eligible[i:i + block_size]
+                  for i in range(0, len(eligible), block_size)]
+        pending: Optional[_InFlight] = None
+        for raw_block in blocks:
             if stop is not None:
                 reason = stop.should_stop()
                 if reason is not None:
-                    # the commit barrier: nothing of the previous update is
-                    # in flight; snapshot "about to run (it, ci)" and hand
-                    # the resume point to the caller
+                    # the commit barrier: settle the in-flight block, then
+                    # snapshot "about to run this block" and hand the
+                    # resume point to the caller
+                    if pending is not None:
+                        resolve_update(pending)
+                        pending = None
                     if checkpoint_manager is not None:
-                        save_snapshot(it, ci)
-                    raise PreemptionRequested(reason, it, ci)
-            if cid in quarantined:
+                        save_snapshot(it, raw_block[0][0])
+                    raise PreemptionRequested(reason, it, raw_block[0][0])
+            block = [(ci, cid) for ci, cid in raw_block
+                     if cid not in quarantined]
+            if not block:
                 continue
-            run_member(ci, cid, it)
+            if not use_pipeline:
+                run_block(raw_block, it)
+                continue
+            if pending is not None and pending.snapshot_due:
+                # a snapshot never races a speculative successor
+                resolve_update(pending)
+                pending = None
+            if pending is not None:
+                base_total = pending.new_total
+                overlay = {cid: (pending.new_scores[cid],
+                                 pending.new_regs[cid])
+                           for _, cid in pending.block}
+            else:
+                base_total, overlay = total, {}
+            counts0 = update_counts(block)
+            try:
+                cur = dispatch_update(
+                    block, it, 0, base_total, overlay,
+                    snapshot_due=snapshot_cadence_due(raw_block, it),
+                    snapshot_next_ci=raw_block[-1][0] + 1)
+            except (InjectedFault, CoordinateDivergenceError,
+                    FloatingPointError) as e:
+                # the dispatch failed: settle the pending block first, as
+                # the sequential order would, with this block's update
+                # counts as they were before it (a snapshot of pending's
+                # ladder is "about to run this block"), then walk this
+                # block through the ladder, which owns the failed
+                # dispatch's advance as its attempt 0
+                if pending is not None:
+                    pending.pipelined = True
+                    counts_adv = update_counts(block)
+                    set_update_counts(block, counts0)
+                    resolve_update(pending)
+                    pending = None
+                    set_update_counts(block, counts_adv)
+                if recovery is None:
+                    raise
+                run_block(raw_block, it, first_error=e)
+                continue
+            inflight = len(cur.block) + (len(pending.block)
+                                         if pending is not None else 0)
+            HOT_LOOP_STATS["max_inflight"] = max(
+                HOT_LOOP_STATS["max_inflight"], inflight)
+            if pending is not None:
+                pending.pipelined = True
+                ok = resolve_update(pending, speculative=cur)
+                pending = None
+                if not ok:
+                    # the commit differs from what ``cur`` speculated on
+                    # (already rolled back): run it again from there
+                    run_block(raw_block, it)
+                    continue
+            pending = cur
+        if pending is not None:
+            # sweep drain: the last block commits before the sweep ends
+            resolve_update(pending)
         # sweep boundary: drain this sweep's lazy trackers
         for h in history[sweep_start:]:
             h.tracker.materialize()

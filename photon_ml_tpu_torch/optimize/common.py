@@ -1,6 +1,7 @@
 """Shared optimizer structures: convergence reasons, run history, results.
 
-Port of ``photon_ml_tpu/optimize/common.py:29-119`` and ``:348-403``. The
+Port of ``photon_ml_tpu/optimize/common.py:29-119``, ``:225-345``
+(``LaneCompactionState``, ``padded_lane_count``) and ``:348-403``. The
 JAX solvers are single-lane ``lax.while_loop`` programs that the random
 effect ``vmap``s; the port's solvers are lane-batched by construction, so
 every per-iteration quantity here carries a leading lane axis ``[L]``
@@ -149,6 +150,80 @@ class DeferredOptimizationResult:
         return self._force().grad_norms
 
 
+@dataclasses.dataclass
+class LaneCompactionState:
+    """Results of a solve run in iteration chunks over a shrinking set of
+    lanes (``common.py:225-296,332-333``): after each chunk the lanes that
+    converged keep their results here and only the still-active ones are
+    gathered and re-dispatched, resumed from their solver carry. The
+    buffers stay on the device."""
+
+    coefs: Tensor  # [E, D]
+    iterations: Tensor  # [E], summed across chunks
+    values: Tensor  # [E], the last chunk's final value
+    codes: Tensor  # [E] int8, the last chunk's convergence code
+
+    @staticmethod
+    def initial(x0: Tensor, value_dtype: torch.dtype
+                ) -> "LaneCompactionState":
+        e, dev = int(x0.shape[0]), x0.device
+        return LaneCompactionState(
+            coefs=x0,
+            iterations=torch.zeros(e, dtype=torch.int64, device=dev),
+            values=torch.zeros(e, dtype=value_dtype, device=dev),
+            codes=torch.zeros(e, dtype=torch.int8, device=dev))
+
+    def absorb(self, idx: Optional[np.ndarray], c: Tensor, it: Tensor,
+               v: Tensor, k: Tensor, max_iterations_code: int
+               ) -> tuple[np.ndarray, np.ndarray]:
+        """Fold one chunk's output into the buffers (``idx`` maps the
+        chunk's lanes to global ids; None for the first chunk, which ran
+        every lane in order). Returns the global ids and the chunk-local
+        positions of the lanes that spent the chunk's budget without
+        converging. The mask of those lanes is the chunk's one blocking
+        read (counted in ``SOLVER_SYNCS``)."""
+        if idx is None:
+            self.coefs, self.iterations, self.values, self.codes = \
+                c, it, v, k
+            idx = np.arange(len(k))
+        else:
+            # the chunk's lanes past ``len(idx)`` are pad lanes
+            n = len(idx)
+            c, it, v, k = c[:n], it[:n], v[:n], k[:n]
+            rows = torch.as_tensor(idx, device=c.device)
+            self.coefs = self.coefs.index_copy(0, rows, c)
+            iterations = self.iterations.clone()
+            iterations[rows] += it
+            self.iterations = iterations
+            self.values = self.values.index_copy(0, rows, v)
+            self.codes = self.codes.index_copy(0, rows, k)
+        SOLVER_SYNCS["count"] += 1
+        mask = (k == max_iterations_code).cpu().numpy()
+        return idx[mask], np.nonzero(mask)[0]
+
+    def results(self) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+        return self.coefs, self.iterations, self.values, self.codes
+
+
+#: Least lanes x features of a re-dispatched chunk. Below it the
+#: gradient's sum over an entity's rows (``data/batch.py``) reduces in
+#: another order on the H100, so a lane would round differently than in
+#: the dispatch of all lanes (``chip_smoke.py`` phase 9 (b),
+#: ``lane_count_dependence``: every lane count with lanes x features
+#: >= 128 matched, and only those).
+MIN_LANE_ELEMENTS = 128
+
+
+def padded_lane_count(n: int, lanes: int, features: int) -> int:
+    """Lanes a re-dispatched chunk of ``n`` still-active lanes carries,
+    out of a block of ``lanes`` lanes of ``features`` features: at least
+    ``MIN_LANE_ELEMENTS / features``, and never more than the block. The
+    JAX package pads to a power of two for its compile cache
+    (``common.py:336-345``); the port pads for bit-exactness only. A pad
+    lane copies a real lane, as in the JAX package."""
+    return min(lanes, max(int(n), -(-MIN_LANE_ELEMENTS // features)))
+
+
 def _convergence_reason(k: int, values: np.ndarray, grad_norms: np.ndarray,
                         max_iter: int, tolerance: float,
                         made_progress_last_iter: bool) -> ConvergenceReason:
@@ -167,10 +242,13 @@ def _convergence_reason(k: int, values: np.ndarray, grad_norms: np.ndarray,
 def should_continue(it: Tensor, value: Tensor, prev_value: Tensor,
                     grad_norm: Tensor, init_value: Tensor,
                     init_grad_norm: Tensor, max_iter: int, tolerance: float,
-                    made_progress: Tensor) -> Tensor:
-    """Per-lane loop predicate (``common.py:370-403``, unresumed solves):
-    iteration 0 runs unless the start is stationary."""
+                    made_progress: Tensor, resumed: bool = False) -> Tensor:
+    """Per-lane loop predicate (``common.py:370-403``): iteration 0 of a
+    fresh solve runs unless the start is stationary; a resumed chunk's
+    first check is the one the uninterrupted loop would run there."""
     not_done = ((it < max_iter) & made_progress
                 & ((value - prev_value).abs() > tolerance * init_value.abs())
                 & (grad_norm > tolerance * init_grad_norm))
+    if resumed:
+        return not_done
     return ((it == 0) & made_progress & (init_grad_norm > 0.0)) | not_done

@@ -1,24 +1,31 @@
 """L-BFGS, lane-batched.
 
-Port of ``photon_ml_tpu/optimize/lbfgs.py:108-354`` (``two_loop_direction``
-and ``minimize_lbfgs``). The JAX solver is a single-lane ``lax.while_loop``
-that the random effect ``vmap``s over entities; ``torch.func.vmap`` cannot
-batch a data-dependent loop, so the port is written for ``L`` lanes:
-``x [L, D]``, curvature pairs ``S/Y [L, m, D]``, a per-lane active mask, and
-a ``RunHistory`` of ``[L, max_iter + 1]``. A lane whose convergence test
-fails is frozen (its state is kept by masked updates), exactly as the
-batched ``while_loop`` keeps a finished lane's carry, so every lane's
-numbers are those of an independent run. The loop ends when no lane is
-active; that test is one host read per iteration (counted in
-``optimize.common.SOLVER_SYNCS``). The fixed effect is the one-lane case.
+Port of ``photon_ml_tpu/optimize/lbfgs.py:60-354`` (``LBFGSResume``,
+``two_loop_direction`` and ``minimize_lbfgs``). The JAX solver is a
+single-lane ``lax.while_loop`` that the random effect ``vmap``s over
+entities; ``torch.func.vmap`` cannot batch a data-dependent loop, so the
+port is written for ``L`` lanes: ``x [L, D]``, curvature pairs
+``S/Y [L, m, D]``, a per-lane active mask, and a ``RunHistory`` of
+``[L, max_iter + 1]``. A lane whose convergence test fails is frozen (its
+state is kept by masked updates), exactly as the batched ``while_loop``
+keeps a finished lane's carry, so every lane's numbers are those of an
+independent run. The loop ends when no lane is active; that test is one
+host read per iteration (counted in ``optimize.common.SOLVER_SYNCS``).
+The fixed effect is the one-lane case.
 
-Left for later slices: ``resume``/``return_carry``, box constraints,
-iterate tracking and the sharded weight update.
+``return_carry=True`` also returns an :class:`LBFGSResume`, the loop's
+state per lane; passed back as ``resume=`` it continues the solve as if
+it had never stopped (the lane-compaction driver's chunk restarts), so
+``a`` iterations then ``b`` resumed ones equal one solve of ``a + b`` bit
+for bit.
+
+Left for later slices: box constraints, iterate tracking and the sharded
+weight update.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -35,6 +42,28 @@ Tensor = torch.Tensor
 DEFAULT_MAX_ITER = 100
 DEFAULT_M = 10
 DEFAULT_TOLERANCE = 1e-7
+
+
+class LBFGSResume(NamedTuple):
+    """Per-lane loop state a chunk restart continues from
+    (``lbfgs.py:60-83``): the iterate, its value and gradient, the
+    previous value, the curvature ring, and the ORIGINAL dispatch's
+    ``f0``/``g0n`` anchors, so the relative tolerances never re-anchor.
+    OWL-QN's carry has the same fields (``f`` is then F, ``g`` the smooth
+    gradient, ``g0n`` the first pseudo-gradient's norm). Every field has
+    the lane axis first, so a compacted restart gathers its lanes."""
+
+    x: Tensor  # [L, D]
+    f: Tensor  # [L]
+    g: Tensor  # [L, D]
+    prev_f: Tensor  # [L]
+    S: Tensor  # [L, m, D]
+    Y: Tensor  # [L, m, D]
+    rho: Tensor  # [L, m]
+    valid: Tensor  # [L, m] bool
+    head: Tensor  # [L] int64
+    f0: Tensor  # [L]
+    g0n: Tensor  # [L]
 
 
 def _dot(a: Tensor, b: Tensor) -> Tensor:
@@ -110,34 +139,45 @@ def minimize_lbfgs(
     max_iter: int = DEFAULT_MAX_ITER,
     m: int = DEFAULT_M,
     tolerance: float = DEFAULT_TOLERANCE,
-) -> tuple[Tensor, RunHistory, Tensor]:
+    resume: Optional[LBFGSResume] = None,
+    return_carry: bool = False,
+):
     """Minimize ``f(x, data)`` independently in every lane of ``x0 [L, D]``.
 
     ``value_and_grad_fn(x [L, D], data)`` returns ``(f [L], g [L, D])``.
-    Returns ``(x [L, D], RunHistory, made_progress [L])``.
+    Returns ``(x [L, D], RunHistory, made_progress [L])``, and the
+    :class:`LBFGSResume` carry after them with ``return_carry``. With
+    ``resume`` the solve continues from that carry (``x0`` is ignored):
+    the history and the iteration count restart at 0, every convergence
+    check keeps the carried anchors, and the first step is not the
+    1/||d|| start of a fresh solve.
     """
     L, d = x0.shape
     dtype, dev = x0.dtype, x0.device
-    f, g = value_and_grad_fn(x0, data)
-    f0, g0n = f, _norm(g)
-    x = x0
-    prev_f = f + torch.full_like(f, float("inf"))
-    S = torch.zeros((L, m, d), dtype=dtype, device=dev)
-    Y = torch.zeros_like(S)
-    rho = torch.zeros((L, m), dtype=dtype, device=dev)
-    valid = torch.zeros((L, m), dtype=torch.bool, device=dev)
-    head = torch.zeros(L, dtype=torch.int64, device=dev)
+    if resume is None:
+        f, g = value_and_grad_fn(x0, data)
+        f0, g0n = f, _norm(g)
+        x = x0
+        prev_f = f + torch.full_like(f, float("inf"))
+        S = torch.zeros((L, m, d), dtype=dtype, device=dev)
+        Y = torch.zeros_like(S)
+        rho = torch.zeros((L, m), dtype=dtype, device=dev)
+        valid = torch.zeros((L, m), dtype=torch.bool, device=dev)
+        head = torch.zeros(L, dtype=torch.int64, device=dev)
+    else:
+        x, f, g, prev_f, S, Y, rho, valid, head, f0, g0n = resume
     it = torch.zeros(L, dtype=torch.int64, device=dev)
     made_progress = torch.ones(L, dtype=torch.bool, device=dev)
     values = torch.full((L, max_iter + 1), float("nan"), dtype=f.dtype,
                         device=dev)
     grad_norms = torch.full_like(values, float("nan"))
     values[:, 0] = f
-    grad_norms[:, 0] = g0n
+    grad_norms[:, 0] = _norm(g)
 
     while True:
         active = should_continue(it, f, prev_f, _norm(g), f0, g0n,
-                                 max_iter, tolerance, made_progress)
+                                 max_iter, tolerance, made_progress,
+                                 resumed=resume is not None)
         (any_active,) = host_flags(active.any())
         if not any_active:
             break
@@ -153,9 +193,11 @@ def minimize_lbfgs(
             f_a, g_a = value_and_grad_fn(x + a[:, None] * direction, data)
             return f_a, _dot(g_a, direction), g_a
 
-        # Breeze convention: the first iteration starts at 1/||d||, then 1.
+        # Breeze convention: the first iteration starts at 1/||d||, then 1;
+        # a resumed chunk is past its solve's first iteration
+        first = it == 0 if resume is None else torch.zeros_like(active)
         init_alpha = torch.where(
-            it == 0, 1.0 / torch.clamp(_norm(direction), min=1.0),
+            first, 1.0 / torch.clamp(_norm(direction), min=1.0),
             torch.ones_like(dphi0))
         ls = strong_wolfe(phi, f, dphi0, g, init_alpha, active)
 
@@ -187,4 +229,8 @@ def minimize_lbfgs(
         made_progress = torch.where(active, ok, made_progress)
         it = torch.where(active, it_new, it)
 
-    return x, RunHistory(values, grad_norms, it), made_progress
+    out = (x, RunHistory(values, grad_norms, it), made_progress)
+    if return_carry:
+        return out + (LBFGSResume(x, f, g, prev_f, S, Y, rho, valid, head,
+                                  f0, g0n),)
+    return out

@@ -1,9 +1,10 @@
 """OWL-QN (orthant-wise L-BFGS) for L1 objectives, lane-batched.
 
-Port of ``photon_ml_tpu/optimize/owlqn.py:54-290`` (``pseudo_gradient``
-and ``minimize_owlqn``), written for ``L`` lanes as the port's L-BFGS is
-(``optimize/lbfgs.py``): ``x [L, D]``, a per-lane active mask, masked
-carry updates, so every lane's numbers are those of an independent run.
+Port of ``photon_ml_tpu/optimize/owlqn.py:54-290`` (``pseudo_gradient`` and
+``minimize_owlqn`` with ``resume``/``return_carry``), written for ``L``
+lanes as the port's L-BFGS is (``optimize/lbfgs.py``): ``x [L, D]``, a
+per-lane active mask, masked carry updates, so every lane's numbers are
+those of an independent run.
 
 - The direction is the L-BFGS two-loop direction of the pseudo-gradient
   over curvature pairs of the SMOOTH gradient, projected onto the orthant
@@ -15,13 +16,18 @@ carry updates, so every lane's numbers are those of an independent run.
   the search ends when no lane is still searching, one counted host read
   per step (``optimize.common.SOLVER_SYNCS``), like the outer loop's.
 
-Left out, as in the port's L-BFGS: box constraints, iterate tracking,
-``resume``/``return_carry`` and the sharded weight update.
+- ``return_carry``/``resume`` take the L-BFGS carry
+  (``optimize.lbfgs.LBFGSResume``: F, the smooth gradient and its
+  curvature ring, and the first pseudo-gradient's norm as ``g0n``), so a
+  chunked solve equals the single one bit for bit.
+
+Left out, as in the port's L-BFGS: box constraints, iterate tracking and
+the sharded weight update.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -32,6 +38,7 @@ from photon_ml_tpu_torch.optimize.common import (
     should_continue,
 )
 from photon_ml_tpu_torch.optimize.lbfgs import (
+    LBFGSResume,
     _dot,
     _norm,
     store_pair,
@@ -66,7 +73,9 @@ def minimize_owlqn(
     max_iter: int = DEFAULT_MAX_ITER,
     m: int = DEFAULT_M,
     tolerance: float = DEFAULT_TOLERANCE,
-) -> tuple[Tensor, RunHistory, Tensor]:
+    resume: Optional[LBFGSResume] = None,
+    return_carry: bool = False,
+):
     """Minimize ``f(x, data) + l1 ||x||_1`` independently in every lane of
     ``x0 [L, D]``.
 
@@ -74,7 +83,8 @@ def minimize_owlqn(
     ``(f [L], g [L, D])``; the L1 term is added here. ``l1`` is a scalar,
     ``[D]`` or ``[L, D]``. The history's values are F and its gradient
     norms those of the pseudo-gradient. Returns ``(x [L, D], RunHistory,
-    made_progress [L])``.
+    made_progress [L])``, and the carry after them with ``return_carry``;
+    ``resume`` continues from a carry as ``minimize_lbfgs`` does.
     """
     L, d = x0.shape
     dtype, dev = x0.dtype, x0.device
@@ -86,27 +96,32 @@ def minimize_owlqn(
         f, g = value_and_grad_fn(x, data)
         return f + (l1 * x.abs()).sum(-1, dtype=pen_dtype), g
 
-    f, g = full_objective(x0)
-    x = x0
-    pg = pseudo_gradient(x, g, l1)
-    f0, g0n = f, _norm(pg)
-    prev_f = f + torch.full_like(f, float("inf"))
-    S = torch.zeros((L, m, d), dtype=dtype, device=dev)
-    Y = torch.zeros_like(S)
-    rho = torch.zeros((L, m), dtype=dtype, device=dev)
-    valid = torch.zeros((L, m), dtype=torch.bool, device=dev)
-    head = torch.zeros(L, dtype=torch.int64, device=dev)
+    if resume is None:
+        f, g = full_objective(x0)
+        x = x0
+        pg = pseudo_gradient(x, g, l1)
+        f0, g0n = f, _norm(pg)
+        prev_f = f + torch.full_like(f, float("inf"))
+        S = torch.zeros((L, m, d), dtype=dtype, device=dev)
+        Y = torch.zeros_like(S)
+        rho = torch.zeros((L, m), dtype=dtype, device=dev)
+        valid = torch.zeros((L, m), dtype=torch.bool, device=dev)
+        head = torch.zeros(L, dtype=torch.int64, device=dev)
+    else:
+        x, f, g, prev_f, S, Y, rho, valid, head, f0, g0n = resume
+        pg = pseudo_gradient(x, g, l1)
     it = torch.zeros(L, dtype=torch.int64, device=dev)
     made_progress = torch.ones(L, dtype=torch.bool, device=dev)
     values = torch.full((L, max_iter + 1), float("nan"), dtype=f.dtype,
                         device=dev)
     grad_norms = torch.full_like(values, float("nan"))
     values[:, 0] = f
-    grad_norms[:, 0] = g0n
+    grad_norms[:, 0] = _norm(pg)
 
     while True:
         active = should_continue(it, f, prev_f, _norm(pg), f0, g0n,
-                                 max_iter, tolerance, made_progress)
+                                 max_iter, tolerance, made_progress,
+                                 resumed=resume is not None)
         (any_active,) = host_flags(active.any())
         if not any_active:
             break
@@ -117,7 +132,9 @@ def minimize_owlqn(
                                 torch.zeros_like(direction))
         # the step's orthant: sign(x), or sign(-pg) where x is 0
         xi = torch.where(x != 0.0, torch.sign(x), torch.sign(-pg))
-        a = torch.where(it == 0,
+        # a resumed chunk is past its solve's first iteration
+        first = it == 0 if resume is None else torch.zeros_like(active)
+        a = torch.where(first,
                         1.0 / torch.clamp(_norm(direction), min=1.0),
                         torch.ones_like(f))
 
@@ -169,4 +186,8 @@ def minimize_owlqn(
         made_progress = torch.where(active, accepted, made_progress)
         it = torch.where(active, it_new, it)
 
-    return x, RunHistory(values, grad_norms, it), made_progress
+    out = (x, RunHistory(values, grad_norms, it), made_progress)
+    if return_carry:
+        return out + (LBFGSResume(x, f, g, prev_f, S, Y, rho, valid, head,
+                                  f0, g0n),)
+    return out

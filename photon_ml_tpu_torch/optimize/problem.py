@@ -162,12 +162,15 @@ def select_solver(cfg: GLMOptimizationConfiguration, task: TaskType) -> str:
 
 
 def minimize(solver: str, value_and_grad_fn, hvp_fn, x0: Tensor, data,
-             l1: Tensor, max_iter: int, tolerance: float
-             ) -> tuple[Tensor, RunHistory, Tensor]:
+             l1: Tensor, max_iter: int, tolerance: float, resume=None,
+             return_carry: bool = False):
     """Run ``solver`` (a :func:`select_solver` name) on every lane of
     ``x0 [L, D]``: ``l1 [D]`` is OWL-QN's weight, ``hvp_fn`` TRON's
-    Hessian-vector product."""
-    common = dict(max_iter=max_iter, tolerance=tolerance)
+    Hessian-vector product. Returns ``(x, RunHistory, made_progress)``,
+    and the solver's carry after them with ``return_carry``; ``resume``
+    continues from such a carry."""
+    common = dict(max_iter=max_iter, tolerance=tolerance, resume=resume,
+                  return_carry=return_carry)
     if solver == "tron":
         return minimize_tron(value_and_grad_fn, hvp_fn, x0, data, **common)
     if solver == "owlqn":

@@ -1,13 +1,13 @@
 """TRON: trust-region Newton with truncated conjugate gradient, lane-batched.
 
-Port of ``photon_ml_tpu/optimize/tron.py:61-318`` (``_truncated_cg`` and
-``minimize_tron``), written for ``L`` lanes as the port's L-BFGS is
-(``optimize/lbfgs.py``): ``x [L, D]``, per-lane trust regions and failure
-counts, masked carry updates. Under ``jax.vmap`` the JAX loops keep a
-finished lane's carry and compute both branches of every ``lax.cond``;
-here each update is masked by the lane's outer and inner activity and
-both branches are selected with ``torch.where``, so every lane's numbers
-are those of an independent run.
+Port of ``photon_ml_tpu/optimize/tron.py:61-318`` (``_truncated_cg``,
+``TRONResume`` and ``minimize_tron``), written for ``L`` lanes as the
+port's L-BFGS is (``optimize/lbfgs.py``): ``x [L, D]``, per-lane trust
+regions and failure counts, masked carry updates. Under ``jax.vmap`` the
+JAX loops keep a finished lane's carry and compute both branches of every
+``lax.cond``; here each update is masked by the lane's outer and inner
+activity and both branches are selected with ``torch.where``, so every
+lane's numbers are those of an independent run.
 
 - eta = (1e-4, 0.25, 0.75), sigma = (0.25, 0.5, 4.0); the region starts at
   ||g0|| and is tightened to min(delta, ||step||) while no step has been
@@ -22,13 +22,16 @@ once a step: a lane whose residual met the tolerance leaves before the
 step's Hessian-vector product, as a converged CG exits in the JAX code, so
 a step with no lane left costs no product. (20 masked steps with no read
 give the same numbers and were measured slower on the H100; PERF.md.)
-Left out, as in the port's L-BFGS: box constraints, iterate tracking,
-``TRONResume``/``return_carry`` and the sharded weight update.
+``return_carry``/``resume`` carry the loop state with its trust region
+and failure count (:class:`TRONResume`), so a chunked solve equals the
+single one bit for bit; a resumed chunk never re-tightens the region.
+Left out, as in the port's L-BFGS: box constraints, iterate tracking and
+the sharded weight update.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -55,6 +58,22 @@ _SIGMA1, _SIGMA2, _SIGMA3 = 0.25, 0.5, 4.0
 #: (steps of the lane-batched CG loop, each one Hessian-vector product
 #: call that serves every lane still in CG).
 TRON_STATS = {"outer_iterations": 0, "cg_iterations": 0}
+
+
+class TRONResume(NamedTuple):
+    """Per-lane loop state a chunk restart continues from
+    (``tron.py:141-168``): the iterate, its value and gradient, the
+    previous value, the trust region and the failure count, and the
+    ORIGINAL dispatch's ``f0``/``g0n`` anchors; lane axis first."""
+
+    x: Tensor  # [L, D]
+    f: Tensor  # [L]
+    g: Tensor  # [L, D]
+    prev_f: Tensor  # [L]
+    delta: Tensor  # [L]
+    failures: Tensor  # [L] int64
+    f0: Tensor  # [L]
+    g0n: Tensor  # [L]
 
 
 def reset_tron_stats() -> None:
@@ -119,34 +138,42 @@ def minimize_tron(
     max_iter: int = DEFAULT_MAX_ITER,
     tolerance: float = DEFAULT_TOLERANCE,
     max_failures: int = DEFAULT_MAX_FAILURES,
-) -> tuple[Tensor, RunHistory, Tensor]:
+    resume: Optional[TRONResume] = None,
+    return_carry: bool = False,
+):
     """Trust-region Newton independently in every lane of ``x0 [L, D]``.
 
     ``value_and_grad_fn(x [L, D], data)`` returns ``(f [L], g [L, D])``;
     ``hvp_fn(x, v, data)`` the (Gauss-Newton) Hessian-vector products
     ``[L, D]``. Returns ``(x [L, D], RunHistory, made_progress [L])``; the
-    history's iteration count counts accepted steps only.
+    history's iteration count counts accepted steps only. With
+    ``return_carry`` the :class:`TRONResume` follows; ``resume`` continues
+    from one (``x0`` is ignored).
     """
     L, _ = x0.shape
     dev = x0.device
-    f, g = value_and_grad_fn(x0, data)
-    x = x0
-    f0, g0n = f, _norm(g)
-    prev_f = f + torch.full_like(f, float("inf"))
-    delta = g0n
-    failures = torch.zeros(L, dtype=torch.int64, device=dev)
+    if resume is None:
+        f, g = value_and_grad_fn(x0, data)
+        x = x0
+        f0, g0n = f, _norm(g)
+        prev_f = f + torch.full_like(f, float("inf"))
+        delta = g0n
+        failures = torch.zeros(L, dtype=torch.int64, device=dev)
+    else:
+        x, f, g, prev_f, delta, failures, f0, g0n = resume
     it = torch.zeros(L, dtype=torch.int64, device=dev)
     made_progress = torch.ones(L, dtype=torch.bool, device=dev)
     values = torch.full((L, max_iter + 1), float("nan"), dtype=f.dtype,
                         device=dev)
     grad_norms = torch.full_like(values, float("nan"))
     values[:, 0] = f
-    grad_norms[:, 0] = g0n
+    grad_norms[:, 0] = _norm(g)
     inf = torch.full_like(f, float("inf"))
 
     while True:
         active = should_continue(it, f, prev_f, _norm(g), f0, g0n,
-                                 max_iter, tolerance, made_progress) \
+                                 max_iter, tolerance, made_progress,
+                                 resumed=resume is not None) \
             & (failures < max_failures)
         (any_active,) = host_flags(active.any())
         if not any_active:
@@ -163,8 +190,10 @@ def minimize_tron(
         f_arith = torch.where(torch.isfinite(f_try), f_try, inf)
         actual = f - f_arith
         step_norm = _norm(step)
-        new_delta = torch.where(it == 0, torch.minimum(delta, step_norm),
-                                delta)
+        # the first iteration tightens the region to the step's scale; a
+        # resumed chunk carries its live region
+        new_delta = (torch.where(it == 0, torch.minimum(delta, step_norm),
+                                 delta) if resume is None else delta)
         # step-scale prediction alpha, then the region update
         denom = f_arith - f - gs
         alpha = torch.where(denom <= 0.0, torch.full_like(denom, _SIGMA3),
@@ -208,4 +237,7 @@ def minimize_tron(
                                 failures + 1), failures)
         it = torch.where(improved, it + 1, it)
 
-    return x, RunHistory(values, grad_norms, it), made_progress
+    out = (x, RunHistory(values, grad_norms, it), made_progress)
+    if return_carry:
+        return out + (TRONResume(x, f, g, prev_f, delta, failures, f0, g0n),)
+    return out

@@ -11,6 +11,11 @@ further training-driver flags.
   ``--compute-variance`` (BASELINE config 2's family);
 - ``poisson_enet``: Poisson regression, L-BFGS + elastic net (alpha 0.5),
   so OWL-QN (BASELINE config 3's family).
+
+:data:`CD_EXTENSION_FLAGS` turn on the coordinate-descent extensions for
+the ``lbfgs`` case: the pipelined sweep, blocks of two coordinates, lane
+compaction with the auto-tuned chunk, and the fixed effect down-sampled
+at rate 0.5.
 """
 
 from __future__ import annotations
@@ -48,3 +53,8 @@ GLMIX_CASES = {
                               "POISSON_LOSS"),
 }
 SECOND_ORDER_CASES = ("linear_tron", "poisson_enet")
+CD_EXTENSION_FLAGS = (
+    "--cd-pipeline-depth", "1", "--cd-block-size", "2",
+    "--re-lane-compaction-chunk", "auto",
+    "--fixed-effect-optimization-configurations",
+    "fixed:40,1e-7,10,0.5,LBFGS,L2")

@@ -7,8 +7,9 @@
   ``utils``, ``data``, ``tools`` among them) is walked, and the
   fault-tolerance modules (``utils/faults``, ``retry``, ``events``,
   ``checkpoint``, ``preempt``, ``data/ingest``,
-  ``tools/crash_resume_drill``) and the native ingest modules
-  (``io/native_loader``, ``io/native_avro``) are named in both checks.
+  ``tools/crash_resume_drill``), the native ingest modules
+  (``io/native_loader``, ``io/native_avro``) and the down-sampling ones
+  (``utils/prng``, ``sampler/samplers``) are named in both checks.
 - No port source, C++ source or ``chip_smoke.py`` names a path under the
   JAX package's ``native/``: the port builds its own copies from
   ``csrc/host/``, and importing it builds nothing.
@@ -53,8 +54,10 @@ NATIVE_INGEST_MODULES = ["photon_ml_tpu_torch.io.native_loader",
                          "photon_ml_tpu_torch.io.native_avro"]
 SECOND_ORDER_MODULES = ["photon_ml_tpu_torch.optimize.owlqn",
                         "photon_ml_tpu_torch.optimize.tron"]
+SAMPLER_MODULES = ["photon_ml_tpu_torch.utils.prng",
+                   "photon_ml_tpu_torch.sampler.samplers"]
 NAMED_MODULES = (FAULT_TOLERANCE_MODULES + NATIVE_INGEST_MODULES
-                 + SECOND_ORDER_MODULES)
+                 + SECOND_ORDER_MODULES + SAMPLER_MODULES)
 
 
 def _forbidden(module: str) -> bool:

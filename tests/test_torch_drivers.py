@@ -21,9 +21,10 @@ like the port; ``tests/test_torch_game.py`` explains why). Then:
   ``--compute-variance``, Poisson L-BFGS + elastic net) the objectives
   and validation metrics agree to rel 1e-4 per update, each side reads
   and scores the other's model, and neither model carries variances;
-- every flag the port does not run yet, and a down-sampling rate below
-  1, ends its driver with ``NotImplementedError`` (exit 3 and one
-  ``PHOTON_ABORT`` line); TRON with L1 and TRON for the smoothed hinge
+- every flag the port does not run yet ends its driver with
+  ``NotImplementedError`` (exit 3 and one ``PHOTON_ABORT`` line;
+  ``tests/test_torch_drivers_cd.py`` runs the coordinate-descent flags
+  and down-sampling); TRON with L1 and TRON for the smoothed hinge
   raise ``ValueError`` from both drivers; the checkpoint, recovery, stop
   and degraded-ingest flags run, and ``tests/test_torch_drill.py`` holds
   them against the JAX drivers.
@@ -338,19 +339,6 @@ def test_compute_variance_leaves_game_models_without_variances(
         assert tmodel.models["fixed"].model.coefficients.variances is None
 
 
-@pytest.mark.parametrize("config", ["fixed:40,1e-7,10,0.5,LBFGS,L2",
-                                    "fixed:15,1e-5,10,0.5,TRON,L2"])
-def test_down_sampling_still_exits_3(runs, tmp_path, capsys, config):
-    argv = [*runs["base"], "--fixed-effect-optimization-configurations",
-            config, "--output-dir", str(tmp_path / "out"), "--device",
-            "cpu"]
-    with pytest.raises(SystemExit) as exc:
-        ttd.main(argv)
-    assert exc.value.code == 3
-    assert "PHOTON_ABORT kind=NotImplementedError: down-sampling" in \
-        capsys.readouterr().err
-
-
 @pytest.mark.parametrize("extra", [
     ["--fixed-effect-optimization-configurations",
      "fixed:15,1e-5,10,1,TRON,L1"],
@@ -483,10 +471,6 @@ TRAIN_UNPORTED = [
     ("--re-entity-shards", ["--re-entity-shards", "auto"]),
     ("--precision", ["--precision", "bf16"]),
     ("--collective-quant", ["--collective-quant", "int8"]),
-    ("--cd-block-size", ["--cd-block-size", "2"]),
-    ("--cd-pipeline-depth", ["--cd-pipeline-depth", "1"]),
-    ("--re-lane-compaction-chunk", ["--re-lane-compaction-chunk", "4"]),
-    ("--re-lane-compaction-chunk", ["--re-lane-compaction-chunk", "auto"]),
     ("--trace-dir", ["--trace-dir", "trace"]),
     ("--telemetry-endpoint", ["--telemetry-endpoint", "127.0.0.1:1"]),
     ("--device-telemetry", ["--device-telemetry"]),

@@ -301,17 +301,3 @@ def test_states_round_trip():
         convert.states_from_numpy(states, device="cpu"))
     for k in states:
         np.testing.assert_array_equal(back[k], states[k])
-
-
-def test_unported_options_raise(sides):
-    with pytest.raises(NotImplementedError):
-        tcd.run_coordinate_descent(
-            sides["tcoords"], 1, tcfg.TaskType.LOGISTIC_REGRESSION,
-            np.zeros(N), np.ones(N), np.zeros(N), pipeline_depth=1,
-            device="cpu")
-    with pytest.raises(NotImplementedError):
-        tco.FixedEffectCoordinate(
-            dataset=sides["tcoords"]["fixed"].dataset,
-            problem=TProblem(config=tcfg.GLMOptimizationConfiguration(
-                down_sampling_rate=0.5),
-                task=tcfg.TaskType.LOGISTIC_REGRESSION))

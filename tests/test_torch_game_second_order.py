@@ -22,10 +22,8 @@ not run, on a small MovieLens-shaped GLMix (the recipe of
   both and the two drivers' objectives agree to rel 1e-3 per update.
 - A TRON run killed by ``cd.update@1.1`` and resumed from its newest
   snapshot ends ``array_equal`` to the uninterrupted run.
-- Down-sampling still raises ``NotImplementedError`` with either solver.
 """
 
-import dataclasses
 import json
 import os
 
@@ -295,18 +293,3 @@ def test_tron_resume_after_a_kill_is_bit_exact(data, tmp_path):
     want = _final_states(uninterrupted)
     for cid, got in _final_states(res).items():
         assert np.array_equal(got, want[cid]), cid
-
-
-@pytest.mark.parametrize("case", list(CASES))
-def test_down_sampling_still_raises(data, case):
-    task, fixed, per_user = CASES[case]
-    t = tcfg.TaskType[task]
-    with pytest.raises(NotImplementedError):
-        tco.FixedEffectCoordinate(dataset=data["tfe"], problem=TProblem(
-            config=dataclasses.replace(_cfg(tcfg, fixed),
-                                       down_sampling_rate=0.5), task=t))
-    with pytest.raises(NotImplementedError):
-        tco.RandomEffectCoordinate(
-            dataset=data["tre"], problem=tre.RandomEffectOptimizationProblem(
-                config=dataclasses.replace(_cfg(tcfg, per_user),
-                                           down_sampling_rate=0.5), task=t))
