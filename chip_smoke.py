@@ -123,6 +123,30 @@ Phases, one JSON line each on stdout:
    objectives, one read per block, every launch staged, then the scoring
    driver on its ``best/``, its AUC the best state's.
 
+10. factored — factored random effects and BASELINE config 5: (a) phase
+   5's data with the fixed effect and ``perUserFac``, a factored random
+   effect over ``userId`` on the 64 global features (IDENTITY projection,
+   one block, active cap 128; per-entity and latent L-BFGS + L2, lambda
+   1, at most 20 iterations each; K = 8, two inner iterations; the movie
+   shard's 3,706 one-hot columns would make Kronecker rows past the
+   kernel's 4,096), two sweeps: finite objectives, no fixed-effect update
+   raising the objective, every refit launch on the staged path (2 KB
+   rows), the fixed effect's on the stream path; (b) the kernel on the
+   refit's real Kronecker batch (6,040 x 128 rows x 512) against its plain
+   version, and timed; (c) a small factored GLMix (40,000 rows) on the
+   card and the CPU within rel 1e-3 (``factored_small_phase`` says why
+   not 1e-4), depth 0 equal to depth 1 and a run
+   killed at (1, 1) and resumed equal to the uninterrupted one, bit for
+   bit; (d) the training driver with ``FACTORED_FLAGS`` on the drill's
+   fixture (K·D = 8 x 65, every launch staged), then the scoring driver
+   on its ``best/`` (a plain random-effect directory), its AUC the best
+   state's; (e) BASELINE config 5 at ``bench.py:1226``'s parameters
+   (400,000 rows, 32 global features, per-user and per-item caps of 64,
+   3 buckets each, one sweep; every launch on the stream path), its
+   fixed effect's kernel timed on the real batch, then the MF scoring
+   pass over random K = 8 tables: rows per second, equal to a host numpy
+   gather-dot, and equal after a LatentFactorAvro round trip.
+
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
 no result line is printed. Without CUDA, or outside the repository, it
@@ -165,6 +189,10 @@ DRIVER_ROWS = (1_000_209, 200_000)
 # 40,000 x 65 = 2.6M elements passes ``pallas_supported``'s 2**21, where
 # at 20,000 rows the fixed effect takes the plain two-pass form
 DRILL_ROWS = (40_000, 5_000)
+# the fixed effects of the small card-vs-CPU runs (phases 5, 8-10) and of
+# the drill's drivers (phases 7, 9, 10)
+SMALL_SHAPE = (40_000, 64)
+DRILL_SHAPE = (DRILL_ROWS[0], 65)
 DRIVER_SECTIONS = "global:globalFeatures|user:userFeatures"
 # (shape, tolerance scaled to the sum of |terms|): the small shapes reach
 # every stream geometry (1 to 32 lanes a row in f32 or bf16, one and two
@@ -175,7 +203,8 @@ CHECK_SHAPES = [((700, 128), False), ((1024, 256), False),
                 ((1001, 8), False), ((777, 256), False),
                 ((777, 63), False), (GLMIX_SHAPE, True),
                 (DRIVER_SHAPE, True), (CONFIG3_SHAPE, True),
-                (BIG_SHAPE, True)]
+                (BIG_SHAPE, True), (SMALL_SHAPE, True),
+                (DRILL_SHAPE, True)]
 
 
 def emit(obj) -> None:
@@ -187,10 +216,13 @@ def fail(msg: str) -> None:
     sys.exit(2)
 
 
-def movielens_data(rng, n, n_users, n_movies, d_global):
+def movielens_data(rng, n, n_users, n_movies, d_global,
+                   with_item_effect=False):
     """MovieLens-shaped synthetic GameDataset: power-law users, uniform
     movies, dense global features, one-hot movie features for the per-user
-    coordinate (the recipe of bench.py:581 ``_movielens_data``)."""
+    coordinate, and with ``with_item_effect`` a per-movie effect in the
+    labels, one-hot user features for a per-item coordinate and the
+    ``movieId`` column (the recipe of bench.py:581 ``_movielens_data``)."""
     import scipy.sparse as sp
 
     from photon_ml_tpu_torch.game.dataset import GameDataset
@@ -202,14 +234,23 @@ def movielens_data(rng, n, n_users, n_movies, d_global):
     wg = rng.normal(size=d_global).astype(np.float32)
     logits = Xg @ wg + 0.5 * rng.normal(size=n_users)[users].astype(
         np.float32)
+    if with_item_effect:
+        logits = logits + 0.4 * rng.normal(size=n_movies)[movies].astype(
+            np.float32)
     y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logits))).astype(np.float64)
     one = np.ones(n, np.float32)
-    data = GameDataset(responses=y, feature_shards={
+    shards = {
         "global": sp.csr_matrix(Xg),
         "per_user": sp.csr_matrix((one, (np.arange(n), movies)),
                                   shape=(n, n_movies)),
-    })
+    }
+    if with_item_effect:
+        shards["per_item"] = sp.csr_matrix((one, (np.arange(n), users)),
+                                           shape=(n, n_users))
+    data = GameDataset(responses=y, feature_shards=shards)
     data.encode_ids("userId", users)
+    if with_item_effect:
+        data.encode_ids("movieId", movies)
     return data
 
 
@@ -368,6 +409,76 @@ def cuda_times(torch, fn, reps=25, inner=1, warmup=3) -> dict:
             "host_ms": float(np.median([t[1] for t in turns])),
             "spin_ms": float(np.median([t[2] for t in turns])),
             "queued_share": sum(t[3] for t in turns) / len(turns)}
+
+
+def time_kernel(torch, hbm, loss, Xc, y, off, wt, w, shift) -> dict:
+    """The timing rows of the kernel on ``Xc``, one per pass-1 path that
+    takes the shape: the paths in turns on the same inputs (A, B, B, A),
+    each turn one call at a time (``kernel_ms``) and then ten back to back
+    (``device_ms``), beside the plain version, the one-call-per-pass
+    PyTorch yardstick (``library``) and the bound of the bytes the call
+    must move (X once, four ``[n]`` vectors, ``w``) or of its f32
+    operations, whichever is larger."""
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+
+    n, d = (int(v) for v in Xc.shape)
+    wl = w.to(Xc.dtype)
+
+    def library():
+        z = torch.matmul(Xc, wl).float() + off + shift
+        r = wt * loss.d1(z, y)
+        return ((wt * loss.loss(z, y)).sum(),
+                torch.matmul(r.to(Xc.dtype), Xc), r.sum())
+
+    paths = paths_for(Xc)
+    single = {p: [] for p in paths}
+    back = {p: [] for p in paths}
+    for p in paths + paths[::-1]:
+        def run(p=p):
+            return pk._launch(loss, Xc, y, off, wt, w, shift, path=p)
+        single[p].append(cuda_times(torch, run)["ms"])
+        back[p].append(cuda_times(torch, run, reps=15, inner=10))
+
+    def plain():
+        return pk.fused_value_gradient_sums_reference(loss, Xc, y, off, wt,
+                                                      w, shift)
+    plain_ms = cuda_times(torch, plain)["ms"]
+    plain_dev = cuda_times(torch, plain, reps=15, inner=10)
+    library_ms = cuda_times(torch, library)["ms"]
+    library_dev = cuda_times(torch, library, reps=15, inner=10)
+    nbytes = n * d * Xc.element_size() + 12 * n + 4 * d
+    bytes_ms = 1e3 * nbytes / hbm
+    ops_ms = 1e3 * 4.0 * n * d / F32_FLOPS_PER_S
+    bound_ms = max(bytes_ms, ops_ms)
+    dt = str(Xc.dtype).split(".")[-1]
+    rows = {}
+    for p in paths:
+        kernel_ms = float(np.mean(single[p]))
+        device_ms = float(np.mean([r["ms"] for r in back[p]]))
+        rows[p] = {
+            "n": n, "d": d, "dtype": dt, "path": p, "loss": loss.name,
+            "kernel_ms": kernel_ms, "kernel_ms_runs": single[p],
+            "device_ms": device_ms,
+            "device_ms_runs": [r["ms"] for r in back[p]],
+            "host_ms": float(np.mean([r["host_ms"] for r in back[p]])),
+            "spin_ms": back[p][0]["spin_ms"],
+            "queued_share": min(r["queued_share"] for r in back[p]),
+            "plain_ms": plain_ms, "plain_device_ms": plain_dev["ms"],
+            "plain_queued_share": plain_dev["queued_share"],
+            "library_ms": library_ms,
+            "library_device_ms": library_dev["ms"],
+            "library_queued_share": library_dev["queued_share"],
+            "bytes": nbytes, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share_of_bound": bound_ms / kernel_ms,
+            "device_share_of_bound": bound_ms / device_ms,
+            "achieved_gb_per_s": nbytes / kernel_ms / 1e6,
+            # the staged path's time over this path's, same run
+            "staged_over_this": float(np.mean(single["staged"]))
+            / kernel_ms,
+            "staged_over_this_device": float(np.mean(
+                [r["ms"] for r in back["staged"]])) / device_ms}
+    return rows
 
 
 # the scoring driver as its own process. Its peak RSS so far is read after
@@ -1787,6 +1898,491 @@ def cd_extensions_phase(torch, dev, smi, data, coords, fixture, workdir):
             "seconds": time.perf_counter() - t_all}, launches
 
 
+# BASELINE config 5 (bench.py:1226 bench_game_full): rows, users, movies,
+# global features, the data seed, and the MF scoring pass's latent width
+CONFIG5 = dict(n=400_000, users=6040, movies=3706, d_global=32, seed=11,
+               latent_dim=8)
+
+
+def factored_coordinates(data, device, active_cap=128, lane_chunk=0):
+    """Phase 10's coordinates: ``fixed`` as in phase 5, and ``perUserFac``,
+    a factored random effect over ``userId`` on the 64 global features
+    (IDENTITY projection, one block, active cap ``active_cap``) with
+    ``FACTORED_CONFIG``. The per-user movie shard cannot carry it: over
+    its 3,706 one-hot columns the Kronecker rows would be K x 3,706 =
+    29,648 wide, past the kernel's 4,096 and some 92 GB at full width."""
+    from photon_ml_tpu_torch.cli.game_training_driver import (
+        _parse_factored_grid)
+    from photon_ml_tpu_torch.game.coordinate import (
+        FactoredRandomEffectCoordinate, FixedEffectCoordinate)
+    from photon_ml_tpu_torch.game.dataset import (
+        RandomEffectDataConfiguration, build_fixed_effect_dataset,
+        build_random_effect_dataset)
+    from photon_ml_tpu_torch.game.random_effect import (
+        RandomEffectOptimizationProblem)
+    from photon_ml_tpu_torch.optimize.config import (
+        GLMOptimizationConfiguration, TaskType)
+    from photon_ml_tpu_torch.optimize.problem import GLMOptimizationProblem
+    from photon_ml_tpu_torch.projector.projectors import (
+        ProjectorConfig, ProjectorType)
+    from photon_ml_tpu_torch.tools.glmix_cases import (
+        FACTORED_CONFIG, GLMIX_CASES)
+
+    glmix = GLMIX_CASES["lbfgs"]
+    task = TaskType[glmix.task]
+    (re_cfg, latent_cfg, mf_cfg), = _parse_factored_grid(
+        f"perUserFac:{FACTORED_CONFIG}")[0].values()
+    data_cfg = RandomEffectDataConfiguration(
+        "userId", "global", num_active_data_points_upper_bound=active_cap,
+        projector=ProjectorConfig(ProjectorType.IDENTITY))
+    return {
+        "fixed": FixedEffectCoordinate(
+            dataset=build_fixed_effect_dataset(data, "global",
+                                               device=device),
+            problem=GLMOptimizationProblem(
+                config=GLMOptimizationConfiguration.parse(glmix.fixed),
+                task=task)),
+        "perUserFac": FactoredRandomEffectCoordinate(
+            dataset=build_random_effect_dataset(data, data_cfg,
+                                                device=device),
+            problem=RandomEffectOptimizationProblem(
+                config=re_cfg, task=task, lane_compaction_chunk=lane_chunk),
+            latent_problem=GLMOptimizationProblem(config=latent_cfg,
+                                                  task=task),
+            latent_dim=mf_cfg.num_factors,
+            num_inner_iterations=mf_cfg.max_number_iterations)}
+
+
+def factored_final(res) -> dict:
+    """The run's final states: the fixed effect's coefficients and the
+    factored coordinate's (coefs, B)."""
+    m = res.model.models
+    return {"fixed": m["fixed"].model.coefficients.means,
+            "perUserFac": (m["perUserFac"].coefficients_latent,
+                           m["perUserFac"].projection)}
+
+
+def factored_equal(torch, a, b, skip: int = 0) -> bool:
+    """Two factored runs equal bit for bit: the objectives (of ``b``'s
+    updates after its first ``skip``, for a run resumed after them) and
+    the final states."""
+    fa, fb = factored_final(a), factored_final(b)
+    return ([s.objective for s in a.states]
+            == [s.objective for s in b.states[skip:]]
+            and torch.equal(fa["fixed"], fb["fixed"])
+            and all(torch.equal(x, y) for x, y in zip(fa["perUserFac"],
+                                                      fb["perUserFac"])))
+
+
+def factored_run(torch, dev, data, coords, sweeps=2, **kw):
+    """Coordinate descent of ``coords`` with the launches counted around
+    it: (result, {"launches", "secs", "peak_memory"})."""
+    from photon_ml_tpu_torch.game.coordinate_descent import (
+        run_coordinate_descent)
+    from photon_ml_tpu_torch.optimize.config import TaskType
+
+    reset_counts(torch, dev)
+    t0 = time.perf_counter()
+    res = run_coordinate_descent(
+        coords, sweeps, TaskType.LOGISTIC_REGRESSION, data.responses,
+        data.weights, data.offsets, device=dev, **kw)
+    sync(torch, dev)
+    return res, {"launches": launch_counts(),
+                 "secs": time.perf_counter() - t0,
+                 "peak_memory": peak_memory(torch, dev)}
+
+
+def refit_batch(torch, model, fac_dataset, data, dev):
+    """The refit's Kronecker batch at a trained factored model (a
+    ``GameModel`` with ``fixed`` and ``perUserFac``), the fixed effect's
+    scores as the other coordinates', and B flattened."""
+    from photon_ml_tpu_torch.game.coordinate import (
+        FactoredRandomEffectCoordinate)
+
+    fac = model.models["perUserFac"]
+    coord = FactoredRandomEffectCoordinate(
+        dataset=fac_dataset, problem=None, latent_problem=None,
+        latent_dim=int(fac.coefficients_latent.shape[1]))
+    extra = model.models["fixed"].score(data, device=dev)
+    batch = coord.kronecker_batch(fac.coefficients_latent,
+                                  fac_dataset.offsets_with(extra))
+    return batch, fac.projection.reshape(-1).contiguous()
+
+
+def check_refit(torch, model, fac_dataset, data, dev) -> dict:
+    """The kernel against its plain version on the refit's batch at a
+    trained factored model: the shape, the largest |delta| of the vector
+    sum, the worst tolerance ratio."""
+    from photon_ml_tpu_torch.ops.losses import get_loss
+
+    batch, w = refit_batch(torch, model, fac_dataset, data, dev)
+    err, worst = check_sums(torch, get_loss("logistic"), batch.X,
+                            batch.labels, batch.offsets, batch.weights, w,
+                            torch.zeros((), device=dev), scaled=True)
+    return {"shape": list(batch.X.shape), "max_abs_err": err,
+            "worst_delta_over_tolerance": worst}
+
+
+def factored_library_phase(torch, dev, data, hbm):
+    """Phase 10 (a) and (b): the factored GLMix at full width, then the
+    kernel on the refit's real Kronecker batch against its plain version,
+    and timed."""
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.ops.losses import get_loss
+
+    t0 = time.perf_counter()
+    coords = factored_coordinates(data, dev)
+    fac = coords["perUserFac"]
+    e, n, d = (int(v) for v in fac.dataset.X.shape)
+    k = fac.latent_dim
+    sync(torch, dev)
+    build_secs = time.perf_counter() - t0
+    res, counts = factored_run(
+        torch, dev, data, coords,
+        logger=lambda s: print(s, file=sys.stderr, flush=True))
+    states = res.states
+    objs = [s.objective for s in states]
+    refit_path = pk.kernel_path(k * d, torch.float32, True)
+    by_path = counts["launches"]["by_path"]
+    problems = []
+    if not all(np.isfinite(objs)):
+        problems.append(f"objectives {objs}")
+    # a fixed-effect update never raises the objective; a capped per-user
+    # update may (its passive rows), as in both packages
+    for i, s in enumerate(states):
+        if s.coordinate_id == "fixed" and i and \
+                not s.objective <= states[i - 1].objective * (1 + 1e-6):
+            problems.append(f"fixed-effect update {i} raised the "
+                            f"objective: {objs}")
+    if dev.type == "cuda" and (
+            refit_path != "staged" or by_path["staged"] <= 0
+            or by_path["stream"] <= 0
+            or counts["launches"]["by_loss"] != {
+                "logistic": sum(by_path.values())}):
+        # the refit's 2 KB rows take the staged path, the fixed effect's
+        # 256-byte rows the stream path
+        problems.append(f"launches {counts['launches']}, refit path "
+                        f"{refit_path}")
+    if problems:
+        raise AssertionError("factored GLMix: " + "; ".join(problems))
+    updates = [{"sweep": s.iteration, "coordinate": s.coordinate_id,
+                "objective": s.objective, "seconds": s.seconds,
+                **({"inner": [
+                    {"latent_iterations_max": int(np.max(
+                        re_t.materialize().iterations)),
+                     "refit_iterations": fe_t.materialize()
+                     .result.iterations,
+                     "refit_value": fe_t.result.value}
+                    for re_t, fe_t in s.tracker.inner]}
+                   if s.coordinate_id == "perUserFac" else
+                   {"iterations": s.tracker.result.iterations})}
+               for s in states]
+    # (b) the kernel on the refit's batch at the final state, against its
+    # plain version, then timed (after the counts were read)
+    batch, w = refit_batch(torch, res.model, fac.dataset, data, dev)
+    kron_bytes = batch.X.numel() * batch.X.element_size()
+    loss = get_loss("logistic")
+    zero = torch.zeros((), device=dev)
+    err, worst = check_sums(torch, loss, batch.X, batch.labels,
+                            batch.offsets, batch.weights, w, zero,
+                            scaled=True)
+    rows = time_kernel(torch, hbm, loss, batch.X, batch.labels,
+                       batch.offsets, batch.weights, w, zero)
+    del batch
+    torch.cuda.empty_cache()
+    return {"rows": int(data.num_samples), "entities": e,
+            "rows_per_entity": n, "features": d, "latent_dim": k,
+            "passive_rows": fac.dataset.num_passive,
+            "build_secs": build_secs, "train_secs": counts["secs"],
+            "updates": updates, "objectives": objs,
+            "kronecker_shape": [e * n, k * d], "kronecker_bytes": kron_bytes,
+            "refit_path": refit_path, "launches": counts["launches"],
+            "max_memory_allocated": counts["peak_memory"],
+            "kernel_vs_plain": {"max_abs_err": err,
+                                "worst_delta_over_tolerance": worst}}, \
+        counts["launches"], rows
+
+
+def factored_small_phase(torch, dev, workdir, n=40_000, users=500,
+                         movies=300):
+    """Phase 10 (c): a small factored GLMix (active cap 32) on the card and
+    on the CPU, objectives within rel 1e-3; on the card depth 0 equal to
+    depth 1 bit for bit, and a run killed at update (1, 1) and resumed
+    equal to the uninterrupted one bit for bit.
+
+    Not rel 1e-4: each alternation's per-entity solves stop on
+    FunctionValuesConverged and its refit after all 20 iterations, so the
+    card's and the CPU's reduction orders end them at f32 points apart
+    that the next step carries on, while a factored update moves the
+    objective up to fivefold. On an NVIDIA H100 80GB HBM3 at 700 W the
+    card and the CPU differed by 1.19e-4 here, and the JAX package and
+    the port, both on the CPU, differ by more than 1e-4 at this size
+    too."""
+    from photon_ml_tpu_torch.utils import faults
+    from photon_ml_tpu_torch.utils.checkpoint import CheckpointManager
+
+    small = movielens_data(np.random.default_rng(3), n, users, movies, 64)
+    objs, launches = {}, {}
+    for where in ("cpu", dev):
+        coords = factored_coordinates(small, where, 32)
+        res, counts = factored_run(torch, torch.device(where), small, coords)
+        objs[str(where)] = [s.objective for s in res.states]
+    refit_check = check_refit(torch, res.model,
+                              coords["perUserFac"].dataset, small, dev)
+    card = str(dev)
+    rel = max(abs(a - b) / abs(a) for a, b in zip(objs["cpu"], objs[card]))
+    depth1, launches["depth1"] = res, counts["launches"]
+    depth0, counts = factored_run(torch, dev, small,
+                                  factored_coordinates(small, dev, 32),
+                                  pipeline_depth=0)
+    launches["depth0"] = counts["launches"]
+    shutil.rmtree(workdir, ignore_errors=True)
+    mgr = CheckpointManager(workdir)
+    faults.arm("cd.update", "raise", tag="1.1")
+    try:
+        factored_run(torch, dev, small, factored_coordinates(small, dev, 32),
+                     checkpoint_manager=mgr, checkpoint_every_coordinates=1)
+    except faults.InjectedFault:
+        pass
+    else:
+        raise AssertionError("the armed fault did not stop the run")
+    finally:
+        faults.disarm_all()
+    snap = mgr.restore()
+    resumed, counts = factored_run(torch, dev, small,
+                                   factored_coordinates(small, dev, 32),
+                                   resume_snapshot=snap)
+    launches["resumed"] = counts["launches"]
+    resume_equal = factored_equal(torch, resumed, depth1, skip=3)
+    record = {"rows": n, "objectives": objs, "max_rel_diff": rel,
+              "depth0_equals_depth1": factored_equal(torch, depth0, depth1),
+              "resume_step": [snap["sweep"], snap["coordinate_index"]],
+              "resumed_equals_uninterrupted": resume_equal,
+              "refit_kernel_vs_plain": refit_check}
+    if not (rel <= 1e-3 and record["depth0_equals_depth1"]
+            and resume_equal and record["resume_step"] == [1, 1]):
+        raise AssertionError(f"small factored GLMix: {record}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return record, launches
+
+
+def factored_driver_phase(torch, dev, train, val, workdir):
+    """Phase 10 (d): the training driver with ``FACTORED_FLAGS`` on the
+    drill's fixture (the fixed effect and the factored coordinate over the
+    64 global features + intercept, so K·D = 520), then the scoring driver
+    on its ``best/``: its AUC the best state's, the model a plain
+    random-effect directory."""
+    from photon_ml_tpu_torch.cli import game_training_driver as ttd
+    from photon_ml_tpu_torch.io.model_io import load_game_model
+    from photon_ml_tpu_torch.tools.crash_resume_drill import driver_argv
+    from photon_ml_tpu_torch.tools.glmix_cases import FACTORED_FLAGS
+
+    out = os.path.join(workdir, "train_out")
+    argv = driver_argv(train, val, out, str(dev), extra=list(FACTORED_FLAGS))
+    reset_counts(torch, dev)
+    t0 = time.perf_counter()
+    trainer = ttd.run(argv)
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    check_launches("factored driver", counts, "staged", "logistic", dev)
+    record = json.load(open(os.path.join(out, "metrics.json")))
+    (grid,) = record["grid"]
+    objs = [s["objective"] for s in grid["states"]]
+    if len(objs) != 4 or not all(o is not None and np.isfinite(o)
+                                 for o in objs):
+        raise AssertionError(f"factored driver: objectives {objs}")
+    # the refit's shape at the drivers' width (K·D = 8 x 65), against the
+    # plain version, on the dataset the driver built (the same seed)
+    from photon_ml_tpu_torch.game.dataset import build_random_effect_dataset
+
+    refit_check = check_refit(
+        torch, trainer.best_result.model, build_random_effect_dataset(
+            trainer.train_data, trainer.random_data_configs["perUserFac"],
+            device=dev), trainer.train_data, dev)
+    best_dir = os.path.join(out, "best")
+    saved = sorted(os.listdir(os.path.join(best_dir, "random-effect")))
+    loaded, _ = load_game_model(best_dir)
+    kinds = {c: type(m).__name__ for c, m in loaded.models.items()}
+    if saved != ["perUserFac"] or kinds["perUserFac"] != "RandomEffectModel":
+        raise AssertionError(f"factored driver saved {saved} as {kinds}")
+    # both coordinates read the global shard only
+    scorer = run_scoring_driver([
+        "--input-data-dirs", val, "--game-model-input-dir", best_dir,
+        "--output-dir", os.path.join(workdir, "score_out"),
+        "--feature-shard-id-to-feature-section-keys-map",
+        "global:globalFeatures",
+        "--random-effect-id-set", "userId", "--evaluator-type", "AUC",
+        "--device", str(dev)])
+    best = record["best"]["metric"]
+    if not abs(scorer["metrics"]["AUC"] - best) <= 1e-6:
+        raise AssertionError(f"scoring driver AUC {scorer['metrics']['AUC']}"
+                             f" != best validation AUC {best}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"argv_extra": list(FACTORED_FLAGS), "training_driver_secs": secs,
+            "phase_seconds": trainer.phase_seconds,
+            "secs_per_update": [s["seconds"] for s in grid["states"]],
+            "objectives": objs, "best_metric": best,
+            "scoring_driver_auc": scorer["metrics"]["AUC"],
+            "saved_random_effects": saved, "loaded_as": kinds,
+            "refit_kernel_vs_plain": refit_check, "launches": counts}, \
+        counts
+
+
+def config5_phase(torch, dev, workdir, hbm, n=CONFIG5["n"],
+                  users=CONFIG5["users"], movies=CONFIG5["movies"]):
+    """Phase 10 (e): BASELINE config 5 at ``bench.py:1226``'s parameters
+    (fixed + per-user + per-item, one sweep), its fixed effect's kernel
+    timed on the real batch, then the MF scoring pass over random factor
+    tables: rows per second, equal to a host numpy gather-dot, and equal
+    again after a LatentFactorAvro round trip."""
+    from photon_ml_tpu_torch.game.coordinate import (
+        FixedEffectCoordinate, RandomEffectCoordinate)
+    from photon_ml_tpu_torch.game.dataset import (
+        RandomEffectDataConfiguration, build_fixed_effect_dataset,
+        build_random_effect_dataset)
+    from photon_ml_tpu_torch.game.models import (
+        MatrixFactorizationModel, score_factors)
+    from photon_ml_tpu_torch.game.random_effect import (
+        RandomEffectOptimizationProblem)
+    from photon_ml_tpu_torch.io.model_io import (
+        load_matrix_factorization_model, save_matrix_factorization_model)
+    from photon_ml_tpu_torch.ops.losses import get_loss
+    from photon_ml_tpu_torch.optimize.config import (
+        GLMOptimizationConfiguration, TaskType)
+    from photon_ml_tpu_torch.optimize.problem import GLMOptimizationProblem
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(CONFIG5["seed"])
+    data = movielens_data(rng, n, users, movies, CONFIG5["d_global"],
+                          with_item_effect=True)
+    parse = GLMOptimizationConfiguration.parse
+    task = TaskType.LOGISTIC_REGRESSION
+
+    def per_entity(id_type, shard):
+        return RandomEffectCoordinate(
+            dataset=build_random_effect_dataset(
+                data, RandomEffectDataConfiguration(
+                    id_type, shard, num_active_data_points_upper_bound=64,
+                    num_features_to_keep_upper_bound=64),
+                num_buckets=3, device=dev),
+            problem=RandomEffectOptimizationProblem(
+                config=parse("15,1e-7,1,1,LBFGS,L2"), task=task))
+
+    coords = {
+        "fixed": FixedEffectCoordinate(
+            dataset=build_fixed_effect_dataset(data, "global", device=dev),
+            problem=GLMOptimizationProblem(
+                config=parse("30,1e-7,10,1,LBFGS,L2"), task=task)),
+        "per-user": per_entity("userId", "per_user"),
+        "per-item": per_entity("movieId", "per_item")}
+    sync(torch, dev)
+    build_secs = time.perf_counter() - t0
+    res, counts = factored_run(torch, dev, data, coords, sweeps=1)
+    fixed_path = paths_for(coords["fixed"].dataset.batch.X)[0]
+    check_launches("config 5", counts["launches"], fixed_path, "logistic",
+                   dev)
+    objs = [s.objective for s in res.states]
+    if not all(np.isfinite(objs)):
+        raise AssertionError(f"config 5: objectives {objs}")
+    # the fixed effect's batch with the two random effects' scores as
+    # offsets, kernel against plain, then timed
+    m = res.model.models
+    batch = coords["fixed"].dataset.with_offsets(
+        coords["per-user"].score(m["per-user"].coefficients_projected)
+        + coords["per-item"].score(m["per-item"].coefficients_projected))
+    loss, zero = get_loss("logistic"), torch.zeros((), device=dev)
+    w = m["fixed"].model.coefficients.means.contiguous()
+    err, worst = check_sums(torch, loss, batch.X, batch.labels,
+                            batch.offsets, batch.weights, w, zero,
+                            scaled=True)
+    rows = time_kernel(torch, hbm, loss, batch.X, batch.labels,
+                       batch.offsets, batch.weights, w, zero)
+    # the MF scoring pass (bench.py:1315-1333): tables drawn next from the
+    # same generator, cut to the ids the data holds
+    k = CONFIG5["latent_dim"]
+    rf = rng.normal(size=(users, k)).astype(np.float32)
+    cf = rng.normal(size=(movies, k)).astype(np.float32)
+    vocabs = {t: data.id_vocabs[t] for t in ("userId", "movieId")}
+    mf = MatrixFactorizationModel(
+        "userId", "movieId",
+        torch.from_numpy(rf[:len(vocabs["userId"])]).to(dev),
+        torch.from_numpy(cf[:len(vocabs["movieId"])]).to(dev))
+    scores = mf.score(data, device=dev)
+    u, v = data.id_columns["userId"], data.id_columns["movieId"]
+    host = np.sum(rf[u] * cf[v], axis=-1)
+    mf_err = float(np.abs(scores.cpu().numpy() - host).max())
+    r_t = torch.as_tensor(u, device=dev)
+    c_t = torch.as_tensor(v, device=dev)
+    mf_times = cuda_times(torch, lambda: score_factors(
+        mf.row_factors, mf.col_factors, r_t, c_t))
+    save_matrix_factorization_model(mf, workdir, entity_vocabs=vocabs)
+    back = load_matrix_factorization_model(workdir, "userId", "movieId")
+    round_trip_equal = bool(torch.equal(back.score(data, device=dev),
+                                        scores))
+    shutil.rmtree(workdir, ignore_errors=True)
+    record = {
+        "rows": n, "users": len(vocabs["userId"]),
+        "movies": len(vocabs["movieId"]), "d_global": CONFIG5["d_global"],
+        "buckets": {c: [list(b.X.shape) for b in coords[c].dataset.buckets]
+                    for c in ("per-user", "per-item")},
+        "build_secs": build_secs, "sweep_secs": counts["secs"],
+        "objectives": objs,
+        "secs_per_update": [s.seconds for s in res.states],
+        "launches": counts["launches"], "fixed_path": fixed_path,
+        "max_memory_allocated": counts["peak_memory"],
+        "kernel_vs_plain": {"max_abs_err": err,
+                            "worst_delta_over_tolerance": worst},
+        "mf": {"latent_dim": k, "score_ms": mf_times["ms"],
+               "rows_per_sec": n / (mf_times["ms"] / 1e3),
+               "max_abs_err_vs_host": mf_err,
+               "latent_factor_round_trip_equal": round_trip_equal}}
+    if not (mf_err <= 1e-5 * max(1.0, float(np.abs(host).max()))
+            and round_trip_equal):
+        raise AssertionError(f"config 5 MF scoring: {record['mf']}")
+    return record, counts["launches"], rows
+
+
+def factored_phase(torch, dev, smi, data, fixture, workdir, hbm):
+    """Phase 10: factored random effects, the drivers with them, and
+    BASELINE config 5. Returns the phase record, the kernel's launches by
+    run, the kernel-vs-plain errors and the new timing rows."""
+    t_all = time.perf_counter()
+    secs, mark = {}, [t_all]
+
+    def lap(part):
+        now = time.perf_counter()
+        secs[part], mark[0] = now - mark[0], now
+
+    library, lib_launches, refit_rows = factored_library_phase(
+        torch, dev, data, hbm)
+    print("phase 10 (a, b): " + json.dumps(library), file=sys.stderr,
+          flush=True)
+    lap("a_b")
+    small, small_launches = factored_small_phase(
+        torch, dev, os.path.join(workdir, "small_ckpt"))
+    lap("c")
+    driver, driver_launches = factored_driver_phase(
+        torch, dev, *fixture, os.path.join(workdir, "driver"))
+    lap("d")
+    config5, c5_launches, c5_rows = config5_phase(
+        torch, dev, os.path.join(workdir, "mf"), hbm)
+    lap("e")
+    launches = {"library": lib_launches, "driver": driver_launches,
+                "config5": c5_launches,
+                **{f"small_{k}": v for k, v in small_launches.items()}}
+    errs = [library["kernel_vs_plain"]["max_abs_err"],
+            small["refit_kernel_vs_plain"]["max_abs_err"],
+            driver["refit_kernel_vs_plain"]["max_abs_err"],
+            config5["kernel_vs_plain"]["max_abs_err"]]
+    return {"phase": "factored", "nvidia_smi": smi, "library": library,
+            "small": small, "driver": driver, "config5": config5,
+            "timing": [*refit_rows.values(), *c5_rows.values()],
+            "part_seconds": secs,
+            "seconds": time.perf_counter() - t_all}, launches, errs, \
+        [*refit_rows.values(), *c5_rows.values()]
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -1906,69 +2502,11 @@ def main() -> int:
         shift = torch.tensor(0.0, device=dev)
         for dtype in dtypes:
             Xc = X.to(dtype).contiguous()
-            wl = w.to(dtype)
-
-            def library(Xc=Xc, wl=wl, loss=loss):
-                z = torch.matmul(Xc, wl).float() + off + shift
-                r = wt * loss.d1(z, y)
-                return ((wt * loss.loss(z, y)).sum(),
-                        torch.matmul(r.to(Xc.dtype), Xc), r.sum())
-
-            paths = paths_for(Xc)
-            # both paths in turns on the same inputs: A, B, B, A; each
-            # turn one call at a time, then ten back to back
-            single = {p: [] for p in paths}
-            back = {p: [] for p in paths}
-            for p in paths + paths[::-1]:
-                def run(p=p, loss=loss):
-                    return pk._launch(loss, Xc, y, off, wt, w, shift, path=p)
-                single[p].append(cuda_times(torch, run)["ms"])
-                back[p].append(cuda_times(torch, run, reps=15, inner=10))
-
-            def plain(loss=loss):
-                return pk.fused_value_gradient_sums_reference(
-                    loss, Xc, y, off, wt, w, shift)
-            plain_ms = cuda_times(torch, plain)["ms"]
-            plain_dev = cuda_times(torch, plain, reps=15, inner=10)
-            library_ms = cuda_times(torch, library)["ms"]
-            library_dev = cuda_times(torch, library, reps=15, inner=10)
-            nbytes = n * d * Xc.element_size() + 12 * n + 4 * d
-            bytes_ms = 1e3 * nbytes / hbm
-            ops_ms = 1e3 * 4.0 * n * d / F32_FLOPS_PER_S
-            bound_ms = max(bytes_ms, ops_ms)
-            dt = str(dtype).split(".")[-1]
-            for p in paths:
-                kernel_ms = float(np.mean(single[p]))
-                device_ms = float(np.mean([r["ms"] for r in back[p]]))
-                timings[(n, d, dt, p, lname)] = {
-                    "n": n, "d": d, "dtype": dt, "path": p, "loss": lname,
-                    "kernel_ms": kernel_ms, "kernel_ms_runs": single[p],
-                    "device_ms": device_ms,
-                    "device_ms_runs": [r["ms"] for r in back[p]],
-                    "host_ms": float(np.mean([r["host_ms"]
-                                              for r in back[p]])),
-                    "spin_ms": back[p][0]["spin_ms"],
-                    "queued_share": min(r["queued_share"]
-                                        for r in back[p]),
-                    "plain_ms": plain_ms,
-                    "plain_device_ms": plain_dev["ms"],
-                    "plain_queued_share": plain_dev["queued_share"],
-                    "library_ms": library_ms,
-                    "library_device_ms": library_dev["ms"],
-                    "library_queued_share": library_dev["queued_share"],
-                    "bytes": nbytes, "bound_ms": bound_ms,
-                    "bound_by": "bytes" if bytes_ms >= ops_ms
-                    else "operations",
-                    "share_of_bound": bound_ms / kernel_ms,
-                    "device_share_of_bound": bound_ms / device_ms,
-                    "achieved_gb_per_s": nbytes / kernel_ms / 1e6,
-                    # the staged path's time over this path's, same run
-                    "staged_over_this": float(np.mean(single["staged"]))
-                    / kernel_ms,
-                    "staged_over_this_device": float(np.mean(
-                        [r["ms"] for r in back["staged"]])) / device_ms}
-                emit({"phase": "timing", **timings[(n, d, dt, p, lname)]})
-            del Xc, wl
+            for row in time_kernel(torch, hbm, loss, Xc, y, off, wt, w,
+                                   shift).values():
+                timings[(n, d, row["dtype"], row["path"], lname)] = row
+                emit({"phase": "timing", **row})
+            del Xc
         del X, y, off, wt, w
         torch.cuda.empty_cache()
     emit({"phase": "timing_done", "seconds": time.perf_counter() - t0})
@@ -2135,11 +2673,23 @@ def main() -> int:
     cd_ext, cd_launches = cd_extensions_phase(
         torch, dev, smi, data, coords, drill_fixture,
         os.path.join(build, "cd_extensions"))
-    shutil.rmtree(os.path.join(build, "drill"), ignore_errors=True)
     emit(cd_ext)
+    del coords
+    torch.cuda.empty_cache()
+
+    # -- 10. factored random effects and BASELINE config 5 ----------------
+    factored, fac_launches, fac_errs, fac_rows = factored_phase(
+        torch, dev, smi, data, drill_fixture,
+        os.path.join(build, "factored"), hbm)
+    shutil.rmtree(os.path.join(build, "drill"), ignore_errors=True)
+    emit(factored)
+    for row in fac_rows:
+        timings[(row["n"], row["d"], row["dtype"], row["path"],
+                 row["loss"])] = row
 
     # -- kernels line, card line, result ---------------------------------------
     cd_runs = {f"cd_{k}": v for k, v in cd_launches.items()}
+    fac_runs = {f"factored_{k}": v for k, v in fac_launches.items()}
     second_order_runs = {
         "config2": cfg2["launches"], "config3": cfg3["launches"],
         **{f"driver_{k}": v for k, v in drivers2_launches.items()},
@@ -2149,10 +2699,12 @@ def main() -> int:
             "resume_resumed": resume_resumed,
             **{f"drill_{r}": v for r, v in drill_launches.items()},
             **{k: v["by_path"] for k, v in second_order_runs.items()},
-            **{k: v["by_path"] for k, v in cd_runs.items()}}
+            **{k: v["by_path"] for k, v in cd_runs.items()},
+            **{k: v["by_path"] for k, v in fac_runs.items()}}
     by_loss = {"glmix": glmix_by_loss, "driver": phase["launches_by_loss"],
                **{k: v["by_loss"] for k, v in second_order_runs.items()},
-               **{k: v["by_loss"] for k, v in cd_runs.items()}}
+               **{k: v["by_loss"] for k, v in cd_runs.items()},
+               **{k: v["by_loss"] for k, v in fac_runs.items()}}
     total_by_path = {p: sum(r[p] for r in runs.values())
                      for p in by_path}
     main = timings[(*GLMIX_SHAPE, "float32", "stream", "logistic")]
@@ -2167,7 +2719,8 @@ def main() -> int:
         "launches": sum(total_by_path.values()),
         "launches_by_run": runs,
         "launches_by_loss": by_loss,
-        "max_abs_err": max(main_err, driver_check["max_abs_err"]),
+        "max_abs_err": max(main_err, driver_check["max_abs_err"],
+                           *fac_errs),
         "ms": main["kernel_ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],

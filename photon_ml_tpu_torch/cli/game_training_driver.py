@@ -27,11 +27,20 @@ through ``run_lazy``, which computes no variances there either, so a GAME
 model carries none. The coordinate-descent flags are the JAX driver's,
 with its defaults: ``--cd-block-size`` (1), ``--cd-pipeline-depth`` (1
 when unset, ``:741-742``) and ``--re-lane-compaction-chunk`` (0, an int
-or ``auto``; ``_lane_chunk``, ``:500-502``). Flags whose feature is not
+or ``auto``; ``_lane_chunk``, ``:500-502``). Random effects take every
+projection of the data configuration (index map, identity, random).
+``--factored-random-effect-optimization-configurations`` trains factored
+random effects (``coordId:reCfg:latentCfg:mfCfg``, ``_parse_factored_grid``
+``:125-145``, a grid multiplied with the other two, ``:676``): such a
+coordinate's dataset has one block whatever
+``--random-effect-block-buckets`` says, its per-entity problem takes the
+lane chunk and its latent problem no variance flag (``:582-597``); a
+factored config for a coordinate that is not a random effect of the
+updating sequence is refused (``:1010-1029``). Flags whose feature is not
 ported yet raise ``NotImplementedError`` naming the flag and end the run
 through ``clean_abort`` (exit 3): multi-process runs and their
-supervision, the off-heap index store, streamed and factored random
-effects, entity sharding, bf16, quantized collectives and telemetry.
+supervision, the off-heap index store, the streamed random-effect
+builder, entity sharding, bf16, quantized collectives and telemetry.
 
 Validation rows are matched to the trained per-entity models by raw id:
 the validation id columns are re-encoded against the training vocabulary
@@ -75,6 +84,7 @@ from photon_ml_tpu_torch.evaluation.evaluators import (
     resolve_entity_ids,
 )
 from photon_ml_tpu_torch.game.coordinate import (
+    FactoredRandomEffectCoordinate,
     FixedEffectCoordinate,
     RandomEffectCoordinate,
 )
@@ -102,6 +112,7 @@ from photon_ml_tpu_torch.io.index_map import IndexMap
 from photon_ml_tpu_torch.io.model_io import save_game_model
 from photon_ml_tpu_torch.optimize.config import (
     GLMOptimizationConfiguration,
+    MFOptimizationConfiguration,
     TaskType,
 )
 from photon_ml_tpu_torch.optimize.problem import GLMOptimizationProblem
@@ -129,6 +140,30 @@ def _parse_opt_config_grid(s: str) -> list[dict[str,
     return [{k: GLMOptimizationConfiguration.parse(v)
              for k, v in parse_key_value_map(point).items()}
             for point in s.split(";") if point.strip()]
+
+
+def _parse_factored_grid(s: str) -> list[dict]:
+    """``;``-separated grid points of ``|``-separated
+    ``coordId:reCfg:latentCfg:mfCfg``."""
+    grid = []
+    for point in s.split(";"):
+        if not point.strip():
+            continue
+        configs = {}
+        for line in point.split("|"):
+            if not line.strip():
+                continue
+            parts = [p.strip() for p in line.split(":")]
+            if len(parts) != 4:
+                raise ValueError(
+                    f"factored config needs coordId:reCfg:latentCfg:mfCfg, "
+                    f"got {line!r}")
+            key, re_cfg, latent_cfg, mf_cfg = parts
+            configs[key] = (GLMOptimizationConfiguration.parse(re_cfg),
+                            GLMOptimizationConfiguration.parse(latent_cfg),
+                            MFOptimizationConfiguration.parse(mf_cfg))
+        grid.append(configs)
+    return grid
 
 
 def _int_or_auto(s: str) -> int:
@@ -233,9 +268,6 @@ def check_unported(ns: argparse.Namespace) -> None:
          "the off-heap index store"),
         ("--random-effect-blocks-dir", ns.random_effect_blocks_dir,
          "the streamed random-effect builder"),
-        ("--factored-random-effect-optimization-configurations",
-         ns.factored_random_effect_optimization_configurations.strip(),
-         "factored random effects"),
         ("--re-entity-shards", ns.re_entity_shards != 1,
          "entity sharding"),
         ("--precision", ns.precision != "f32", "bf16 storage"),
@@ -256,8 +288,6 @@ class GameTrainingDriver:
         self.ns = ns
         self.device = resolve_device(ns.device)
         self.task = TaskType[ns.task_type]
-        self.logger = logger or PhotonLogger(
-            os.path.join(ns.output_dir, "game-training.log"), echo=False)
         self.section_keys = parse_section_keys_map(
             ns.feature_shard_id_to_feature_section_keys_map)
         self.intercept_map = {
@@ -278,8 +308,23 @@ class GameTrainingDriver:
             ns.fixed_effect_optimization_configurations) or [{}]
         self.random_opt_grid = _parse_opt_config_grid(
             ns.random_effect_optimization_configurations) or [{}]
+        self.factored_grid = _parse_factored_grid(
+            ns.factored_random_effect_optimization_configurations) or [{}]
+        random_ids = {c for c in self.updating_sequence
+                      if c in self.random_data_configs}
+        unknown = sorted({c for point in self.factored_grid for c in point}
+                         - random_ids)
+        if unknown:
+            raise ValueError(
+                f"factored configs for unknown coordinates: {unknown} (a "
+                f"factored coordinate is a random-effect coordinate of the "
+                f"updating sequence; have {sorted(random_ids)})")
         self.evaluators = [EvaluatorSpec.parse(x)
                            for x in ns.evaluator_type.split(",") if x.strip()]
+        # the log opens once the configurations parse: a refused argv
+        # leaves no output directory behind
+        self.logger = logger or PhotonLogger(
+            os.path.join(ns.output_dir, "game-training.log"), echo=False)
 
         self.index_maps: dict[str, IndexMap] = {}
         self.train_data: Optional[GameDataset] = None
@@ -365,7 +410,8 @@ class GameTrainingDriver:
             self.logger.info(f"validation dataset: "
                              f"{self.validate_data.num_samples} samples")
 
-    def _build_coordinates(self, fixed_cfgs, random_cfgs) -> dict:
+    def _build_coordinates(self, fixed_cfgs, random_cfgs,
+                           factored_cfgs) -> dict:
         """One coordinate per updating-sequence entry with this grid
         point's optimization configs (Driver.train :352-533)."""
         coords = {}
@@ -382,6 +428,19 @@ class GameTrainingDriver:
                         task=self.task,
                         compute_variances=parse_flag(
                             self.ns.compute_variance)))
+            elif cid in self.random_data_configs and cid in factored_cfgs:
+                re_cfg, latent_cfg, mf_cfg = factored_cfgs[cid]
+                coords[cid] = FactoredRandomEffectCoordinate(
+                    dataset=build_random_effect_dataset(
+                        self.train_data, self.random_data_configs[cid],
+                        device=self.device),
+                    problem=RandomEffectOptimizationProblem(
+                        config=re_cfg, task=self.task,
+                        lane_compaction_chunk=self._lane_chunk()),
+                    latent_problem=GLMOptimizationProblem(
+                        config=latent_cfg, task=self.task),
+                    latent_dim=mf_cfg.num_factors,
+                    num_inner_iterations=mf_cfg.max_number_iterations)
             elif cid in self.random_data_configs:
                 ds = build_random_effect_dataset(
                     self.train_data, self.random_data_configs[cid],
@@ -434,8 +493,8 @@ class GameTrainingDriver:
                     f"{name}: {value:.6f}")
         best = None  # (metric, result, description)
         results = []
-        combos = list(itertools.product(self.fixed_opt_grid,
-                                        self.random_opt_grid))
+        combos = list(itertools.product(
+            self.fixed_opt_grid, self.random_opt_grid, self.factored_grid))
         ckpt_mgr = resume_snapshot = None
         if self.ns.checkpoint_dir:
             if len(combos) > 1:
@@ -465,14 +524,14 @@ class GameTrainingDriver:
                     self.ns.recovery_max_consecutive_failures),
                 quarantine_after=self.ns.recovery_quarantine_after)
             events = self.events
-        for gi, (f_cfgs, r_cfgs) in enumerate(combos):
+        for gi, (f_cfgs, r_cfgs, fac_cfgs) in enumerate(combos):
             desc = (f"grid[{gi}]: fixed="
                     f"{ {k: v.render() for k, v in f_cfgs.items()} } "
                     f"random={ {k: v.render() for k, v in r_cfgs.items()} }")
             self.logger.info(desc)
             with timed_phase(f"train grid[{gi}]", self.logger,
                              self.phase_seconds):
-                coords = self._build_coordinates(f_cfgs, r_cfgs)
+                coords = self._build_coordinates(f_cfgs, r_cfgs, fac_cfgs)
                 result = run_coordinate_descent(
                     coords, self.ns.num_iterations, self.task,
                     self.train_data.responses, self.train_data.weights,

@@ -7,6 +7,9 @@ Port of ``photon_ml_tpu/game/coordinate_descent.py`` — ``HOT_LOOP_STATS``
 ``RecoveryPolicy`` (``:265-320``), ``CoordinateDivergenceError``
 (``:86``), ``_damp_toward`` (``:337``), ``_checkpoint_save_contained``
 (``:391``), ``CoordinateDescentState``/``Result`` (``:361-389``),
+``_state_leaves``/``_damp_toward``/``_to_jnp_states`` (``:321-388``: a
+state is one tensor or, for a factored random effect, a tuple of them,
+handled leaf by leaf everywhere),
 ``run_coordinate_descent`` (``:412-1256``: resume, per-update validation
 and the best model, ``save_snapshot`` and its cadence, dispatch / fetch /
 commit / rollback / resolve of a block, the sequential retry / skip /
@@ -55,6 +58,7 @@ import dataclasses
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
@@ -163,8 +167,23 @@ class RecoveryPolicy:
                 f"got {self.quarantine_after}")
 
 
-def _damp_toward(good: Tensor, candidate: Tensor, factor: float) -> Tensor:
-    """last_good + factor * (candidate - last_good)."""
+def _state_leaves(state) -> tuple:
+    """A state's tensors: the tuple's members, or the one tensor."""
+    return state if isinstance(state, tuple) else (state,)
+
+
+def map_state(fn, state):
+    """``fn`` applied to each tensor of a state (one tensor, or a tuple of
+    them), keeping the state's form."""
+    if isinstance(state, tuple):
+        return tuple(fn(leaf) for leaf in state)
+    return fn(state)
+
+
+def _damp_toward(good, candidate, factor: float):
+    """last_good + factor * (candidate - last_good), leaf by leaf."""
+    if isinstance(candidate, tuple):
+        return tuple(g + factor * (c - g) for g, c in zip(good, candidate))
     return good + factor * (candidate - good)
 
 
@@ -197,11 +216,13 @@ def publish_game_model(coordinates: dict, states: dict) -> GameModel:
 
 
 def fetch_to_host(groups: dict) -> dict:
-    """``{name: {cid: f32 tensor} | None}`` -> the same with numpy arrays,
-    in ONE device-to-host copy: the leaves are flattened into one tensor on
-    their device, copied once, and cut back into their shapes."""
+    """``{name: {cid: state} | None}`` -> the same with numpy arrays (a
+    tuple state stays a tuple), in ONE device-to-host copy: the f32 leaves
+    are flattened into one tensor on their device, copied once, and cut
+    back into their shapes."""
     leaves = [(name, cid, t) for name, group in groups.items()
-              if group is not None for cid, t in group.items()]
+              if group is not None for cid, state in group.items()
+              for t in _state_leaves(state)]
     for name, cid, t in leaves:
         if t.dtype != torch.float32:
             raise TypeError(f"{name}[{cid}] is {t.dtype}, not float32")
@@ -209,13 +230,14 @@ def fetch_to_host(groups: dict) -> dict:
            for name, group in groups.items()}
     if not leaves:
         return out
-    flat = torch.cat([t.detach().reshape(-1) for _, _, t in leaves])
-    host = flat.cpu().numpy()
-    offset = 0
-    for name, cid, t in leaves:
-        n = t.numel()
-        out[name][cid] = host[offset:offset + n].reshape(tuple(t.shape))
-        offset += n
+    host = torch.cat([t.detach().reshape(-1)
+                      for _, _, t in leaves]).cpu().numpy()
+    pieces = iter(np.split(host, np.cumsum([t.numel()
+                                            for _, _, t in leaves])[:-1]))
+    for name, group in groups.items():
+        for cid, state in (group or {}).items():
+            out[name][cid] = map_state(
+                lambda t: next(pieces).reshape(tuple(t.shape)), state)
     return out
 
 
@@ -351,6 +373,9 @@ def run_coordinate_descent(
     def on_device(a) -> Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=device)
 
+    def state_on_device(state):
+        return map_state(on_device, state)
+
     labels, weights, offsets = on_device(labels), on_device(weights), \
         on_device(offsets)
     ids = list(coordinates)
@@ -372,7 +397,7 @@ def run_coordinate_descent(
         start_coordinate = int(snap.get("coordinate_index", 0))
         if snap.get("best_states") is not None:
             initial_best = (snap.get("best_metric"),
-                            {cid: on_device(v)
+                            {cid: state_on_device(v)
                              for cid, v in snap["best_states"].items()})
         if snap.get("scores") is not None:
             restored_scores = {cid: on_device(v)
@@ -387,7 +412,8 @@ def run_coordinate_descent(
                                 or {}).items()}
         quarantined = set(snap.get("quarantined") or [])
 
-    given = {cid: on_device(v) for cid, v in (initial_states or {}).items()}
+    given = {cid: state_on_device(v)
+             for cid, v in (initial_states or {}).items()}
     states = {cid: (given[cid] if cid in given
                     else coordinates[cid].initial_state()) for cid in ids}
     if restored_scores is not None:
@@ -504,8 +530,9 @@ def run_coordinate_descent(
              state_finite_d) = epilogue(
                 tuple(current(c, new_scores, 0, scores) for c in ids),
                 tuple(current(c, new_regs, 1, reg_cache) for c in ids),
-                tuple(cands[cid] for _, cid in block), labels, weights,
-                offsets)
+                tuple(leaf for _, cid in block
+                      for leaf in _state_leaves(cands[cid])), labels,
+                weights, offsets)
         except Exception:
             if len(block) > 1:
                 set_update_counts(block, counts_before)

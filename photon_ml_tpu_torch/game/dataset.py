@@ -5,15 +5,19 @@ Port of ``photon_ml_tpu/game/dataset.py`` — ``GameDataset`` (``:59-114``),
 (``:153-185``), ``balanced_entity_order`` (``:193-234``),
 ``RandomEffectDataConfiguration`` with its CLI ``parse`` (``:243-313``),
 ``FixedEffectDataConfiguration`` (``:316-329``) and the in-RAM
-``build_random_effect_dataset`` (``:333-978``) with INDEX_MAP projection and
+``build_random_effect_dataset`` (``:333-978``) with its three projections
+(the choice at ``:885-900``): INDEX_MAP, RANDOM (the shared Gaussian
+matrix of ``projector/projectors.py``, applied to each row on the host,
+``:711-712``) and IDENTITY (the raw shard densified in row chunks,
+``:465``, ``:713-714``; what the factored coordinate needs), and
 ``(N, D)`` entity bucketing. The host-side grouping, reservoir split,
 projector build and packing are numpy, identical to the JAX package's; the
-packer is the numpy ``_project_nnz`` scatter (the JAX package's fallback at
-``:706-710``) instead of the native ``block_packer.cpp``. Only the device
-commit differs: blocks become torch tensors on the requested device.
+index-map packer is the numpy ``_project_nnz`` scatter (the JAX package's
+fallback at ``:706-710``) instead of the native ``block_packer.cpp``. Only
+the device commit differs: blocks become torch tensors on the requested
+device.
 
-The ELL layout, RANDOM/IDENTITY projectors and the streamed builder wait
-for later slices.
+The ELL layout and the streamed builder wait for later slices.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from photon_ml_tpu_torch.projector.projectors import (
     IndexMapProjectors,
     ProjectorConfig,
     ProjectorType,
+    RandomProjector,
+    build_random_projector,
 )
 
 Tensor = torch.Tensor
@@ -298,6 +304,7 @@ class RandomEffectDataset:
     row_ids: Optional[Tensor]
     num_samples: int
     projectors: Optional[IndexMapProjectors] = None
+    random_projector: Optional[RandomProjector] = None
     passive_X: Optional[Tensor] = None
     passive_entity: Optional[Tensor] = None
     passive_row_ids: Optional[Tensor] = None
@@ -467,24 +474,42 @@ def _bucket_plan(counts: np.ndarray, num_buckets: int, multiple: int
     return n_max, seg_of_size[np.searchsorted(-uniq, -q)]
 
 
+def _densify_chunked(sub: sp.csr_matrix, chunk: int = 1 << 16) -> np.ndarray:
+    """``sub.toarray()`` in row chunks of f32 (``dataset.py:465-474``)."""
+    r, d = sub.shape
+    out = np.zeros((r, d), dtype=np.float32)
+    for lo in range(0, r, chunk):
+        out[lo:lo + chunk] = sub[lo:lo + chunk].toarray()
+    return out
+
+
 def _fill_feature_rows(sub: sp.csr_matrix, out: np.ndarray,
-                       flat_pos: np.ndarray, projectors: IndexMapProjectors,
-                       global_ent: np.ndarray) -> None:
-    """Scatter ``sub``'s projected rows into the zeroed f32 block ``out``
-    (row ``r`` lands at flat row ``flat_pos[r]``) — the numpy branch of
-    ``dataset.py:685-716``."""
+                       flat_pos: np.ndarray,
+                       projectors: Optional[IndexMapProjectors],
+                       random_projector: Optional[RandomProjector],
+                       global_ent: Optional[np.ndarray] = None) -> None:
+    """Write ``sub``'s projected rows into the zeroed f32 block ``out``
+    (row ``r`` lands at flat row ``flat_pos[r]``; ``dataset.py:685-716``):
+    the index-map scatter by ``global_ent``, the random projector's
+    product, or the raw rows densified (identity)."""
     flat = out.reshape(-1, out.shape[-1])
-    nnz_row, nnz_j, nnz_ok = _project_nnz(sub, global_ent, projectors)
-    flat[flat_pos[nnz_row[nnz_ok]], nnz_j[nnz_ok]] = sub.data[nnz_ok]
+    if projectors is not None:
+        nnz_row, nnz_j, nnz_ok = _project_nnz(sub, global_ent, projectors)
+        flat[flat_pos[nnz_row[nnz_ok]], nnz_j[nnz_ok]] = sub.data[nnz_ok]
+    elif random_projector is not None:
+        flat[flat_pos] = (sub @ random_projector.matrix).astype(np.float32)
+    else:
+        flat[flat_pos] = _densify_chunked(sub)
 
 
 def _pack_entity_buckets(sub, ent_of_act, slot_of_act, act_labels,
                          act_offsets, act_weights, rows_act, n_samples,
-                         bucket_sizes, bucket_n_max, projectors, d_red,
-                         dtype, device, pad_dim_multiple: int = 8
-                         ) -> list[EntityBucket]:
+                         bucket_sizes, bucket_n_max, projectors,
+                         random_projector, d_red, dtype, device,
+                         pad_dim_multiple: int = 8) -> list[EntityBucket]:
     """Pack active rows into per-bucket (N_b, D_b) blocks
-    (``dataset.py:719-792``, one entity-axis shard)."""
+    (``dataset.py:719-792``, one entity-axis shard); D_b narrows per
+    bucket under index-map projection only."""
     starts = np.concatenate([[0], np.cumsum(bucket_sizes)])
     bucket_of_act = np.searchsorted(starts, ent_of_act, side="right") - 1
     buckets: list[EntityBucket] = []
@@ -492,9 +517,12 @@ def _pack_entity_buckets(sub, ent_of_act, slot_of_act, act_labels,
         nr = int(bucket_sizes[b])
         start = int(starts[b])
         n_b = int(bucket_n_max[b])
-        d_b = int(projectors.reduced_dims[start:start + nr].max())
-        d_b = max(1, -(-max(d_b, 1) // pad_dim_multiple) * pad_dim_multiple)
-        d_b = min(d_b, d_red)
+        d_b = d_red
+        if projectors is not None:
+            d_b = int(projectors.reduced_dims[start:start + nr].max())
+            d_b = max(1, -(-max(d_b, 1) // pad_dim_multiple)
+                      * pad_dim_multiple)
+            d_b = min(d_b, d_red)
         e_b = max(1, nr)
 
         mask = bucket_of_act == b
@@ -510,7 +538,7 @@ def _pack_entity_buckets(sub, ent_of_act, slot_of_act, act_labels,
         weights[loc, slots] = act_weights[mask]
         row_ids[loc, slots] = rows_act[mask]
         _fill_feature_rows(sub[mask], X, loc * n_b + slots, projectors,
-                           ent_of_act[mask])
+                           random_projector, ent_of_act[mask])
         buckets.append(EntityBucket(
             entity_start=start, num_real=nr,
             X=_to_device(X, device, dtype),
@@ -530,9 +558,6 @@ def build_random_effect_dataset(data: GameDataset,
     blocks (``dataset.py:795-978``, one entity-axis shard). ``num_buckets
     > 1`` engages (N, D) size bucketing."""
     device = resolve_device(device)
-    if config.projector.kind != ProjectorType.INDEX_MAP:
-        raise NotImplementedError(
-            f"{config.projector.kind.name} projection is not ported yet")
     id_type = config.random_effect_type
     if id_type not in data.id_columns:
         raise KeyError(f"id type {id_type!r} not in dataset (have "
@@ -591,9 +616,19 @@ def build_random_effect_dataset(data: GameDataset,
     counts = act_counts[perm]
 
     sub = mat[rows_act]
-    projectors = _build_index_map_projectors(
-        sub, ent_of_act, counts, data.responses[rows_act], raw_dim, config)
-    d_red = projectors.max_reduced_dim
+    proj_cfg = config.projector
+    projectors = random_projector = None
+    if proj_cfg.kind == ProjectorType.INDEX_MAP:
+        projectors = _build_index_map_projectors(
+            sub, ent_of_act, counts, data.responses[rows_act], raw_dim,
+            config)
+        d_red = projectors.max_reduced_dim
+    elif proj_cfg.kind == ProjectorType.RANDOM:
+        random_projector = build_random_projector(
+            raw_dim, proj_cfg.projected_dim, seed=proj_cfg.seed)
+        d_red = proj_cfg.projected_dim
+    else:  # IDENTITY
+        d_red = raw_dim
     act_weights = (data.weights[rows_act]
                    * group_scale[grp_of_sorted[active_mask]])
 
@@ -606,8 +641,9 @@ def build_random_effect_dataset(data: GameDataset,
             act_labels=data.responses[rows_act],
             act_offsets=data.offsets[rows_act], act_weights=act_weights,
             rows_act=rows_act, n_samples=n, bucket_sizes=bucket_sizes,
-            bucket_n_max=bucket_n_max, projectors=projectors, d_red=d_red,
-            dtype=dtype, device=device)
+            bucket_n_max=bucket_n_max, projectors=projectors,
+            random_projector=random_projector, d_red=d_red, dtype=dtype,
+            device=device)
         single = dict(X=None, labels=None, base_offsets=None, weights=None,
                       row_ids=None)
     else:
@@ -624,7 +660,7 @@ def build_random_effect_dataset(data: GameDataset,
         weights[ent_of_act, slot_of_act] = act_weights
         row_ids[ent_of_act, slot_of_act] = rows_act
         _fill_feature_rows(sub, X, ent_of_act * n_max + slot_of_act,
-                           projectors, ent_of_act)
+                           projectors, random_projector, ent_of_act)
         single = dict(X=_to_device(X, device, dtype),
                       labels=_to_device(labels, device),
                       base_offsets=_to_device(offsets, device),
@@ -637,7 +673,7 @@ def build_random_effect_dataset(data: GameDataset,
         local = inv_perm[grp_of_sorted[passive_mask]]
         dense = np.zeros((len(pr), d_red), dtype=np.float32)
         _fill_feature_rows(mat[pr], dense, np.arange(len(pr)), projectors,
-                           local)
+                           random_projector, local)
         passive = dict(
             passive_X=_to_device(dense, device, dtype),
             passive_entity=_to_device(local, device),
@@ -646,6 +682,7 @@ def build_random_effect_dataset(data: GameDataset,
 
     return RandomEffectDataset(
         config=config, entity_codes=ent_codes, num_samples=n,
-        projectors=projectors, buckets=buckets,
+        projectors=projectors, random_projector=random_projector,
+        buckets=buckets,
         _reduced_dim=d_red if buckets is not None else None,
         **single, **passive)

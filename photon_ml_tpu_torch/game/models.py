@@ -1,13 +1,18 @@
-"""GAME models: fixed effect, random effect (raw and projected), composite.
+"""GAME models: fixed effect, random effect (raw, projected and factored),
+matrix factorization, composite.
 
-Port of ``photon_ml_tpu/game/models.py:51-194`` and ``:276-299``. A
-random-effect model loaded from disk carries its raw ``entity_ids`` and
-scores a dataset through that dataset's own id vocabulary. Scoring
-stays on the host with scipy's CSR products, as in the JAX package, and the
-result is handed back as an f32 tensor on the requested device. A
-random effect scores in O(nnz) (:func:`rowwise_sparse_dot_gathered`),
-where the JAX package builds the dense ``[N, D_raw]`` coefficient rows;
-the scores are the same bit for bit.
+Port of ``photon_ml_tpu/game/models.py:51-299``. A random-effect model
+loaded from disk carries its raw ``entity_ids`` and scores a dataset
+through that dataset's own id vocabulary. Scoring stays on the host with
+scipy's CSR products, as in the JAX package, and the result is handed back
+as an f32 tensor on the requested device. A random effect scores in
+O(nnz) (:func:`rowwise_sparse_dot_gathered`), where the JAX package builds
+the dense ``[N, D_raw]`` coefficient rows; the scores are the same bit for
+bit. A projected model maps back to raw space through its index maps or
+its random projector (``:174-188``), a factored one through its latent
+projection (``:257-265``). :class:`MatrixFactorizationModel` (``:195-236``)
+scores on the device: a gather of each row's two factor rows and their
+row-wise dot, unseen ids scoring 0.
 """
 
 from __future__ import annotations
@@ -22,7 +27,10 @@ import torch
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.game.dataset import GameDataset
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
-from photon_ml_tpu_torch.projector.projectors import IndexMapProjectors
+from photon_ml_tpu_torch.projector.projectors import (
+    IndexMapProjectors,
+    RandomProjector,
+)
 
 Tensor = torch.Tensor
 
@@ -136,18 +144,22 @@ class RandomEffectModel:
 @dataclasses.dataclass(frozen=True)
 class RandomEffectModelInProjectedSpace:
     """Coefficients in each entity's reduced space + the projector back to
-    raw space (``to_raw``)."""
+    raw space (``to_raw``): the index maps, the random projector, or
+    neither (identity)."""
 
     random_effect_type: str
     feature_shard_id: str
     entity_codes: np.ndarray
     coefficients_projected: Tensor  # [E, D_red]
     projectors: Optional[IndexMapProjectors] = None
+    random_projector: Optional[RandomProjector] = None
 
     def to_raw(self) -> RandomEffectModel:
         proj = _host(self.coefficients_projected)
         if self.projectors is not None:
             dense = self.projectors.scatter_coefficients(proj).dense()
+        elif self.random_projector is not None:
+            dense = self.random_projector.project_back(proj)
         else:
             dense = proj
         return RandomEffectModel(
@@ -158,6 +170,80 @@ class RandomEffectModelInProjectedSpace:
 
     def score(self, data: GameDataset, device="cuda") -> Tensor:
         return self.to_raw().score(data, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class FactoredRandomEffectModel:
+    """Per-entity coefficients in a learned latent space + the shared
+    latent-to-raw projection: raw coefficients are ``coefs @ B``."""
+
+    random_effect_type: str
+    feature_shard_id: str
+    entity_codes: np.ndarray
+    coefficients_latent: Tensor  # [E, K]
+    projection: Tensor  # [K, D_raw]
+
+    def to_raw(self) -> RandomEffectModel:
+        dense = _host(self.coefficients_latent) @ _host(self.projection)
+        return RandomEffectModel(
+            random_effect_type=self.random_effect_type,
+            feature_shard_id=self.feature_shard_id,
+            entity_codes=self.entity_codes,
+            coefficients=torch.from_numpy(np.ascontiguousarray(dense)))
+
+    def score(self, data: GameDataset, device="cuda") -> Tensor:
+        return self.to_raw().score(data, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatrixFactorizationModel:
+    """Latent row and column factor tables; a row scores
+    ``rowFactor . colFactor`` of its two entities
+    (MatrixFactorizationModel.scala:50,141). ``row_ids``/``col_ids`` (the
+    raw id of each factor row, set on models read from disk) match rows
+    through the dataset's vocabularies; without them the tables are
+    indexed by the dataset's codes. An id without a factor row scores 0."""
+
+    row_effect_type: str
+    col_effect_type: str
+    row_factors: Tensor  # [R, K]
+    col_factors: Tensor  # [C, K]
+    row_ids: Optional[np.ndarray] = None
+    col_ids: Optional[np.ndarray] = None
+
+    @property
+    def num_latent_factors(self) -> int:
+        return int(self.row_factors.shape[1])
+
+    def score(self, data: GameDataset, device="cuda") -> Tensor:
+        device = resolve_device(device)
+
+        def table_rows(effect_type, ids, table):
+            # the table's length (its padded zero row) where the id has
+            # no factors
+            codes = np.asarray(data.id_columns[effect_type])
+            if ids is not None:
+                codes = _codes_via_ids(ids, data.id_vocabs[effect_type],
+                                       codes)
+            size = int(table.shape[0])
+            return torch.as_tensor(np.where(codes < size, codes, size),
+                                   device=device)
+
+        return score_factors(
+            self.row_factors, self.col_factors,
+            table_rows(self.row_effect_type, self.row_ids, self.row_factors),
+            table_rows(self.col_effect_type, self.col_ids, self.col_factors))
+
+
+def score_factors(row_factors, col_factors, rows: Tensor, cols: Tensor
+                  ) -> Tensor:
+    """``sum_k rf[rows, k] * cf[cols, k]`` on ``rows``' device, with the
+    index one past each table reading a zero row."""
+    def padded(t):
+        t = torch.as_tensor(t, dtype=torch.float32, device=rows.device)
+        return torch.cat([t, t.new_zeros((1, t.shape[1]))])
+
+    return (padded(row_factors)[rows] * padded(col_factors)[cols]).sum(-1)
 
 
 @dataclasses.dataclass

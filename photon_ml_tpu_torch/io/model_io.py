@@ -2,8 +2,13 @@
 
 Port of ``photon_ml_tpu/io/model_io.py`` — ``glm_to_record``/
 ``record_to_glm`` (``:80-143``), ``save_game_model``/``load_game_model``
-for fixed-effect and random-effect coordinates (``:161-326``; raw and
-INDEX_MAP-projected random effects, which are written in raw space) and
+for fixed-effect and random-effect coordinates (``:161-326``; raw,
+projected and factored random effects, all written in raw space through
+``to_raw()``, ``:184-186``; a matrix-factorization model is refused with
+the JAX package's ``TypeError``, ``:228-235``),
+``save_matrix_factorization_model``/``load_matrix_factorization_model``
+(LatentFactorAvro, ``:330-385``: ``<dir>/<effectType>/part-*.avro``, one
+record per entity, ``effectId`` and ``latentFactor``) and
 ``save_scored_items``/``load_scored_items`` (``:392-476``). The directory
 layout (ModelProcessingUtils.scala:44-106)::
 
@@ -19,7 +24,7 @@ JAX package's byte for byte; only the random sync marker of each file
 differs. Scores are encoded block by block by the port's native encoder
 (``csrc/host/score_encoder.cpp`` through ``io/native_loader.py``), as in
 the JAX package; ``save_scored_items_records`` is the plain version.
-Matrix-factorization models and the legacy text models come later too.
+The legacy text models come later.
 """
 
 from __future__ import annotations
@@ -173,13 +178,16 @@ def save_game_model(model, output_dir: str,
     that carries ``entity_ids`` needs no vocab.
     """
     from photon_ml_tpu_torch.game.models import (
+        FactoredRandomEffectModel,
         FixedEffectModel,
+        MatrixFactorizationModel,
         RandomEffectModel,
         RandomEffectModelInProjectedSpace,
     )
 
     for name, sub in model.models.items():
-        if isinstance(sub, RandomEffectModelInProjectedSpace):
+        if isinstance(sub, (RandomEffectModelInProjectedSpace,
+                            FactoredRandomEffectModel)):
             sub = sub.to_raw()
         if isinstance(sub, FixedEffectModel):
             out = os.path.join(output_dir, FIXED_EFFECT, name)
@@ -222,6 +230,12 @@ def save_game_model(model, output_dir: str,
                     os.path.join(out, COEFFICIENTS, f"part-{part:05d}.avro"),
                     schemas.BAYESIAN_LINEAR_MODEL,
                     [records[i] for i in idxs])
+        elif isinstance(sub, MatrixFactorizationModel):
+            # a GAME directory has no place a load would find it again
+            raise TypeError(
+                f"coordinate '{name}': MatrixFactorizationModel is saved "
+                f"separately via save_matrix_factorization_model(), not in "
+                f"the GAME model directory")
         else:
             raise TypeError(f"cannot serialize coordinate model {type(sub)}")
 
@@ -296,6 +310,62 @@ def load_game_model(input_dir: str,
     if not models:
         raise FileNotFoundError(f"no models under {input_dir}")
     return GameModel(models), index_maps
+
+
+def save_matrix_factorization_model(
+        model, output_dir: str,
+        entity_vocabs: Optional[dict[str, np.ndarray]] = None,
+        num_output_files: int = 1) -> None:
+    """``<dir>/<rowEffectType>/part-*.avro`` and the same for the column
+    effect, LatentFactorAvro records (ModelProcessingUtils.scala:375-400).
+    A factor row's id is the model's own ``row_ids``/``col_ids``, else the
+    ``entity_vocabs`` entry of its code, else the code itself."""
+    for effect_type, factors, ids in (
+            (model.row_effect_type, model.row_factors, model.row_ids),
+            (model.col_effect_type, model.col_factors, model.col_ids)):
+        out = os.path.join(output_dir, effect_type)
+        os.makedirs(out, exist_ok=True)
+        arr = _host64(factors)
+        if ids is None:
+            vocab = (entity_vocabs or {}).get(effect_type)
+            if vocab is not None and len(vocab) < len(arr):
+                raise ValueError(
+                    f"entity vocab for '{effect_type}' has {len(vocab)} "
+                    f"entries but the factor table has {len(arr)} rows")
+            ids = (np.asarray(vocab)[:len(arr)] if vocab is not None
+                   else np.arange(len(arr)))
+        records = [{"effectId": str(ids[i]),
+                    "latentFactor": [float(v) for v in arr[i]]}
+                   for i in range(len(arr))]
+        chunks = np.array_split(np.arange(len(records)),
+                                max(1, num_output_files))
+        for part, idxs in enumerate(chunks):
+            write_container(os.path.join(out, f"part-{part:05d}.avro"),
+                            schemas.LATENT_FACTOR,
+                            [records[i] for i in idxs])
+
+
+def load_matrix_factorization_model(input_dir: str, row_effect_type: str,
+                                    col_effect_type: str):
+    """The model :func:`save_matrix_factorization_model` wrote (or the JAX
+    package's), with f32 CPU tables and the raw ids of their rows
+    (ModelProcessingUtils.scala:413-430)."""
+    from photon_ml_tpu_torch.game.models import MatrixFactorizationModel
+
+    tables = {}
+    for effect_type in (row_effect_type, col_effect_type):
+        _, records = read_directory(os.path.join(input_dir, effect_type))
+        ids = np.asarray([r["effectId"] for r in records], dtype=object)
+        factors = (np.asarray([r["latentFactor"] for r in records],
+                              np.float32)
+                   if records else np.zeros((0, 0), np.float32))
+        tables[effect_type] = (ids, torch.from_numpy(factors))
+    row_ids, row_factors = tables[row_effect_type]
+    col_ids, col_factors = tables[col_effect_type]
+    return MatrixFactorizationModel(
+        row_effect_type=row_effect_type, col_effect_type=col_effect_type,
+        row_factors=row_factors, col_factors=col_factors,
+        row_ids=row_ids, col_ids=col_ids)
 
 
 def save_scored_items(path: str, scores, model_id: str,

@@ -4,9 +4,10 @@ Port of the feature, model and score schemas of
 ``photon_ml_tpu/io/schemas.py`` (copies: the port imports nothing of the
 JAX package), Python-dict renditions of photon-avro-schemas/src/main/avro/
 in the reference: ``FeatureAvro`` (a GAME row's feature sections),
-``BayesianLinearModelAvro`` + ``NameTermValueAvro`` (coefficient models)
-and ``ScoringResultAvro`` (scores). The training-example, latent-factor
-and feature-summary schemas come with the drivers that use them.
+``BayesianLinearModelAvro`` + ``NameTermValueAvro`` (coefficient models),
+``LatentFactorAvro`` (matrix-factorization factor rows) and
+``ScoringResultAvro`` (scores). The training-example and feature-summary
+schemas come with the drivers that use them.
 """
 
 NAMESPACE = "com.linkedin.photon.avro.generated"
@@ -50,6 +51,17 @@ BAYESIAN_LINEAR_MODEL = {
     ],
 }
 
+
+LATENT_FACTOR = {
+    "name": "LatentFactorAvro",
+    "namespace": NAMESPACE,
+    "type": "record",
+    "fields": [
+        {"name": "effectId", "type": "string"},
+        {"name": "latentFactor",
+         "type": {"type": "array", "items": "double"}},
+    ],
+}
 
 SCORING_RESULT = {
     "name": "ScoringResultAvro",

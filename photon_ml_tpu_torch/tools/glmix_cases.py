@@ -16,6 +16,14 @@ further training-driver flags.
 the ``lbfgs`` case: the pipelined sweep, blocks of two coordinates, lane
 compaction with the auto-tuned chunk, and the fixed effect down-sampled
 at rate 0.5.
+
+:data:`FACTORED_CONFIG` is the factored per-user coordinate of
+``chip_smoke.py`` phase 10 in the drivers' ``reCfg:latentCfg:mfCfg``
+form: per-entity and latent L-BFGS + L2 (lambda 1, at most 20 iterations
+each), two inner iterations, latent dimension 8 (``bench.py:1227``).
+:data:`FACTORED_FLAGS` replace the ``lbfgs`` case's per-user coordinate
+with it (``perUserFac``, IDENTITY-projected over the global shard, active
+cap 128).
 """
 
 from __future__ import annotations
@@ -58,3 +66,10 @@ CD_EXTENSION_FLAGS = (
     "--re-lane-compaction-chunk", "auto",
     "--fixed-effect-optimization-configurations",
     "fixed:40,1e-7,10,0.5,LBFGS,L2")
+FACTORED_CONFIG = "20,1e-7,1,1,LBFGS,L2:20,1e-7,1,1,LBFGS,L2:2,8"
+FACTORED_FLAGS = (
+    "--updating-sequence", "fixed,perUserFac",
+    "--random-effect-data-configurations",
+    "perUserFac:userId,global,1,128,-,-,identity",
+    "--factored-random-effect-optimization-configurations",
+    f"perUserFac:{FACTORED_CONFIG}")

@@ -36,7 +36,7 @@ import photon_ml_tpu_torch
 from photon_ml_tpu_torch import convert
 from photon_ml_tpu_torch.game import coordinate_descent as tcd
 from photon_ml_tpu_torch.game import dataset as tds
-from photon_ml_tpu_torch.game.models import GameModel
+from photon_ml_tpu_torch.game.models import GameModel, MatrixFactorizationModel
 from photon_ml_tpu_torch.ops import losses as tl
 from photon_ml_tpu_torch.ops import pallas_kernels as tpk
 from photon_ml_tpu_torch.optimize import config as tcfg
@@ -176,6 +176,12 @@ def test_entry_points_refuse_cpu_without_being_asked(no_cuda, monkeypatch):
         GameModel({}).score(data)
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.states_from_numpy({"a": np.zeros(2)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.matrix_factorization_from_numpy(
+            "u", "u", np.zeros((2, 3)), np.zeros((2, 3)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MatrixFactorizationModel("u", "u", torch.zeros(2, 3),
+                                 torch.zeros(2, 3)).score(data)
     assert tpk.launch_count() == 0
 
 

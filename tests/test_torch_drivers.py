@@ -24,7 +24,8 @@ like the port; ``tests/test_torch_game.py`` explains why). Then:
 - every flag the port does not run yet ends its driver with
   ``NotImplementedError`` (exit 3 and one ``PHOTON_ABORT`` line;
   ``tests/test_torch_drivers_cd.py`` runs the coordinate-descent flags
-  and down-sampling); TRON with L1 and TRON for the smoothed hinge
+  and down-sampling, ``tests/test_torch_drivers_factored.py`` the
+  factored random effects); TRON with L1 and TRON for the smoothed hinge
   raise ``ValueError`` from both drivers; the checkpoint, recovery, stop
   and degraded-ingest flags run, and ``tests/test_torch_drill.py`` holds
   them against the JAX drivers.
@@ -464,9 +465,6 @@ TRAIN_UNPORTED = [
     ("--max-worker-restarts", ["--max-worker-restarts", "1"]),
     ("--offheap-indexmap-dir", ["--offheap-indexmap-dir", "idx"]),
     ("--random-effect-blocks-dir", ["--random-effect-blocks-dir", "blk"]),
-    ("--factored-random-effect-optimization-configurations",
-     ["--factored-random-effect-optimization-configurations",
-      "perUser:20,1e-7,1,1,LBFGS,L2:20,1e-7,1,1,LBFGS,L2:2,4"]),
     ("--re-entity-shards", ["--re-entity-shards", "2"]),
     ("--re-entity-shards", ["--re-entity-shards", "auto"]),
     ("--precision", ["--precision", "bf16"]),
