@@ -25,9 +25,9 @@ Phases, one JSON line each on stdout:
    launch included) and ten calls back to back (``device_ms``,
    ``plain_device_ms``, ``library_device_ms``: the device's time per
    call, as long as the host issues a call faster than the device runs
-   it, which ``host_ms`` shows). At the GLMix shape both pass-1 paths
-   are timed in turns (stream, staged, staged, stream); the 262,144 x
-   2,048 shape is staged only.
+   it, which ``host_ms`` shows). At the GLMix shape and at the legacy
+   driver's 32,561 x 124 both pass-1 paths are timed in turns (stream,
+   staged, staged, stream); the 262,144 x 2,048 shape is staged only.
 5. glmix  — the port's library path at full width: MovieLens-1M-shaped
    data (1,000,209 rows, 6,040 users, 3,706 movies, 64 global features),
    a fixed-effect plus per-user logistic GLM, L-BFGS + L2, two coordinate
@@ -146,6 +146,30 @@ Phases, one JSON line each on stdout:
    fixed effect's kernel timed on the real batch, then the MF scoring
    pass over random K = 8 tables: rows per second, equal to a host numpy
    gather-dot, and equal after a LatentFactorAvro round trip.
+11. single_glm — the single-GLM path, BASELINE config 1: (a)
+   ``train_glm_grid`` at ``bench.py``'s config-1 shape (262,144 x 2,048
+   f32, logistic, L-BFGS + L2, lambda 10, 1, 0.1 warm-started, at most
+   80 iterations, tol 1e-6): per-lambda iterations and seconds, every
+   launch staged (8 KB rows), the grid with the kernel gated off
+   reaching the same objectives (rel 1e-4; coefficients rel 1e-3, f32
+   stopping noise), ``evaluate_model_grid`` equal to one call a model
+   (rel 1e-6), a box on the first 16 coordinates holding with one on a
+   bound, the last tracked iterate the solution; (b) an a1a-shaped
+   LibSVM fixture (123 one-hot features in 14 groups, a9a's 32,561 /
+   16,281 rows) through ``cli/libsvm_to_avro`` and the legacy driver
+   with validation, the grid, VALIDATE_FULL, every diagnostic, the
+   per-iteration metrics and the summary: every part native, every
+   main-grid launch on the stream path (124 f32 columns), the best
+   model's AUC from ``best/`` equal to ``metrics.json``'s, the last
+   iterate's metrics the final model's; (c) the same LibSVM files
+   straight into the driver as a process (exit 0), its validation AUCs
+   (b)'s within rel 1e-4 and its sorted coefficients' distance to (b)'s
+   reported; (d) OWL-QN + L1, TRON + L2 with STANDARDIZATION (never
+   rising), and the same with a box on three features (finite and
+   boxed: the projection after an accepted step can raise TRON's
+   values, in both packages); (e) (b) without the diagnostics on the card and the CPU
+   (objectives rel 1e-4). The kernel is held against its plain version
+   on (a)'s and (b)'s real batches (x 2,048 staged, x 124 stream).
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
@@ -194,6 +218,16 @@ DRILL_ROWS = (40_000, 5_000)
 SMALL_SHAPE = (40_000, 64)
 DRILL_SHAPE = (DRILL_ROWS[0], 65)
 DRIVER_SECTIONS = "global:globalFeatures|user:userFeatures"
+# BASELINE config 1 is logistic regression on a1a; the fixture keeps
+# a1a's encoding (123 binary features in 14 one-hot groups, one for each
+# Adult attribute) at the rows of the family's largest set, a9a (32,561
+# training and 16,281 test rows): with the intercept 32,561 x 124 passes
+# the kernel's 2**21-element gate, where a1a's own 1,605 rows would not
+A1A_GROUPS = (5, 8, 5, 16, 5, 7, 14, 6, 5, 2, 2, 2, 5, 41)
+A1A_FEATURES = sum(A1A_GROUPS)  # 123
+A1A_ROWS = (32_561, 16_281)
+A1A_SHAPE = (A1A_ROWS[0], A1A_FEATURES + 1)
+CONFIG1_LAMBDAS = (10.0, 1.0, 0.1)
 # (shape, tolerance scaled to the sum of |terms|): the small shapes reach
 # every stream geometry (1 to 32 lanes a row in f32 or bf16, one and two
 # vectors a lane, segments that are not whole, a ragged last batch) and
@@ -204,7 +238,7 @@ CHECK_SHAPES = [((700, 128), False), ((1024, 256), False),
                 ((777, 63), False), (GLMIX_SHAPE, True),
                 (DRIVER_SHAPE, True), (CONFIG3_SHAPE, True),
                 (BIG_SHAPE, True), (SMALL_SHAPE, True),
-                (DRILL_SHAPE, True)]
+                (DRILL_SHAPE, True), (A1A_SHAPE, True)]
 
 
 def emit(obj) -> None:
@@ -967,13 +1001,19 @@ def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
                        for f in ("train.avro", "validate.avro"))
 
 
+def bench_x_w(n, d):
+    """``bench.py:169-172 _data()``'s generator (seed 0), X and w_true."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    w_true = (rng.normal(size=d) / np.sqrt(d)).astype(np.float32)
+    return rng, X, w_true
+
+
 def config2_data(n=BIG_SHAPE[0], d=BIG_SHAPE[1]):
     """BASELINE config 2's data: ``bench.py:169-177 _data()`` (seed 0,
     X and w_true), then the linear response y = X w_true + 0.1 N(0, 1),
     its noise drawn next from the same generator."""
-    rng = np.random.default_rng(0)
-    X = rng.normal(size=(n, d)).astype(np.float32)
-    w_true = (rng.normal(size=d) / np.sqrt(d)).astype(np.float32)
+    rng, X, w_true = bench_x_w(n, d)
     y = (X @ w_true + 0.1 * rng.normal(size=n)).astype(np.float32)
     return X, y
 
@@ -2383,6 +2423,475 @@ def factored_phase(torch, dev, smi, data, fixture, workdir, hbm):
         [*refit_rows.values(), *c5_rows.values()]
 
 
+# -- phase 11: the single-GLM path (BASELINE config 1) ----------------------
+
+
+
+def config1_data(n=BIG_SHAPE[0], d=BIG_SHAPE[1]):
+    """BASELINE config 1's library shape: ``bench.py:169-176 _data()``
+    letter for letter (seed 0; X, w_true, then the logistic labels)."""
+    rng, X, w_true = bench_x_w(n, d)
+    p = 1.0 / (1.0 + np.exp(-(X @ w_true)))
+    y = (rng.uniform(size=n) < p).astype(np.float32)
+    return X, y
+
+
+def write_a1a_like(directory, rows=A1A_ROWS, seed=21) -> tuple:
+    """The a1a-shaped LibSVM pair (train, test): each row takes one
+    feature of each of the 14 groups (a group is skipped with probability
+    0.02, as a1a's rows hold about 14 non-zeros), labels from one fixed
+    logistic model over the 123 one-hot columns. Returns the two paths."""
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    starts = np.cumsum((0,) + A1A_GROUPS[:-1])
+    w = rng.normal(size=A1A_FEATURES) * 0.8
+    paths = []
+    for name, n in zip(("a1a.train", "a1a.test"), rows):
+        pick = np.stack([s + rng.integers(0, g, size=n)
+                         for s, g in zip(starts, A1A_GROUPS)], axis=1)
+        keep = rng.random(pick.shape) >= 0.02
+        z = (w[pick] * keep).sum(1) - 1.0
+        y = rng.random(n) < 1.0 / (1.0 + np.exp(-z))
+        lines = []
+        for i in range(n):
+            feats = " ".join(f"{j + 1}:1" for j in pick[i][keep[i]])
+            lines.append(f"{'+1' if y[i] else '-1'} {feats}")
+        path = os.path.join(directory, name)
+        with open(path, "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+        paths.append(path)
+    return tuple(paths)
+
+
+@contextlib.contextmanager
+def timed_solves(torch, dev, record: list):
+    """Each ``GLMOptimizationProblem.run`` of ``train_glm_grid`` inside
+    appends ``(lambda, seconds)`` to ``record``, synchronised."""
+    from photon_ml_tpu_torch import training
+
+    cls = training.GLMOptimizationProblem
+    saved = cls.run
+
+    def run(self, batch, initial=None):
+        t0 = time.perf_counter()
+        out = saved(self, batch, initial)
+        sync(torch, dev)
+        record.append((self.config.regularization_weight,
+                       time.perf_counter() - t0))
+        return out
+
+    cls.run = run
+    try:
+        yield
+    finally:
+        cls.run = saved
+
+
+def rel_diff(torch, a, b) -> float:
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def config1_library_phase(torch, dev, shape=BIG_SHAPE):
+    """Phase 11 (a): ``train_glm_grid`` at ``bench.py``'s config-1 shape
+    (logistic, L-BFGS + L2, lambda 10, 1, 0.1 warm-started, at most 80
+    iterations, tol 1e-6: the legacy defaults), against the grid with the
+    kernel gated off; ``evaluate_model_grid`` against one call a model;
+    a box on the first 16 coordinates with the iterates tracked."""
+    from photon_ml_tpu_torch.data.batch import dense_batch
+    from photon_ml_tpu_torch.evaluation.model_evaluation import (
+        evaluate_model, evaluate_model_grid)
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.optimize.common import BoxConstraints
+    from photon_ml_tpu_torch.optimize.config import TaskType
+    from photon_ml_tpu_torch.training import train_glm_grid
+
+    t0 = time.perf_counter()
+    X, y = config1_data(*shape)
+    batch = dense_batch(X, y, device=dev)
+    del X
+    sync(torch, dev)
+    data_secs = time.perf_counter() - t0
+    task = TaskType.LOGISTIC_REGRESSION
+    path = pk.kernel_path(shape[1], torch.float32,
+                          batch.X.data_ptr() % 16 == 0)
+
+    def grid(**kw):
+        return train_glm_grid(batch, task, CONFIG1_LAMBDAS,
+                              max_iterations=80, tolerance=1e-6, **kw)
+
+    reset_counts(torch, dev)
+    per_lambda: list = []
+    t1 = time.perf_counter()
+    with timed_solves(torch, dev, per_lambda):
+        models = grid()
+    grid_secs = time.perf_counter() - t1
+    counts, work = launch_counts(), solver_counts()
+    peak = peak_memory(torch, dev)
+    check_launches("config 1 grid", counts, path, "logistic", dev)
+    t1 = time.perf_counter()
+    with kernel_gated_off():
+        plain = grid()
+    sync(torch, dev)
+    plain_secs = time.perf_counter() - t1
+    # the two grids sum in other orders and each solve stops where its
+    # f32 objective moves by <= 1e-6 of f0: the objectives are held to rel
+    # 1e-4, the coefficients (loose by that stopping noise, some 1e-3 of
+    # their norm here) to rel 1e-3
+    value_rel = [abs(m.result.value - p.result.value) / abs(p.result.value)
+                 for m, p in zip(models, plain)]
+    coef_rel = [rel_diff(torch, m.model.coefficients.means,
+                         p.model.coefficients.means)
+                for m, p in zip(models, plain)]
+    if not (max(value_rel) <= 1e-4 and max(coef_rel) <= 1e-3):
+        raise AssertionError(f"config 1: kernel and plain grids differ: "
+                             f"objectives rel {value_rel}, coefficients "
+                             f"rel {coef_rel}")
+    for m in models:
+        if not np.all(np.isfinite(m.result.values)):
+            raise AssertionError(f"config 1: non-finite objective at "
+                                 f"lambda {m.regularization_weight}")
+
+    # the metric grid against one call a model (cuBLAS picks its GEMM by
+    # shape, so not bit for bit)
+    glms = [m.model for m in models]
+    evaluate_model_grid(glms, batch)
+    t1 = time.perf_counter()
+    grid_maps = evaluate_model_grid(glms, batch)
+    eval_grid_secs = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    single_maps = [evaluate_model(g, batch) for g in glms]
+    eval_single_secs = time.perf_counter() - t1
+    eval_rel = max(abs(s[k] - g[k]) / max(abs(g[k]), 1e-12)
+                   for g, s in zip(grid_maps, single_maps) for k in g)
+    if not eval_rel <= 1e-6:
+        raise AssertionError(f"config 1: evaluate_model_grid differs from "
+                             f"evaluate_model (rel {eval_rel:.3g}): "
+                             f"{grid_maps} against {single_maps}")
+
+    # a box on the first 16 coordinates, the iterates tracked
+    box = BoxConstraints.from_map(
+        shape[1], {i: (-0.01, 0.01) for i in range(16)}, device=dev)
+    boxed = train_glm_grid(batch, task, (1.0,), max_iterations=80,
+                           tolerance=1e-6, box=box, track_iterates=True)[0]
+    x = boxed.result.coefficients[:16]
+    if not bool(((x >= -0.01) & (x <= 0.01)).all()):
+        raise AssertionError("config 1: a boxed coefficient left its box")
+    on_bound = int(((x == -0.01) | (x == 0.01)).sum())
+    if on_bound < 1:
+        raise AssertionError("config 1: no coefficient on a bound")
+    its = boxed.result.iterates
+    if its.shape != (boxed.result.iterations + 1, shape[1]) or not \
+            np.array_equal(its[-1], boxed.result.coefficients.cpu().numpy()):
+        raise AssertionError("config 1: the last tracked iterate is not "
+                             "the solution")
+    out = {
+        "shape": list(shape),
+        "data": "bench.py:169-176 _data() (seed 0), logistic labels",
+        "config": "LOGISTIC_REGRESSION, L-BFGS + L2, lambda 10, 1, 0.1 "
+                  "warm-started, <= 80 iterations, tol 1e-6",
+        "data_secs": data_secs, "grid_secs": grid_secs,
+        "per_lambda": [{"lambda": m.regularization_weight,
+                        "iterations": m.result.iterations,
+                        "convergence": m.result.convergence_reason.value,
+                        "value": m.result.value, "seconds": secs}
+                       for m, (_, secs) in zip(models, per_lambda)],
+        "launches": counts, "path": path, **work,
+        "max_memory_allocated": peak,
+        "plain_grid_secs": plain_secs,
+        "plain_grid_iterations": [p.result.iterations for p in plain],
+        "objective_rel_diff_to_plain_grid": value_rel,
+        "rel_l2_diff_to_plain_grid": coef_rel,
+        "evaluate_grid_secs": eval_grid_secs,
+        "evaluate_single_secs": eval_single_secs,
+        "evaluate_grid_vs_single_max_rel": eval_rel,
+        "metrics": grid_maps,
+        "box": {"iterations": boxed.result.iterations,
+                "on_bound": on_bound, "value": boxed.result.value,
+                "iterates_rows": int(its.shape[0])},
+    }
+    w_best = models[-1].result.coefficients.contiguous()
+    return out, counts, batch, w_best
+
+
+def legacy_argv(train, val, out, device, *extra) -> list:
+    return ["--training-data-directory", train,
+            "--validating-data-directory", val,
+            "--output-directory", out, "--task", "LOGISTIC_REGRESSION",
+            "--regularization-weights", "10,1,0.1",
+            "--data-validation-type", "VALIDATE_FULL",
+            "--device", device, *extra]
+
+
+def run_legacy(argv) -> tuple:
+    """The legacy driver in this process on ``argv``, with the kernel's
+    launches of its main grid (between the training events) and its
+    optimization-log events; returns (driver, launches, events)."""
+    from photon_ml_tpu_torch.cli import legacy_driver
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.utils.events import (
+        PhotonOptimizationLogEvent, TrainingFinishEvent, TrainingStartEvent)
+
+    seen = {}
+    events = []
+
+    def listener(e):
+        if isinstance(e, TrainingStartEvent):
+            pk.reset_launch_count()
+        elif isinstance(e, TrainingFinishEvent):
+            seen.update(launch_counts())
+        elif isinstance(e, PhotonOptimizationLogEvent):
+            events.append(e)
+
+    driver = legacy_driver.LegacyDriver(legacy_driver.parse_args(argv))
+    driver.register_listener(listener)
+    try:
+        driver.run()
+    finally:
+        driver.logger.close()
+    return driver, seen, events
+
+
+def single_glm_driver_phase(torch, dev, workdir, rows=A1A_ROWS):
+    """Phase 11 (b)-(e): the drivers on the a1a-shaped fixture."""
+    from photon_ml_tpu_torch.cli import libsvm_to_avro
+    from photon_ml_tpu_torch.evaluation.model_evaluation import (
+        AREA_UNDER_RECEIVER_OPERATOR_CHARACTERISTICS as AUC, evaluate_model)
+    from photon_ml_tpu_torch.io import data_format
+    from photon_ml_tpu_torch.io.model_io import read_models_text
+    from photon_ml_tpu_torch.optimize.config import TaskType
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    device = str(dev)
+    secs = {}
+    t0 = time.perf_counter()
+    train_txt, test_txt = write_a1a_like(os.path.join(workdir, "libsvm"),
+                                         rows)
+    secs["fixture_write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train, val = (os.path.join(workdir, f) for f in ("train.avro",
+                                                     "test.avro"))
+    for src, dst in ((train_txt, train), (test_txt, val)):
+        libsvm_to_avro.main(["--input-path", src, "--output-path", dst,
+                             "--feature-dimension", str(A1A_FEATURES),
+                             "--device", device])
+    secs["libsvm_to_avro"] = time.perf_counter() - t0
+
+    # (b) the legacy driver on the Avro, everything on
+    out_b = os.path.join(workdir, "b")
+    summary_dir = os.path.join(workdir, "summary")
+    data_format.reset_ingest_stats()
+    t0 = time.perf_counter()
+    drv, grid_launches, events = run_legacy(legacy_argv(
+        train, val, out_b, device, "--diagnostic-mode", "ALL",
+        "--validate-per-iteration", "true",
+        "--summarization-output-dir", summary_dir))
+    secs["driver_b"] = time.perf_counter() - t0
+    ingest = dict(data_format.INGEST_STATS)
+    for name in ("output", "best", "metrics.json", "diagnostic-report.html",
+                 "diagnostic-report.txt"):
+        if not os.path.exists(os.path.join(out_b, name)):
+            raise AssertionError(f"(b): {name} was not written")
+    if not os.path.exists(os.path.join(summary_dir, "part-00000.avro")):
+        raise AssertionError("(b): the summary Avro was not written")
+    if ingest != {"native_parts": 2, "declined_parts": 0,
+                  "records_parts": 0}:
+        raise AssertionError(f"(b): not every part read natively: {ingest}")
+    if drv.train_data.dim != A1A_SHAPE[1] or \
+            drv.train_data.num_samples != rows[0]:
+        raise AssertionError(f"(b): training data "
+                             f"{drv.train_data.features.shape}")
+    check_launches("(b) main grid", grid_launches, "stream", "logistic",
+                   dev)
+    metrics = json.load(open(os.path.join(out_b, "metrics.json")))
+    best = drv.best_lambda
+    (best_lam, best_glm), = read_models_text(
+        os.path.join(out_b, "best"), drv.train_data.index_map,
+        TaskType.LOGISTIC_REGRESSION, device=dev)
+    scored = evaluate_model(best_glm, drv._validation_batch())
+    auc_json = metrics[str(best)][AUC]
+    auc_rel = abs(scored[AUC] - auc_json) / auc_json
+    if best_lam != best or not auc_rel <= 1e-6:
+        raise AssertionError(f"(b): best model AUC {scored[AUC]} != "
+                             f"metrics.json's {auc_json}")
+    per_iter_rel = 0.0
+    for e in events:
+        last = e.per_iteration_metrics[-1]
+        if len(e.per_iteration_metrics) != e.states.iterations + 1:
+            raise AssertionError("(b): per-iteration metrics miss an "
+                                 "iterate")
+        per_iter_rel = max(per_iter_rel, *(
+            abs(last[k] - v) / max(abs(v), 1e-12)
+            for k, v in e.metrics.items()))
+    if len(events) != 3 or not per_iter_rel <= 1e-6:
+        raise AssertionError(f"(b): the last iterate's metrics differ "
+                             f"from the final model's (rel "
+                             f"{per_iter_rel:.3g})")
+    objectives_b = {m.regularization_weight: m.result.value
+                    for m in drv.models}
+    w_b = drv.models[-1].result.coefficients.contiguous()
+    batch_b = drv._batch(drv.train_data)
+    rec_b = {
+        "ingest_parts": ingest, "grid_launches": grid_launches,
+        "phase_seconds": drv.phase_seconds, "best_lambda": best,
+        "metrics": metrics, "best_auc_rescored": scored[AUC],
+        "best_auc_rel_diff": auc_rel,
+        "per_iteration_last_vs_final_max_rel": per_iter_rel,
+        "per_lambda": [{"lambda": m.regularization_weight,
+                        "iterations": m.result.iterations,
+                        "convergence": m.result.convergence_reason.value,
+                        "value": m.result.value} for m in drv.models],
+    }
+
+    # (c) the same LibSVM files straight into the driver, as a process
+    out_c = os.path.join(workdir, "c")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "photon_ml_tpu_torch.cli.legacy_driver",
+         *legacy_argv(train_txt, test_txt, out_c, device,
+                      "--input-file-format", "LIBSVM",
+                      "--feature-dimension", str(A1A_FEATURES))],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    secs["driver_c_process"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"(c): exit {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    # the one-hot groups each sum to the intercept column, so along those
+    # directions the objective is flat but for the L2 term, and where an
+    # f32 solve stops on |df| <= 1e-6 |f0| leaves them loose (another
+    # column order, another stop): the runs are held to their objectives
+    # and validation metrics, and the coefficients' difference is reported
+    lib_models = dict(read_models_text(os.path.join(out_c, "output"),
+                                       device=dev))
+    avro_models = dict(read_models_text(os.path.join(out_b, "output"),
+                                        device=dev))
+    c_diff = {lam: float(np.abs(
+        np.sort(lib_models[lam].coefficients.means.cpu().numpy())
+        - np.sort(avro_models[lam].coefficients.means.cpu().numpy())).max())
+        for lam in CONFIG1_LAMBDAS}
+    metrics_c = json.load(open(os.path.join(out_c, "metrics.json")))
+    c_rel = max(abs(metrics_c[k][AUC] - metrics[k][AUC]) / metrics[k][AUC]
+                for k in metrics)
+    if sorted(metrics_c) != sorted(metrics) or not c_rel <= 1e-4:
+        raise AssertionError(f"(c): LibSVM direct and converted AUCs "
+                             f"differ (rel {c_rel:.3g})")
+
+    # (d) OWL-QN + L1, and TRON + L2 with a box on three features and
+    # STANDARDIZATION
+    box = [{"name": str(j), "term": "", "lowerBound": -0.05,
+            "upperBound": 0.05} for j in (1, 6, 40)]
+    runs_d = {}
+    launches_d = {}
+    # TRON's accepted values never rise without a box; with one, the
+    # projection after an accepted step can raise them, in the JAX package
+    # the same (tests/test_torch_legacy_driver.py shows both), so the boxed
+    # run is held to its box and finite values
+    std = ["--optimizer", "TRON", "--normalization-type", "STANDARDIZATION"]
+    for name, extra in (
+            ("owlqn_l1", ["--regularization-type", "L1"]),
+            ("tron_std", std),
+            ("tron_box_std", [*std, "--coefficient-box-constraints",
+                              json.dumps(box)])):
+        t0 = time.perf_counter()
+        d, launches, _ = run_legacy(legacy_argv(
+            train, val, os.path.join(workdir, name), device, *extra))
+        secs[f"driver_d_{name}"] = time.perf_counter() - t0
+        check_launches(f"(d) {name}", launches, "stream", "logistic", dev)
+        launches_d[name] = launches
+        for m in d.models:
+            v = m.result.values
+            if not np.all(np.isfinite(v)):
+                raise AssertionError(f"(d) {name}: non-finite objective")
+            if name == "tron_std" and np.any(np.diff(v) > 0):
+                raise AssertionError(f"(d) {name}: TRON's accepted values "
+                                     f"rose: {v.tolist()}")
+        if name == "tron_box_std":
+            imap = d.train_data.index_map
+            for m in d.models:
+                x = m.result.coefficients.cpu().numpy()
+                for b in box:
+                    j = imap.index_of(b["name"] + "\x01")
+                    if not -0.05 <= x[j] <= 0.05:
+                        raise AssertionError(f"(d): feature {b['name']} "
+                                             f"left its box: {x[j]}")
+        runs_d[name] = {
+            "per_lambda": [{"lambda": m.regularization_weight,
+                            "iterations": m.result.iterations,
+                            "convergence":
+                                m.result.convergence_reason.value,
+                            "value": m.result.value} for m in d.models],
+            "nnz": [int((m.model.coefficients.means != 0).sum())
+                    for m in d.models],
+            "best_lambda": d.best_lambda, "phase_seconds": d.phase_seconds}
+
+    # (e) (b)'s argv without the diagnostics, card and CPU
+    objectives_e = {}
+    for side, where in (("card", device), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        d, _, _ = run_legacy(legacy_argv(
+            train, val, os.path.join(workdir, f"e_{side}"), where,
+            "--validate-per-iteration", "true"))
+        secs[f"driver_e_{side}"] = time.perf_counter() - t0
+        objectives_e[side] = [m.result.value for m in d.models]
+    e_rel = max(abs(a - b) / abs(b) for a, b in zip(
+        objectives_e["card"], objectives_e["cpu"]))
+    if not e_rel <= 1e-4:
+        raise AssertionError(f"(e): card and CPU objectives differ "
+                             f"(rel {e_rel:.3g}): {objectives_e}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {
+        "rows": list(rows), "shape": list(A1A_SHAPE),
+        "fixture": "a1a encoding (14 one-hot groups, 123 features), a9a "
+                   "row counts, logistic labels, seed 21",
+        "b": rec_b, "c": {"sorted_coefficients_max_abs_diff": c_diff,
+                          "auc_max_rel_diff": c_rel,
+                          "metrics": metrics_c},
+        "d": runs_d, "e": {"objectives": objectives_e, "max_rel": e_rel},
+        "objectives_b": objectives_b, "stage_seconds": secs,
+    }, {"b_grid": grid_launches, **{f"d_{k}": v
+                                    for k, v in launches_d.items()}}, \
+        batch_b, w_b
+
+
+def single_glm_phase(torch, dev, smi, workdir, bench_shape=BIG_SHAPE,
+                     rows=A1A_ROWS):
+    """Phase 11: the single-GLM path, BASELINE config 1. Returns the phase
+    record, the kernel's launches by run and the worst |delta| of the
+    kernel against its plain version on the two real batches."""
+    from photon_ml_tpu_torch.ops.losses import get_loss
+
+    t0 = time.perf_counter()
+    library, lib_counts, big_batch, w_big = config1_library_phase(
+        torch, dev, bench_shape)
+    library["seconds"] = time.perf_counter() - t0
+    print("phase 11 (a): " + json.dumps(library), file=sys.stderr,
+          flush=True)
+    logistic = get_loss("logistic")
+    zero = torch.zeros((), device=dev)
+    big_err, big_worst = check_sums(
+        torch, logistic, big_batch.X, big_batch.labels, big_batch.offsets,
+        big_batch.weights, w_big, zero, scaled=True)
+    del big_batch
+    t1 = time.perf_counter()
+    drivers, driver_counts, a1a_batch, w_a1a = single_glm_driver_phase(
+        torch, dev, workdir, rows)
+    drivers["seconds"] = time.perf_counter() - t1
+    a1a_err, a1a_worst = check_sums(
+        torch, logistic, a1a_batch.X, a1a_batch.labels, a1a_batch.offsets,
+        a1a_batch.weights, w_a1a, zero, scaled=True)
+    record = {"phase": "single_glm", "nvidia_smi": smi,
+              "library": library, "drivers": drivers,
+              "kernel_vs_plain": {
+                  "bench_shape": {"max_abs_err": big_err,
+                                  "worst_delta_over_tolerance": big_worst},
+                  "a1a_shape": {"path": paths_for(a1a_batch.X)[0],
+                                "max_abs_err": a1a_err,
+                                "worst_delta_over_tolerance": a1a_worst}},
+              "seconds": time.perf_counter() - t0}
+    return record, {"config1_grid": lib_counts, **{
+        f"single_glm_{k}": v for k, v in driver_counts.items()}}, \
+        max(big_err, a1a_err)
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -2496,7 +3005,8 @@ def main() -> int:
             (DRIVER_SHAPE, "logistic", (torch.float32,)),
             (BIG_SHAPE, "logistic", f32_bf16),
             (CONFIG3_SHAPE, "poisson", (torch.float32,)),
-            (BIG_SHAPE, "squared", (torch.float32,))):
+            (BIG_SHAPE, "squared", (torch.float32,)),
+            (A1A_SHAPE, "logistic", (torch.float32,))):
         loss = get_loss(lname)
         X, y, off, wt, w = kernel_inputs(torch, n, d, seed=11, device=dev)
         shift = torch.tensor(0.0, device=dev)
@@ -2687,6 +3197,11 @@ def main() -> int:
         timings[(row["n"], row["d"], row["dtype"], row["path"],
                  row["loss"])] = row
 
+    # -- 11. the single-GLM path: BASELINE config 1 -------------------------
+    single, single_launches, single_err = single_glm_phase(
+        torch, dev, smi, os.path.join(build, "single_glm"))
+    emit(single)
+
     # -- kernels line, card line, result ---------------------------------------
     cd_runs = {f"cd_{k}": v for k, v in cd_launches.items()}
     fac_runs = {f"factored_{k}": v for k, v in fac_launches.items()}
@@ -2700,17 +3215,20 @@ def main() -> int:
             **{f"drill_{r}": v for r, v in drill_launches.items()},
             **{k: v["by_path"] for k, v in second_order_runs.items()},
             **{k: v["by_path"] for k, v in cd_runs.items()},
-            **{k: v["by_path"] for k, v in fac_runs.items()}}
+            **{k: v["by_path"] for k, v in fac_runs.items()},
+            **{k: v["by_path"] for k, v in single_launches.items()}}
     by_loss = {"glmix": glmix_by_loss, "driver": phase["launches_by_loss"],
                **{k: v["by_loss"] for k, v in second_order_runs.items()},
                **{k: v["by_loss"] for k, v in cd_runs.items()},
-               **{k: v["by_loss"] for k, v in fac_runs.items()}}
+               **{k: v["by_loss"] for k, v in fac_runs.items()},
+               **{k: v["by_loss"] for k, v in single_launches.items()}}
     total_by_path = {p: sum(r[p] for r in runs.values())
                      for p in by_path}
     main = timings[(*GLMIX_SHAPE, "float32", "stream", "logistic")]
     driver = timings[(*DRIVER_SHAPE, "float32", driver_check["path"],
                       "logistic")]
     staged = timings[(*BIG_SHAPE, "float32", "staged", "logistic")]
+    a1a = timings[(*A1A_SHAPE, "float32", "stream", "logistic")]
     emit({"kernels": [{
         "name": "fused_value_gradient_sums",
         "route": "cuda",
@@ -2720,7 +3238,7 @@ def main() -> int:
         "launches_by_run": runs,
         "launches_by_loss": by_loss,
         "max_abs_err": max(main_err, driver_check["max_abs_err"],
-                           *fac_errs),
+                           *fac_errs, single_err),
         "ms": main["kernel_ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
@@ -2745,6 +3263,14 @@ def main() -> int:
                          "share_of_bound": driver["share_of_bound"],
                          "device_share_of_bound":
                              driver["device_share_of_bound"]},
+        "a1a_shape": {"shape": list(A1A_SHAPE), "path": a1a["path"],
+                      "ms": a1a["kernel_ms"], "device_ms": a1a["device_ms"],
+                      "bound_ms": a1a["bound_ms"],
+                      "plain_ms": a1a["plain_ms"],
+                      "library_ms": a1a["library_ms"],
+                      "share_of_bound": a1a["share_of_bound"],
+                      "device_share_of_bound":
+                          a1a["device_share_of_bound"]},
         "checked": True,
     }], "seconds_total": time.perf_counter() - t_all})
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-"""GAME ingestion: Avro -> columnar ``GameDataset``, feature sets.
+"""Ingestion: Avro -> columnar ``GameDataset``, feature sets, and the
+legacy single-GLM loaders (Avro and LibSVM -> ``LabeledData``).
 
 Port of the GAME ingestion of ``photon_ml_tpu/io/data_format.py``, both of
 its paths (avro/data/DataProcessingUtils.scala:57-215,
@@ -32,10 +33,25 @@ With an ingest policy (``data/ingest.py``) either path quarantines a
 corrupt or unreadable part file within the loss budget. The saved
 feature sets load under the ``io.index_map`` fault point with retry
 (``:1036-1048``).
+
+The legacy single-GLM loaders (``:59-137``, ``:251-598``; io/GLMSuite
+.scala:98-260, io/LibSVMInputDataFormat.scala:31-77): ``InputFormatType``,
+``FieldNames``, ``LabeledData``, ``load_selected_features``,
+``build_index_map_from_records``, ``load_labeled_points_avro`` (the
+native columnar assembly ``_columnar_labeled_points`` first; a part it
+declines sends the whole input to the records loop, counted in
+:data:`INGEST_STATS` as for GAME), ``load_libsvm`` (every file through the
+port's native parser, ``csrc/host/libsvm_parser.cpp``, unless custom
+delimiters ask for the Python loop, the plain version; the intercept is
+the last column) and ``parse_constraint_map`` (the box-constraint JSON
+with its wildcard rules).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import enum
+import json
 import os
 from typing import Iterable, Optional, Sequence
 
@@ -48,7 +64,13 @@ from photon_ml_tpu_torch.io.avro import (
     list_avro_parts,
     read_shard,
 )
-from photon_ml_tpu_torch.io.index_map import IndexMap, feature_key
+from photon_ml_tpu_torch.io.avro import read_records
+from photon_ml_tpu_torch.io.index_map import (
+    DELIMITER,
+    INTERCEPT_KEY,
+    IndexMap,
+    feature_key,
+)
 from photon_ml_tpu_torch.io.native_avro import (
     OP_LONG,
     OP_STRING,
@@ -638,3 +660,397 @@ class NameAndTermFeatureSets:
                             f"tab-separated tokens, found {len(parts)}")
             sets[section] = pairs
         return NameAndTermFeatureSets(sets)
+
+
+# ---------------------------------------------------------------------------
+# The legacy single-GLM loaders (GLMSuite, LibSVMInputDataFormat)
+# ---------------------------------------------------------------------------
+
+WILDCARD = "*"  # io/GLMSuite.scala:377
+
+
+class InputFormatType(enum.Enum):
+    """io/InputFormatType.scala analog."""
+
+    AVRO = "AVRO"
+    LIBSVM = "LIBSVM"
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldNames:
+    """avro/FieldNames.scala:23-29 analog."""
+
+    features: str = "features"
+    response: str = "label"
+    offset: str = "offset"
+    weight: str = "weight"
+
+
+TRAINING_EXAMPLE_FIELD_NAMES = FieldNames(response="label")
+RESPONSE_PREDICTION_FIELD_NAMES = FieldNames(response="response")
+
+
+@dataclasses.dataclass
+class LabeledData:
+    """Columnar legacy dataset (the RDD[LabeledPoint] analog)."""
+
+    features: sp.csr_matrix  # [N, D]
+    labels: np.ndarray  # [N]
+    offsets: np.ndarray  # [N]
+    weights: np.ndarray  # [N]
+    index_map: IndexMap
+
+    @property
+    def num_samples(self) -> int:
+        return self.features.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.features.shape[1]
+
+
+def load_selected_features(path: str) -> set[str]:
+    """Selected-features Avro file -> set of feature keys
+    (io/GLMSuite.scala:141-149)."""
+    return {feature_key(r[NAME], r.get(TERM) or "")
+            for r in read_records(path)}
+
+
+def build_index_map_from_records(
+        records: Iterable[dict],
+        field_names: FieldNames = TRAINING_EXAMPLE_FIELD_NAMES,
+        selected_features: Optional[set[str]] = None,
+        add_intercept: bool = True) -> IndexMap:
+    """Sorted distinct feature keys (filtered by ``selected_features``
+    when given: an empty set selects nothing), the intercept last when
+    asked (io/GLMSuite.scala:159-205)."""
+    keys: set[str] = set()
+    for rec in records:
+        for f in rec.get(field_names.features) or []:
+            key = feature_key(f[NAME], f.get(TERM) or "")
+            if selected_features is None or key in selected_features:
+                keys.add(key)
+    return IndexMap.from_keys(sorted(keys), add_intercept=add_intercept)
+
+
+def _labeled_columns_ok(cols, field_names: FieldNames) -> bool:
+    """Whether the columnar assembly takes a decoded legacy part; a null
+    response, a feature column of another shape or a string offset or
+    weight goes to the records loop, which has its own semantics."""
+    r = cols.get(field_names.response)
+    if r is None or "values" not in r:
+        return False
+    if r.get("nulls") is not None and r["nulls"].any():
+        return False  # the records loop raises on a null response
+    if not _feature_col_ok(cols.get(field_names.features)):
+        return False
+    return all(c is None or "values" in c
+               for c in (cols.get(field_names.offset),
+                         cols.get(field_names.weight)))
+
+
+def _columnar_labeled_points(
+        path: str,
+        field_names: FieldNames,
+        index_map: Optional[IndexMap],
+        selected: Optional[set],
+        add_intercept: bool) -> Optional[LabeledData]:
+    """``LabeledData`` assembled from native columnar reads, one part file
+    at a time (``data_format.py:251-343``); None when a part declines, and
+    the caller then reads the whole input as records."""
+    lab_parts, off_parts, wt_parts = [], [], []
+    all_rows, all_keyid, all_vals = [], [], []
+    key_tables = []
+    keys_before = 0
+    base = 0
+    parts = _columnar_part_paths(path)
+    for pf in parts:
+        part = read_columnar(pf)
+        if part is None or not _labeled_columns_ok(part[2], field_names):
+            INGEST_STATS["declined_parts"] += 1
+            return None
+        _, count, cols = part
+        lab_parts.append(np.asarray(cols[field_names.response]["values"],
+                                    dtype=float))
+        off = cols.get(field_names.offset)
+        off_parts.append(np.asarray(off["values"], dtype=float)  # null: 0
+                         if off is not None else np.zeros(count))
+        wt = cols.get(field_names.weight)
+        wt_parts.append(np.where(wt["nulls"] == 1, 1.0, wt["values"])
+                        if wt is not None else np.ones(count))
+        rows, keyid, ukeys, values = _feature_triples(
+            cols[field_names.features], base)
+        all_rows.append(rows)
+        all_keyid.append(keyid + keys_before)
+        all_vals.append(values)
+        key_tables.append(ukeys)
+        keys_before += len(ukeys)
+        base += count
+        INGEST_STATS["native_parts"] += 1
+    if not parts:
+        return None
+
+    n = base
+    labels = np.concatenate(lab_parts)
+    offsets = np.concatenate(off_parts)
+    weights = np.concatenate(wt_parts)
+    rows = np.concatenate(all_rows)
+    keyid = np.concatenate(all_keyid)
+    vals = np.concatenate(all_vals)
+    ukeys: list[str] = [k for t in key_tables for k in t]
+    kept = (np.asarray([k in selected for k in ukeys], bool)
+            if selected is not None else np.ones(len(ukeys), bool))
+    if index_map is None:
+        index_map = IndexMap.from_keys(
+            [k for k, keep in zip(ukeys, kept) if keep],
+            add_intercept=add_intercept)
+    ucol = np.asarray([index_map.index_of(k) if keep else -1
+                       for k, keep in zip(ukeys, kept)], np.int64)
+    cols_of = ucol[keyid]
+    ok = cols_of >= 0
+    rows, cols_of, vals = rows[ok], cols_of[ok], vals[ok]
+
+    d = len(index_map)
+    rc = rows * np.int64(d) + cols_of
+    if len(np.unique(rc)) != len(rc):
+        raise ValueError("Duplicate feature in a record (same name+term "
+                         "appears twice)")
+    intercept_idx = index_map.intercept_index
+    if intercept_idx is not None:
+        rows = np.concatenate([rows, np.arange(n, dtype=np.int64)])
+        cols_of = np.concatenate(
+            [cols_of, np.full(n, intercept_idx, np.int64)])
+        vals = np.concatenate([vals, np.ones(n)])
+    features = sp.csr_matrix((vals, (rows, cols_of)), shape=(n, d))
+    return LabeledData(features, labels, offsets, weights, index_map)
+
+
+def labeled_points_from_records(
+        records: Sequence[dict],
+        field_names: FieldNames = TRAINING_EXAMPLE_FIELD_NAMES,
+        index_map: Optional[IndexMap] = None,
+        selected: Optional[set] = None,
+        add_intercept: bool = True) -> LabeledData:
+    """The records loop of :func:`load_labeled_points_avro`
+    (``data_format.py:369-413``), the plain version of the columnar
+    assembly."""
+    if index_map is None:
+        index_map = build_index_map_from_records(
+            records, field_names, selected, add_intercept)
+    n, d = len(records), len(index_map)
+    labels = np.zeros(n)
+    offsets = np.zeros(n)
+    weights = np.ones(n)
+    rows, cols, vals = [], [], []
+    intercept_idx = index_map.intercept_index
+    for i, rec in enumerate(records):
+        labels[i] = float(rec[field_names.response])
+        if rec.get(field_names.offset) is not None:
+            offsets[i] = float(rec[field_names.offset])
+        if rec.get(field_names.weight) is not None:
+            weights[i] = float(rec[field_names.weight])
+        seen = set()
+        for f in rec.get(field_names.features) or []:
+            key = feature_key(f[NAME], f.get(TERM) or "")
+            # the selected-features filter holds with a given map too
+            if selected is not None and key not in selected:
+                continue
+            j = index_map.index_of(key)
+            if j < 0:
+                continue
+            if j in seen:
+                raise ValueError(f"Duplicate feature {key!r} in record {i}")
+            seen.add(j)
+            rows.append(i)
+            cols.append(j)
+            vals.append(0.0 if f[VALUE] is None else float(f[VALUE]))
+        if intercept_idx is not None:
+            rows.append(i)
+            cols.append(intercept_idx)
+            vals.append(1.0)
+    features = sp.csr_matrix(
+        (np.asarray(vals), (np.asarray(rows, np.int64),
+                            np.asarray(cols, np.int64))),
+        shape=(n, d))
+    return LabeledData(features, labels, offsets, weights, index_map)
+
+
+def load_labeled_points_avro(
+        path: str,
+        field_names: FieldNames = TRAINING_EXAMPLE_FIELD_NAMES,
+        index_map: Optional[IndexMap] = None,
+        selected_features_file: Optional[str] = None,
+        add_intercept: bool = True) -> LabeledData:
+    """Legacy Avro ingestion (io/GLMSuite.scala:98-137): sparse features
+    through the index map (built from the data when not given), the
+    intercept column set to 1 when the map carries it, offset and weight
+    defaults 0 and 1. The native columnar path reads the input unless a
+    part declines; then the records loop reads all of it."""
+    selected = (load_selected_features(selected_features_file)
+                if selected_features_file else None)
+    fast = _columnar_labeled_points(path, field_names, index_map, selected,
+                                    add_intercept)
+    if fast is not None:
+        return fast
+    records = list(_records([path]))
+    return labeled_points_from_records(records, field_names, index_map,
+                                       selected, add_intercept)
+
+
+def _libsvm_paths(path: str) -> list[str]:
+    """A file, or a directory's files but the hidden and underscored ones
+    (``_SUCCESS``, ``.crc``)."""
+    if os.path.isdir(path):
+        return [os.path.join(path, p) for p in sorted(os.listdir(path))
+                if not p.startswith((".", "_"))]
+    return [path]
+
+
+def load_libsvm(path: str, feature_dimension: int,
+                use_intercept: bool = True, zero_based: bool = False,
+                delim: str = " ", idx_value_delim: str = ":",
+                binarize_labels: bool = True) -> LabeledData:
+    """LibSVM text -> ``LabeledData`` (``data_format.py:425-508``): labels
+    binarized (> 0 -> 1) unless ``binarize_labels`` is false, the
+    intercept in the last column when enabled. The default delimiters go
+    through the native parser; custom ones through :func:`libsvm_python`."""
+    paths = _libsvm_paths(path)
+    if delim != " " or idx_value_delim != ":" or not paths:
+        return libsvm_python(paths, feature_dimension, use_intercept,
+                             zero_based, delim, idx_value_delim,
+                             binarize_labels)
+    from photon_ml_tpu_torch.io.native_loader import parse_libsvm_native
+
+    mats, labels_all = [], []
+    for p in paths:
+        raw_labels, mat, dim = parse_libsvm_native(p, zero_based)
+        if dim > feature_dimension:
+            raise ValueError(
+                f"feature index {dim - 1 + (0 if zero_based else 1)} out of "
+                f"range for feature_dimension={feature_dimension} "
+                f"(zero_based={zero_based})")
+        n = mat.shape[0]
+        mat = sp.csr_matrix((mat.data, mat.indices, mat.indptr),
+                            shape=(n, feature_dimension))
+        if use_intercept:
+            mat = sp.hstack([mat, np.ones((n, 1))], format="csr")
+        mats.append(mat)
+        labels_all.append((raw_labels > 0).astype(np.float64)
+                          if binarize_labels
+                          else np.asarray(raw_labels, np.float64))
+    features = sp.vstack(mats, format="csr") if len(mats) > 1 else mats[0]
+    return _libsvm_labeled_data(features, np.concatenate(labels_all),
+                                feature_dimension, use_intercept)
+
+
+def libsvm_python(paths: Sequence[str], feature_dimension: int,
+                  use_intercept: bool = True, zero_based: bool = False,
+                  delim: str = " ", idx_value_delim: str = ":",
+                  binarize_labels: bool = True) -> LabeledData:
+    """The Python row loop of ``load_libsvm`` (``data_format.py:451-493``),
+    the plain version of the native parser: the default delimiter is any
+    run of whitespace, a custom one splits literally."""
+    true_dim = feature_dimension + 1 if use_intercept else feature_dimension
+    labels_list: list[float] = []
+    rows, cols, vals = [], [], []
+    i = 0
+    for p in paths:
+        with open(p) as fh:
+            for line in fh:
+                line = line.strip()
+                if not line:
+                    continue
+                ts = line.split() if delim == " " else line.split(delim)
+                label = float(ts[0])
+                labels_list.append((1.0 if label > 0 else 0.0)
+                                   if binarize_labels else label)
+                for item in ts[1:]:
+                    item = item.strip()
+                    if not item:
+                        continue
+                    idx_s, val_s = item.split(idx_value_delim)
+                    idx = int(idx_s) - (0 if zero_based else 1)
+                    if not 0 <= idx < feature_dimension:
+                        raise ValueError(
+                            f"feature index {idx_s} out of range for "
+                            f"feature_dimension={feature_dimension} "
+                            f"(zero_based={zero_based})")
+                    rows.append(i)
+                    cols.append(idx)
+                    vals.append(float(val_s))
+                if use_intercept:
+                    rows.append(i)
+                    cols.append(true_dim - 1)
+                    vals.append(1.0)
+                i += 1
+    features = sp.csr_matrix(
+        (np.asarray(vals), (np.asarray(rows, np.int64),
+                            np.asarray(cols, np.int64))),
+        shape=(len(labels_list), true_dim))
+    return _libsvm_labeled_data(features, np.asarray(labels_list),
+                                feature_dimension, use_intercept)
+
+
+def _libsvm_labeled_data(features: sp.csr_matrix, labels: np.ndarray,
+                         feature_dimension: int,
+                         use_intercept: bool) -> LabeledData:
+    """``LabeledData`` with the IdentityIndexMapLoader map, the intercept
+    last when enabled."""
+    if use_intercept:
+        keys = {str(i): i for i in range(feature_dimension)}
+        keys[INTERCEPT_KEY] = feature_dimension
+        index_map = IndexMap(keys)
+    else:
+        index_map = IndexMap.identity(feature_dimension)
+    n = features.shape[0]
+    return LabeledData(features, labels, np.zeros(n), np.ones(n), index_map)
+
+
+def parse_constraint_map(constraint_string: Optional[str],
+                         index_map: IndexMap
+                         ) -> Optional[dict[int, tuple[float, float]]]:
+    """JSON list of ``{name, term, lowerBound?, upperBound?}`` -> bounds
+    by index, with the reference's wildcard rules
+    (io/GLMSuite.scala:207-260): (*, *) bounds every feature but the
+    intercept and must be the only entry; (name, *) bounds every term of
+    ``name``; a wildcard name needs a wildcard term."""
+    if not constraint_string:
+        return None
+    out: dict[int, tuple[float, float]] = {}
+    for entry in json.loads(constraint_string):
+        name = entry["name"]
+        term = entry["term"]
+        lo = float(entry.get("lowerBound", -np.inf))
+        hi = float(entry.get("upperBound", np.inf))
+        if not (np.isfinite(lo) or np.isfinite(hi)):
+            raise ValueError(
+                f"constraint for ({name}, {term}) has -Inf/+Inf bounds")
+        if lo >= hi:
+            raise ValueError(
+                f"lower bound {lo} >= upper bound {hi} for ({name}, {term})")
+        if name == WILDCARD:
+            if term != WILDCARD:
+                raise ValueError("wildcard name requires wildcard term")
+            if out:
+                raise ValueError(
+                    "(*, *) constraint must be the only constraint")
+            for key, idx in index_map.items():
+                if key != INTERCEPT_KEY:
+                    out[idx] = (lo, hi)
+        elif term == WILDCARD:
+            prefix = name + DELIMITER
+            for key, idx in index_map.items():
+                if key.startswith(prefix):
+                    if idx in out:
+                        raise ValueError(
+                            f"conflicting bounds for feature {key!r}")
+                    out[idx] = (lo, hi)
+        else:
+            key = feature_key(name, term)
+            if key in index_map:
+                idx = index_map.index_of(key)
+                if idx in out:
+                    raise ValueError(
+                        f"conflicting bounds for feature {key!r}")
+                out[idx] = (lo, hi)
+    return out or None

@@ -3,7 +3,8 @@
 Port of the in-RAM half of ``photon_ml_tpu/io/index_map.py`` — the feature
 key helpers (``feature_key``/``split_feature_key``, the intercept key
 ``"(INTERCEPT)\\u0001"``) and the dict-backed ``IndexMap``
-(util/IndexMap.scala:23-47, DefaultIndexMapLoader). The partitioned JSON
+(util/IndexMap.scala:23-47, DefaultIndexMapLoader, and the
+IdentityIndexMapLoader's ``identity``). The partitioned JSON
 store and the memmap-backed ``OffHeapIndexMap`` (the PalDB analog) come
 with ``--offheap-indexmap-dir`` in a later slice.
 """
@@ -67,6 +68,12 @@ class IndexMap:
         if add_intercept and INTERCEPT_KEY not in uniq:
             uniq.append(INTERCEPT_KEY)
         return IndexMap({k: i for i, k in enumerate(uniq)})
+
+    @staticmethod
+    def identity(dim: int) -> "IndexMap":
+        """IdentityIndexMapLoader analog: key ``str(i)`` <-> index i
+        (LibSVM inputs)."""
+        return IndexMap({str(i): i for i in range(dim)})
 
     @staticmethod
     def from_name_terms(pairs: Iterable[tuple[str, str]],

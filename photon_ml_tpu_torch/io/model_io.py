@@ -24,7 +24,10 @@ JAX package's byte for byte; only the random sync marker of each file
 differs. Scores are encoded block by block by the port's native encoder
 (``csrc/host/score_encoder.cpp`` through ``io/native_loader.py``), as in
 the JAX package; ``save_scored_items_records`` is the plain version.
-The legacy text models come later.
+The legacy driver's text models, ``write_models_text`` and
+``read_models_text`` (``:484-530``, util/IOUtils.scala:207-247), write
+and read the JAX package's TSV files: one ``part-<i>.txt`` per model,
+``name\tterm\tvalue\tlambda`` rows by coefficient value descending.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from photon_ml_tpu_torch.io import schemas
 from photon_ml_tpu_torch.io.avro import (
     DEFAULT_SYNC_INTERVAL,
@@ -451,3 +455,62 @@ def _write_container_raw(path: str, schema, blocks: list) -> None:
 
 def load_scored_items(path: str) -> list[dict]:
     return read_records(path)
+
+
+# ---------------------------------------------------------------------------
+# Legacy text models (util/IOUtils.scala:207-247)
+# ---------------------------------------------------------------------------
+
+
+def write_models_text(output_dir: str,
+                      models: Iterable[tuple[float, GeneralizedLinearModel]],
+                      index_map: IndexMap) -> None:
+    """One ``part-<i>.txt`` per ``(lambda, model)``:
+    ``name\tterm\tvalue\tlambda`` rows, largest coefficient first."""
+    os.makedirs(output_dir, exist_ok=True)
+    for part, (reg_weight, model) in enumerate(models):
+        means = model.coefficients.means.detach().cpu().numpy().astype(
+            np.float64)
+        lines = []
+        for idx in np.argsort(-means, kind="stable"):
+            key = index_map.key_of(int(idx))
+            if key is None:
+                continue
+            name, term = split_feature_key(key)
+            lines.append(f"{name}\t{term}\t{means[idx]}\t{reg_weight}")
+        with open(os.path.join(output_dir, f"part-{part:05d}.txt"),
+                  "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+
+
+def read_models_text(input_dir: str, index_map: Optional[IndexMap] = None,
+                     task: TaskType = TaskType.LINEAR_REGRESSION,
+                     device=DEFAULT_DEVICE
+                     ) -> list[tuple[float, GeneralizedLinearModel]]:
+    """``(lambda, model)`` of each ``.txt`` file, f32 means on ``device``,
+    indexed by ``index_map`` or by the files' sorted feature keys."""
+    device = resolve_device(device)
+    out = []
+    for fname in sorted(os.listdir(input_dir)):
+        if not fname.endswith(".txt"):
+            continue
+        entries = []
+        with open(os.path.join(input_dir, fname)) as fh:
+            for line in fh:
+                if not line.strip():
+                    continue
+                name, term, value, lam = line.rstrip("\n").split("\t")
+                entries.append((name, term, float(value), float(lam)))
+        if not entries:
+            continue
+        imap = index_map or IndexMap.from_keys(
+            [feature_key(n, t) for n, t, _, _ in entries])
+        means = np.zeros(len(imap))
+        for name, term, value, _ in entries:
+            key = feature_key(name, term)
+            if key in imap:
+                means[imap.index_of(key)] = value
+        out.append((entries[0][3], GeneralizedLinearModel(
+            Coefficients(torch.as_tensor(means, dtype=torch.float32,
+                                         device=device)), task)))
+    return out

@@ -1,10 +1,11 @@
 """Build and load the port's host library (``csrc/host/*.cpp``) on first use.
 
-Port of ``photon_ml_tpu/io/native_loader.py`` for what the GAME ingest
-and scoring paths run: ``get_native_lib`` becomes :func:`get_host_lib`,
-and ``encode_scores_native`` (``:250-295``) is ported as it is. The
+Port of ``photon_ml_tpu/io/native_loader.py`` for what the GAME ingest,
+the scoring paths and the legacy LibSVM loader run: ``get_native_lib``
+becomes :func:`get_host_lib`, and ``parse_libsvm_native`` (``:216-247``)
+and ``encode_scores_native`` (``:250-295``) are ported as they are. The
 sources are the port's own copies of the JAX package's columnar Avro
-decoder and ScoringResultAvro encoder. ``g++`` compiles both into one
+decoder, ScoringResultAvro encoder and LibSVM parser. ``g++`` compiles both into one
 shared library under the git-ignored ``photon_ml_tpu_torch/_build/``,
 with the reference Makefile's flags, through the build helpers of
 ``ops/kernels_build.py``: the file name carries a hash of the sources,
@@ -13,8 +14,8 @@ per-process ``.tmp`` files that are renamed into place.
 
 Unlike the reference there is no fallback: a missing compiler, a failed
 build or a library that does not load raises ``RuntimeError`` (with the
-compiler's output), and nothing disables the library. The LibSVM parser,
-the block packer and the sanitizer build are not ported yet.
+compiler's output), and nothing disables the library. The block packer
+and the sanitizer build are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,11 +28,13 @@ import threading
 from typing import Optional
 
 import numpy as np
+import scipy.sparse as sp
 
 from photon_ml_tpu_torch.ops import kernels_build
 
 HOST_DIR = os.path.join(kernels_build.CSRC_DIR, "host")
-HOST_SOURCES = ("avro_columnar.cpp", "score_encoder.cpp")
+HOST_SOURCES = ("avro_columnar.cpp", "score_encoder.cpp",
+                "libsvm_parser.cpp")
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-pthread",
              "-shared")
 
@@ -66,6 +69,23 @@ def _bind_scores(lib: ctypes.CDLL) -> None:
     ]
 
 
+def _bind_libsvm(lib: ctypes.CDLL) -> None:
+    lib.photon_libsvm_open.restype = ctypes.c_void_p
+    lib.photon_libsvm_open.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.photon_libsvm_fill.restype = ctypes.c_int
+    lib.photon_libsvm_fill.argtypes = [
+        ctypes.c_void_p, ctypes.c_int,
+        np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.photon_libsvm_close.restype = None
+    lib.photon_libsvm_close.argtypes = [ctypes.c_void_p]
+
+
 def get_host_lib() -> ctypes.CDLL:
     """The loaded host library, compiled with ``g++`` on first use;
     raises ``RuntimeError`` when it cannot be built or loaded."""
@@ -93,8 +113,42 @@ def get_host_lib() -> ctypes.CDLL:
             raise RuntimeError(f"cannot load the host library {out}: "
                                f"{e}") from e
         _bind_scores(lib)
+        _bind_libsvm(lib)
         _lib = lib
         return _lib
+
+
+def parse_libsvm_native(path: str, zero_based: bool
+                        ) -> tuple[np.ndarray, sp.csr_matrix, int]:
+    """(raw labels, CSR without the intercept column, max index + 1) of
+    one LibSVM file (``csrc/host/libsvm_parser.cpp``); raises
+    ``ValueError`` for a file it cannot open or parse."""
+    lib = get_host_lib()
+    rows = ctypes.c_int64()
+    nnz = ctypes.c_int64()
+    handle = lib.photon_libsvm_open(path.encode(), ctypes.byref(rows),
+                                    ctypes.byref(nnz))
+    if not handle:
+        raise ValueError(f"native libsvm parser cannot open {path!r}")
+    try:
+        n, k = rows.value, nnz.value
+        labels = np.empty(n, np.float64)
+        indptr = np.empty(n + 1, np.int64)
+        indices = np.empty(max(k, 1), np.int32)
+        values = np.empty(max(k, 1), np.float64)
+        max_index = ctypes.c_int64()
+        rc = lib.photon_libsvm_fill(handle, int(zero_based), labels, indptr,
+                                    indices, values,
+                                    ctypes.byref(max_index))
+    finally:
+        lib.photon_libsvm_close(handle)
+    if rc != 0:
+        raise ValueError(
+            f"native libsvm parse of {path!r} failed with code {rc}")
+    dim = int(max_index.value) + 1
+    mat = sp.csr_matrix((values[:k], indices[:k], indptr),
+                        shape=(n, max(dim, 0)))
+    return labels, mat, dim
 
 
 def encode_scores_native(scores: np.ndarray, model_id: str,

@@ -6,8 +6,9 @@ JAX package), Python-dict renditions of photon-avro-schemas/src/main/avro/
 in the reference: ``FeatureAvro`` (a GAME row's feature sections),
 ``BayesianLinearModelAvro`` + ``NameTermValueAvro`` (coefficient models),
 ``LatentFactorAvro`` (matrix-factorization factor rows) and
-``ScoringResultAvro`` (scores). The training-example and feature-summary
-schemas come with the drivers that use them.
+``ScoringResultAvro`` (scores), and the legacy driver's
+``TrainingExampleAvro`` and ``ResponsePredictionAvro`` (a labeled row)
+and ``FeatureSummarizationResultAvro`` (its feature summary).
 """
 
 NAMESPACE = "com.linkedin.photon.avro.generated"
@@ -34,6 +35,40 @@ FEATURE = {
     ],
 }
 
+
+TRAINING_EXAMPLE = {
+    "name": "TrainingExampleAvro",
+    "namespace": NAMESPACE,
+    "type": "record",
+    "fields": [
+        {"name": "uid", "type": ["null", "string"], "default": None},
+        {"name": "label", "type": "double"},
+        {"name": "features", "type": {"type": "array", "items": FEATURE}},
+        {"name": "metadataMap",
+         "type": ["null", {"type": "map", "values": "string"}],
+         "default": None},
+        {"name": "weight", "type": ["null", "double"], "default": None},
+        {"name": "offset", "type": ["null", "double"], "default": None},
+    ],
+}
+
+# The GAME drivers' "response prediction" naming convention: the label field
+# is called "response" (avro/ResponsePredictionFieldNames.scala:21-28).
+RESPONSE_PREDICTION = {
+    "name": "ResponsePredictionAvro",
+    "namespace": NAMESPACE,
+    "type": "record",
+    "fields": [
+        {"name": "uid", "type": ["null", "string"], "default": None},
+        {"name": "response", "type": "double"},
+        {"name": "features", "type": {"type": "array", "items": FEATURE}},
+        {"name": "metadataMap",
+         "type": ["null", {"type": "map", "values": "string"}],
+         "default": None},
+        {"name": "weight", "type": ["null", "double"], "default": None},
+        {"name": "offset", "type": ["null", "double"], "default": None},
+    ],
+}
 
 BAYESIAN_LINEAR_MODEL = {
     "name": "BayesianLinearModelAvro",
@@ -76,5 +111,16 @@ SCORING_RESULT = {
         {"name": "metadataMap",
          "type": ["null", {"type": "map", "values": "string"}],
          "default": None},
+    ],
+}
+
+FEATURE_SUMMARIZATION_RESULT = {
+    "name": "FeatureSummarizationResultAvro",
+    "namespace": NAMESPACE,
+    "type": "record",
+    "fields": [
+        {"name": "featureName", "type": "string"},
+        {"name": "featureTerm", "type": "string"},
+        {"name": "metrics", "type": {"type": "map", "values": "double"}},
     ],
 }

@@ -1,6 +1,8 @@
-"""Shared optimizer structures: convergence reasons, run history, results.
+"""Shared optimizer structures: convergence reasons, box constraints, run
+history, results.
 
-Port of ``photon_ml_tpu/optimize/common.py:29-119``, ``:225-345``
+Port of ``photon_ml_tpu/optimize/common.py:29-119`` (``BoxConstraints``
+and ``project_box`` included), ``:225-345``
 (``LaneCompactionState``, ``padded_lane_count``) and ``:348-403``. The
 JAX solvers are single-lane ``lax.while_loop`` programs that the random
 effect ``vmap``s; the port's solvers are lane-batched by construction, so
@@ -49,6 +51,40 @@ class ConvergenceReason(enum.Enum):
     GRADIENT_CONVERGED = "GradientConverged"
 
 
+class BoxConstraints(NamedTuple):
+    """Elementwise ``[lower, upper]`` bounds, +-inf for a free coordinate
+    (``common.py:36-56``; OptimizationUtils.projectCoefficientsToHypercube).
+    The bounds are ``[D]`` and broadcast over the lanes of an ``[L, D]``
+    solve; they are kept in f64 and cast to the iterate's dtype when
+    applied."""
+
+    lower: Tensor
+    upper: Tensor
+
+    @staticmethod
+    def from_map(dim: int,
+                 constraint_map: Optional[dict[int, tuple[float, float]]],
+                 device="cpu") -> Optional["BoxConstraints"]:
+        """Bounds from ``{index: (lower, upper)}``; None for no map."""
+        if not constraint_map:
+            return None
+        lower = np.full(dim, -np.inf)
+        upper = np.full(dim, np.inf)
+        for idx, (lo, hi) in constraint_map.items():
+            lower[idx], upper[idx] = lo, hi
+        return BoxConstraints(torch.as_tensor(lower, device=device),
+                              torch.as_tensor(upper, device=device))
+
+
+def project_box(x: Tensor, box: Optional[BoxConstraints]) -> Tensor:
+    """``x`` clipped into the box (``common.py:93-96``); ``x`` itself
+    without one."""
+    if box is None:
+        return x
+    return torch.clamp(x, box.lower.to(device=x.device, dtype=x.dtype),
+                       box.upper.to(device=x.device, dtype=x.dtype))
+
+
 def solver_x0(acc_dtype: torch.dtype, shape, initial: Optional[Tensor],
               device) -> Tensor:
     """Initial solver state: at least ``acc_dtype``; a warm start can only
@@ -72,6 +108,10 @@ class RunHistory(NamedTuple):
     values: Tensor  # [L, max_iter + 1]
     grad_norms: Tensor  # [L, max_iter + 1]
     num_iterations: Tensor  # [L] int64: last completed iteration index
+    # [L, max_iter + 1, D] with ``track_iterates``: row k the accepted
+    # iterate after iteration k (row 0 the start), later rows zero;
+    # None otherwise
+    iterates: Optional[Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +125,7 @@ class OptimizationResult:
     convergence_reason: ConvergenceReason
     values: np.ndarray
     grad_norms: np.ndarray
+    iterates: Optional[np.ndarray] = None  # [k + 1, D] when tracked
 
     @staticmethod
     def from_history(coefficients: Tensor, history: RunHistory,
@@ -97,10 +138,13 @@ class OptimizationResult:
         grad_norms = history.grad_norms[0].cpu().numpy()[: k + 1]
         reason = _convergence_reason(k, values, grad_norms, max_iter,
                                      tolerance, made_progress_last_iter)
+        iterates = (None if history.iterates is None
+                    else history.iterates[0, : k + 1].cpu().numpy())
         return OptimizationResult(
             coefficients=coefficients, value=float(values[-1]),
             grad_norm=float(grad_norms[-1]), iterations=k,
-            convergence_reason=reason, values=values, grad_norms=grad_norms)
+            convergence_reason=reason, values=values, grad_norms=grad_norms,
+            iterates=iterates)
 
 
 class DeferredOptimizationResult:
@@ -148,6 +192,10 @@ class DeferredOptimizationResult:
     @property
     def grad_norms(self) -> np.ndarray:
         return self._force().grad_norms
+
+    @property
+    def iterates(self) -> Optional[np.ndarray]:
+        return self._force().iterates
 
 
 @dataclasses.dataclass

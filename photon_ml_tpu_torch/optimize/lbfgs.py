@@ -19,8 +19,17 @@ it had never stopped (the lane-compaction driver's chunk restarts), so
 ``a`` iterations then ``b`` resumed ones equal one solve of ``a + b`` bit
 for bit.
 
-Left for later slices: box constraints, iterate tracking and the sharded
-weight update.
+``box`` projects each accepted step onto the hypercube
+(``lbfgs.py:259-265``): where the projection moved a lane's point, the
+objective is evaluated again there. JAX decides that per lane with a
+``jnp.any`` inside its loop; here "did the projection move any lane?" is
+one more counted host read per iteration (only with a box), and an
+iteration where it moved none costs no evaluation. Evaluating every time
+and selecting per lane would give the same bits (an unmoved point
+evaluates the same) at the price of one more kernel launch per
+iteration. ``track_iterates`` keeps ``[L, max_iter + 1, D]`` iterates in
+the history, row ``it`` the accepted iterate (``lbfgs.py:211``,
+``:289``). The sharded weight update is left for a later slice.
 """
 
 from __future__ import annotations
@@ -30,9 +39,11 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from photon_ml_tpu_torch.optimize.common import (
+    BoxConstraints,
     RunHistory,
     finite_step,
     host_flags,
+    project_box,
     should_continue,
 )
 from photon_ml_tpu_torch.optimize.linesearch import strong_wolfe
@@ -132,6 +143,45 @@ def store_pair(S: Tensor, Y: Tensor, rho: Tensor, valid: Tensor,
     return S, Y, rho, valid, head
 
 
+def new_iterates(x: Tensor, max_iter: int, track: bool
+                 ) -> Optional[Tensor]:
+    """``[L, max_iter + 1, D]`` iterate rows, row 0 the start ``x``; None
+    when not tracking."""
+    if not track:
+        return None
+    its = x.new_zeros((x.shape[0], max_iter + 1, x.shape[1]))
+    its[:, 0] = x
+    return its
+
+
+def record_iterate(iterates: Optional[Tensor], slot: Tensor, x: Tensor,
+                   write: Tensor) -> Optional[Tensor]:
+    """Row ``slot [L]`` of each ``write`` lane's iterates set to ``x``."""
+    if iterates is None:
+        return None
+    lanes = torch.arange(x.shape[0], device=x.device)
+    out = iterates.clone()
+    out[lanes, slot] = x
+    return torch.where(write[:, None, None], out, iterates)
+
+
+def project_and_refresh(value_and_grad_fn, data, x_new: Tensor,
+                        f_new: Tensor, g_new: Tensor,
+                        box: Optional[BoxConstraints], lanes: Tensor):
+    """``x_new`` projected onto ``box``, with the objective evaluated again
+    at the lanes of ``lanes`` the projection moved (``lbfgs.py:259-265``,
+    ``tron.py:274-276``); one counted host read decides whether any did."""
+    if box is None:
+        return x_new, f_new, g_new
+    x_proj = project_box(x_new, box)
+    moved = lanes & (x_proj != x_new).any(-1)
+    if host_flags(moved.any())[0]:
+        f_p, g_p = value_and_grad_fn(x_proj, data)
+        f_new = torch.where(moved, f_p, f_new)
+        g_new = torch.where(moved[:, None], g_p, g_new)
+    return x_proj, f_new, g_new
+
+
 def minimize_lbfgs(
     value_and_grad_fn: Callable[[Tensor, object], tuple[Tensor, Tensor]],
     x0: Tensor,
@@ -141,6 +191,8 @@ def minimize_lbfgs(
     tolerance: float = DEFAULT_TOLERANCE,
     resume: Optional[LBFGSResume] = None,
     return_carry: bool = False,
+    box: Optional[BoxConstraints] = None,
+    track_iterates: bool = False,
 ):
     """Minimize ``f(x, data)`` independently in every lane of ``x0 [L, D]``.
 
@@ -150,7 +202,9 @@ def minimize_lbfgs(
     ``resume`` the solve continues from that carry (``x0`` is ignored):
     the history and the iteration count restart at 0, every convergence
     check keeps the carried anchors, and the first step is not the
-    1/||d|| start of a fresh solve.
+    1/||d|| start of a fresh solve. ``box`` (bounds ``[D]``) projects
+    every accepted step; ``track_iterates`` adds the iterates to the
+    history.
     """
     L, d = x0.shape
     dtype, dev = x0.dtype, x0.device
@@ -173,6 +227,7 @@ def minimize_lbfgs(
     grad_norms = torch.full_like(values, float("nan"))
     values[:, 0] = f
     grad_norms[:, 0] = _norm(g)
+    iterates = new_iterates(x, max_iter, track_iterates)
 
     while True:
         active = should_continue(it, f, prev_f, _norm(g), f0, g0n,
@@ -202,7 +257,8 @@ def minimize_lbfgs(
         ls = strong_wolfe(phi, f, dphi0, g, init_alpha, active)
 
         x_new = x + ls.alpha[:, None] * direction
-        f_new, g_new = ls.value, ls.grad
+        x_new, f_new, g_new = project_and_refresh(
+            value_and_grad_fn, data, x_new, ls.value, ls.grad, box, active)
         ok = finite_step(ls.ok, f_new, g_new)
 
         s = x_new - x
@@ -223,13 +279,14 @@ def minimize_lbfgs(
 
         a2 = active[:, None]
         x = torch.where(a2, torch.where(ok[:, None], x_new, x), x)
+        iterates = record_iterate(iterates, slot[:, 0], x, active)
         prev_f = torch.where(active, f, prev_f)
         f = torch.where(active, f_acc, f)
         g = torch.where(a2, g_acc, g)
         made_progress = torch.where(active, ok, made_progress)
         it = torch.where(active, it_new, it)
 
-    out = (x, RunHistory(values, grad_norms, it), made_progress)
+    out = (x, RunHistory(values, grad_norms, it, iterates), made_progress)
     if return_carry:
         return out + (LBFGSResume(x, f, g, prev_f, S, Y, rho, valid, head,
                                   f0, g0n),)

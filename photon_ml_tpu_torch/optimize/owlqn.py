@@ -21,8 +21,12 @@ those of an independent run.
   curvature ring, and the first pseudo-gradient's norm as ``g0n``), so a
   chunked solve equals the single one bit for bit.
 
-Left out, as in the port's L-BFGS: box constraints, iterate tracking and
-the sharded weight update.
+- ``box`` projects every trial point after the orthant projection
+  (``owlqn.py:181-182``), so the search evaluates the projected points
+  and no second evaluation is needed; ``track_iterates`` keeps the
+  accepted iterates as the port's L-BFGS does.
+
+The sharded weight update is left for a later slice.
 """
 
 from __future__ import annotations
@@ -32,15 +36,19 @@ from typing import Callable, Optional
 import torch
 
 from photon_ml_tpu_torch.optimize.common import (
+    BoxConstraints,
     RunHistory,
     finite_step,
     host_flags,
+    project_box,
     should_continue,
 )
 from photon_ml_tpu_torch.optimize.lbfgs import (
     LBFGSResume,
     _dot,
     _norm,
+    new_iterates,
+    record_iterate,
     store_pair,
     two_loop_direction,
 )
@@ -75,6 +83,8 @@ def minimize_owlqn(
     tolerance: float = DEFAULT_TOLERANCE,
     resume: Optional[LBFGSResume] = None,
     return_carry: bool = False,
+    box: Optional[BoxConstraints] = None,
+    track_iterates: bool = False,
 ):
     """Minimize ``f(x, data) + l1 ||x||_1`` independently in every lane of
     ``x0 [L, D]``.
@@ -84,7 +94,8 @@ def minimize_owlqn(
     ``[D]`` or ``[L, D]``. The history's values are F and its gradient
     norms those of the pseudo-gradient. Returns ``(x [L, D], RunHistory,
     made_progress [L])``, and the carry after them with ``return_carry``;
-    ``resume`` continues from a carry as ``minimize_lbfgs`` does.
+    ``resume`` continues from a carry as ``minimize_lbfgs`` does;
+    ``box`` and ``track_iterates`` are ``minimize_lbfgs``'s.
     """
     L, d = x0.shape
     dtype, dev = x0.dtype, x0.device
@@ -117,6 +128,7 @@ def minimize_owlqn(
     grad_norms = torch.full_like(values, float("nan"))
     values[:, 0] = f
     grad_norms[:, 0] = _norm(pg)
+    iterates = new_iterates(x, max_iter, track_iterates)
 
     while True:
         active = should_continue(it, f, prev_f, _norm(pg), f0, g0n,
@@ -147,7 +159,8 @@ def minimize_owlqn(
             if k >= _LS_MAX_STEPS or not host_flags(searching.any())[0]:
                 break
             x_a = x + a[:, None] * direction
-            x_a = torch.where(x_a * xi > 0.0, x_a, torch.zeros_like(x_a))
+            x_a = project_box(
+                torch.where(x_a * xi > 0.0, x_a, torch.zeros_like(x_a)), box)
             f_a, g_a = full_objective(x_a)
             ok = f_a <= f + _LS_C1 * _dot(pg, x_a - x)
             s2 = searching[:, None]
@@ -179,6 +192,7 @@ def minimize_owlqn(
             a1, grad_norms.scatter(1, slot, _norm(pg_acc)[:, None]),
             grad_norms)
         x = torch.where(a2, x_new, x)
+        iterates = record_iterate(iterates, slot[:, 0], x, active)
         g = torch.where(a2, g_new, g)
         pg = torch.where(a1, pg_acc, pg)
         prev_f = torch.where(active, f, prev_f)
@@ -186,7 +200,7 @@ def minimize_owlqn(
         made_progress = torch.where(active, accepted, made_progress)
         it = torch.where(active, it_new, it)
 
-    out = (x, RunHistory(values, grad_norms, it), made_progress)
+    out = (x, RunHistory(values, grad_norms, it, iterates), made_progress)
     if return_carry:
         return out + (LBFGSResume(x, f, g, prev_f, S, Y, rho, valid, head,
                                   f0, g0n),)

@@ -10,9 +10,12 @@ smooth objective; TRON, refused for the smoothed hinge at construction),
 ``run`` only (``run_lazy`` computes none, as in the JAX code), and
 ``regularization_value(_device)`` with both penalties. The
 ``optimizer.gradient`` fault point sits on the solver output (``:228``,
-``:272``), where a ``nan`` drill stands for a diverged solve. Box
-constraints, iterate tracking, the L1 mask and the sharded backend wait
-for later slices.
+``:272``), where a ``nan`` drill stands for a diverged solve. ``box``,
+``l1_mask`` and ``track_iterates`` are the JAX problem's (``:71-95``):
+the box and the iterates reach all three solvers, and the mask
+multiplies OWL-QN's ``l1`` vector (an intercept spared from the L1
+penalty). The shard_map backend, ``shard_weight_update`` and
+``collective_quant`` wait for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from photon_ml_tpu_torch.ops.aggregators import GLMObjective
 from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.optimize.common import (
+    BoxConstraints,
     DeferredOptimizationResult,
     OptimizationResult,
     RunHistory,
@@ -67,7 +71,12 @@ class GLMOptimizationProblem:
     config: GLMOptimizationConfiguration
     task: TaskType
     normalization: NormalizationContext = NormalizationContext()
+    box: Optional[BoxConstraints] = None
     compute_variances: bool = False
+    # multiplies OWL-QN's per-coordinate l1 (0 spares a coordinate)
+    l1_mask: Optional[Tensor] = None
+    # the accepted iterates in the result (--validate-per-iteration)
+    track_iterates: bool = False
 
     def __post_init__(self):
         select_solver(self.config, self.task)
@@ -86,11 +95,15 @@ class GLMOptimizationProblem:
         """One-lane solve, optimizer by the config -> (x [D], RunHistory
         [1, ...], progressed [1])."""
         cfg = self.config
-        l1 = cfg.regularization_context.l1_weight(cfg.regularization_weight)
+        l1 = torch.full_like(x0, cfg.regularization_context.l1_weight(
+            cfg.regularization_weight))
+        if self.l1_mask is not None:
+            l1 = l1 * self.l1_mask.to(device=x0.device, dtype=x0.dtype)
         x, history, progressed = minimize(
             select_solver(cfg, self.task), _one_lane_vg, _one_lane_hvp,
-            x0.unsqueeze(0), (obj, batch), torch.full_like(x0, l1),
-            cfg.max_iterations, cfg.tolerance)
+            x0.unsqueeze(0), (obj, batch), l1, cfg.max_iterations,
+            cfg.tolerance, box=self.box,
+            track_iterates=self.track_iterates)
         return x[0], history, progressed
 
     def publish(self, x: Tensor, history: RunHistory, progressed: Tensor,
@@ -163,14 +176,18 @@ def select_solver(cfg: GLMOptimizationConfiguration, task: TaskType) -> str:
 
 def minimize(solver: str, value_and_grad_fn, hvp_fn, x0: Tensor, data,
              l1: Tensor, max_iter: int, tolerance: float, resume=None,
-             return_carry: bool = False):
+             return_carry: bool = False,
+             box: Optional[BoxConstraints] = None,
+             track_iterates: bool = False):
     """Run ``solver`` (a :func:`select_solver` name) on every lane of
     ``x0 [L, D]``: ``l1 [D]`` is OWL-QN's weight, ``hvp_fn`` TRON's
-    Hessian-vector product. Returns ``(x, RunHistory, made_progress)``,
-    and the solver's carry after them with ``return_carry``; ``resume``
-    continues from such a carry."""
+    Hessian-vector product, ``box`` and ``track_iterates`` every solver's.
+    Returns ``(x, RunHistory, made_progress)``, and the solver's carry
+    after them with ``return_carry``; ``resume`` continues from such a
+    carry."""
     common = dict(max_iter=max_iter, tolerance=tolerance, resume=resume,
-                  return_carry=return_carry)
+                  return_carry=return_carry, box=box,
+                  track_iterates=track_iterates)
     if solver == "tron":
         return minimize_tron(value_and_grad_fn, hvp_fn, x0, data, **common)
     if solver == "owlqn":

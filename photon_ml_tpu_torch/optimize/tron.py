@@ -25,8 +25,11 @@ give the same numbers and were measured slower on the H100; PERF.md.)
 ``return_carry``/``resume`` carry the loop state with its trust region
 and failure count (:class:`TRONResume`), so a chunked solve equals the
 single one bit for bit; a resumed chunk never re-tightens the region.
-Left out, as in the port's L-BFGS: box constraints, iterate tracking and
-the sharded weight update.
+``box`` projects an accepted step and evaluates the objective again where
+that moved it (``tron.py:268-276``), decided by one more counted read an
+iteration as in the port's L-BFGS; ``track_iterates`` keeps the iterates
+(row ``it`` the accepted point). The sharded weight update is left for a
+later slice.
 """
 
 from __future__ import annotations
@@ -36,12 +39,19 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from photon_ml_tpu_torch.optimize.common import (
+    BoxConstraints,
     RunHistory,
     finite_step,
     host_flags,
     should_continue,
 )
-from photon_ml_tpu_torch.optimize.lbfgs import _dot, _norm
+from photon_ml_tpu_torch.optimize.lbfgs import (
+    _dot,
+    _norm,
+    new_iterates,
+    project_and_refresh,
+    record_iterate,
+)
 
 Tensor = torch.Tensor
 
@@ -140,6 +150,8 @@ def minimize_tron(
     max_failures: int = DEFAULT_MAX_FAILURES,
     resume: Optional[TRONResume] = None,
     return_carry: bool = False,
+    box: Optional[BoxConstraints] = None,
+    track_iterates: bool = False,
 ):
     """Trust-region Newton independently in every lane of ``x0 [L, D]``.
 
@@ -148,7 +160,8 @@ def minimize_tron(
     ``[L, D]``. Returns ``(x [L, D], RunHistory, made_progress [L])``; the
     history's iteration count counts accepted steps only. With
     ``return_carry`` the :class:`TRONResume` follows; ``resume`` continues
-    from one (``x0`` is ignored).
+    from one (``x0`` is ignored). ``box`` and ``track_iterates`` are
+    ``minimize_lbfgs``'s.
     """
     L, _ = x0.shape
     dev = x0.device
@@ -168,6 +181,7 @@ def minimize_tron(
     grad_norms = torch.full_like(values, float("nan"))
     values[:, 0] = f
     grad_norms[:, 0] = _norm(g)
+    iterates = new_iterates(x, max_iter, track_iterates)
     inf = torch.full_like(f, float("inf"))
 
     while True:
@@ -218,6 +232,8 @@ def minimize_tron(
 
         improved = active & finite_step(actual > _ETA0 * predicted, f_try,
                                         g_try)
+        x_try, f_try, g_try = project_and_refresh(
+            value_and_grad_fn, data, x_try, f_try, g_try, box, improved)
         i2 = improved[:, None]
         slot = torch.clamp(it + 1, max=max_iter)[:, None]
         values = torch.where(i2, values.scatter(1, slot, f_try[:, None]),
@@ -226,6 +242,7 @@ def minimize_tron(
             i2, grad_norms.scatter(1, slot, _norm(g_try)[:, None]),
             grad_norms)
         x = torch.where(i2, x_try, x)
+        iterates = record_iterate(iterates, slot[:, 0], x, improved)
         prev_f = torch.where(improved, f, prev_f)
         f = torch.where(improved, f_try, f)
         g = torch.where(i2, g_try, g)
@@ -237,7 +254,7 @@ def minimize_tron(
                                 failures + 1), failures)
         it = torch.where(improved, it + 1, it)
 
-    out = (x, RunHistory(values, grad_norms, it), made_progress)
+    out = (x, RunHistory(values, grad_norms, it, iterates), made_progress)
     if return_carry:
         return out + (TRONResume(x, f, g, prev_f, delta, failures, f0, g0n),)
     return out

@@ -1,10 +1,10 @@
 """Training event bus: emitter + listeners with typed event classes.
 
 Port of ``photon_ml_tpu/utils/events.py`` (reference: photon-ml event/
-EventEmitter.scala, Event.scala:27-66): ``EventEmitter`` and the events
-of the fault-tolerance layer; the legacy driver's setup, start, finish
-and optimization-log events come with that driver (ROADMAP Queue 1 item
-11). A listener that raises is contained: the failure is logged and
+EventEmitter.scala, Event.scala:27-66): ``EventEmitter`` with
+``register_listener_by_name`` (the legacy driver's ``--event-listeners``),
+the legacy driver's setup, start, finish and optimization-log events
+(``:25-54``) and the events of the fault-tolerance layer. A listener that raises is contained: the failure is logged and
 counted in :data:`LISTENER_ERRORS` and the other listeners still run. The JAX drivers also bridge events into the metrics stream
 (``obs/bridge.py``); the port has no telemetry yet, so its drivers'
 bus writes to the warn log only.
@@ -13,8 +13,9 @@ bus writes to the warn log only.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import threading
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 #: listener name -> contained exceptions in this process
 LISTENER_ERRORS: dict[str, int] = {}
@@ -23,6 +24,35 @@ LISTENER_ERRORS: dict[str, int] = {}
 @dataclasses.dataclass(frozen=True)
 class Event:
     """event/Event.scala base."""
+
+
+@dataclasses.dataclass(frozen=True)
+class PhotonSetupEvent(Event):
+    log_dir: str
+    input_path: str
+    params_summary: str
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainingStartEvent(Event):
+    timestamp: float
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainingFinishEvent(Event):
+    timestamp: float
+
+
+@dataclasses.dataclass(frozen=True)
+class PhotonOptimizationLogEvent(Event):
+    """One model's optimization record (Event.scala:60-66): the weight,
+    the optimizer's result, its validation metrics and, with
+    ``--validate-per-iteration``, the metrics of every iterate."""
+
+    regularization_weight: float
+    states: Any  # OptimizationResult
+    metrics: Optional[dict[str, float]] = None
+    per_iteration_metrics: Optional[list[dict[str, float]]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +126,16 @@ class EventEmitter:
     def register_listener(self, listener: EventListener) -> None:
         with self._lock:
             self._listeners.append(listener)
+
+    def register_listener_by_name(self, qualified_name: str) -> None:
+        """A listener from ``module.Class`` (instantiated) or
+        ``module.function`` (Driver.scala:110-118)."""
+        module_name, _, attr = qualified_name.rpartition(".")
+        if not module_name:
+            raise ValueError(
+                f"listener name {qualified_name!r} must be module-qualified")
+        obj = getattr(importlib.import_module(module_name), attr)
+        self.register_listener(obj() if isinstance(obj, type) else obj)
 
     def send_event(self, event: Event) -> None:
         """Dispatch ``event`` to every listener; a listener's exception is

@@ -9,14 +9,18 @@
   ``checkpoint``, ``preempt``, ``data/ingest``,
   ``tools/crash_resume_drill``), the native ingest modules
   (``io/native_loader``, ``io/native_avro``) and the down-sampling ones
-  (``utils/prng``, ``sampler/samplers``) are named in both checks.
+  (``utils/prng``, ``sampler/samplers``) and the single-GLM path's
+  (``training``, ``stat/summary``, ``data/validators``,
+  ``evaluation/model_evaluation``, ``diagnostics/*``,
+  ``cli/legacy_driver``, ``cli/libsvm_to_avro``) are named in both
+  checks.
 - No port source, C++ source or ``chip_smoke.py`` names a path under the
   JAX package's ``native/``: the port builds its own copies from
   ``csrc/host/``, and importing it builds nothing.
 - On a host without CUDA the entry points, called without
-  ``device="cpu"`` (or the drivers and the crash/resume drill without
-  ``--device cpu``), raise ``RuntimeError`` instead of running on the
-  CPU.
+  ``device="cpu"`` (or the drivers, the crash/resume drill and the
+  LibSVM converter without ``--device cpu``), raise ``RuntimeError``
+  instead of running on the CPU.
 - The kernel path has no ``try`` that could fall back, and the JAX
   package's ``PHOTON_DISABLE_PALLAS`` switch is not honoured by the port.
 """
@@ -56,8 +60,19 @@ SECOND_ORDER_MODULES = ["photon_ml_tpu_torch.optimize.owlqn",
                         "photon_ml_tpu_torch.optimize.tron"]
 SAMPLER_MODULES = ["photon_ml_tpu_torch.utils.prng",
                    "photon_ml_tpu_torch.sampler.samplers"]
+SINGLE_GLM_MODULES = [
+    "photon_ml_tpu_torch.training", "photon_ml_tpu_torch.stat.summary",
+    "photon_ml_tpu_torch.data.validators",
+    "photon_ml_tpu_torch.evaluation.model_evaluation",
+    "photon_ml_tpu_torch.diagnostics.diagnostics",
+    "photon_ml_tpu_torch.diagnostics.reporting",
+    "photon_ml_tpu_torch.diagnostics.reports",
+    "photon_ml_tpu_torch.diagnostics.transformers",
+    "photon_ml_tpu_torch.cli.legacy_driver",
+    "photon_ml_tpu_torch.cli.libsvm_to_avro"]
 NAMED_MODULES = (FAULT_TOLERANCE_MODULES + NATIVE_INGEST_MODULES
-                 + SECOND_ORDER_MODULES + SAMPLER_MODULES)
+                 + SECOND_ORDER_MODULES + SAMPLER_MODULES
+                 + SINGLE_GLM_MODULES)
 
 
 def _forbidden(module: str) -> bool:
@@ -87,14 +102,14 @@ def test_importing_every_submodule_leaves_jax_out():
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode == 0, out.stderr
     count, rest = out.stdout.split(" ", 1)
-    assert int(count) >= 48
+    assert int(count) >= 60
     assert rest.strip() == "[] [] None"
 
 
 def test_every_port_package_is_walked():
     subpackages = {p.parent.name for p in PKG.rglob("__init__.py")}
     assert {"cli", "io", "evaluation", "serve", "utils", "game", "ops",
-            "optimize", "data", "tools"} <= subpackages
+            "optimize", "data", "tools", "stat", "diagnostics"} <= subpackages
     walked = {p.relative_to(PKG).parts[0] for p in SOURCES
               if p.is_relative_to(PKG)}
     assert subpackages - {PKG.name} <= walked
@@ -108,7 +123,8 @@ def test_no_port_source_names_the_jax_native_dir():
     csrc = sorted((PKG / "csrc").rglob("*.c*"))
     assert {p.name for p in csrc} >= {"fused_value_gradient.cu",
                                       "avro_columnar.cpp",
-                                      "score_encoder.cpp"}
+                                      "score_encoder.cpp",
+                                      "libsvm_parser.cpp"}
     for path in SOURCES + csrc:
         text = path.read_text()
         assert not re.search(r"(?<![\w.-])native/", text), path.name
@@ -211,6 +227,52 @@ def test_drivers_refuse_cpu_without_being_asked(no_cuda, monkeypatch,
                   sections])
     assert not os.path.exists(tmp_path / "out")
     assert not os.path.exists(tmp_path / "score")
+    assert tpk.launch_count() == 0
+
+
+def test_single_glm_entry_points_refuse_cpu_without_being_asked(
+        no_cuda, monkeypatch, tmp_path):
+    import scipy.sparse as sp
+
+    from photon_ml_tpu_torch.cli import legacy_driver as tld
+    from photon_ml_tpu_torch.cli import libsvm_to_avro as tla
+    from photon_ml_tpu_torch.io import data_format as tdf
+    from photon_ml_tpu_torch.io.model_io import read_models_text
+    from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
+    from photon_ml_tpu_torch.ops.normalization import (
+        NormalizationContext, NormalizationType)
+    from photon_ml_tpu_torch.stat.summary import summarize
+
+    # a refused run must not start reading data or training on the CPU
+    monkeypatch.setattr(tld.LegacyDriver, "run", lambda self: pytest.fail(
+        "the legacy driver ran on the CPU"))
+    monkeypatch.setattr(tdf, "load_libsvm", lambda *a, **k: pytest.fail(
+        "the converter read data"))
+    monkeypatch.setattr(tla, "load_libsvm", tdf.load_libsvm)
+    libsvm = tmp_path / "d.libsvm"
+    libsvm.write_text("1 1:0.5\n")
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tld.main(["--training-data-directory", str(libsvm),
+                  "--output-directory", str(out),
+                  "--input-file-format", "LIBSVM",
+                  "--feature-dimension", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tla.main(["--input-path", str(libsvm), "--output-path",
+                  str(tmp_path / "d.avro"), "--feature-dimension", "1"])
+    assert not out.exists() and not (tmp_path / "d.avro").exists()
+    summary = summarize(sp.csr_matrix(np.eye(3)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NormalizationContext.build(NormalizationType.STANDARDIZATION,
+                                   summary, intercept_index=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        summarize(np.eye(3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GeneralizedLinearModel.zeros(3, tcfg.TaskType.LOGISTIC_REGRESSION)
+    (tmp_path / "m").mkdir()
+    (tmp_path / "m" / "part-00000.txt").write_text("a\t\t1.0\t1.0\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        read_models_text(str(tmp_path / "m"))
     assert tpk.launch_count() == 0
 
 
