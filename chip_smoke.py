@@ -170,6 +170,32 @@ Phases, one JSON line each on stdout:
    values, in both packages); (e) (b) without the diagnostics on the card and the CPU
    (objectives rel 1e-4). The kernel is held against its plain version
    on (a)'s and (b)'s real batches (x 2,048 staged, x 124 stream).
+12. wide_streamed — wide and streamed data: (a) ``bench.py:1966
+   bench_ingest``'s data (10,000,000 x 100,000, 8 non-zeros a row, 50,000
+   entities, seed 3): the native ELL pack against the numpy scatter
+   (equal, timed), ``ell_from_csr`` to the card, the in-RAM random-effect
+   build (cap 32, keep 64, INDEX_MAP) native-packed and numpy-packed
+   (equal), and the streamed build in ``bench.py:2021``'s 1,000,000-row
+   chunks into memmap blocks, equal to the in-RAM one array for array,
+   with host RSS peaks and the bytes on disk; (b) logistic L-BFGS + L2 on
+   that ELL batch (at most 30 iterations): two evaluations equal, an
+   evaluation timed against its bytes bound, a solve resumed from its
+   iteration-10 carry equal to the uninterrupted one, the first 200,000
+   rows solved on the card and the CPU (rel 1e-4), no kernel launch; (c)
+   one pipelined sweep of phase 5's GLMix with the per-user blocks in RAM
+   on the card, then built streamed into memmap files: states,
+   objectives and scores bit for bit, seconds and device memory; (d) a
+   wide GAME fixture (200,000 / 50,000 rows, 100,000 hashed global
+   features, 8 a row, a per-user bag over 2,000 users): the
+   feature-indexing job with the off-heap store, the training driver
+   plain, with ``--random-effect-blocks-dir`` and with that and the
+   off-heap store (models record for record and metrics equal, no kernel
+   launch: the global shard is ELL), a wrong partition count refused,
+   and the scoring driver with and without the store (equal scores);
+   (e) the legacy driver on an rcv1.binary-shaped LibSVM file (20,242 /
+   10,000 rows, 47,236 features, ~74 non-zeros a row) with validation
+   and every diagnostic, the best model's AUC read back and scored on
+   the card equal to metrics.json's (rel 1e-6).
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
@@ -2892,6 +2918,743 @@ def single_glm_phase(torch, dev, smi, workdir, bench_shape=BIG_SHAPE,
         max(big_err, a1a_err)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: wide and streamed data
+# ---------------------------------------------------------------------------
+
+#: bench.py:1966 bench_ingest's shape: rows, columns, non-zeros a row,
+#: entities, seed; bench.py:2021 bench_ingest_streamed's chunk
+INGEST = dict(n=10_000_000, d=100_000, nnz=8, entities=50_000, seed=3)
+INGEST_CHUNK = 1_000_000
+#: phase 12 (d): training / validation rows, hashed global features, users
+WIDE_ROWS = (200_000, 50_000)
+WIDE_FEATURES, WIDE_USERS = 100_000, 2_000
+WIDE_SECTIONS = "global:globalFeatures|user:userFeatures"
+#: phase 12 (e): rcv1.binary's training split (rows, features, mean
+#: non-zeros a row) and the validation rows
+RCV1 = dict(rows=20_242, d=47_236, nnz=74, val=10_000)
+#: the small-N slice of (b) solved on the card and the CPU
+WIDE_SLICE_ROWS = 200_000
+
+
+class RssPeak:
+    """The most this process's resident size (``VmRSS``) grew while the
+    block ran: a thread reads ``/proc/self/status`` every 5 ms. A memmap's
+    written pages count in it while they stay resident as file pages,
+    which the kernel can drop."""
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = self._read()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _read() -> int:
+        with open("/proc/self/status") as f:
+            return next(int(ln.split()[1]) * 1024 for ln in f
+                        if ln.startswith("VmRSS:"))
+
+    def _sample(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self._read())
+            time.sleep(0.005)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._read())
+        return False
+
+    def record(self) -> dict:
+        return {"peak_VmRSS_growth_bytes": self.peak - self.start}
+
+
+def ingest_data(n, d, nnz, entities, seed):
+    """bench.py:1966 bench_ingest's data: a canonical CSR of ``nnz``
+    sorted random columns a row, random labels and entity codes."""
+    import scipy.sparse as sp
+
+    from photon_ml_tpu_torch.game.dataset import GameDataset
+
+    rng = np.random.default_rng(seed)
+    cols = np.sort(rng.integers(0, d, size=(n, nnz), dtype=np.int32),
+                   axis=1).reshape(-1)
+    vals = rng.random(n * nnz).astype(np.float32)
+    indptr = np.arange(0, n * nnz + 1, nnz, dtype=np.int64)
+    mat = sp.csr_matrix((vals, cols, indptr), shape=(n, d))
+    mat.sum_duplicates()
+    y = rng.integers(0, 2, n).astype(np.float64)
+    codes = rng.integers(0, entities, n).astype(np.int64)
+    data = GameDataset(responses=y, feature_shards={"s": mat})
+    data.id_columns["u"] = codes
+    data.id_vocabs["u"] = np.arange(entities)
+    return data
+
+
+def _on(torch, a, dev):
+    return (a if isinstance(a, torch.Tensor)
+            else torch.from_numpy(np.asarray(a))).to(dev)
+
+
+def blocks_equal(torch, dev, a, b, page=1 << 20) -> dict:
+    """The in-RAM dataset ``a`` (one block or buckets) against the
+    streamed ``b`` array for array, each host (memmap) block copied to
+    ``dev`` in pages of ``page`` rows; returns the comparison by field."""
+    blocks = a.buckets if a.buckets is not None else [a]
+    eq = {"entity_codes": bool(np.array_equal(a.entity_codes,
+                                              b.entity_codes)),
+          "buckets": len(blocks) == len(b.buckets)}
+    for f in ("X", "labels", "base_offsets", "weights", "row_ids"):
+        eq[f] = all(
+            all(bool(torch.equal(_on(torch, x[lo:lo + page], dev),
+                                 _on(torch, y[lo:lo + page], dev)))
+                for lo in range(0, int(x.shape[0]), page))
+            for x, y in ((getattr(u, f), getattr(v, f))
+                         for u, v in zip(blocks, b.buckets)))
+    eq["num_passive"] = a.num_passive == b.num_passive
+    for f in ("passive_X", "passive_entity", "passive_row_ids",
+              "passive_offsets"):
+        x, y = getattr(a, f), getattr(b, f)
+        eq[f] = x is None and y is None or all(
+            bool(torch.equal(_on(torch, x[lo:lo + page], dev),
+                             _on(torch, y[lo:lo + page], dev)))
+            for lo in range(0, int(x.shape[0]), page))
+    if a.projectors is not None:
+        eq["projectors"] = bool(
+            np.array_equal(a.projectors.raw_indices,
+                           b.projectors.raw_indices)
+            and np.array_equal(a.projectors.reduced_dims,
+                               b.projectors.reduced_dims))
+    return eq
+
+
+def ingest_phase(torch, dev, workdir, shape=INGEST, chunk=INGEST_CHUNK):
+    """Phase 12 (a): the ELL pack and both random-effect builders at
+    bench_ingest's scale. Returns the record and the ELL batch for (b)."""
+    from photon_ml_tpu_torch.data.batch import ell_from_csr, ell_planes_numpy
+    from photon_ml_tpu_torch.game.dataset import (
+        RandomEffectDataConfiguration, build_random_effect_dataset,
+        build_random_effect_dataset_streamed, dataset_row_stream)
+    from photon_ml_tpu_torch.io.native_loader import (
+        get_host_lib, pack_ell_native)
+
+    rec = {"shape": dict(shape), "chunk_rows": chunk}
+    t0 = time.perf_counter()
+    data = ingest_data(**shape)
+    mat = data.feature_shards["s"]
+    n = mat.shape[0]
+    rec["data_secs"] = time.perf_counter() - t0
+    rec["nnz"] = int(mat.nnz)
+
+    # the host pack, native against the numpy scatter (the library
+    # loaded first: its build is not the pack's time)
+    get_host_lib()
+    k = -(-int(np.diff(mat.indptr).max()) // 8) * 8
+    idx = np.zeros((n, k), np.int32)
+    val = np.zeros((n, k), np.float32)
+    t0 = time.perf_counter()
+    pack_ell_native(mat.indptr, mat.indices, mat.data, k, idx, val)
+    rec["ell_native_pack_secs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_idx, want_val = ell_planes_numpy(mat, k)
+    rec["ell_numpy_pack_secs"] = time.perf_counter() - t0
+    rec["ell_native_equals_numpy"] = bool(
+        np.array_equal(idx, want_idx) and np.array_equal(val, want_val))
+    if not rec["ell_native_equals_numpy"]:
+        raise AssertionError("(a): the native ELL pack differs from the "
+                             "numpy scatter")
+    del idx, val, want_idx, want_val
+    rec["ell_pack_rows_per_sec"] = n / rec["ell_native_pack_secs"]
+    t0 = time.perf_counter()
+    ell = ell_from_csr(mat, data.responses, device=dev)
+    sync(torch, dev)
+    rec["ell_from_csr_secs"] = time.perf_counter() - t0
+    rec["ell_from_csr_rows_per_sec"] = n / rec["ell_from_csr_secs"]
+    rec["ell_k"] = k
+
+    cfg = RandomEffectDataConfiguration(
+        random_effect_type="u", feature_shard_id="s", num_partitions=1,
+        num_active_data_points_upper_bound=32,
+        num_features_to_keep_upper_bound=64)
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        ram = build_random_effect_dataset(data, cfg, device=dev)
+        sync(torch, dev)
+        rec["in_ram_secs"] = time.perf_counter() - t0
+    rec["in_ram"] = {"block": list(ram.X.shape),
+                     "passive_rows": ram.num_passive,
+                     "rows_per_sec": n / rec["in_ram_secs"], **rss.record()}
+    t0 = time.perf_counter()
+    plain = build_random_effect_dataset(data, cfg, device=dev,
+                                        native_pack=False)
+    rec["in_ram_numpy_pack_secs"] = time.perf_counter() - t0
+    rec["in_ram_native_equals_numpy_pack"] = bool(
+        torch.equal(ram.X, plain.X)
+        and torch.equal(ram.passive_X, plain.passive_X))
+    del plain
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if not rec["in_ram_native_equals_numpy_pack"]:
+        raise AssertionError("(a): native-packed index-map blocks differ "
+                             "from the numpy-packed ones")
+
+    blocks_dir = os.path.join(workdir, "ingest_blocks")
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        streamed = build_random_effect_dataset_streamed(
+            dataset_row_stream(data, cfg, chunk_rows=chunk), cfg,
+            raw_dim=mat.shape[1], blocks_dir=blocks_dir, device=dev)
+        sync(torch, dev)
+        rec["streamed_secs"] = time.perf_counter() - t0
+    rec["streamed"] = {
+        "blocks": [list(b.X.shape) for b in streamed.buckets],
+        "passive_rows": streamed.num_passive,
+        "bytes_on_disk": sum(os.path.getsize(os.path.join(blocks_dir, f))
+                             for f in os.listdir(blocks_dir)),
+        "files": sorted(os.listdir(blocks_dir)),
+        "rows_per_sec": n / rec["streamed_secs"], **rss.record()}
+    t0 = time.perf_counter()
+    eq = blocks_equal(torch, dev, ram, streamed)
+    rec["streamed_equals_in_ram"] = eq
+    rec["compare_secs"] = time.perf_counter() - t0
+    if not all(eq.values()):
+        raise AssertionError(f"(a): streamed and in-RAM blocks differ: {eq}")
+    del ram, streamed
+    shutil.rmtree(blocks_dir, ignore_errors=True)
+    return rec, ell
+
+
+def wide_solve_phase(torch, dev, ell, hbm, slice_rows=WIDE_SLICE_ROWS):
+    """Phase 12 (b): logistic L-BFGS + L2 on the ELL batch of (a)."""
+    from photon_ml_tpu_torch.data.batch import ell_from_csr
+    from photon_ml_tpu_torch.optimize import problem as pm
+    from photon_ml_tpu_torch.optimize.config import (
+        GLMOptimizationConfiguration, TaskType)
+
+    cfg = GLMOptimizationConfiguration.parse("30,1e-9,1.0,1,LBFGS,L2")
+    problem = pm.GLMOptimizationProblem(config=cfg,
+                                        task=TaskType.LOGISTIC_REGRESSION)
+    obj = problem.objective()
+    n, k = ell.indices.shape
+    d = ell.dim
+    t0 = time.perf_counter()
+    plan = ell.plan.build()
+    sync(torch, dev)
+    rec = {"n": n, "k": k, "d": d,
+           "nnz": int((ell.values != 0).sum()),
+           "plan_build_secs": time.perf_counter() - t0,
+           "plan_width": plan.width,
+           "plan_levels": len(plan.levels),
+           "plan_slots": int(plan.values.numel())}
+    w = torch.from_numpy(np.random.default_rng(5).normal(
+        size=d).astype(np.float32) * 0.01).to(dev)
+    f1, g1 = obj.calculate(w, ell)
+    f2, g2 = obj.calculate(w, ell)
+    rec["two_evaluations_equal"] = bool(torch.equal(f1, f2)
+                                        and torch.equal(g1, g2))
+    if not rec["two_evaluations_equal"]:
+        raise AssertionError("(b): two evaluations of the ELL objective "
+                             "differ")
+    if dev.type == "cuda":
+        rec["evaluation"] = cuda_times(torch, lambda: obj.calculate(w, ell),
+                                       reps=10)
+    # indices and values read once, labels, offsets and weights, w
+    rec["bytes_bound"] = {
+        "bytes": n * k * 8 + 12 * n + 4 * d,
+        "hbm_bytes_per_s": hbm,
+        "ms": (n * k * 8 + 12 * n + 4 * d) / hbm * 1e3}
+
+    reset_counts(torch, dev)
+    t0 = time.perf_counter()
+    model, result = problem.run(ell)
+    sync(torch, dev)
+    rec["solve_secs"] = time.perf_counter() - t0
+    rec["iterations"] = result.iterations
+    rec["convergence"] = result.convergence_reason.value
+    rec["value"] = result.value
+    rec["max_memory_allocated"] = peak_memory(torch, dev)
+    rec["kernel_launches"] = launch_counts()["by_path"]
+    if sum(rec["kernel_launches"].values()):
+        raise AssertionError("(b): an ELL batch reached the dense kernel")
+
+    # resume: the solve cut at half its measured iterations, its carry
+    # resumed for the rest of the 30
+    x0 = torch.zeros((1, d), dtype=torch.float32, device=dev)
+    l1 = torch.zeros(d, dtype=torch.float32, device=dev)
+    args = (pm._one_lane_vg, pm._one_lane_hvp)
+    full = pm.minimize("lbfgs", *args, x0, (obj, ell), l1, 30,
+                       cfg.tolerance)
+    done = int(full[1].num_iterations[0])
+    if done < 2:
+        raise AssertionError(f"(b): the solve ran {done} iteration(s), too "
+                             f"few to cut and resume")
+    split = done // 2
+    first = pm.minimize("lbfgs", *args, x0, (obj, ell), l1, split,
+                        cfg.tolerance, return_carry=True)
+    if int(first[1].num_iterations[0]) != split:
+        raise AssertionError(f"(b): the cut solve stopped before iteration "
+                             f"{split}")
+    resumed = pm.minimize("lbfgs", *args, x0, (obj, ell), l1, 30 - split,
+                          cfg.tolerance, resume=first[3])
+    rec["resume"] = {"iterations": done, "cut_at": split,
+                     "resumed_iterations":
+                         int(resumed[1].num_iterations[0]),
+                     "resumed_equals_uninterrupted":
+                         bool(torch.equal(resumed[0], full[0])),
+                     "solve_equals_problem_run":
+                         bool(torch.equal(full[0][0],
+                                          result.coefficients))}
+    if not all(rec["resume"][k] for k in ("resumed_equals_uninterrupted",
+                                          "solve_equals_problem_run")):
+        raise AssertionError(f"(b): resume: {rec['resume']}")
+
+    # the first slice_rows rows on the card and the CPU
+    import scipy.sparse as sp
+
+    host = {f: getattr(ell, f)[:slice_rows].cpu().numpy()
+            for f in ("indices", "values", "labels")}
+    m = len(host["labels"])
+    keep = host["values"].reshape(-1) != 0
+    sub = sp.csr_matrix(
+        (host["values"].reshape(-1)[keep],
+         (np.repeat(np.arange(m), k)[keep],
+          host["indices"].reshape(-1)[keep])), shape=(m, d))
+    values = {}
+    for where in ("cpu", str(dev)):
+        batch = ell_from_csr(sub, host["labels"], device=where)
+        values[where] = problem.run(batch)[1].value
+    rel = abs(values["cpu"] - values[str(dev)]) / abs(values["cpu"])
+    rec["slice_vs_cpu"] = {"rows": m,
+                           "values": values, "rel": rel}
+    if not rel <= 1e-4:
+        raise AssertionError(f"(b): the card's slice solve differs from "
+                             f"the CPU's (rel {rel:.3g})")
+    return rec
+
+
+def streamed_glmix_phase(torch, dev, data, workdir):
+    """Phase 12 (c): one pipelined sweep of the GLMix recipe with the
+    per-user blocks in RAM on the card, then with them built streamed into
+    memmap files on the host (the in-RAM blocks freed first): states,
+    objectives and scores bit for bit, seconds and device memory."""
+    from photon_ml_tpu_torch.game.coordinate import RandomEffectCoordinate
+    from photon_ml_tpu_torch.game.dataset import (
+        build_random_effect_dataset_streamed, dataset_row_stream)
+
+    runs, secs, mem, counts = {}, {}, {}, {}
+    coords = glmix_coordinates(data, dev)
+    re_cfg = coords["per-user"].dataset.config
+    problem = coords["per-user"].problem
+    blocks_dir = os.path.join(workdir, "glmix_blocks")
+
+    def device_bytes():
+        return (torch.cuda.memory_allocated() if dev.type == "cuda"
+                else None)
+
+    def sweep(name):
+        reset_counts(torch, dev)
+        held = device_bytes()
+        t0 = time.perf_counter()
+        runs[name] = run_coordinate_descent_sweep(torch, dev, data, coords)
+        secs[name] = time.perf_counter() - t0
+        peak = peak_memory(torch, dev)
+        mem[name] = {"held_before_bytes": held, "peak_bytes": peak,
+                     "peak_growth_bytes": (None if peak is None
+                                           else peak - held)}
+        counts[name] = launch_counts()
+
+    sweep("in_ram")
+    del coords["per-user"]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    streamed_ds = build_random_effect_dataset_streamed(
+        dataset_row_stream(data, re_cfg), re_cfg,
+        raw_dim=data.feature_shards["per_user"].shape[1], num_buckets=4,
+        blocks_dir=blocks_dir, device=dev)
+    build_secs = time.perf_counter() - t0
+    coords["per-user"] = RandomEffectCoordinate(dataset=streamed_ds,
+                                                problem=problem)
+    sweep("memmap")
+    eq = runs_equal(torch, runs["in_ram"], runs["memmap"], data, dev)
+    if not all_equal(eq):
+        raise AssertionError(f"(c): the memmap sweep differs from the "
+                             f"in-RAM sweep: {eq}")
+    rec = {"streamed_build_secs": build_secs,
+           "blocks": [list(b.X.shape) for b in streamed_ds.buckets],
+           "host_blocks": type(streamed_ds.buckets[0].X).__name__,
+           "passive_rows": streamed_ds.num_passive,
+           "bytes_on_disk": sum(
+               os.path.getsize(os.path.join(blocks_dir, f))
+               for f in os.listdir(blocks_dir)),
+           "objectives": [s.objective for s in runs["memmap"].states],
+           "equal": eq, "sweep_secs": secs, "device_memory": mem,
+           "launches_by_path": {k: v["by_path"] for k, v in counts.items()}}
+    del coords, streamed_ds, runs
+    shutil.rmtree(blocks_dir, ignore_errors=True)
+    return rec, counts["in_ram"]
+
+
+def run_coordinate_descent_sweep(torch, dev, data, coords):
+    """One pipelined sweep (``pipeline_depth=1``) of ``coords``."""
+    from photon_ml_tpu_torch.game.coordinate_descent import (
+        run_coordinate_descent)
+    from photon_ml_tpu_torch.optimize.config import TaskType
+
+    res = run_coordinate_descent(
+        coords, 1, TaskType.LOGISTIC_REGRESSION, data.responses,
+        data.weights, data.offsets, pipeline_depth=1, device=dev)
+    sync(torch, dev)
+    return res
+
+
+def _write_wide_rows(task: tuple) -> None:
+    """One Avro part of the wide fixture (a process-pool task): hashed
+    global features ``h<j>``, the user's bag ``b<j>``, ``userId``."""
+    from photon_ml_tpu_torch.io.avro import write_container
+    from photon_ml_tpu_torch.tools.crash_resume_drill import _glmix_schema
+
+    path, lo, hashed, values, labels, users, bag, bag_values = task
+
+    def records():
+        for i in range(len(labels)):
+            yield {"uid": str(lo + i), "response": float(labels[i]),
+                   "offset": None, "weight": None,
+                   "metadataMap": {"userId": str(users[i])},
+                   "globalFeatures": [
+                       {"name": f"h{j}", "term": "", "value": float(v)}
+                       for j, v in zip(hashed[i], values[i])],
+                   "userFeatures": [
+                       {"name": f"b{j}", "term": "", "value": float(v)}
+                       for j, v in zip(bag[i], bag_values[i])]}
+
+    write_container(path, _glmix_schema(), records())
+
+
+def write_wide_fixture(directory, rows=WIDE_ROWS, features=WIDE_FEATURES,
+                       users=WIDE_USERS, per_row=8, bag_size=32,
+                       bag_per_row=4, parts=(8, 2), seed=12) -> tuple:
+    """The wide GAME fixture of phase 12 (d) as directories of Avro parts
+    (a spawn pool writes them): ``per_row`` distinct hashed features of
+    ``features`` a row, ``bag_per_row`` of a ``bag_size`` per-user bag,
+    ``users`` power-law users, logistic labels from a sparse truth."""
+    import multiprocessing
+
+    rng = np.random.default_rng(seed)
+    n = sum(rows)
+    hashed = np.sort(rng.integers(0, features - per_row, (n, per_row)),
+                     axis=1)
+    # distinct within a row: a repeat moves to the next column
+    for j in range(1, per_row):
+        clash = hashed[:, j] <= hashed[:, j - 1]
+        hashed[clash, j] = hashed[clash, j - 1] + 1
+    values = rng.normal(size=(n, per_row)).astype(np.float32)
+    user = (rng.zipf(1.3, size=n) % users).astype(np.int64)
+    bag = np.sort(np.argsort(rng.random((n, bag_size)), axis=1)[
+        :, :bag_per_row], axis=1)
+    bag_values = rng.normal(size=(n, bag_per_row)).astype(np.float32)
+    w = rng.normal(size=features) * (rng.uniform(size=features) < 0.05)
+    w_user = rng.normal(size=(users, bag_size)) * 0.5
+    logits = (values * w[hashed]).sum(1) + (
+        bag_values * w_user[user[:, None], bag]).sum(1)
+    labels = (rng.uniform(size=n) < 1 / (1 + np.exp(-logits))).astype(
+        np.float64)
+    tasks, out = [], []
+    for name, lo, hi, k in (("train", 0, rows[0], parts[0]),
+                            ("validate", rows[0], n, parts[1])):
+        path = os.path.join(directory, name)
+        os.makedirs(path, exist_ok=True)
+        out.append(path)
+        bounds = np.linspace(lo, hi, k + 1).astype(np.int64)
+        for i in range(k):
+            a, b = int(bounds[i]), int(bounds[i + 1])
+            tasks.append((os.path.join(path, f"part-{i:05d}.avro"), a,
+                          hashed[a:b], values[a:b], labels[a:b], user[a:b],
+                          bag[a:b], bag_values[a:b]))
+    with multiprocessing.get_context("spawn").Pool(
+            min(len(tasks), os.cpu_count() or 1)) as pool:
+        pool.map(_write_wide_rows, tasks, chunksize=1)
+    return tuple(out)
+
+
+def wide_driver_argv(train, val, out, device, *extra) -> list:
+    return ["--train-input-dirs", train, "--validate-input-dirs", val,
+            "--output-dir", out, "--task-type", "LOGISTIC_REGRESSION",
+            "--feature-shard-id-to-feature-section-keys-map", WIDE_SECTIONS,
+            "--updating-sequence", "fixed,perUser", "--num-iterations", "1",
+            "--fixed-effect-data-configurations", "fixed:global,1",
+            "--fixed-effect-optimization-configurations",
+            "fixed:20,1e-7,10,1,LBFGS,L2",
+            "--random-effect-data-configurations",
+            "perUser:userId,user,1,128",
+            "--random-effect-optimization-configurations",
+            "perUser:20,1e-7,1,1,LBFGS,L2",
+            "--random-effect-block-buckets", "2",
+            "--evaluator-type", "AUC", "--device", device, *extra]
+
+
+def model_records(out) -> dict:
+    """Every file of ``out/best``: Avro files by their records (the
+    writer draws each file's sync marker at random), the rest by bytes."""
+    from photon_ml_tpu_torch.io.avro import read_records
+
+    recs = {}
+    best = os.path.join(out, "best")
+    for root, _, files in os.walk(best):
+        for f in files:
+            path = os.path.join(root, f)
+            recs[os.path.relpath(path, best)] = (
+                read_records(path) if f.endswith(".avro")
+                else open(path, "rb").read())
+    return recs
+
+
+def metrics_without_seconds(out) -> dict:
+    metrics = json.load(open(os.path.join(out, "metrics.json")))
+    for grid in metrics["grid"]:
+        for s in grid["states"]:
+            s.pop("seconds")
+    return metrics
+
+
+def wide_drivers_phase(torch, dev, workdir, rows=WIDE_ROWS,
+                       features=WIDE_FEATURES, users=WIDE_USERS):
+    """Phase 12 (d): the feature-indexing job and the GAME drivers on a
+    wide fixture: plain, ``--random-effect-blocks-dir``, and that with the
+    off-heap store; the scoring driver with and without the store."""
+    from photon_ml_tpu_torch.cli import feature_indexing_job
+    from photon_ml_tpu_torch.cli import game_scoring_driver
+    from photon_ml_tpu_torch.cli import game_training_driver
+    from photon_ml_tpu_torch.io.model_io import load_scored_items
+
+    device = str(dev)
+    secs, launches, rec = {}, {}, {}
+    t0 = time.perf_counter()
+    train, val = write_wide_fixture(os.path.join(workdir, "fixture"), rows,
+                                    features, users)
+    secs["fixture_write"] = time.perf_counter() - t0
+    store = os.path.join(workdir, "store")
+    t0 = time.perf_counter()
+    feature_indexing_job.main([
+        "--input-paths", train, "--output-dir", store,
+        "--feature-shard-id-to-feature-section-keys-map", WIDE_SECTIONS,
+        "--num-partitions", "4", "--offheap", "true"])
+    secs["feature_indexing_job"] = time.perf_counter() - t0
+    blocks = ["--random-effect-blocks-dir", os.path.join(workdir, "blocks")]
+    offheap = ["--offheap-indexmap-dir", store,
+               "--offheap-indexmap-num-partitions", "4"]
+    outs = {}
+    for name, extra in (("plain", []), ("blocks", blocks),
+                        ("blocks_offheap", blocks + offheap)):
+        outs[name] = os.path.join(workdir, name)
+        reset_counts(torch, dev)
+        t0 = time.perf_counter()
+        drv = game_training_driver.run(wide_driver_argv(
+            train, val, outs[name], device, *extra))
+        sync(torch, dev)
+        secs[f"train_{name}"] = time.perf_counter() - t0
+        launches[name] = launch_counts()
+        rec[name] = {"phase_seconds": drv.phase_seconds,
+                     "max_memory_allocated": peak_memory(torch, dev),
+                     "global_dim": int(drv.train_data.feature_shards[
+                         "global"].shape[1]),
+                     "kernel_launches": launches[name]["by_path"]}
+        if sum(launches[name]["by_path"].values()):
+            raise AssertionError(f"(d) {name}: the ELL fixed effect "
+                                 f"launched the dense kernel")
+        del drv
+    models = {k: model_records(v) for k, v in outs.items()}
+    metrics = {k: metrics_without_seconds(v) for k, v in outs.items()}
+    same = {k: {"models": models[k] == models["plain"],
+                "metrics": metrics[k] == metrics["plain"]}
+            for k in ("blocks", "blocks_offheap")}
+    if not all(all(v.values()) for v in same.values()):
+        raise AssertionError(f"(d): the runs differ: {same}")
+    try:
+        game_training_driver.run(wide_driver_argv(
+            train, val, os.path.join(workdir, "wrong"), device,
+            "--offheap-indexmap-dir", store,
+            "--offheap-indexmap-num-partitions", "3"))
+    except ValueError as e:
+        wrong = str(e)
+    else:
+        raise AssertionError("(d): a wrong partition count was accepted")
+    if "built with 4 partitions, but 3" not in wrong:
+        raise AssertionError(f"(d): unexpected refusal: {wrong}")
+    scores = {}
+    for name, extra in (("plain", []), ("offheap", offheap)):
+        out = os.path.join(workdir, f"score_{name}")
+        t0 = time.perf_counter()
+        game_scoring_driver.main([
+            "--input-data-dirs", val, "--game-model-input-dir",
+            os.path.join(outs["blocks_offheap"], "best"),
+            "--output-dir", out,
+            "--feature-shard-id-to-feature-section-keys-map", WIDE_SECTIONS,
+            "--random-effect-id-set", "userId", "--device", device, *extra])
+        secs[f"score_{name}"] = time.perf_counter() - t0
+        scores[name] = np.asarray([
+            r["predictionScore"] for f in sorted(os.listdir(
+                os.path.join(out, "scores")))
+            for r in load_scored_items(os.path.join(out, "scores", f))])
+    if not (len(scores["plain"]) == rows[1]
+            and np.array_equal(scores["plain"], scores["offheap"])):
+        raise AssertionError("(d): the scoring driver's scores differ with "
+                             "the off-heap store")
+    (grid,) = metrics["plain"]["grid"]
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"rows": list(rows), "hashed_features": features,
+            "users": users, "runs": rec, "equal_to_plain": same,
+            "wrong_partitions_refusal": wrong,
+            "objectives": [s["objective"] for s in grid["states"]],
+            "validation_auc": [s["validation_metrics"]["AUC"]
+                               for s in grid["states"]],
+            "scores_equal_with_offheap": True,
+            "stage_seconds": secs}, launches
+
+
+def write_rcv1_like(directory, shape=RCV1, seed=31) -> tuple:
+    """rcv1.binary-shaped LibSVM files by numpy: ``shape["rows"]`` training
+    and ``shape["val"]`` validation rows over ``shape["d"]`` features,
+    row lengths log-normal around ``shape["nnz"]`` (at most 800), column
+    popularity power-law, unit-norm non-negative values (tf-idf-like),
+    labels from a sparse truth."""
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    d = shape["d"]
+    cdf = np.cumsum(1.0 / np.arange(1, d + 1) ** 0.8)
+    cdf /= cdf[-1]
+    w = rng.normal(size=d) * (rng.uniform(size=d) < 0.1)
+    paths = []
+    for name, n in (("train", shape["rows"]), ("test", shape["val"])):
+        lens = np.clip(rng.lognormal(np.log(shape["nnz"]) - 0.18, 0.6, n),
+                       1, 800).astype(np.int64)
+        lines = []
+        for ln in lens:
+            cols = np.unique(np.minimum(
+                np.searchsorted(cdf, rng.random(ln)), d - 1))
+            vals = rng.uniform(0.05, 1.0, len(cols))
+            vals /= np.sqrt((vals ** 2).sum())
+            y = "+1" if vals @ w[cols] * 8 + rng.normal() > 0 else "-1"
+            lines.append(y + " " + " ".join(
+                f"{c + 1}:{v:.6f}" for c, v in zip(cols, vals)))
+        path = os.path.join(directory, f"{name}.libsvm")
+        with open(path, "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+        paths.append(path)
+    return tuple(paths)
+
+
+def wide_legacy_phase(torch, dev, workdir, shape=RCV1, diagnostics="ALL"):
+    """Phase 12 (e): the legacy driver on an rcv1-shaped LibSVM file with
+    validation and the diagnostics; the best model's AUC read back and
+    scored on the card against metrics.json."""
+    from photon_ml_tpu_torch.data.batch import EllBatch
+    from photon_ml_tpu_torch.evaluation.model_evaluation import (
+        AREA_UNDER_RECEIVER_OPERATOR_CHARACTERISTICS as AUC, evaluate_model)
+    from photon_ml_tpu_torch.io.index_map import (
+        IndexMap, feature_key, split_feature_key)
+    from photon_ml_tpu_torch.io.model_io import read_models_text
+    from photon_ml_tpu_torch.optimize.config import TaskType
+
+    secs = {}
+    t0 = time.perf_counter()
+    train, test = write_rcv1_like(os.path.join(workdir, "libsvm"), shape)
+    secs["fixture_write"] = time.perf_counter() - t0
+    out = os.path.join(workdir, "out")
+    reset_counts(torch, dev)
+    t0 = time.perf_counter()
+    drv, grid_launches, _ = run_legacy(legacy_argv(
+        train, test, out, str(dev), "--input-file-format", "LIBSVM",
+        "--feature-dimension", str(shape["d"]), "--diagnostic-mode",
+        diagnostics))
+    sync(torch, dev)
+    secs["driver"] = time.perf_counter() - t0
+    for name in ("best", "metrics.json", "diagnostic-report.html"):
+        if not os.path.exists(os.path.join(out, name)):
+            raise AssertionError(f"(e): {name} was not written")
+    vbatch = drv._validation_batch()
+    if not isinstance(vbatch, EllBatch):
+        raise AssertionError("(e): the wide validation batch is not ELL")
+    metrics = json.load(open(os.path.join(out, "metrics.json")))
+    # the TSV names a LibSVM column "<j>" with an empty term: the key the
+    # reader builds is "<j>\u0001", the identity map's "<j>"
+    tsv_keys = IndexMap({feature_key(*split_feature_key(k)): v
+                         for k, v in drv.train_data.index_map.items()})
+    (best_lam, best_glm), = read_models_text(
+        os.path.join(out, "best"), tsv_keys, TaskType.LOGISTIC_REGRESSION,
+        device=dev)
+    scored = evaluate_model(best_glm, vbatch)
+    auc_json = metrics[str(drv.best_lambda)][AUC]
+    rel = abs(scored[AUC] - auc_json) / auc_json
+    if best_lam != drv.best_lambda or not rel <= 1e-6:
+        raise AssertionError(f"(e): best model AUC {scored[AUC]} != "
+                             f"metrics.json's {auc_json}")
+    rec = {"shape": dict(shape), "diagnostic_mode": diagnostics,
+           "train_nnz": int(drv.train_data.features.nnz),
+           "ell_k": int(vbatch.indices.shape[1]),
+           "phase_seconds": drv.phase_seconds,
+           "best_lambda": drv.best_lambda, "best_auc_json": auc_json,
+           "best_auc_rescored": scored[AUC], "best_auc_rel_diff": rel,
+           "per_lambda": [{"lambda": m.regularization_weight,
+                           "iterations": m.result.iterations,
+                           "convergence": m.result.convergence_reason.value,
+                           "value": m.result.value} for m in drv.models],
+           "grid_launches": grid_launches.get("by_path"),
+           "max_memory_allocated": peak_memory(torch, dev),
+           "stage_seconds": secs}
+    shutil.rmtree(workdir, ignore_errors=True)
+    return rec
+
+
+def wide_streamed_phase(torch, dev, smi, data, workdir, hbm,
+                        ingest=INGEST, slice_rows=WIDE_SLICE_ROWS,
+                        wide=(WIDE_ROWS, WIDE_FEATURES, WIDE_USERS),
+                        rcv1=RCV1, diagnostics="ALL"):
+    """Phase 12: wide and streamed data (the keyword arguments cut it
+    down for a dry run on the CPU). Returns the phase record and the
+    kernel's launches in (c)'s in-RAM sweep."""
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir, exist_ok=True)
+    record = {"phase": "wide_streamed", "nvidia_smi": smi}
+    t0 = time.perf_counter()
+    record["a_ingest"], ell = ingest_phase(torch, dev, workdir, ingest)
+    record["a_ingest"]["seconds"] = time.perf_counter() - t0
+    print("phase 12 (a): " + json.dumps(record["a_ingest"]),
+          file=sys.stderr, flush=True)
+    t1 = time.perf_counter()
+    record["b_wide_solve"] = wide_solve_phase(torch, dev, ell, hbm,
+                                              slice_rows)
+    record["b_wide_solve"]["seconds"] = time.perf_counter() - t1
+    del ell
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print("phase 12 (b): " + json.dumps(record["b_wide_solve"]),
+          file=sys.stderr, flush=True)
+    t1 = time.perf_counter()
+    record["c_streamed_glmix"], c_launches = streamed_glmix_phase(
+        torch, dev, data, workdir)
+    record["c_streamed_glmix"]["seconds"] = time.perf_counter() - t1
+    print("phase 12 (c): " + json.dumps(record["c_streamed_glmix"]),
+          file=sys.stderr, flush=True)
+    t1 = time.perf_counter()
+    record["d_drivers"], _ = wide_drivers_phase(
+        torch, dev, os.path.join(workdir, "drivers"), *wide)
+    record["d_drivers"]["seconds"] = time.perf_counter() - t1
+    print("phase 12 (d): " + json.dumps(record["d_drivers"]),
+          file=sys.stderr, flush=True)
+    t1 = time.perf_counter()
+    record["e_legacy"] = wide_legacy_phase(
+        torch, dev, os.path.join(workdir, "legacy"), rcv1, diagnostics)
+    record["e_legacy"]["seconds"] = time.perf_counter() - t1
+    shutil.rmtree(workdir, ignore_errors=True)
+    record["seconds"] = time.perf_counter() - t0
+    return record, c_launches
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -3202,6 +3965,11 @@ def main() -> int:
         torch, dev, smi, os.path.join(build, "single_glm"))
     emit(single)
 
+    # -- 12. wide and streamed data ------------------------------------------
+    wide, wide_launches = wide_streamed_phase(
+        torch, dev, smi, data, os.path.join(build, "wide_streamed"), hbm)
+    emit(wide)
+
     # -- kernels line, card line, result ---------------------------------------
     cd_runs = {f"cd_{k}": v for k, v in cd_launches.items()}
     fac_runs = {f"factored_{k}": v for k, v in fac_launches.items()}
@@ -3216,12 +3984,14 @@ def main() -> int:
             **{k: v["by_path"] for k, v in second_order_runs.items()},
             **{k: v["by_path"] for k, v in cd_runs.items()},
             **{k: v["by_path"] for k, v in fac_runs.items()},
-            **{k: v["by_path"] for k, v in single_launches.items()}}
+            **{k: v["by_path"] for k, v in single_launches.items()},
+            "wide_streamed_c_in_ram": wide_launches["by_path"]}
     by_loss = {"glmix": glmix_by_loss, "driver": phase["launches_by_loss"],
                **{k: v["by_loss"] for k, v in second_order_runs.items()},
                **{k: v["by_loss"] for k, v in cd_runs.items()},
                **{k: v["by_loss"] for k, v in fac_runs.items()},
-               **{k: v["by_loss"] for k, v in single_launches.items()}}
+               **{k: v["by_loss"] for k, v in single_launches.items()},
+               "wide_streamed_c_in_ram": wide_launches["by_loss"]}
     total_by_path = {p: sum(r[p] for r in runs.values())
                      for p in by_path}
     main = timings[(*GLMIX_SHAPE, "float32", "stream", "logistic")]

@@ -11,9 +11,11 @@ response, the evaluators with one device fetch.
 The flags are the JAX driver's plus ``--device`` (default ``cuda``).
 ``--max-shard-loss-frac`` quarantines corrupt or unreadable part files
 within its budget, as the JAX driver does (``:196-213``); over it the run
-ends with exit 3. Not ported yet, and refused with
-``NotImplementedError`` through ``clean_abort``: ``--num-processes > 1``,
-``--offheap-indexmap-dir`` and the telemetry flags.
+ends with exit 3. ``--offheap-indexmap-dir`` reads the feature maps
+from a pre-built off-heap store (``--offheap-indexmap-num-partitions``
+must match it; ``:75-79``, ``:160-165``). Not ported yet, and refused
+with ``NotImplementedError`` through ``clean_abort``:
+``--num-processes > 1`` and the telemetry flags.
 """
 
 from __future__ import annotations
@@ -91,8 +93,6 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
 def check_unported(ns: argparse.Namespace) -> None:
     refuse_unported(ns, [
         ("--num-processes", ns.num_processes > 1, "multi-process scoring"),
-        ("--offheap-indexmap-dir", ns.offheap_indexmap_dir,
-         "the off-heap index store"),
         ("--trace-dir", ns.trace_dir, "telemetry"),
         ("--telemetry-endpoint", ns.telemetry_endpoint, "telemetry"),
         ("--device-telemetry", ns.device_telemetry, "telemetry"),
@@ -134,7 +134,9 @@ class GameScoringDriver:
 
         index_maps = resolve_index_maps(
             self.section_keys, self.intercept_map,
-            feature_set_path=ns.feature_name_and_term_set_path)
+            feature_set_path=ns.feature_name_and_term_set_path,
+            offheap_dir=ns.offheap_indexmap_dir,
+            offheap_partitions=ns.offheap_indexmap_num_partitions)
         with timed_phase("loadModel", self.logger, self.phase_seconds):
             model, index_maps = load_scoring_model(
                 ns.game_model_input_dir, index_maps)

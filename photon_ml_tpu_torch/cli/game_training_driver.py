@@ -36,11 +36,19 @@ coordinate's dataset has one block whatever
 ``--random-effect-block-buckets`` says, its per-entity problem takes the
 lane chunk and its latent problem no variance flag (``:582-597``); a
 factored config for a coordinate that is not a random effect of the
-updating sequence is refused (``:1010-1029``). Flags whose feature is not
-ported yet raise ``NotImplementedError`` naming the flag and end the run
-through ``clean_abort`` (exit 3): multi-process runs and their
-supervision, the off-heap index store, the streamed random-effect
-builder, entity sharding, bf16, quantized collectives and telemetry.
+updating sequence is refused (``:1010-1029``).
+``--random-effect-blocks-dir`` builds each (non-factored) random effect
+through the streamed builder with its feature blocks as memmap files
+under ``<dir>/<coordinate id>`` (``:604-619``), which the solver copies
+to the card a bucket at a time; ``--offheap-indexmap-dir`` reads the
+feature maps from a pre-built off-heap store, one namespace per shard,
+instead of scanning the data, and ``--offheap-indexmap-num-partitions``
+must match the store's partition count (``prepare_feature_maps``,
+``:459-479``). A feature shard wider than 4,096 columns trains as an
+ELL batch. Flags whose feature is not ported yet raise
+``NotImplementedError`` naming the flag and end the run through
+``clean_abort`` (exit 3): multi-process runs and their supervision,
+entity sharding, bf16, quantized collectives and telemetry.
 
 Validation rows are matched to the trained per-entity models by raw id:
 the validation id columns are re-encoded against the training vocabulary
@@ -99,6 +107,8 @@ from photon_ml_tpu_torch.game.dataset import (
     RandomEffectDataConfiguration,
     build_fixed_effect_dataset,
     build_random_effect_dataset,
+    build_random_effect_dataset_streamed,
+    dataset_row_stream,
 )
 from photon_ml_tpu_torch.game.random_effect import (
     AUTO_COMPACTION_CHUNK,
@@ -108,6 +118,7 @@ from photon_ml_tpu_torch.io.data_format import (
     NameAndTermFeatureSets,
     load_game_dataset_avro,
 )
+from photon_ml_tpu_torch.io.feature_index_job import load_feature_index
 from photon_ml_tpu_torch.io.index_map import IndexMap
 from photon_ml_tpu_torch.io.model_io import save_game_model
 from photon_ml_tpu_torch.optimize.config import (
@@ -264,10 +275,6 @@ def check_unported(ns: argparse.Namespace) -> None:
         ("--num-processes", ns.num_processes > 1, "multi-process runs"),
         ("--max-worker-restarts", ns.max_worker_restarts > 0,
          "worker supervision"),
-        ("--offheap-indexmap-dir", ns.offheap_indexmap_dir,
-         "the off-heap index store"),
-        ("--random-effect-blocks-dir", ns.random_effect_blocks_dir,
-         "the streamed random-effect builder"),
         ("--re-entity-shards", ns.re_entity_shards != 1,
          "entity sharding"),
         ("--precision", ns.precision != "f32", "bf16 storage"),
@@ -350,8 +357,21 @@ class GameTrainingDriver:
 
     def prepare_feature_maps(self) -> None:
         """GAMEDriver.prepareFeatureMaps: per-shard index maps from the
-        feature name-and-term sets (a saved set directory, else a scan of
-        the training data)."""
+        off-heap store of ``--offheap-indexmap-dir``, else from the feature
+        name-and-term sets (a saved set directory, else a scan of the
+        training data)."""
+        if self.ns.offheap_indexmap_dir:
+            # offheap=True, not the autodetect: a directory without the
+            # off-heap store fails instead of loading its JSON maps
+            # unchecked against the partition count
+            self.index_maps.update(load_feature_index(
+                self.ns.offheap_indexmap_dir, sorted(self.section_keys),
+                offheap=True,
+                expected_partitions=self.ns.offheap_indexmap_num_partitions))
+            self.logger.info(
+                f"off-heap feature maps: "
+                f"{ {k: len(v) for k, v in self.index_maps.items()} }")
+            return
         all_sections = sorted({s for secs in self.section_keys.values()
                                for s in secs})
         if self.ns.feature_name_and_term_set_path:
@@ -442,10 +462,22 @@ class GameTrainingDriver:
                     latent_dim=mf_cfg.num_factors,
                     num_inner_iterations=mf_cfg.max_number_iterations)
             elif cid in self.random_data_configs:
-                ds = build_random_effect_dataset(
-                    self.train_data, self.random_data_configs[cid],
-                    num_buckets=max(1, self.ns.random_effect_block_buckets),
-                    device=self.device)
+                data_cfg = self.random_data_configs[cid]
+                num_buckets = max(1, self.ns.random_effect_block_buckets)
+                if self.ns.random_effect_blocks_dir:
+                    ds = build_random_effect_dataset_streamed(
+                        dataset_row_stream(self.train_data, data_cfg),
+                        data_cfg,
+                        raw_dim=self.train_data.feature_shards[
+                            data_cfg.feature_shard_id].shape[1],
+                        num_buckets=num_buckets,
+                        blocks_dir=os.path.join(
+                            self.ns.random_effect_blocks_dir, cid),
+                        device=self.device)
+                else:
+                    ds = build_random_effect_dataset(
+                        self.train_data, data_cfg, num_buckets=num_buckets,
+                        device=self.device)
                 coords[cid] = RandomEffectCoordinate(
                     dataset=ds, problem=RandomEffectOptimizationProblem(
                         config=random_cfgs.get(

@@ -26,10 +26,14 @@ Driver.scala:142-638):
 The flags are the JAX driver's, so one argv runs either package; the
 Spark-era flags are accepted and ignored, and ``--device`` is added
 (default ``cuda``; no fallback to the CPU). ``--offheap-indexmap-dir``
-and ``--offheap-indexmap-num-partitions`` are refused by name (exit 3):
-the off-heap index store is not ported yet. An input wider than the
-dense layout's 4,096 columns raises in ``csr_to_batch``, as the GAME
-drivers do.
+reads the Avro input's feature map from the ``global`` namespace of a
+pre-built off-heap store instead of scanning the data, and
+``--offheap-indexmap-num-partitions`` must match the store
+(``:204-205``, ``:299-308``). An input wider than 4,096 columns trains
+as an ELL batch (``csr_to_batch``), whose margins go through
+``batch.margins`` and whose grid metrics through the ELL form of
+``evaluate_model_grid``; the validation batch is built once
+(``_validation_batch``), since an ELL pack is not free.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli import clean_abort, clean_abort_types
-from photon_ml_tpu_torch.cli.args import add_device_flag, refuse_unported
+from photon_ml_tpu_torch.cli.args import add_device_flag
 from photon_ml_tpu_torch.data.validators import (
     DataValidationType,
     sanity_check_data,
@@ -74,6 +78,7 @@ from photon_ml_tpu_torch.io.data_format import (
     load_libsvm,
     parse_constraint_map,
 )
+from photon_ml_tpu_torch.io.index_map import OffHeapIndexMap
 from photon_ml_tpu_torch.io.model_io import write_models_text
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_ml_tpu_torch.ops.normalization import (
@@ -149,6 +154,8 @@ class LegacyParams:
     compute_variance: bool = False
     delete_output_dirs_if_exist: bool = False
     event_listeners: Sequence[str] = ()
+    offheap_indexmap_dir: Optional[str] = None
+    offheap_indexmap_num_partitions: Optional[int] = None
     device: str = "cuda"
 
     def validate(self) -> None:
@@ -228,24 +235,11 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_unported(ns: argparse.Namespace) -> None:
-    """``NotImplementedError`` for a flag of the off-heap index store."""
-    refuse_unported(ns, [
-        ("--offheap-indexmap-dir", ns.offheap_indexmap_dir is not None,
-         "the off-heap index store"),
-        ("--offheap-indexmap-num-partitions",
-         ns.offheap_indexmap_num_partitions is not None,
-         "the off-heap index store"),
-    ])
-
-
 def parse_args(argv: Sequence[str]) -> LegacyParams:
     """PhotonMLCmdLineParser analog; raises ``ValueError`` for a
     combination the reference refuses (TRON with L1, a validation
-    diagnostic without validation data, LibSVM without a dimension) and
-    ``NotImplementedError`` for an unported flag."""
+    diagnostic without validation data, LibSVM without a dimension)."""
     ns = _parser().parse_args(argv)
-    check_unported(ns)
     params = LegacyParams(
         training_data_directory=ns.training_data_directory,
         validating_data_directory=ns.validating_data_directory,
@@ -274,6 +268,8 @@ def parse_args(argv: Sequence[str]) -> LegacyParams:
         delete_output_dirs_if_exist=parse_flag(
             ns.delete_output_dirs_if_exist),
         event_listeners=[x for x in ns.event_listeners.split(",") if x],
+        offheap_indexmap_dir=ns.offheap_indexmap_dir,
+        offheap_indexmap_num_partitions=ns.offheap_indexmap_num_partitions,
         device=ns.device,
     )
     params.validate()
@@ -330,6 +326,15 @@ class LegacyDriver(EventEmitter):
                        else RESPONSE_PREDICTION_FIELD_NAMES)
         index_map = (self.train_data.index_map
                      if self.train_data is not None else None)
+        if index_map is None and p.offheap_indexmap_dir:
+            # InputFormatFactory.scala:49-60: the pre-built store replaces
+            # the scan of the data for features
+            index_map = OffHeapIndexMap(
+                p.offheap_indexmap_dir, namespace="global",
+                expected_partitions=p.offheap_indexmap_num_partitions)
+            self.logger.info(
+                f"off-heap index map: {len(index_map)} features from "
+                f"{p.offheap_indexmap_dir}")
         return load_labeled_points_avro(
             path, field_names, index_map=index_map,
             selected_features_file=p.selected_features_file,
@@ -639,9 +644,10 @@ class LegacyDriver(EventEmitter):
 def run(argv: Optional[Sequence[str]] = None) -> LegacyDriver:
     """Run the driver; returns it (``models``, ``per_lambda_metrics``,
     ``best_lambda``, ``phase_seconds``; the models and ``metrics.json``
-    are on disk). An unported flag ends the run with the ``PHOTON_ABORT``
-    line and exit code 3; a refused combination of flags raises
-    ``ValueError``; a missing CUDA device raises ``RuntimeError``."""
+    are on disk). A recognized terminal condition ends the run with the
+    ``PHOTON_ABORT`` line and exit code 3; a refused combination of flags
+    raises ``ValueError``; a missing CUDA device raises
+    ``RuntimeError``."""
     try:
         params = parse_args(list(argv) if argv is not None
                             else sys.argv[1:])

@@ -5,7 +5,9 @@ Port of ``photon_ml_tpu/evaluation/model_evaluation.py:44-163``
 ``select_best_model``; reference Evaluation.scala:32-152 and
 ModelSelection.scala). The margins of the whole grid are one
 ``[L, D] x [D, N]`` ``torch.matmul`` plus the batch's offsets (a plain
-product, which the JAX package leaves to XLA as well); every metric of
+product, which the JAX package leaves to XLA as well), or on an ELL batch
+the gather ``W[:, indices]`` times the values, summed over the row's
+slots, plus the offsets; every metric of
 ``evaluation/metrics.py`` then runs per model on the device, in
 ``_metric_names`` order, and the ``[num_metrics, L]`` result comes back in
 one host fetch. The metrics take the margins, labels and weights in f64,
@@ -21,6 +23,7 @@ from typing import Mapping, Sequence
 
 import torch
 
+from photon_ml_tpu_torch.data.batch import EllBatch
 from photon_ml_tpu_torch.evaluation import metrics
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.ops.losses import get_loss
@@ -91,7 +94,8 @@ def _model_metrics(task: TaskType, labels, z, weights, k: int) -> list:
 def evaluate_model_grid(models: Sequence[GeneralizedLinearModel],
                         batch) -> list[dict[str, float]]:
     """Metric maps of a whole grid of models of one task and width on a
-    dense batch: one product for the margins, one host fetch."""
+    dense or ELL batch: one product (or gather) for the margins, one host
+    fetch."""
     if not models:
         return []
     task = models[0].task
@@ -104,10 +108,14 @@ def evaluate_model_grid(models: Sequence[GeneralizedLinearModel],
                 f"evaluate_model_grid requires homogeneous coefficient "
                 f"dimensions: model 0 has shape {tuple(dim)} but model {i} "
                 f"has {tuple(m.coefficients.means.shape)}")
-    X = batch.X.to(batch.acc_dtype)
-    W = torch.stack([m.coefficients.means.to(device=X.device, dtype=X.dtype)
+    acc = batch.acc_dtype
+    W = torch.stack([m.coefficients.means.to(device=batch.device, dtype=acc)
                      for m in models])
-    margins = torch.matmul(W, X.T) + batch.offsets  # [L, N]
+    if isinstance(batch, EllBatch):
+        gathered = W[:, batch.indices.long()]  # [L, N, K]
+        margins = (gathered * batch.values.to(acc)).sum(-1) + batch.offsets
+    else:
+        margins = torch.matmul(W, batch.X.to(acc).T) + batch.offsets
     packed = torch.stack([
         torch.stack(_model_metrics(task, batch.labels, z, batch.weights,
                                    W.shape[1]))

@@ -138,7 +138,7 @@ class FixedEffectCoordinate:
 
     @property
     def device(self) -> torch.device:
-        return self.dataset.batch.X.device
+        return self.dataset.batch.device
 
     def initial_state(self) -> Tensor:
         """Zero f32 coefficients in normalized space."""
@@ -192,8 +192,8 @@ class RandomEffectCoordinate:
 
     @property
     def device(self) -> torch.device:
-        b = self.dataset.buckets
-        return (b[0].X if b is not None else self.dataset.X).device
+        """The dataset's device (its feature blocks may be host memmaps)."""
+        return self.dataset.device
 
     def initial_state(self) -> Tensor:
         return torch.zeros((self.dataset.num_entities,

@@ -27,6 +27,16 @@ and every padded slot carries an exact zero into the discard slot
 ``num_samples``, so a non-accumulating ``scatter_`` gives the same result
 as ``segment_sum`` in any order.
 
+Host blocks: a dataset built by the streamed builder with a
+``blocks_dir`` keeps its feature blocks (``bucket.X``, ``passive_X``) as
+``np.memmap`` files on the host, where the JAX package hands the memmap
+to a jitted call that copies it to the device on each call. Here the copy
+is explicit: ``_run_bucketed`` and ``score_random_effect`` copy one
+bucket at a time to the dataset's device (:func:`device_block`) and drop
+it after use, and ``score_passive`` pages passive rows in pages of
+``PASSIVE_PAGE_ROWS``. The device sees the same values in the same
+shapes, so a run on host blocks equals the in-RAM run bit for bit.
+
 Entity sharding waits for the multi-GPU slice.
 """
 
@@ -138,6 +148,18 @@ class ChunkAutoTuner:
             c //= 2
         self._chunks[key] = min(max(c, self.MIN_CHUNK),
                                 _pow2_at_most(max_iterations - 1))
+
+
+#: passive rows scored per page (one page below this count)
+PASSIVE_PAGE_ROWS = 1 << 22
+
+
+def device_block(block, device: torch.device) -> Tensor:
+    """A feature block on ``device``: a device tensor as it is, a host
+    (memmap) array copied there."""
+    if isinstance(block, torch.Tensor):
+        return block
+    return torch.from_numpy(np.asarray(block)).to(device)
 
 
 def _vg(w: Tensor, payload) -> tuple[Tensor, Tensor]:
@@ -335,22 +357,26 @@ class RandomEffectOptimizationProblem:
         """Per-bucket solves assembled into one compact global block in
         bucket-major entity order (``random_effect.py:895-954``)."""
         d_red = dataset.reduced_dim
-        acc = acc_dtype_for(dataset.buckets[0].X.dtype)
+        dev = dataset.device
         obj = self.objective()
-        initial_acc = None if initial is None else initial.to(acc)
         outs = []
         for bucket, off_b in zip(dataset.buckets, offsets):
-            e_b, _, d_b = bucket.X.shape
+            # a host block is copied here and dropped after its solve
+            X = device_block(bucket.X, dev)
+            acc = acc_dtype_for(X.dtype)
+            e_b, _, d_b = X.shape
             nr, start = bucket.num_real, bucket.entity_start
-            dev = bucket.X.device
-            if initial_acc is None:
+            if initial is None:
                 x0_b = torch.zeros((e_b, d_b), dtype=acc, device=dev)
             else:
                 x0_b = torch.nn.functional.pad(
-                    initial_acc[start:start + nr, :d_b], (0, 0, 0, e_b - nr))
+                    initial.to(acc)[start:start + nr, :d_b],
+                    (0, 0, 0, e_b - nr))
             outs.append(self._fit(
-                bucket.X, bucket.labels, off_b.to(acc), bucket.weights, x0_b,
+                X, bucket.labels, off_b.to(acc), bucket.weights, x0_b,
                 obj, torch.full((d_b,), l1, dtype=acc, device=dev), solver))
+            del X
+        acc = outs[0][0].dtype  # the solver state's
         pairs = list(zip(dataset.buckets, outs))
         coefs = torch.cat([
             torch.nn.functional.pad(c[:b.num_real],
@@ -384,13 +410,19 @@ def score_active(X: Tensor, coefs: Tensor, row_ids: Tensor, weights: Tensor,
     return flat[:num_samples]
 
 
-def score_passive(passive_X: Tensor, passive_entity: Tensor, coefs: Tensor,
+def score_passive(passive_X, passive_entity: Tensor, coefs: Tensor,
                   passive_row_ids: Tensor, num_samples: int) -> Tensor:
-    """Score passive rows with their entity's model (gather + row dot)."""
-    w = coefs[passive_entity]
-    margins = (passive_X * w).sum(-1)
-    flat = margins.new_zeros(num_samples + 1)
-    flat.scatter_(0, passive_row_ids, margins)
+    """Score passive rows with their entity's model (gather + row dot), in
+    pages of ``PASSIVE_PAGE_ROWS`` rows (``passive_X`` may be a host
+    memmap; a row's dot does not depend on the page)."""
+    flat = None
+    for lo in range(0, int(passive_X.shape[0]), PASSIVE_PAGE_ROWS):
+        hi = lo + PASSIVE_PAGE_ROWS
+        X = device_block(passive_X[lo:hi], coefs.device)
+        margins = (X * coefs[passive_entity[lo:hi]]).sum(-1)
+        if flat is None:
+            flat = margins.new_zeros(num_samples + 1)
+        flat.scatter_(0, passive_row_ids[lo:hi], margins)
     return flat[:num_samples]
 
 
@@ -402,11 +434,13 @@ def score_random_effect(dataset: RandomEffectDataset,
     if dataset.buckets is not None:
         s = coefs.new_zeros(n, dtype=torch.float32)
         for b in dataset.buckets:
-            e_b, _, d_b = b.X.shape
+            X = device_block(b.X, coefs.device)
+            e_b, _, d_b = X.shape
             c_b = coefs.new_zeros((e_b, d_b))
             c_b[:b.num_real] = coefs[b.entity_start:b.entity_start
                                      + b.num_real, :d_b]
-            s = s + score_active(b.X, c_b, b.row_ids, b.weights, n)
+            s = s + score_active(X, c_b, b.row_ids, b.weights, n)
+            del X
     else:
         s = score_active(dataset.X, coefs, dataset.row_ids, dataset.weights,
                          n)

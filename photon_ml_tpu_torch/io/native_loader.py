@@ -1,21 +1,27 @@
 """Build and load the port's host library (``csrc/host/*.cpp``) on first use.
 
-Port of ``photon_ml_tpu/io/native_loader.py`` for what the GAME ingest,
-the scoring paths and the legacy LibSVM loader run: ``get_native_lib``
-becomes :func:`get_host_lib`, and ``parse_libsvm_native`` (``:216-247``)
-and ``encode_scores_native`` (``:250-295``) are ported as they are. The
-sources are the port's own copies of the JAX package's columnar Avro
-decoder, ScoringResultAvro encoder and LibSVM parser. ``g++`` compiles both into one
-shared library under the git-ignored ``photon_ml_tpu_torch/_build/``,
-with the reference Makefile's flags, through the build helpers of
-``ops/kernels_build.py``: the file name carries a hash of the sources,
-the flags and the host, and processes building it at once write
-per-process ``.tmp`` files that are renamed into place.
+Port of ``photon_ml_tpu/io/native_loader.py``: ``get_native_lib`` becomes
+:func:`get_host_lib`, and ``pack_ell_native``/``pack_projected_rows_native``
+(``:149-213``), ``parse_libsvm_native`` (``:216-247``) and
+``encode_scores_native`` (``:250-295``) are ported with their shape
+checks. The sources are the port's own copies of the JAX package's
+columnar Avro decoder, ScoringResultAvro encoder, LibSVM parser and
+entity-block packer. ``g++`` compiles them into one shared library under
+the git-ignored ``photon_ml_tpu_torch/_build/``, with the reference
+Makefile's flags, through the build helpers of ``ops/kernels_build.py``:
+the file name carries a hash of the sources, the flags and the host, and
+processes building it at once write per-process ``.tmp`` files that are
+renamed into place.
 
 Unlike the reference there is no fallback: a missing compiler, a failed
 build or a library that does not load raises ``RuntimeError`` (with the
-compiler's output), and nothing disables the library. The block packer
-and the sanitizer build are not ported yet.
+compiler's output), nothing disables the library, and the packers return
+nothing to fall back on. :func:`build_sanitized` builds the same sources
+with ASan+UBSan and ``-fno-sanitize-recover=all`` into a file of its own
+(the reference Makefile's ``sanitize`` target); a process started with
+``PHOTON_TORCH_HOST_LIB`` set to that file loads it instead of the
+optimized build (the sanitizer replay,
+``photon_ml_tpu_torch/tools/host_replay.py``).
 """
 
 from __future__ import annotations
@@ -34,9 +40,14 @@ from photon_ml_tpu_torch.ops import kernels_build
 
 HOST_DIR = os.path.join(kernels_build.CSRC_DIR, "host")
 HOST_SOURCES = ("avro_columnar.cpp", "score_encoder.cpp",
-                "libsvm_parser.cpp")
+                "libsvm_parser.cpp", "block_packer.cpp")
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-pthread",
              "-shared")
+SANITIZE_FLAGS = ("-O1", "-g", "-std=c++17", "-fPIC", "-pthread", "-shared",
+                  "-fno-omit-frame-pointer", "-fsanitize=address,undefined",
+                  "-fno-sanitize-recover=all")
+#: a prebuilt host library to load instead of the optimized build
+ENV_HOST_LIB = "PHOTON_TORCH_HOST_LIB"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -44,12 +55,33 @@ _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
 
 
-def _library_path() -> str:
+def _library_path(stem: str = "photon_host", flags=CXX_FLAGS) -> str:
     # -march=native code runs on the host that built it: the host is part
     # of the key, so a build directory copied to another machine rebuilds
     return kernels_build.cached_library(
-        "photon_host", [os.path.join(HOST_DIR, s) for s in HOST_SOURCES],
-        CXX_FLAGS, salt=f"{platform.node()}/{platform.machine()}")
+        stem, [os.path.join(HOST_DIR, s) for s in HOST_SOURCES],
+        flags, salt=f"{platform.node()}/{platform.machine()}")
+
+
+def _build(out: str, flags, what: str) -> dict:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(
+            "g++ not found on PATH: the port's host library is "
+            "built from csrc/host/ on first use")
+    job = kernels_build.start_build(
+        [cxx, *flags, *(os.path.join(HOST_DIR, s) for s in HOST_SOURCES)],
+        out)
+    return kernels_build.finish_build(job, what)
+
+
+def build_sanitized() -> str:
+    """Path of the ASan+UBSan build of the host sources, compiled when it
+    is missing; raises ``RuntimeError`` when the build fails."""
+    out = _library_path("photon_host_sanitize", SANITIZE_FLAGS)
+    if not os.path.exists(out):
+        _build(out, SANITIZE_FLAGS, "csrc/host/*.cpp with ASan+UBSan")
+    return out
 
 
 def _bind_scores(lib: ctypes.CDLL) -> None:
@@ -86,27 +118,48 @@ def _bind_libsvm(lib: ctypes.CDLL) -> None:
     lib.photon_libsvm_close.argtypes = [ctypes.c_void_p]
 
 
+def _bind_packers(lib: ctypes.CDLL) -> None:
+    nd = np.ctypeslib.ndpointer
+    lib.photon_pack_projected_rows.restype = ctypes.c_int
+    lib.photon_pack_projected_rows.argtypes = [
+        ctypes.c_int64,
+        nd(np.int64, flags="C_CONTIGUOUS"),
+        nd(np.int32, flags="C_CONTIGUOUS"),
+        nd(np.float32, flags="C_CONTIGUOUS"),
+        nd(np.int64, flags="C_CONTIGUOUS"),
+        nd(np.int64, flags="C_CONTIGUOUS"),
+        nd(np.int32, flags="C_CONTIGUOUS"),
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        nd(np.float32, flags="C_CONTIGUOUS"),
+    ]
+    lib.photon_pack_ell.restype = ctypes.c_int
+    lib.photon_pack_ell.argtypes = [
+        ctypes.c_int64,
+        nd(np.int64, flags="C_CONTIGUOUS"),
+        nd(np.int32, flags="C_CONTIGUOUS"),
+        nd(np.float32, flags="C_CONTIGUOUS"),
+        ctypes.c_int64,
+        nd(np.int32, flags="C_CONTIGUOUS"),
+        nd(np.float32, flags="C_CONTIGUOUS"),
+    ]
+
+
 def get_host_lib() -> ctypes.CDLL:
-    """The loaded host library, compiled with ``g++`` on first use;
-    raises ``RuntimeError`` when it cannot be built or loaded."""
+    """The loaded host library, compiled with ``g++`` on first use (or
+    the prebuilt file ``PHOTON_TORCH_HOST_LIB`` names); raises
+    ``RuntimeError`` when it cannot be built or loaded."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        out = _library_path()
+        out = os.environ.get(ENV_HOST_LIB) or _library_path()
         if os.path.exists(out):
             BUILD_INFO.update(seconds=0.0, log="reused " + out)
+        elif os.environ.get(ENV_HOST_LIB):
+            raise RuntimeError(f"{ENV_HOST_LIB}={out} does not exist")
         else:
-            cxx = shutil.which("g++")
-            if cxx is None:
-                raise RuntimeError(
-                    "g++ not found on PATH: the port's host library is "
-                    "built from csrc/host/ on first use")
-            job = kernels_build.start_build(
-                [cxx, *CXX_FLAGS,
-                 *(os.path.join(HOST_DIR, s) for s in HOST_SOURCES)], out)
-            BUILD_INFO.update(kernels_build.finish_build(
-                job, "csrc/host/*.cpp with g++"))
+            BUILD_INFO.update(_build(out, CXX_FLAGS,
+                                     "csrc/host/*.cpp with g++"))
         try:
             lib = ctypes.CDLL(out)
         except OSError as e:
@@ -114,8 +167,73 @@ def get_host_lib() -> ctypes.CDLL:
                                f"{e}") from e
         _bind_scores(lib)
         _bind_libsvm(lib)
+        _bind_packers(lib)
         _lib = lib
         return _lib
+
+
+def pack_ell_native(indptr: np.ndarray, indices: np.ndarray,
+                    data: np.ndarray, k: int, out_idx: np.ndarray,
+                    out_val: np.ndarray) -> None:
+    """CSR -> fixed-width ELL planes (``photon_pack_ell``). Both outputs
+    must be zeroed C-contiguous ``[n, k]``; raises ``ValueError`` for a
+    shape the C loop would overrun, a row longer than ``k`` or any other
+    refusal."""
+    lib = get_host_lib()
+    n = len(indptr) - 1
+    for a in (out_idx, out_val):
+        if not a.flags.c_contiguous:
+            raise ValueError("ELL outputs must be C-contiguous")
+        if a.shape != (n, k):
+            # the C loop strides r*k through the buffer
+            raise ValueError(f"ELL output shape {a.shape} != ({n}, {k})")
+    nnz = int(indptr[-1]) if len(indptr) else 0
+    if len(indices) < nnz or len(data) < nnz:
+        raise ValueError("indices/data shorter than indptr[-1]")
+    rc = lib.photon_pack_ell(
+        n, np.ascontiguousarray(indptr, np.int64),
+        np.ascontiguousarray(indices, np.int32),
+        np.ascontiguousarray(data, np.float32), k,
+        out_idx.reshape(-1), out_val.reshape(-1))
+    if rc != 0:
+        raise ValueError(f"native ELL pack failed with code {rc}")
+
+
+def pack_projected_rows_native(sub, table_of: np.ndarray,
+                               out_row_of: np.ndarray,
+                               raw_indices: np.ndarray,
+                               out: np.ndarray) -> None:
+    """Stream ``sub``'s (CSR) stored elements into ``out`` rows through
+    per-entity sorted feature tables (``photon_pack_projected_rows``):
+    row ``r`` goes to flat row ``out_row_of[r]`` through table
+    ``table_of[r]``; columns absent from the table are skipped. ``out`` is
+    a zeroed C-contiguous f32 array whose last axis is the tables' width
+    ``d_red``; ``raw_indices [n_tables, d_red]`` ascending with pad
+    sentinels. Raises ``ValueError`` on a shape or index the C loop
+    refuses."""
+    lib = get_host_lib()
+    indptr = np.ascontiguousarray(sub.indptr, np.int64)
+    indices = np.ascontiguousarray(sub.indices, np.int32)
+    data = np.ascontiguousarray(sub.data, np.float32)
+    table_of = np.ascontiguousarray(table_of, np.int64)
+    out_row_of = np.ascontiguousarray(out_row_of, np.int64)
+    raw_indices = np.ascontiguousarray(raw_indices, np.int32)
+    n_tables, d_red = raw_indices.shape
+    if not out.flags.c_contiguous:
+        # a reshape of a non-contiguous array copies: the writes would
+        # land in the discarded temporary
+        raise ValueError("out must be C-contiguous")
+    flat = out.reshape(-1, out.shape[-1])
+    if flat.shape[1] != d_red:
+        raise ValueError(
+            f"out last dim {flat.shape[1]} != table width {d_red}")
+    if len(table_of) != sub.shape[0] or len(out_row_of) != sub.shape[0]:
+        raise ValueError("table_of/out_row_of need one entry per row")
+    rc = lib.photon_pack_projected_rows(
+        sub.shape[0], indptr, indices, data, table_of, out_row_of,
+        raw_indices, n_tables, d_red, flat.shape[0], flat)
+    if rc != 0:
+        raise ValueError(f"native block pack failed with code {rc}")
 
 
 def parse_libsvm_native(path: str, zero_based: bool

@@ -127,7 +127,7 @@ class GLMOptimizationProblem:
 
     def _x0(self, batch, initial: Optional[Tensor]) -> Tensor:
         return solver_x0(batch.acc_dtype, batch.num_features, initial,
-                         batch.X.device)
+                         batch.device)
 
     def run(self, batch, initial: Optional[Tensor] = None
             ) -> tuple[GeneralizedLinearModel, OptimizationResult]:

@@ -1,13 +1,12 @@
 """Scoring core: feature maps, model load, the summed coordinate score.
 
 Port of ``photon_ml_tpu/serve/scoring.py:58-107`` — ``resolve_index_maps``
-(name-term set files, else the model files' own maps),
-``load_scoring_model``, ``materialize_model`` (projected and factored
-random effects converted to raw space once, ``:86-100``; a model read
-from disk holds raw ones already) and ``score_game_dataset``. The
+(an off-heap store, else name-term set files, else the model files' own
+maps), ``load_scoring_model``, ``materialize_model`` (projected and
+factored random effects converted to raw space once, ``:86-100``; a model
+read from disk holds raw ones already) and ``score_game_dataset``. The
 always-on ``ServingScorer``, its tiered coefficient stores and the serve
-plane come in a later slice; the off-heap index store comes with
-``--offheap-indexmap-dir``.
+plane come in a later slice.
 """
 
 from __future__ import annotations
@@ -22,17 +21,25 @@ from photon_ml_tpu_torch.game.models import (
     RandomEffectModelInProjectedSpace,
 )
 from photon_ml_tpu_torch.io.data_format import NameAndTermFeatureSets
+from photon_ml_tpu_torch.io.feature_index_job import load_feature_index
 from photon_ml_tpu_torch.io.model_io import load_game_model
 
 
 def resolve_index_maps(section_keys: dict[str, list[str]],
                        intercept_map: dict[str, bool],
-                       feature_set_path: Optional[str] = None) -> dict:
-    """Feature index maps for scoring: from the name-term set files when
-    given, else ``{}`` (``load_game_model`` then rebuilds them from the
-    model files)."""
+                       feature_set_path: Optional[str] = None,
+                       offheap_dir: Optional[str] = None,
+                       offheap_partitions: Optional[int] = None) -> dict:
+    """Feature index maps for scoring, by precedence: the off-heap store of
+    ``offheap_dir`` (one namespace per shard; a missing store fails), the
+    name-term set files, else ``{}`` (``load_game_model`` then rebuilds
+    them from the model files)."""
     index_maps: dict = {}
-    if feature_set_path:
+    if offheap_dir:
+        index_maps.update(load_feature_index(
+            offheap_dir, sorted(section_keys), offheap=True,
+            expected_partitions=offheap_partitions))
+    elif feature_set_path:
         all_sections = sorted({s for secs in section_keys.values()
                                for s in secs})
         sets = NameAndTermFeatureSets.load(feature_set_path, all_sections)

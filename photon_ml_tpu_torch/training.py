@@ -79,7 +79,7 @@ def train_glm_grid(
         start = init
         if initial_by_weight is not None and lam in initial_by_weight:
             start = torch.as_tensor(initial_by_weight[lam],
-                                    device=batch.X.device)
+                                    device=batch.device)
         model, result = problem.run(batch, initial=start)
         out.append(TrainedModel(lam, model, result))
         if warm_start:

@@ -101,8 +101,9 @@ FAULT_POINTS: dict[str, FaultPointInfo] = {
         modes=("raise", "io_error", "corrupt", "partial", "flaky"),
         has_path=True),
     "io.index_map": FaultPointInfo(
-        "on a feature name-and-term set load (io/data_format.py "
-        "NameAndTermFeatureSets.load); tag = directory basename",
+        "on a feature index-map load (io/index_map.py IndexMap.load / "
+        "OffHeapIndexMap; tag = namespace), io/data_format.py "
+        "NameAndTermFeatureSets.load (tag = directory basename)",
         modes=("raise", "io_error", "flaky", "slow")),
 }
 

@@ -12,8 +12,10 @@
   (``utils/prng``, ``sampler/samplers``) and the single-GLM path's
   (``training``, ``stat/summary``, ``data/validators``,
   ``evaluation/model_evaluation``, ``diagnostics/*``,
-  ``cli/legacy_driver``, ``cli/libsvm_to_avro``) are named in both
-  checks.
+  ``cli/legacy_driver``, ``cli/libsvm_to_avro``) and the wide and
+  streamed data's (``data/batch``, ``io/index_map``,
+  ``io/feature_index_job``, ``cli/feature_indexing_job``,
+  ``tools/host_replay``) are named in both checks.
 - No port source, C++ source or ``chip_smoke.py`` names a path under the
   JAX package's ``native/``: the port builds its own copies from
   ``csrc/host/``, and importing it builds nothing.
@@ -23,6 +25,13 @@
   instead of running on the CPU.
 - The kernel path has no ``try`` that could fall back, and the JAX
   package's ``PHOTON_DISABLE_PALLAS`` switch is not honoured by the port.
+- The wide and streamed builders (``csr_to_batch`` over 4,096 columns,
+  ``build_random_effect_dataset_streamed``) raise without CUDA unless
+  given ``device="cpu"``; a failed host build raises from the block
+  packers instead of returning ``False``; the flags ported with them
+  (``--offheap-indexmap-dir``, ``--offheap-indexmap-num-partitions``,
+  ``--random-effect-blocks-dir``) are no longer refused, while the
+  still-unported ones end with exit 3.
 """
 
 import ast
@@ -70,9 +79,14 @@ SINGLE_GLM_MODULES = [
     "photon_ml_tpu_torch.diagnostics.transformers",
     "photon_ml_tpu_torch.cli.legacy_driver",
     "photon_ml_tpu_torch.cli.libsvm_to_avro"]
+WIDE_STREAMED_MODULES = [
+    "photon_ml_tpu_torch.data.batch", "photon_ml_tpu_torch.io.index_map",
+    "photon_ml_tpu_torch.io.feature_index_job",
+    "photon_ml_tpu_torch.cli.feature_indexing_job",
+    "photon_ml_tpu_torch.tools.host_replay"]
 NAMED_MODULES = (FAULT_TOLERANCE_MODULES + NATIVE_INGEST_MODULES
                  + SECOND_ORDER_MODULES + SAMPLER_MODULES
-                 + SINGLE_GLM_MODULES)
+                 + SINGLE_GLM_MODULES + WIDE_STREAMED_MODULES)
 
 
 def _forbidden(module: str) -> bool:
@@ -124,7 +138,8 @@ def test_no_port_source_names_the_jax_native_dir():
     assert {p.name for p in csrc} >= {"fused_value_gradient.cu",
                                       "avro_columnar.cpp",
                                       "score_encoder.cpp",
-                                      "libsvm_parser.cpp"}
+                                      "libsvm_parser.cpp",
+                                      "block_packer.cpp"}
     for path in SOURCES + csrc:
         text = path.read_text()
         assert not re.search(r"(?<![\w.-])native/", text), path.name
@@ -308,3 +323,104 @@ def test_kernel_build_is_not_triggered_by_import():
     from photon_ml_tpu_torch.ops import kernels_build
 
     assert kernels_build._LIBS == {}
+
+
+def test_wide_and_streamed_builders_refuse_cpu_without_being_asked(no_cuda,
+                                                                   tmp_path):
+    import scipy.sparse as sp
+
+    wide = sp.random(4, 5000, density=0.01, format="csr",
+                     random_state=np.random.RandomState(0))
+    y = np.array([0.0, 1.0, 1.0, 0.0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tds.csr_to_batch(wide, y, np.zeros(4), np.ones(4))
+    batch = tds.csr_to_batch(wide, y, np.zeros(4), np.ones(4), device="cpu")
+    assert batch.device == torch.device("cpu") and batch.dim == 5000
+    data = _tiny_dataset()
+    cfg = tds.RandomEffectDataConfiguration("u", "g")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tds.build_random_effect_dataset_streamed(
+            tds.dataset_row_stream(data, cfg), cfg, raw_dim=3,
+            blocks_dir=str(tmp_path / "blocks"))
+    assert not (tmp_path / "blocks").exists()
+    ds = tds.build_random_effect_dataset_streamed(
+        tds.dataset_row_stream(data, cfg), cfg, raw_dim=3, device="cpu")
+    assert ds.device == torch.device("cpu")
+
+
+def test_failed_host_build_raises_from_the_packers(monkeypatch, tmp_path):
+    from photon_ml_tpu_torch.io import native_loader
+    from photon_ml_tpu_torch.ops import kernels_build
+
+    monkeypatch.setattr(kernels_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native_loader, "_lib", None)
+    monkeypatch.delenv(native_loader.ENV_HOST_LIB, raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    out = (np.zeros((1, 1), np.int32), np.zeros((1, 1), np.float32))
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        native_loader.pack_ell_native(np.array([0, 1]), np.array([0]),
+                                      np.array([1.0]), 1, *out)
+    import scipy.sparse as sp
+
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        native_loader.pack_projected_rows_native(
+            sp.csr_matrix(np.ones((1, 1))), np.zeros(1), np.zeros(1),
+            np.zeros((1, 1), np.int32), out[1])
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        native_loader.build_sanitized()
+    monkeypatch.setenv(native_loader.ENV_HOST_LIB, str(tmp_path / "x.so"))
+    with pytest.raises(RuntimeError, match="does not exist"):
+        native_loader.get_host_lib()
+
+
+PORTED_FLAGS = [
+    ["--offheap-indexmap-dir", "idx"],
+    ["--offheap-indexmap-dir", "idx", "--offheap-indexmap-num-partitions",
+     "2"],
+    ["--random-effect-blocks-dir", "blk"]]
+STILL_UNPORTED = [
+    ("--re-entity-shards", ["--re-entity-shards", "2"]),
+    ("--precision", ["--precision", "bf16"]),
+    ("--num-processes", ["--num-processes", "2"]),
+    ("--trace-dir", ["--trace-dir", "trace"]),
+    ("--telemetry-endpoint", ["--telemetry-endpoint", "127.0.0.1:1"])]
+_TRAIN = ["--task-type", "LOGISTIC_REGRESSION",
+          "--feature-shard-id-to-feature-section-keys-map",
+          "global:globalFeatures", "--updating-sequence", "fixed",
+          "--fixed-effect-data-configurations", "fixed:global,1",
+          "--device", "cpu"]
+
+
+@pytest.mark.parametrize("extra", PORTED_FLAGS, ids=lambda e: e[0])
+def test_ported_flags_are_not_refused(extra, tmp_path):
+    from photon_ml_tpu_torch.cli import game_scoring_driver as tsd
+    from photon_ml_tpu_torch.cli import game_training_driver as ttd
+    from photon_ml_tpu_torch.cli import legacy_driver as tld
+
+    ns = ttd.parse_args(["--train-input-dirs", "t", "--output-dir",
+                         str(tmp_path / "o"), *_TRAIN, *extra])
+    ttd.check_unported(ns)
+    if extra[0].startswith("--offheap"):
+        tsd.check_unported(tsd.parse_args(
+            ["--input-data-dirs", "t", "--game-model-input-dir", "m",
+             "--output-dir", str(tmp_path / "s"),
+             "--feature-shard-id-to-feature-section-keys-map",
+             "global:globalFeatures", "--device", "cpu", *extra]))
+        params = tld.parse_args(["--training-data-directory", "t",
+                                 "--output-directory", str(tmp_path / "l"),
+                                 "--device", "cpu", *extra])
+        assert params.offheap_indexmap_dir == "idx"
+
+
+@pytest.mark.parametrize("flag,extra", STILL_UNPORTED,
+                         ids=[f for f, _ in STILL_UNPORTED])
+def test_unported_flags_still_exit_3(flag, extra, tmp_path, capsys):
+    from photon_ml_tpu_torch.cli import game_training_driver as ttd
+
+    with pytest.raises(SystemExit) as exc:
+        ttd.main(["--train-input-dirs", "t", "--output-dir",
+                  str(tmp_path / "o"), *_TRAIN, *extra])
+    assert exc.value.code == 3
+    assert f"PHOTON_ABORT kind=NotImplementedError: {flag} " in \
+        capsys.readouterr().err
+    assert not (tmp_path / "o").exists()

@@ -463,8 +463,6 @@ def test_python_m_entry_points_run_on_cpu(runs, tmp_path):
 TRAIN_UNPORTED = [
     ("--num-processes", ["--num-processes", "2"]),
     ("--max-worker-restarts", ["--max-worker-restarts", "1"]),
-    ("--offheap-indexmap-dir", ["--offheap-indexmap-dir", "idx"]),
-    ("--random-effect-blocks-dir", ["--random-effect-blocks-dir", "blk"]),
     ("--re-entity-shards", ["--re-entity-shards", "2"]),
     ("--re-entity-shards", ["--re-entity-shards", "auto"]),
     ("--precision", ["--precision", "bf16"]),
@@ -494,7 +492,6 @@ def test_training_driver_refuses_unported_flags(tmp_path, capsys, flag,
 
 SCORE_UNPORTED = [
     ("--num-processes", ["--num-processes", "2"]),
-    ("--offheap-indexmap-dir", ["--offheap-indexmap-dir", "idx"]),
     ("--trace-dir", ["--trace-dir", "trace"]),
     ("--telemetry-endpoint", ["--telemetry-endpoint", "127.0.0.1:1"]),
     ("--device-telemetry", ["--device-telemetry"]),

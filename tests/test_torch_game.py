@@ -259,6 +259,9 @@ def _port_states(res):
 
 
 def test_coordinate_descent_two_sweeps_matches_jax(sides, jax_runs):
+    # the counts below are this run's: a blocked sweep earlier in the
+    # process leaves fewer epilogue fetches than updates behind
+    tcd.reset_hot_loop_stats()
     res = _port_cd(sides, 2, jax_runs["zeros"])
     want = [s.objective for s in jax_runs["two"].states]
     got = [s.objective for s in res.states]
@@ -275,6 +278,22 @@ def test_coordinate_descent_two_sweeps_matches_jax(sides, jax_runs):
     scores = res.model.score(sides["tdata"], device="cpu").numpy()
     np.testing.assert_allclose(scores, jax_runs["two_scores"], rtol=1e-3,
                                atol=5e-3)
+
+
+def test_two_sweeps_check_holds_after_a_blocked_sweep(sides, jax_runs):
+    """The leaking sequence in one process: a blocked sweep (one epilogue
+    read per block of two updates) runs first, then the two-sweep check,
+    which reads ``HOT_LOOP_STATS``."""
+    d = sides["tdata"]
+    tcd.run_coordinate_descent(
+        sides["tcoords"], 1, tcfg.TaskType.LOGISTIC_REGRESSION,
+        d.responses, d.weights, d.offsets, block_size=2,
+        initial_states=convert.states_from_numpy(jax_runs["zeros"],
+                                                 device="cpu"),
+        device="cpu")
+    assert tcd.HOT_LOOP_STATS["epilogue_fetches"] < \
+        tcd.HOT_LOOP_STATS["updates"]
+    test_coordinate_descent_two_sweeps_matches_jax(sides, jax_runs)
 
 
 def test_jax_trained_states_score_the_same_in_the_port(sides, jax_runs):

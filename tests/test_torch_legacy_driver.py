@@ -19,8 +19,8 @@ on the fixtures of ``tests/test_drivers.py::TestLegacyDriver`` and
   (name-sorted coefficients to atol 1e-4, the JAX test's), the JAX
   driver's direct run to atol 2e-3, and the two packages' conversions
   hold the same records;
-- TRON with L1 is refused with ``ValueError`` as in the JAX driver; the
-  off-heap flags end with exit 3 and one ``PHOTON_ABORT`` line.
+- TRON with L1 is refused with ``ValueError`` as in the JAX driver (the
+  off-heap flags run: ``tests/test_torch_offheap.py``).
 """
 
 import json
@@ -363,16 +363,3 @@ def test_tron_with_l1_is_refused():
         tdriver.parse_args(argv + ["--device", "cpu"])
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("--offheap-indexmap-dir", "store"),
-    ("--offheap-indexmap-num-partitions", "4")])
-def test_offheap_flags_exit_3(tmp_path, capsys, flag, value):
-    out = tmp_path / "out"
-    with pytest.raises(SystemExit) as e:
-        tdriver.main(["--training-data-directory", "x",
-                      "--output-directory", str(out), flag, value,
-                      "--device", "cpu"])
-    assert e.value.code == 3
-    err = capsys.readouterr().err
-    assert f"PHOTON_ABORT kind=NotImplementedError: {flag}" in err
-    assert not out.exists()
