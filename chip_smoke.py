@@ -197,6 +197,30 @@ Phases, one JSON line each on stdout:
    and every diagnostic, the best model's AUC read back and scored on
    the card equal to metrics.json's (rel 1e-6).
 
+13. bf16_serve — ``--precision bf16`` and the serving path: (a) phase 5's
+   GLMix with X and the per-user blocks in bf16 (every launch stream at
+   128-byte rows), its objectives and peak device memory beside phase
+   5's, and a second run on fresh coordinates equal bit for bit; (b) the
+   training driver with ``--precision bf16`` on phase 6's fixture and
+   feature sets, in RAM and with ``--random-effect-blocks-dir`` (every
+   launch staged at ×65 bf16; the two runs' metrics and models equal
+   record for record), beside phase 6's objectives and AUC, the kernel
+   held against its plain version on the bf16 ×65 batch; (c)
+   ``python -m photon_ml_tpu_torch.serve.service`` as a process on the
+   card serving phase 6's final f32 model (its ``best/`` is the first
+   state, with no per-user coefficients) on a unix socket under the
+   default 64 MB tier budget: 4 client threads send requests of 1-256
+   validation records (100 each, and a tail past the swap), hot-swapped
+   to (b)'s model once half are answered with the canary gate open;
+   every response equals, bit for bit, the scoring driver's scores
+   (run on the same model and rows) before the flip or the library's
+   scores of the candidate after it, none is shed, ``stats`` reports
+   generation 2, and SIGTERM drains to exit 75; then the bf16 tier (all
+   users fit) on 4 x 25 requests, every score within its bf16 bound.
+   Rows per second, client p50/p99, the tier hit split, the
+   ``serve_stage_ms`` totals, the swap's blackout and the service's
+   peak device memory are printed.
+
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
 no result line is printed. Without CUDA, or outside the repository, it
@@ -315,10 +339,13 @@ def movielens_data(rng, n, n_users, n_movies, d_global,
 
 
 def glmix_coordinates(data, device, active_cap=128, feature_cap=128,
-                      num_buckets=4, case="lbfgs"):
+                      num_buckets=4, case="lbfgs", dtype=None):
     """Fixed effect + per-user random effect with the configurations of
     ``GLMIX_CASES[case]`` (for "lbfgs": L-BFGS + L2, lambda 10 and 40
-    iterations, then lambda 1 and 20 iterations, tolerance 1e-7)."""
+    iterations, then lambda 1 and 20 iterations, tolerance 1e-7); X and
+    the per-user blocks stored in ``dtype`` (f32 unless given)."""
+    import torch
+
     from photon_ml_tpu_torch.game.coordinate import (
         FixedEffectCoordinate, RandomEffectCoordinate)
     from photon_ml_tpu_torch.game.dataset import (
@@ -340,13 +367,15 @@ def glmix_coordinates(data, device, active_cap=128, feature_cap=128,
         num_features_to_keep_upper_bound=feature_cap)
     return {
         "fixed": FixedEffectCoordinate(
-            dataset=build_fixed_effect_dataset(data, "global",
-                                               device=device),
+            dataset=build_fixed_effect_dataset(
+                data, "global", dtype=dtype or torch.float32,
+                device=device),
             problem=GLMOptimizationProblem(config=parse(glmix.fixed),
                                            task=task)),
         "per-user": RandomEffectCoordinate(
             dataset=build_random_effect_dataset(
-                data, re_cfg, num_buckets=num_buckets, device=device),
+                data, re_cfg, num_buckets=num_buckets,
+                dtype=dtype or torch.float32, device=device),
             problem=RandomEffectOptimizationProblem(
                 config=parse(glmix.per_user), task=task)),
     }
@@ -854,11 +883,13 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
                                or by_path[expected] != launches):
         raise AssertionError(f"the driver's fixed effect did not launch "
                              f"the kernel on the {expected} path: {by_path}")
-    # the fixture stays for phases 8 and 9, with the feature sets
+    # the fixture stays for phases 8, 9 and 13, with the feature sets, and
+    # the final model (output/grid-0) for phase 13's service: best/ is
+    # the first state, before any per-user update
     feature_sets = save_feature_sets(trainer.index_maps,
                                      os.path.join(workdir, "feature_sets"))
-    for d in (out, score_out):
-        shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(os.path.join(out, "best"), ignore_errors=True)
+    shutil.rmtree(score_out, ignore_errors=True)
     return phase, launches, by_path, check, (train, val, feature_sets)
 
 
@@ -3397,13 +3428,14 @@ def wide_driver_argv(train, val, out, device, *extra) -> list:
             "--evaluator-type", "AUC", "--device", device, *extra]
 
 
-def model_records(out) -> dict:
-    """Every file of ``out/best``: Avro files by their records (the
-    writer draws each file's sync marker at random), the rest by bytes."""
+def model_records(out, model="best") -> dict:
+    """Every file of the model ``out/<model>``: Avro files by their records
+    (the writer draws each file's sync marker at random), the rest by
+    bytes."""
     from photon_ml_tpu_torch.io.avro import read_records
 
     recs = {}
-    best = os.path.join(out, "best")
+    best = os.path.join(out, model)
     for root, _, files in os.walk(best):
         for f in files:
             path = os.path.join(root, f)
@@ -3655,6 +3687,544 @@ def wide_streamed_phase(torch, dev, smi, data, workdir, hbm,
     return record, c_launches
 
 
+# -- phase 13: bf16 storage and the serving path ---------------------------
+
+#: phase 13 (c): client threads, requests per thread and the largest
+#: request (rows drawn uniformly from 1 to it) against the f32 tier, with
+#: the hot-swap when half the requests have been answered; then requests
+#: per thread against the bf16 tier
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_ROWS = 4, 100, 256
+BF16_TIER_REQUESTS = 25
+#: bf16 rounds a coefficient to 8 significant bits: relative error at
+#: most 2^-8 (round to nearest)
+BF16_REL = 2.0 ** -8
+
+
+def bf16_library_phase(torch, dev, data, f32_glmix):
+    """Phase 13 (a): phase 5's GLMix at full width with X and the per-user
+    blocks in bf16, two sweeps, then the same two sweeps again on fresh
+    coordinates over the same datasets (bit for bit). Returns the record,
+    the launch counts of the first run and the kernel's error on the bf16
+    fixed-effect batch against its plain version."""
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.ops.losses import get_loss
+
+    t0 = time.perf_counter()
+    # what earlier phases still hold on the card: phase 5's peak was
+    # measured with nothing before it, so this run's is taken above this
+    held = torch.cuda.memory_allocated() if dev.type == "cuda" else None
+    coords = glmix_coordinates(data, dev, dtype=torch.bfloat16)
+    sync(torch, dev)
+    build_secs = time.perf_counter() - t0
+    fe_X = coords["fixed"].dataset.batch.X
+    re_ds = coords["per-user"].dataset
+    dtypes = {str(fe_X.dtype)} | {str(b.X.dtype) for b in re_ds.buckets}
+    if dtypes != {"torch.bfloat16"}:
+        raise AssertionError(f"bf16 GLMix stores X as {dtypes}")
+    res, info = cd_run(torch, dev, data, coords)
+    peak = peak_memory(torch, dev)
+    launches = info["launches"]
+    expected = pk.kernel_path(fe_X.shape[1], fe_X.dtype,
+                              fe_X.data_ptr() % 16 == 0)
+    check_launches("bf16 GLMix", launches, expected, "logistic", dev)
+    again, info2 = cd_run(torch, dev, data, fresh_coordinates(coords))
+    eq = runs_equal(torch, res, again, data, dev)
+    if not all_equal(eq):
+        raise AssertionError(f"bf16 GLMix is not repeatable: {eq}")
+    sweeps = [[s.objective for s in res.states if s.iteration == it][-1]
+              for it in range(2)]
+    if not all(np.isfinite(o) for o in sweeps):
+        raise AssertionError(f"non-finite bf16 objective: {sweeps}")
+    if not sweeps[1] <= sweeps[0] * (1 + 1e-6):
+        raise AssertionError(f"bf16 objective rose between sweeps: {sweeps}")
+    err = None
+    if dev.type == "cuda":
+        batch = coords["fixed"].dataset.with_offsets(coords["per-user"].score(
+            final_states(res)["per-user"]))
+        err, worst = check_sums(
+            torch, get_loss("logistic"), batch.X, batch.labels,
+            batch.offsets, batch.weights,
+            final_states(res)["fixed"].contiguous(),
+            torch.zeros((), device=dev), scaled=True)
+        del batch
+    record = {
+        "rows": int(data.num_samples), "x_dtype": "bfloat16",
+        "re_buckets": [list(b.X.shape) for b in re_ds.buckets],
+        "build_secs": build_secs, "train_secs": info["secs"],
+        "train_secs_repeat": info2["secs"],
+        "objectives": sweeps, "objectives_f32": f32_glmix["objectives"],
+        "rel_gap_to_f32": [abs(a - b) / abs(b) for a, b in
+                           zip(sweeps, f32_glmix["objectives"])],
+        "launches_by_path": launches["by_path"], "expected_path": expected,
+        "max_memory_allocated": peak, "held_before": held,
+        "max_memory_allocated_above_held": (
+            peak - held if peak is not None else None),
+        "max_memory_allocated_f32": f32_glmix["max_memory_allocated"],
+        "repeat_equal": eq, "kernel_vs_plain_max_abs_err": err}
+    del coords, res, again
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return record, launches, err
+
+
+def bf16_driver_phase(torch, dev, fixture, f32_driver, workdir):
+    """Phase 13 (b): the training driver with ``--precision bf16`` on phase
+    6's fixture and feature sets, in RAM and with
+    ``--random-effect-blocks-dir``: the two runs' metrics (seconds aside)
+    and models record for record equal, every launch on the path
+    ``kernel_path`` picks for ×65 bf16 rows. Returns the record, the
+    launches by run, the kernel's error on the bf16 ×65 batch and the
+    in-RAM run's output directory (its final model, ``output/grid-0``,
+    is (c)'s swap candidate)."""
+    from photon_ml_tpu_torch.cli import game_training_driver as ttd
+    from photon_ml_tpu_torch.game.dataset import build_fixed_effect_dataset
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.ops.losses import get_loss
+    from photon_ml_tpu_torch.tools.crash_resume_drill import driver_argv
+
+    train, val, feature_sets = fixture
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    runs, launches, err, trainer = {}, {}, None, None
+    for name, extra in (("in_ram", []),
+                        ("blocks_dir", ["--random-effect-blocks-dir",
+                                        os.path.join(workdir, "blocks")])):
+        out = os.path.join(workdir, name)
+        argv = driver_argv(train, val, out, str(dev), extra=[
+            "--precision", "bf16", "--feature-name-and-term-set-path",
+            feature_sets, *extra])
+        reset_counts(torch, dev)
+        t0 = time.perf_counter()
+        trainer = ttd.run(argv)
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        launches[name] = launch_counts()
+        states = json.load(open(os.path.join(out, "metrics.json")))
+        (grid,) = states["grid"]
+        phase_secs = trainer.phase_seconds
+        runs[name] = {
+            "training_driver_secs": secs,
+            "load_secs": phase_secs["prepareGameDataSet"],
+            "train_secs": phase_secs["train grid[0]"],
+            "train_secs_per_update": [s["seconds"] for s in grid["states"]],
+            "model_write_secs": phase_secs["saveModels"],
+            "objectives": [s["objective"] for s in grid["states"]],
+            "best_metric": states["best"]["metric"],
+            "launches_by_path": launches[name]["by_path"],
+            "max_memory_allocated": peak_memory(torch, dev)}
+        if name == "in_ram":
+            fe = build_fixed_effect_dataset(trainer.train_data, "global",
+                                            dtype=torch.bfloat16, device=dev)
+            X = fe.batch.X
+            expected = pk.kernel_path(X.shape[1], X.dtype,
+                                      X.data_ptr() % 16 == 0)
+            if dev.type == "cuda":
+                w = trainer.best_result.model.models["fixed"].model \
+                    .coefficients.means.to(dev).contiguous()
+                err, _ = check_sums(
+                    torch, get_loss("logistic"), X, fe.batch.labels,
+                    fe.batch.offsets, fe.batch.weights, w,
+                    torch.zeros((), device=dev), scaled=True)
+            runs[name]["fixed_effect_shape"] = list(X.shape)
+            del fe, X
+        check_launches(f"bf16 driver {name}", launches[name], expected,
+                       "logistic", dev)
+        del trainer
+    ram, mm = (os.path.join(workdir, k) for k in ("in_ram", "blocks_dir"))
+    if metrics_without_seconds(ram) != metrics_without_seconds(mm):
+        raise AssertionError("bf16 driver: the --random-effect-blocks-dir "
+                             "run's metrics differ from the in-RAM run's")
+    for model in ("best", os.path.join("output", "grid-0")):
+        if model_records(ram, model) != model_records(mm, model):
+            raise AssertionError(f"bf16 driver: the --random-effect-blocks-"
+                                 f"dir run's {model} differs from the "
+                                 f"in-RAM run's")
+    objs = runs["in_ram"]["objectives"]
+    if not all(np.isfinite(o) for o in objs) or not objs[3] <= objs[1] * (
+            1 + 1e-6):
+        raise AssertionError(f"bf16 driver objectives: {objs}")
+    record = {
+        "runs": runs, "expected_path": expected,
+        "blocks_dir_equals_in_ram": True,
+        "objectives_f32": f32_driver["objectives"],
+        "rel_gap_to_f32": [abs(a - b) / abs(b) for a, b in
+                           zip(objs, f32_driver["objectives"])],
+        "best_auc_f32": f32_driver["best_metric"],
+        "best_auc_gap_to_f32": runs["in_ram"]["best_metric"]
+        - f32_driver["best_metric"],
+        "kernel_vs_plain_max_abs_err": err}
+    shutil.rmtree(os.path.join(workdir, "blocks"), ignore_errors=True)
+    return record, launches, err, ram
+
+
+class ServiceProcess:
+    """``python -m photon_ml_tpu_torch.serve.service`` as a child: waits
+    for its ready line (stderr to a file under ``workdir``), and
+    :meth:`stop` sends SIGTERM and returns the exit code."""
+
+    def __init__(self, args, workdir, name, timeout=300.0):
+        import select
+
+        self.err_path = os.path.join(workdir, f"{name}.stderr")
+        self._err = open(self.err_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "photon_ml_tpu_torch.serve.service",
+             *args], cwd=REPO, text=True, stdout=subprocess.PIPE,
+            stderr=self._err)
+        ready, _, _ = select.select([self.proc.stdout], [], [], timeout)
+        line = self.proc.stdout.readline().strip() if ready else ""
+        if not line.startswith("PHOTON_SERVE ready endpoint="):
+            self.proc.kill()
+            self.proc.wait()
+            raise AssertionError(f"{name}: no ready line ({line!r}):\n"
+                                 f"{self.stderr()[-3000:]}")
+        self.endpoint = line.split("endpoint=", 1)[1]
+
+    def stderr(self) -> str:
+        if not self._err.closed:
+            self._err.flush()
+        with open(self.err_path) as f:
+            return f.read()
+
+    def stop(self, timeout=120.0) -> int:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            raise
+        self._err.close()
+        return rc
+
+
+def drive_clients(endpoint, records, requests, seed, on_half=None):
+    """``SERVE_CLIENTS`` threads, each sending ``requests`` requests of 1 to
+    ``SERVE_MAX_ROWS`` consecutive records; ``on_half`` runs in a thread
+    of its own once half of all requests have been answered, and then each
+    client goes on until it has returned, and for ``requests // 4`` more
+    requests after that. Returns the responses as (sent, done, uids,
+    scores), failures, and the seconds."""
+    import threading
+
+    from photon_ml_tpu_torch.serve.protocol import ServeClient
+
+    total = SERVE_CLIENTS * requests
+    answered = [0]
+    half, resolved = threading.Event(), threading.Event()
+    if on_half is None:
+        resolved.set()
+    lock = threading.Lock()
+    out, failures = [], []
+
+    def client(ci):
+        rng = np.random.default_rng(seed + ci)
+        got = []
+        try:
+            with ServeClient(endpoint, timeout=120.0) as c:
+                sent_n, tail = 0, requests // 4 if on_half else 0
+                while sent_n < requests or not resolved.is_set() or tail:
+                    if sent_n >= requests and resolved.is_set():
+                        tail -= 1
+                    sent_n += 1
+                    n = int(rng.integers(1, SERVE_MAX_ROWS + 1))
+                    lo = int(rng.integers(0, len(records) - n))
+                    sent = time.perf_counter()
+                    resp = c.score(records[lo:lo + n])
+                    done = time.perf_counter()
+                    if resp.get("kind") != "scores":
+                        failures.append(f"client {ci}: {resp}")
+                        return
+                    got.append((sent, done, resp["uids"], resp["scores"]))
+                    with lock:
+                        answered[0] += 1
+                        if answered[0] * 2 >= total:
+                            half.set()
+        except Exception as e:  # noqa: BLE001 — reported as a failure
+            failures.append(f"client {ci}: {e!r}")
+        finally:
+            half.set()
+        with lock:
+            out.extend(got)
+
+    def swap():
+        half.wait()
+        try:
+            on_half()
+        finally:
+            resolved.set()
+
+    threads = [threading.Thread(target=client, args=(ci,))
+               for ci in range(SERVE_CLIENTS)]
+    if on_half is not None:
+        threads.append(threading.Thread(target=swap))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out, failures, time.perf_counter() - t0
+
+
+def latency_summary(responses, secs) -> dict:
+    lat = np.asarray([(d - s) * 1e3 for s, d, _, _ in responses])
+    rows = sum(len(u) for _, _, u, _ in responses)
+    return {"requests": len(responses), "rows": rows,
+            "rows_per_sec": rows / secs, "seconds": secs,
+            "client_p50_ms": float(np.percentile(lat, 50)),
+            "client_p99_ms": float(np.percentile(lat, 99))}
+
+
+def serve_phase(torch, dev, smi, driver_dir, bf16_model_dir, workdir):
+    """Phase 13 (c): the port's scoring service as a process on the card,
+    serving phase 6's final f32 model (``output/grid-0``: its ``best/`` is
+    the first state, whose per-user model is empty) over a unix socket
+    with the default 64 MB device-tier budget, under
+    ``SERVE_CLIENTS`` concurrent clients sending validation records of
+    phase 6's fixture; hot-swapped to (b)'s bf16-trained model once half
+    the requests are answered, with the canary gate open (as
+    ``bench.py:1534-1537``); then SIGTERM. Every score must equal, bit
+    for bit, the scoring driver's (run here on that model and the rows)
+    for its uid before the flip and the library's score of the candidate
+    after it, no request may be
+    shed, and the service must exit 75. A second service with the bf16
+    tier scores within the bound bf16 rounding of the coefficients
+    allows."""
+    from photon_ml_tpu_torch.game.models import (
+        rowwise_sparse_dot_gathered, rowwise_sparse_dot_on_device)
+    from photon_ml_tpu_torch.io import data_format as tdf
+    from photon_ml_tpu_torch.io.avro import read_records
+    from photon_ml_tpu_torch.io.model_io import load_scored_items
+    from photon_ml_tpu_torch.serve.protocol import ServeClient
+    from photon_ml_tpu_torch.serve.scoring import (
+        load_scoring_model, materialize_model, score_game_dataset)
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    f32_model = os.path.join(driver_dir, "train_out", "output", "grid-0")
+    part = os.path.join(driver_dir, "validate", "part-00000.avro")
+    t0 = time.perf_counter()
+    records = read_records(part)
+    read_secs = time.perf_counter() - t0
+    score_out = os.path.join(workdir, "score_out")
+    t0 = time.perf_counter()
+    run_scoring_driver([
+        "--input-data-dirs", part, "--game-model-input-dir", f32_model,
+        "--output-dir", score_out,
+        "--feature-shard-id-to-feature-section-keys-map", DRIVER_SECTIONS,
+        "--random-effect-id-set", "userId", "--device", str(dev)])
+    scoring_driver_secs = time.perf_counter() - t0
+    driver_scores = {r["uid"]: r["predictionScore"] for r in
+                     load_scored_items(os.path.join(
+                         score_out, "scores", "part-00000.avro"))}
+    sections = {k: [v] for k, v in (x.split(":") for x in
+                                    DRIVER_SECTIONS.split("|"))}
+    # the candidate's scores of these rows through the scoring core, and
+    # each row's sum of |x w| over the f32 model's per-user coefficients
+    refs = {}
+    for name, model_dir in (("f32", f32_model), ("bf16", bf16_model_dir)):
+        model, maps = load_scoring_model(model_dir, {})
+        model = materialize_model(model)
+        data = tdf.load_game_dataset_avro([part], sections, maps,
+                                          id_types=["userId"],
+                                          response_required=False)
+        refs[name] = dict(zip(data.uids, score_game_dataset(
+            model, data, device=dev).astype(np.float64)))
+        data_uids = data.uids
+        if name == "f32":
+            re = model.models["perUser"]
+            n_entities = int(re.coefficients.shape[0])
+            if not n_entities or not re.coefficients.shape[1]:
+                raise AssertionError(f"phase 6's model has no per-user "
+                                     f"coefficients to serve: "
+                                     f"{list(re.coefficients.shape)}")
+            coefs = re.coefficients.cpu().numpy()
+            padded = np.vstack([coefs, np.zeros((1, coefs.shape[1]),
+                                                coefs.dtype)])
+            mat = data.feature_shards[re.feature_shard_id]
+            local = re._lookup(data)
+            # the service's row dot on the card against the scoring
+            # driver's on the host, over every validation row
+            t1 = time.perf_counter()
+            on_card = rowwise_sparse_dot_on_device(
+                mat, torch.as_tensor(padded, device=dev), local).cpu()
+            row_dot_secs = time.perf_counter() - t1
+            on_host = torch.as_tensor(rowwise_sparse_dot_gathered(
+                mat, padded, local), dtype=torch.float32)
+            if not torch.equal(on_card, on_host):
+                raise AssertionError(
+                    f"the per-user row dot on the card differs from the "
+                    f"host form on {int((on_card != on_host).sum())} of "
+                    f"{len(on_host)} rows")
+            magnitude = dict(zip(data.uids, rowwise_sparse_dot_gathered(
+                abs(mat), np.abs(padded), local)))
+        del model, data
+    for uid, s in refs["f32"].items():
+        if driver_scores[uid] != s:
+            raise AssertionError("the scoring core's f32 scores differ from "
+                                 "the scoring driver's")
+    base = ["--game-model-input-dir", f32_model,
+            "--feature-shard-id-to-feature-section-keys-map",
+            DRIVER_SECTIONS, "--random-effect-id-set", "userId",
+            "--swap-canary-threshold-pct", "1e9",
+            "--swap-probation-seconds", "0.5", "--device", str(dev)]
+    record = {"phase": "serve", "nvidia_smi": smi, "records": len(records),
+              "read_records_secs": read_secs,
+              "scoring_driver_secs": scoring_driver_secs,
+              "users": n_entities,
+              "per_user_columns": int(coefs.shape[1]),
+              "row_dot_rows": len(data_uids),
+              "row_dot_on_card_equals_host": True,
+              "row_dot_on_card_secs": row_dot_secs}
+
+    # -- the f32 tier, with the hot-swap under load ------------------------
+    t0 = time.perf_counter()
+    svc = ServiceProcess(base + ["--listen", "unix:" + os.path.join(
+        workdir, "f32.sock")], workdir, "serve_f32")
+    start_secs = time.perf_counter() - t0
+    swap = {}
+
+    def do_swap():
+        swap["start"] = time.perf_counter()
+        with ServeClient(svc.endpoint, timeout=600.0) as c:
+            swap["result"] = c.swap(bf16_model_dir, model_id="bf16-trained")
+        swap["end"] = time.perf_counter()
+
+    try:
+        responses, failures, secs = drive_clients(
+            svc.endpoint, records, SERVE_REQUESTS, seed=31, on_half=do_swap)
+        with ServeClient(svc.endpoint) as c:
+            stats = c.stats()
+    finally:
+        rc = svc.stop()
+    err = svc.stderr()
+    if failures:
+        raise AssertionError(f"f32 service: {failures[:3]}")
+    if swap.get("result", {}).get("outcome") != "ok":
+        raise AssertionError(f"the hot-swap did not complete: {swap}")
+    if stats["generation"] != 2:
+        raise AssertionError(f"stats after the swap: generation "
+                             f"{stats['generation']}")
+    if rc != 75 or "PHOTON_PREEMPTED" not in err or "Traceback" in err:
+        raise AssertionError(f"f32 service: exit {rc} after SIGTERM:\n"
+                             f"{err[-3000:]}")
+    by_gen = {1: 0, 2: 0, "either": 0}
+    for sent, done, uids, scores in responses:
+        # a row whose two models' f32 scores round alike matches both
+        old = all(driver_scores[u] == s for u, s in zip(uids, scores))
+        new = all(refs["bf16"][u] == s for u, s in zip(uids, scores))
+        if not (old or new):
+            raise AssertionError("a response matches neither generation's "
+                                 "reference bit for bit")
+        if new and not old and done < swap["start"]:
+            raise AssertionError("a candidate score before the swap began")
+        by_gen["either" if old and new else 1 if old else 2] += 1
+    if not by_gen[1] or not by_gen[2]:
+        raise AssertionError(f"responses by generation: {by_gen}")
+    window = [(d - s) * 1e3 for s, d, _, _ in responses
+              if d >= swap["start"] and s <= swap["end"]]
+    record["f32_tier"] = {
+        **latency_summary(responses, secs), "start_secs": start_secs,
+        "responses_by_generation": by_gen,
+        "scores_equal_scoring_driver": True, "shed": 0,
+        "swap": {"outcome": swap["result"]["outcome"],
+                 "generation": swap["result"]["generation"],
+                 "canary": swap["result"].get("canary"),
+                 "seconds": swap["end"] - swap["start"],
+                 "blackout_ms": max(window) if window else 0.0},
+        "stats_generation": stats["generation"],
+        "tiers": stats["tiers"], "tier_hits": stats["tier_hits"],
+        "stage_ms": stats["stage_ms"],
+        "service_max_memory_allocated":
+            stats.get("device_max_memory_allocated"),
+        "exit_code": rc}
+    print("phase 13 (c) f32 tier: " + json.dumps(record["f32_tier"]),
+          file=sys.stderr, flush=True)
+
+    # -- the bf16 tier ------------------------------------------------------
+    t0 = time.perf_counter()
+    svc = ServiceProcess(base + ["--serve-tier-dtype", "bf16", "--listen",
+                                 "unix:" + os.path.join(workdir, "bf16.sock")],
+                         workdir, "serve_bf16")
+    start_secs = time.perf_counter() - t0
+    try:
+        responses, failures, secs = drive_clients(
+            svc.endpoint, records, BF16_TIER_REQUESTS, seed=71)
+        with ServeClient(svc.endpoint) as c:
+            stats = c.stats()
+    finally:
+        rc = svc.stop()
+    err = svc.stderr()
+    if failures:
+        raise AssertionError(f"bf16-tier service: {failures[:3]}")
+    if rc != 75 or "PHOTON_PREEMPTED" not in err:
+        raise AssertionError(f"bf16-tier service: exit {rc}:\n{err[-3000:]}")
+    worst, moved = 0.0, 0
+    for _, _, uids, scores in responses:
+        for u, s in zip(uids, scores):
+            ref = refs["f32"][u]
+            # bf16 rows move the per-user term by at most 2^-8 sum |x w|;
+            # the sums' f32 rounding adds at most a few ulps of the terms
+            bound = BF16_REL * magnitude[u] + 2.0 ** -21 * (
+                abs(ref) + magnitude[u])
+            worst = max(worst, abs(s - ref) / bound if bound else 0.0)
+            moved += s != ref
+    if worst > 1.0:
+        raise AssertionError(f"bf16 tier: a score moved {worst:.3g}x its "
+                             f"bf16 bound")
+    if stats["tiers"][0]["device_capacity"] != n_entities:
+        raise AssertionError(f"the bf16 tier does not hold all "
+                             f"{n_entities} users: {stats['tiers']}")
+    record["bf16_tier"] = {
+        **latency_summary(responses, secs), "start_secs": start_secs,
+        "worst_gap_over_bound": worst, "rows_moved": int(moved),
+        "bound": "2^-8 sum_j |x_j w_j| + 2^-21 (|s| + sum_j |x_j w_j|)",
+        "tiers": stats["tiers"], "tier_hits": stats["tier_hits"],
+        "stage_ms": stats["stage_ms"],
+        "service_max_memory_allocated":
+            stats.get("device_max_memory_allocated"),
+        "exit_code": rc}
+    print("phase 13 (c) bf16 tier: " + json.dumps(record["bf16_tier"]),
+          file=sys.stderr, flush=True)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return record
+
+
+def bf16_serve_phase(torch, dev, smi, data, f32_glmix, f32_driver, fixture,
+                     driver_dir, workdir):
+    """Phase 13: (a) bf16 GLMix in the library, (b) the bf16 training
+    drivers, (c) the scoring service with the hot-swap. Returns the phase
+    record, the kernel's launches by run and its errors against the plain
+    version."""
+    record = {"phase": "bf16_serve", "nvidia_smi": smi}
+    t0 = time.perf_counter()
+    record["a_library"], a_launches, a_err = bf16_library_phase(
+        torch, dev, data, f32_glmix)
+    record["a_library"]["seconds"] = time.perf_counter() - t0
+    print("phase 13 (a): " + json.dumps(record["a_library"]),
+          file=sys.stderr, flush=True)
+    t1 = time.perf_counter()
+    record["b_drivers"], b_launches, b_err, bf16_out = bf16_driver_phase(
+        torch, dev, fixture, f32_driver, os.path.join(workdir, "drivers"))
+    record["b_drivers"]["seconds"] = time.perf_counter() - t1
+    print("phase 13 (b): " + json.dumps(record["b_drivers"]),
+          file=sys.stderr, flush=True)
+    t1 = time.perf_counter()
+    record["c_serve"] = serve_phase(
+        torch, dev, smi, driver_dir,
+        os.path.join(bf16_out, "output", "grid-0"),
+        os.path.join(workdir, "serve"))
+    record["c_serve"]["seconds"] = time.perf_counter() - t1
+    shutil.rmtree(workdir, ignore_errors=True)
+    record["seconds"] = time.perf_counter() - t0
+    launches = {"bf16_glmix": a_launches,
+                **{f"bf16_driver_{k}": v for k, v in b_launches.items()}}
+    return record, launches, [e for e in (a_err, b_err) if e is not None]
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -3760,12 +4330,12 @@ def main() -> int:
     t0 = time.perf_counter()
     timings = {}
     f32_bf16 = (torch.float32, torch.bfloat16)
-    # (shape, loss, dtypes): the GLMix shape, the driver's (f32 only, as
-    # the driver runs it), 262,144 x 2,048, and the second-order main
-    # path's losses at their shapes (phase 8 (b) and (a))
+    # (shape, loss, dtypes): the GLMix shape, the driver's (f32, and bf16
+    # as --precision bf16 runs it: phase 13 (b)), 262,144 x 2,048, and the
+    # second-order main path's losses at their shapes (phase 8 (b) and (a))
     for (n, d), lname, dtypes in (
             (GLMIX_SHAPE, "logistic", f32_bf16),
-            (DRIVER_SHAPE, "logistic", (torch.float32,)),
+            (DRIVER_SHAPE, "logistic", f32_bf16),
             (BIG_SHAPE, "logistic", f32_bf16),
             (CONFIG3_SHAPE, "poisson", (torch.float32,)),
             (BIG_SHAPE, "squared", (torch.float32,)),
@@ -3851,6 +4421,9 @@ def main() -> int:
     scores = res.model.score(data, device=dev)
     if scores.shape != (n,) or not bool(torch.isfinite(scores).all()):
         raise AssertionError("published GameModel scores are not finite")
+    # phase 13 (a) compares its bf16 run with this one
+    f32_glmix = {"objectives": [s["objective"] for s in sweeps],
+                 "max_memory_allocated": peak}
     # phase 7 resumes this run and must land on these states
     glmix_final = {
         "fixed": res.model.models["fixed"].model.coefficients.means,
@@ -3932,8 +4505,7 @@ def main() -> int:
     print("per-user profile: " + json.dumps(profile), file=sys.stderr,
           flush=True)
     drivers2, drivers2_launches = second_order_driver_phase(
-        torch, dev, *fixture, os.path.join(driver_dir, "second_order"))
-    shutil.rmtree(driver_dir, ignore_errors=True)
+        torch, dev, *fixture, os.path.join(build, "second_order"))
     emit({"phase": "second_order", "nvidia_smi": smi, "config2": cfg2,
           "config3": cfg3, "drivers": drivers2, "small_vs_cpu": small2,
           "per_user_profile": profile,
@@ -3970,6 +4542,13 @@ def main() -> int:
         torch, dev, smi, data, os.path.join(build, "wide_streamed"), hbm)
     emit(wide)
 
+    # -- 13. bf16 storage and the serving path -------------------------------
+    bf16, bf16_launches, bf16_errs = bf16_serve_phase(
+        torch, dev, smi, data, f32_glmix, phase, fixture, driver_dir,
+        os.path.join(build, "bf16_serve"))
+    shutil.rmtree(driver_dir, ignore_errors=True)
+    emit(bf16)
+
     # -- kernels line, card line, result ---------------------------------------
     cd_runs = {f"cd_{k}": v for k, v in cd_launches.items()}
     fac_runs = {f"factored_{k}": v for k, v in fac_launches.items()}
@@ -3985,13 +4564,15 @@ def main() -> int:
             **{k: v["by_path"] for k, v in cd_runs.items()},
             **{k: v["by_path"] for k, v in fac_runs.items()},
             **{k: v["by_path"] for k, v in single_launches.items()},
-            "wide_streamed_c_in_ram": wide_launches["by_path"]}
+            "wide_streamed_c_in_ram": wide_launches["by_path"],
+            **{k: v["by_path"] for k, v in bf16_launches.items()}}
     by_loss = {"glmix": glmix_by_loss, "driver": phase["launches_by_loss"],
                **{k: v["by_loss"] for k, v in second_order_runs.items()},
                **{k: v["by_loss"] for k, v in cd_runs.items()},
                **{k: v["by_loss"] for k, v in fac_runs.items()},
                **{k: v["by_loss"] for k, v in single_launches.items()},
-               "wide_streamed_c_in_ram": wide_launches["by_loss"]}
+               "wide_streamed_c_in_ram": wide_launches["by_loss"],
+               **{k: v["by_loss"] for k, v in bf16_launches.items()}}
     total_by_path = {p: sum(r[p] for r in runs.values())
                      for p in by_path}
     main = timings[(*GLMIX_SHAPE, "float32", "stream", "logistic")]
@@ -4008,7 +4589,7 @@ def main() -> int:
         "launches_by_run": runs,
         "launches_by_loss": by_loss,
         "max_abs_err": max(main_err, driver_check["max_abs_err"],
-                           *fac_errs, single_err),
+                           *fac_errs, single_err, *bf16_errs),
         "ms": main["kernel_ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],

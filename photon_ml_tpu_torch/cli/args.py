@@ -1,7 +1,8 @@
 """Shared CLI flag grammars and the refusal of flags the port cannot run.
 
 Port of ``photon_ml_tpu/cli/args.py`` — ``parse_key_value_map``,
-``parse_section_keys_map`` and the precision flag pair — plus
+``parse_section_keys_map``, the precision flag pair and
+``precision_dtype`` (``:54-81``) — plus
 ``add_device_flag`` (the port's one extra flag) and
 ``refuse_unported``: a flag whose feature is not ported yet is never
 accepted and ignored, it raises ``NotImplementedError`` naming the flag.
@@ -10,6 +11,8 @@ accepted and ignored, it raises ``NotImplementedError`` naming the flag.
 from __future__ import annotations
 
 import argparse
+
+import torch
 
 PRECISION_CHOICES = ("f32", "bf16")
 
@@ -32,14 +35,26 @@ def parse_section_keys_map(s: str) -> dict[str, list[str]]:
 
 def add_precision_flags(p: argparse.ArgumentParser) -> None:
     """``--precision`` and ``--collective-quant``, as the JAX drivers
-    spell them; the port runs only ``f32`` and ``none``."""
+    spell them; the port runs both precisions and ``--collective-quant
+    none`` only."""
     p.add_argument("--precision", choices=PRECISION_CHOICES, default="f32",
                    help="storage dtype for design-matrix tiles and entity "
-                        "blocks (the port runs f32)")
+                        "blocks; labels, offsets, weights, parameters and "
+                        "every reduction stay f32")
     p.add_argument("--collective-quant", choices=("none", "int8"),
                    default="none",
                    help="wire format of mesh collectives (the port has no "
                         "mesh: none)")
+
+
+def precision_dtype(precision: str) -> torch.dtype:
+    """``--precision`` value → torch dtype for dataset storage."""
+    try:
+        return {"f32": torch.float32, "bf16": torch.bfloat16}[precision]
+    except KeyError:
+        raise ValueError(
+            f"unknown precision {precision!r}; "
+            f"expected one of {PRECISION_CHOICES}") from None
 
 
 def add_observability_flags(p: argparse.ArgumentParser) -> None:

@@ -45,10 +45,14 @@ feature maps from a pre-built off-heap store, one namespace per shard,
 instead of scanning the data, and ``--offheap-indexmap-num-partitions``
 must match the store's partition count (``prepare_feature_maps``,
 ``:459-479``). A feature shard wider than 4,096 columns trains as an
-ELL batch. Flags whose feature is not ported yet raise
+ELL batch. ``--precision bf16`` stores every coordinate's design matrix
+(fixed effect, random-effect blocks, in RAM or paged from the memmap
+files, and the factored coordinate's) in bf16, as the JAX driver does
+(``:562-625``); labels, offsets, weights, coefficients and every
+reduction stay f32. Flags whose feature is not ported yet raise
 ``NotImplementedError`` naming the flag and end the run through
 ``clean_abort`` (exit 3): multi-process runs and their supervision,
-entity sharding, bf16, quantized collectives and telemetry.
+entity sharding, quantized collectives and telemetry.
 
 Validation rows are matched to the trained per-entity models by raw id:
 the validation id columns are re-encoded against the training vocabulary
@@ -82,6 +86,7 @@ from photon_ml_tpu_torch.cli.args import (
     add_observability_flags,
     add_precision_flags,
     parse_key_value_map,
+    precision_dtype,
     parse_section_keys_map,
     refuse_unported,
 )
@@ -277,7 +282,6 @@ def check_unported(ns: argparse.Namespace) -> None:
          "worker supervision"),
         ("--re-entity-shards", ns.re_entity_shards != 1,
          "entity sharding"),
-        ("--precision", ns.precision != "f32", "bf16 storage"),
         ("--collective-quant", ns.collective_quant != "none",
          "quantized collectives"),
         ("--trace-dir", ns.trace_dir, "telemetry"),
@@ -435,12 +439,13 @@ class GameTrainingDriver:
         """One coordinate per updating-sequence entry with this grid
         point's optimization configs (Driver.train :352-533)."""
         coords = {}
+        dtype = precision_dtype(self.ns.precision)
         for cid in self.updating_sequence:
             if cid in self.fixed_data_configs:
                 ds = build_fixed_effect_dataset(
                     self.train_data,
                     self.fixed_data_configs[cid].feature_shard_id,
-                    device=self.device)
+                    dtype=dtype, device=self.device)
                 coords[cid] = FixedEffectCoordinate(
                     dataset=ds, problem=GLMOptimizationProblem(
                         config=fixed_cfgs.get(
@@ -453,7 +458,7 @@ class GameTrainingDriver:
                 coords[cid] = FactoredRandomEffectCoordinate(
                     dataset=build_random_effect_dataset(
                         self.train_data, self.random_data_configs[cid],
-                        device=self.device),
+                        dtype=dtype, device=self.device),
                     problem=RandomEffectOptimizationProblem(
                         config=re_cfg, task=self.task,
                         lane_compaction_chunk=self._lane_chunk()),
@@ -473,11 +478,11 @@ class GameTrainingDriver:
                         num_buckets=num_buckets,
                         blocks_dir=os.path.join(
                             self.ns.random_effect_blocks_dir, cid),
-                        device=self.device)
+                        dtype=dtype, device=self.device)
                 else:
                     ds = build_random_effect_dataset(
                         self.train_data, data_cfg, num_buckets=num_buckets,
-                        device=self.device)
+                        dtype=dtype, device=self.device)
                 coords[cid] = RandomEffectCoordinate(
                     dataset=ds, problem=RandomEffectOptimizationProblem(
                         config=random_cfgs.get(

@@ -10,8 +10,11 @@ take the 3-D ``[E, N, D]`` form too (``labels``/``offsets``/``weights``
 ``[E, N]``, coefficients ``[E, D]``).
 
 A 2-D dense batch goes through ``einsum`` (a matrix-vector product). A 3-D
-batch is an elementwise product and a ``sum`` over the row's features
-(margins) or over the entity's rows (the gradient's sum): a batched GEMM
+batch, and a 2-D one whose ``X`` is bf16, is an elementwise product and
+a ``sum`` over the row's features (margins) or over the rows (the
+gradient's sum); a bf16 ``X`` is promoted to f32 inside the product, so
+the products and the sums are f32 and no f32 copy of ``X`` is made ahead
+of them. A batched GEMM
 would let cuBLAS pick its algorithm by the lane count, and on the H100 a
 lane's margins then differ in the last bits between a dispatch of all
 lanes and a compacted dispatch of a few, while the reduction's order per
@@ -73,34 +76,37 @@ class DenseBatch(NamedTuple):
     def device(self) -> torch.device:
         return self.X.device
 
-    def _X_acc(self) -> Tensor:
-        return self.X.to(self.acc_dtype)
+    def _elementwise(self) -> bool:
+        """The ops are an elementwise product and a ``sum`` for a 3-D
+        batch and for an ``X`` narrower than its accumulator (a bf16 ``X``
+        promotes to f32 inside the product, so no f32 copy of ``X`` is
+        made ahead of it); a 2-D ``X`` already in its accumulator dtype
+        goes through ``einsum``."""
+        return self.X.dim() == 3 or self.X.dtype != self.acc_dtype
 
     def margins(self, w_eff: Tensor, margin_shift: Tensor) -> Tensor:
         """x_i . w_eff + margin_shift + offset_i."""
-        X, w = self._X_acc(), w_eff.to(self.acc_dtype)
-        if X.dim() == 3:
-            z = (X * w.unsqueeze(-2)).sum(-1)
+        w = w_eff.to(self.acc_dtype)
+        if self._elementwise():
+            z = (self.X * w.unsqueeze(-2)).sum(-1)
         else:
-            z = torch.einsum("nd,d->n", X, w)
+            z = torch.einsum("nd,d->n", self.X, w)
         return z + margin_shift.unsqueeze(-1) + self.offsets
 
     def weighted_feature_sum(self, row_scalars: Tensor) -> Tensor:
         """sum_i row_scalars_i * x_i — the gradient's vector sum (X^T r)."""
-        return _row_weighted_sum(self._X_acc(),
-                                 row_scalars.to(self.acc_dtype))
+        r = row_scalars.to(self.acc_dtype)
+        if self._elementwise():
+            return (self.X * r.unsqueeze(-1)).sum(-2)
+        return torch.einsum("nd,n->d", self.X, r)
 
     def hadamard_square_sum(self, row_scalars: Tensor) -> Tensor:
         """sum_i row_scalars_i * x_i**2 — Hessian-diagonal inner sum."""
-        X = self._X_acc()
-        return _row_weighted_sum(X * X, row_scalars.to(self.acc_dtype))
-
-
-def _row_weighted_sum(X: Tensor, r: Tensor) -> Tensor:
-    """sum over rows of r_i * x_i, per lane for a 3-D ``X``."""
-    if X.dim() == 3:
-        return (X * r.unsqueeze(-1)).sum(-2)
-    return torch.einsum("nd,n->d", X, r)
+        r = row_scalars.to(self.acc_dtype)
+        if self._elementwise():
+            # r first, so that a bf16 X promotes before it is squared
+            return (self.X * r.unsqueeze(-1) * self.X).sum(-2)
+        return torch.einsum("nd,n->d", self.X * self.X, r)
 
 
 def dense_batch(X: np.ndarray, labels: np.ndarray,

@@ -298,7 +298,10 @@ class FactoredRandomEffectCoordinate:
         entity-major ``offsets``."""
         ds = self.dataset
         e, n, d = ds.X.shape
-        kron = coefs.to(ds.X.dtype)[:, None, :, None] * ds.X[:, :, None, :]
+        # f32 for bf16 blocks: the product promotes X, as the JAX
+        # package's einsum does (``preferred_element_type=f32``)
+        kron = (coefs.to(acc_dtype_for(ds.X.dtype))[:, None, :, None]
+                * ds.X[:, :, None, :])
         return DenseBatch(X=kron.reshape(e * n, int(coefs.shape[1]) * d),
                           labels=ds.labels.reshape(-1),
                           offsets=offsets.reshape(-1),

@@ -330,6 +330,9 @@ class RandomEffectDataset:
     #: where the blocks are solved and scored (host feature blocks are
     #: copied there one at a time)
     device: Optional[torch.device] = None
+    #: the dtype host feature blocks (f32 memmaps) take on that device:
+    #: ``--precision``'s storage dtype applies when a block is paged in
+    storage_dtype: torch.dtype = torch.float32
 
     @property
     def num_entities(self) -> int:
@@ -905,13 +908,13 @@ def build_random_effect_dataset_streamed(
     ``blocks_dir`` the bucket and passive feature blocks are ``np.memmap``
     files there (``bucket<b>_X.f32``, ``passive_X.f32``) that stay on
     the host, and peak host memory is one part plus the scalar columns;
-    the caller owns the directory. The result is always bucketed
-    (``num_buckets=1``: one bucket) and equals the in-RAM builder's
-    array for array."""
+    the caller owns the directory. The memmap files are f32 whatever
+    ``dtype`` is (the JAX package's spill format, ``dataset.py:1033-1039``):
+    ``dtype`` applies when a block is paged to the device (the dataset's
+    ``storage_dtype``), as it applies at the device commit of RAM blocks.
+    The result is always bucketed (``num_buckets=1``: one bucket) and
+    equals the in-RAM builder's array for array."""
     device = resolve_device(device)
-    if blocks_dir is not None and dtype != torch.float32:
-        raise NotImplementedError(
-            "memmap blocks are f32; bf16 storage waits for --precision")
     # ---- pass 1: scalar columns only ---------------------------------------
     codes_parts, y_parts, off_parts, wt_parts = [], [], [], []
     for _, c, y, o, w in stream_factory():
@@ -1068,7 +1071,8 @@ def build_random_effect_dataset_streamed(
         config=config, entity_codes=ent_codes, X=None, labels=None,
         base_offsets=None, weights=None, row_ids=None, num_samples=n,
         projectors=projectors, random_projector=random_projector,
-        buckets=buckets, _reduced_dim=d_red, device=device, **passive)
+        buckets=buckets, _reduced_dim=d_red, device=device,
+        storage_dtype=dtype, **passive)
 
 
 def dataset_row_stream(data: GameDataset,

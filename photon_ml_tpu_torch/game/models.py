@@ -90,6 +90,39 @@ def rowwise_sparse_dot_gathered(mat, table: np.ndarray,
     return summed @ np.ones(mat.shape[1], dtype=prod.dtype)
 
 
+def rowwise_sparse_dot_on_device(mat, table: Tensor,
+                                 local: np.ndarray) -> Tensor:
+    """:func:`rowwise_sparse_dot_gathered` against an f32 ``table`` on its
+    device, as f32 there: the coefficient is gathered at each stored
+    entry, the products (promoted as numpy promotes them) are laid out
+    ``[rows, longest row]`` by their place in the row, zeros after the
+    row's end, and summed one place after another, from zero. That is
+    the order of scipy's CSR product (one add per stored entry, in
+    storage order; adding 0 leaves a sum unchanged), so the result is
+    the host form's bit for bit. The entries' table row, column and
+    place go to the device as one upload."""
+    if table.shape[1] != mat.shape[1]:
+        raise ValueError(f"inconsistent shapes: {mat.shape} rows against "
+                         f"coefficients of width {table.shape[1]}")
+    n = mat.shape[0]
+    counts = np.diff(mat.indptr)
+    width = int(counts.max()) if n else 0
+    row_of = np.repeat(np.arange(n), counts)
+    place = np.arange(mat.nnz) - np.repeat(mat.indptr[:-1], counts)
+    idx = torch.from_numpy(np.stack([
+        np.asarray(local)[row_of], mat.indices.astype(np.int64),
+        row_of * width + place])).to(table.device)
+    prod = torch.from_numpy(mat.data).to(table.device) \
+        * table[idx[0], idx[1]]
+    # distinct places: a scatter with no accumulation
+    laid = prod.new_zeros(n * width).index_copy_(0, idx[2], prod) \
+        .view(n, width)
+    total = prod.new_zeros(n)
+    for j in range(width):
+        total = total + laid[:, j]
+    return total.to(torch.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class FixedEffectModel:
     """GLM over one feature shard."""

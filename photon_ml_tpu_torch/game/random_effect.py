@@ -32,10 +32,16 @@ Host blocks: a dataset built by the streamed builder with a
 ``np.memmap`` files on the host, where the JAX package hands the memmap
 to a jitted call that copies it to the device on each call. Here the copy
 is explicit: ``_run_bucketed`` and ``score_random_effect`` copy one
-bucket at a time to the dataset's device (:func:`device_block`) and drop
-it after use, and ``score_passive`` pages passive rows in pages of
-``PASSIVE_PAGE_ROWS``. The device sees the same values in the same
-shapes, so a run on host blocks equals the in-RAM run bit for bit.
+bucket at a time to the dataset's device (:func:`device_block`) in the
+dataset's ``storage_dtype`` and drop it after use, and ``score_passive``
+pages passive rows in pages of ``PASSIVE_PAGE_ROWS``. The device sees the
+same values in the same shapes, so a run on host blocks equals the
+in-RAM run bit for bit, in f32 and in bf16.
+
+bf16 blocks (``--precision bf16``): X is the only bf16 operand. The
+lane-batched ops promote it to f32 inside each elementwise product
+(``data/batch.py``), coefficients, offsets and every sum stay f32, and
+no bucket is copied to f32 ahead of the solve.
 
 Entity sharding waits for the multi-GPU slice.
 """
@@ -154,12 +160,13 @@ class ChunkAutoTuner:
 PASSIVE_PAGE_ROWS = 1 << 22
 
 
-def device_block(block, device: torch.device) -> Tensor:
+def device_block(block, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> Tensor:
     """A feature block on ``device``: a device tensor as it is, a host
-    (memmap) array copied there."""
+    (memmap) array copied there in ``dtype``."""
     if isinstance(block, torch.Tensor):
         return block
-    return torch.from_numpy(np.asarray(block)).to(device)
+    return torch.from_numpy(np.asarray(block)).to(device=device, dtype=dtype)
 
 
 def _vg(w: Tensor, payload) -> tuple[Tensor, Tensor]:
@@ -362,7 +369,7 @@ class RandomEffectOptimizationProblem:
         outs = []
         for bucket, off_b in zip(dataset.buckets, offsets):
             # a host block is copied here and dropped after its solve
-            X = device_block(bucket.X, dev)
+            X = device_block(bucket.X, dev, dataset.storage_dtype)
             acc = acc_dtype_for(X.dtype)
             e_b, _, d_b = X.shape
             nr, start = bucket.num_real, bucket.entity_start
@@ -411,14 +418,16 @@ def score_active(X: Tensor, coefs: Tensor, row_ids: Tensor, weights: Tensor,
 
 
 def score_passive(passive_X, passive_entity: Tensor, coefs: Tensor,
-                  passive_row_ids: Tensor, num_samples: int) -> Tensor:
+                  passive_row_ids: Tensor, num_samples: int,
+                  dtype: torch.dtype = torch.float32) -> Tensor:
     """Score passive rows with their entity's model (gather + row dot), in
     pages of ``PASSIVE_PAGE_ROWS`` rows (``passive_X`` may be a host
-    memmap; a row's dot does not depend on the page)."""
+    memmap, paged in ``dtype``; a row's dot does not depend on the
+    page)."""
     flat = None
     for lo in range(0, int(passive_X.shape[0]), PASSIVE_PAGE_ROWS):
         hi = lo + PASSIVE_PAGE_ROWS
-        X = device_block(passive_X[lo:hi], coefs.device)
+        X = device_block(passive_X[lo:hi], coefs.device, dtype)
         margins = (X * coefs[passive_entity[lo:hi]]).sum(-1)
         if flat is None:
             flat = margins.new_zeros(num_samples + 1)
@@ -434,7 +443,7 @@ def score_random_effect(dataset: RandomEffectDataset,
     if dataset.buckets is not None:
         s = coefs.new_zeros(n, dtype=torch.float32)
         for b in dataset.buckets:
-            X = device_block(b.X, coefs.device)
+            X = device_block(b.X, coefs.device, dataset.storage_dtype)
             e_b, _, d_b = X.shape
             c_b = coefs.new_zeros((e_b, d_b))
             c_b[:b.num_real] = coefs[b.entity_start:b.entity_start
@@ -446,5 +455,6 @@ def score_random_effect(dataset: RandomEffectDataset,
                          n)
     if dataset.num_passive:
         s = s + score_passive(dataset.passive_X, dataset.passive_entity,
-                              coefs, dataset.passive_row_ids, n)
+                              coefs, dataset.passive_row_ids, n,
+                              dataset.storage_dtype)
     return s

@@ -105,6 +105,54 @@ FAULT_POINTS: dict[str, FaultPointInfo] = {
         "OffHeapIndexMap; tag = namespace), io/data_format.py "
         "NameAndTermFeatureSets.load (tag = directory basename)",
         modes=("raise", "io_error", "flaky", "slow")),
+    "serve.request": FaultPointInfo(
+        "in a scoring-service connection thread, per decoded request "
+        "before dispatch (serve/service.py); tag = request kind. "
+        "Connection-scoped: a firing fails THAT request/connection with "
+        "an error response — the service keeps serving",
+        modes=("raise", "io_error", "delay", "flaky")),
+    "serve.batch": FaultPointInfo(
+        "in the scoring-service device loop, per micro-batch before "
+        "scoring (serve/service.py); tag = batch request count. "
+        "raise aborts the service cleanly; io_error fails that batch's "
+        "requests with error responses (the service keeps serving); "
+        "signal drains and exits preempted; kill scripts it dead for "
+        "the supervisor-relaunch drill",
+        modes=("raise", "io_error", "delay", "kill", "signal")),
+    "serve.model_load": FaultPointInfo(
+        "in the scoring-service swap loader thread, on the CANDIDATE "
+        "model dir before it is read (serve/service.py, off the hot "
+        "path, wrapped in utils/retry); tag = requested model id; path "
+        "= the candidate's first coefficient artifact. io_error retries "
+        "then refuses; corrupt flips bytes in the candidate so the load "
+        "(or the canary) refuses the swap — the service keeps serving "
+        "the current generation either way; slow stalls only the "
+        "loader thread, never live scoring",
+        modes=("io_error", "corrupt", "slow", "kill"), has_path=True),
+    "serve.swap": FaultPointInfo(
+        "in the scoring-service device loop, at the atomic generation "
+        "flip after the canary gate passes (serve/service.py); tag = "
+        "candidate generation; path = the candidate's first coefficient "
+        "artifact. io_error refuses the flip (the old generation keeps "
+        "serving); slow stalls the flip (SIGTERM during the stall still "
+        "drains and exits 75); kill dies mid-flip for the "
+        "supervisor-relaunch drill (the relaunch serves exactly one "
+        "consistent generation); corrupt flips candidate bytes on disk "
+        "AFTER load — the flip is insensitive, it serves from memory",
+        modes=("io_error", "corrupt", "slow", "kill"), has_path=True),
+    "serve.route": FaultPointInfo(
+        "in a scorer FLEET MEMBER's connection thread, per routed "
+        "sub-request arriving over a member-role connection from the "
+        "fleet router (serve/service.py; the router's dispatch path is "
+        "serve/fleet.py); tag = the member's fleet index. raise/"
+        "io_error/flaky fail THAT sub-request with an error response — "
+        "the router retries through utils/retry, fails over to the "
+        "shard's fallback member, or sheds typed; slow stalls the "
+        "sub-request inside the router's member timeout; kill dies the "
+        "member mid-request for the no-black-hole drill (every "
+        "in-flight request must still get a reply or a typed shed, and "
+        "the supervised relaunch re-admits only on the live generation)",
+        modes=("raise", "io_error", "delay", "slow", "flaky", "kill")),
 }
 
 

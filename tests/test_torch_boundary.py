@@ -25,13 +25,20 @@
   instead of running on the CPU.
 - The kernel path has no ``try`` that could fall back, and the JAX
   package's ``PHOTON_DISABLE_PALLAS`` switch is not honoured by the port.
+- The serving path (``obs/metrics``, ``obs/trace``, ``serve/*``,
+  ``tools/photon_serve``) is in both import checks; ``ServingScorer``,
+  ``TieredCoefficientStore``, the service and its launcher raise without
+  CUDA unless given ``device="cpu"`` / ``--device cpu`` (the service
+  before it reads a model or binds its socket), and the service refuses
+  the five telemetry flags with exit 3.
 - The wide and streamed builders (``csr_to_batch`` over 4,096 columns,
   ``build_random_effect_dataset_streamed``) raise without CUDA unless
   given ``device="cpu"``; a failed host build raises from the block
   packers instead of returning ``False``; the flags ported with them
   (``--offheap-indexmap-dir``, ``--offheap-indexmap-num-partitions``,
-  ``--random-effect-blocks-dir``) are no longer refused, while the
-  still-unported ones end with exit 3.
+  ``--random-effect-blocks-dir``) and ``--precision bf16`` are no longer
+  refused, while the still-unported ones (``--collective-quant`` among
+  them) end with exit 3.
 """
 
 import ast
@@ -84,9 +91,16 @@ WIDE_STREAMED_MODULES = [
     "photon_ml_tpu_torch.io.feature_index_job",
     "photon_ml_tpu_torch.cli.feature_indexing_job",
     "photon_ml_tpu_torch.tools.host_replay"]
+SERVE_MODULES = [
+    "photon_ml_tpu_torch.obs.metrics", "photon_ml_tpu_torch.obs.trace",
+    "photon_ml_tpu_torch.serve.reqtrace", "photon_ml_tpu_torch.serve.batcher",
+    "photon_ml_tpu_torch.serve.protocol", "photon_ml_tpu_torch.serve.tiers",
+    "photon_ml_tpu_torch.serve.scoring", "photon_ml_tpu_torch.serve.service",
+    "photon_ml_tpu_torch.tools.photon_serve"]
 NAMED_MODULES = (FAULT_TOLERANCE_MODULES + NATIVE_INGEST_MODULES
                  + SECOND_ORDER_MODULES + SAMPLER_MODULES
-                 + SINGLE_GLM_MODULES + WIDE_STREAMED_MODULES)
+                 + SINGLE_GLM_MODULES + WIDE_STREAMED_MODULES
+                 + SERVE_MODULES)
 
 
 def _forbidden(module: str) -> bool:
@@ -123,7 +137,8 @@ def test_importing_every_submodule_leaves_jax_out():
 def test_every_port_package_is_walked():
     subpackages = {p.parent.name for p in PKG.rglob("__init__.py")}
     assert {"cli", "io", "evaluation", "serve", "utils", "game", "ops",
-            "optimize", "data", "tools", "stat", "diagnostics"} <= subpackages
+            "optimize", "data", "tools", "stat", "diagnostics",
+            "obs"} <= subpackages
     walked = {p.relative_to(PKG).parts[0] for p in SOURCES
               if p.is_relative_to(PKG)}
     assert subpackages - {PKG.name} <= walked
@@ -377,10 +392,11 @@ PORTED_FLAGS = [
     ["--offheap-indexmap-dir", "idx"],
     ["--offheap-indexmap-dir", "idx", "--offheap-indexmap-num-partitions",
      "2"],
-    ["--random-effect-blocks-dir", "blk"]]
+    ["--random-effect-blocks-dir", "blk"],
+    ["--precision", "bf16"]]
 STILL_UNPORTED = [
     ("--re-entity-shards", ["--re-entity-shards", "2"]),
-    ("--precision", ["--precision", "bf16"]),
+    ("--collective-quant", ["--collective-quant", "int8"]),
     ("--num-processes", ["--num-processes", "2"]),
     ("--trace-dir", ["--trace-dir", "trace"]),
     ("--telemetry-endpoint", ["--telemetry-endpoint", "127.0.0.1:1"])]
@@ -400,6 +416,10 @@ def test_ported_flags_are_not_refused(extra, tmp_path):
     ns = ttd.parse_args(["--train-input-dirs", "t", "--output-dir",
                          str(tmp_path / "o"), *_TRAIN, *extra])
     ttd.check_unported(ns)
+    if extra[0] == "--precision":
+        from photon_ml_tpu_torch.cli.args import precision_dtype
+
+        assert precision_dtype(ns.precision) is torch.bfloat16
     if extra[0].startswith("--offheap"):
         tsd.check_unported(tsd.parse_args(
             ["--input-data-dirs", "t", "--game-model-input-dir", "m",
@@ -424,3 +444,68 @@ def test_unported_flags_still_exit_3(flag, extra, tmp_path, capsys):
     assert f"PHOTON_ABORT kind=NotImplementedError: {flag} " in \
         capsys.readouterr().err
     assert not (tmp_path / "o").exists()
+
+
+SERVE_TELEMETRY = [
+    ("--trace-dir", ["--trace-dir", "trace"]),
+    ("--trace-heartbeat-seconds", ["--trace-heartbeat-seconds", "0.2"]),
+    ("--trace-stall-seconds", ["--trace-stall-seconds", "30"]),
+    ("--trace-exemplar-slots", ["--trace-exemplar-slots", "8"]),
+    ("--telemetry-endpoint", ["--telemetry-endpoint", "127.0.0.1:1"]),
+    ("--device-telemetry", ["--device-telemetry"])]
+
+
+@pytest.mark.parametrize("flag,extra", SERVE_TELEMETRY,
+                         ids=[f for f, _ in SERVE_TELEMETRY])
+def test_service_refuses_the_telemetry_flags(flag, extra, tmp_path, capsys):
+    from photon_ml_tpu_torch.serve import service as tsvc
+
+    sock = tmp_path / "s.sock"
+    with pytest.raises(SystemExit) as exc:
+        tsvc.main(["--game-model-input-dir", str(tmp_path / "m"),
+                   "--feature-shard-id-to-feature-section-keys-map",
+                   "global:globalFeatures", "--listen", f"unix:{sock}",
+                   "--device", "cpu", *extra])
+    assert exc.value.code == 3
+    assert f"PHOTON_ABORT kind=NotImplementedError: {flag} " in \
+        capsys.readouterr().err
+    assert not sock.exists()
+
+
+def test_serving_entry_points_refuse_cpu_without_being_asked(
+        no_cuda, monkeypatch, tmp_path):
+    from photon_ml_tpu_torch.serve import scoring as tsc
+    from photon_ml_tpu_torch.serve import service as tsvc
+    from photon_ml_tpu_torch.serve.tiers import TieredCoefficientStore
+    from photon_ml_tpu_torch.tools import photon_serve
+
+    model = GameModel({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsc.ServingScorer(model, {}, {})
+    re_model = _re_model()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TieredCoefficientStore("c", re_model, 1 << 20)
+    # a refused service must not read the model or bind its socket
+    monkeypatch.setattr(tsc, "load_scoring_model", lambda *a, **k:
+                        pytest.fail("the service read a model on the CPU"))
+    sock = tmp_path / "s.sock"
+    argv = ["--game-model-input-dir", str(tmp_path / "m"),
+            "--feature-shard-id-to-feature-section-keys-map",
+            "global:globalFeatures", "--listen", f"unix:{sock}"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsvc.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        photon_serve.main(argv)
+    assert not sock.exists()
+    # and on the CPU only when asked
+    assert tsc.ServingScorer(model, {}, {}, device="cpu").device == \
+        torch.device("cpu")
+    assert TieredCoefficientStore("c", re_model, 1 << 20,
+                                  device="cpu").device == torch.device("cpu")
+
+
+def _re_model():
+    from photon_ml_tpu_torch.game.models import RandomEffectModel
+
+    return RandomEffectModel("u", "g", np.arange(2), torch.zeros(2, 3),
+                             entity_ids=np.array(["a", "b"]))

@@ -12,7 +12,8 @@
 - ``_PairStatsAccumulator`` fed in chunks gives the projectors of
   ``_build_index_map_projectors`` over the same rows.
 - With ``blocks_dir`` the feature blocks are ``np.memmap`` files of the
-  expected sizes there, and the small arrays are device tensors.
+  expected sizes there, and the small arrays are device tensors; with
+  ``dtype=bf16`` the files stay f32 and the blocks page in as bf16.
 - Coordinate descent on memmap blocks, and its resume from a mid-sweep
   snapshot, equal the in-RAM run bit for bit (objectives, states,
   scores).
@@ -201,11 +202,21 @@ def test_blocks_are_memmap_files_on_disk(tdata, tmp_path):
         tds.dataset_row_stream(tdata, cfg, chunk_rows=CHUNK), cfg,
         raw_dim=D, num_buckets=3, device="cpu")
     assert all(isinstance(b.X, torch.Tensor) for b in in_ram.buckets)
-    with pytest.raises(NotImplementedError, match="f32"):
-        tds.build_random_effect_dataset_streamed(
-            tds.dataset_row_stream(tdata, cfg), cfg, raw_dim=D,
-            blocks_dir=str(tmp_path / "bf16"), dtype=torch.bfloat16,
-            device="cpu")
+    # bf16 storage: the memmap files stay f32 (the spill format), the
+    # blocks take the dtype when they are paged to the device
+    bf16 = tds.build_random_effect_dataset_streamed(
+        tds.dataset_row_stream(tdata, cfg, chunk_rows=CHUNK), cfg,
+        raw_dim=D, num_buckets=3, blocks_dir=str(tmp_path / "bf16"),
+        dtype=torch.bfloat16, device="cpu")
+    assert bf16.storage_dtype == torch.bfloat16
+    assert sorted(os.listdir(tmp_path / "bf16")) == names
+    for b, bucket in zip(bf16.buckets, ds.buckets):
+        assert b.X.dtype == np.float32 and np.array_equal(b.X, bucket.X)
+        paged = tre.device_block(b.X, torch.device("cpu"),
+                                 bf16.storage_dtype)
+        assert paged.dtype == torch.bfloat16
+        assert torch.equal(paged, torch.from_numpy(np.asarray(
+            bucket.X)).to(torch.bfloat16))
 
 
 def _coords(data, re_ds):
