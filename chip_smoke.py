@@ -51,7 +51,17 @@ Phases, one JSON line each on stdout:
    columns and its launches must all take the path ``kernel_path`` picks
    for them (staged); the scores must equal the library's score of the
    reloaded model, and the scoring driver's AUC the validation AUC that
-   metrics.json records for the best state.
+   metrics.json records for the best state. Both drivers run traced
+   (``--trace-dir``, ``--device-telemetry``): the training run streams
+   live to a ``unix:`` consumer in this script, which must receive
+   heartbeats while the driver runs; its spans must nest as the JAX
+   package's driver nests them, its ``hbm_bytes`` peak gauge equal
+   ``torch.cuda.max_memory_allocated()`` read just after the run, and one
+   epilogue read count per update; the scoring run's endpoint has no
+   consumer, so its trace directory holds all five files (the stream in
+   ``telemetry.jsonl``). The host fetches per update by site, the span
+   self-times and the traced wall time beside PR 12's untraced one are
+   printed.
 7. resume — (a) the glmix phase's data, coordinates built afresh, two
    sweeps with a checkpoint after every update and ``cd.update@1.1`` armed
    to raise; fresh coordinates resume from the restored snapshot at
@@ -202,10 +212,11 @@ Phases, one JSON line each on stdout:
    128-byte rows), its objectives and peak device memory beside phase
    5's, and a second run on fresh coordinates equal bit for bit; (b) the
    training driver with ``--precision bf16`` on phase 6's fixture and
-   feature sets, in RAM and with ``--random-effect-blocks-dir`` (every
-   launch staged at ×65 bf16; the two runs' metrics and models equal
-   record for record), beside phase 6's objectives and AUC, the kernel
-   held against its plain version on the bf16 ×65 batch; (c)
+   feature sets in RAM, beside phase 6's objectives and AUC, the kernel
+   held against its plain version on the bf16 ×65 batch, then on the
+   drill's fixture (phase 7 (b)) in RAM and with
+   ``--random-effect-blocks-dir`` (the two runs' metrics and models equal
+   record for record; every launch of the three staged at ×65 bf16); (c)
    ``python -m photon_ml_tpu_torch.serve.service`` as a process on the
    card serving phase 6's final f32 model (its ``best/`` is the first
    state, with no per-user coefficients) on a unix socket under the
@@ -219,7 +230,25 @@ Phases, one JSON line each on stdout:
    users fit) on 4 x 25 requests, every score within its bf16 bound.
    Rows per second, client p50/p99, the tier hit split, the
    ``serve_stage_ms`` totals, the swap's blackout and the service's
-   peak device memory are printed.
+   peak device memory are printed. The f32-tier service runs traced
+   (``--trace-dir``, ``--trace-exemplar-slots 8``): ``exemplars.jsonl``
+   must hold 8 stage trees and the trace ``serve.generation`` and
+   ``serve.swap``; the sampled requests' stage split is printed by the
+   JAX package's stage names.
+14. fleet — the scorer fleet on the card: two port services
+   (``--serve-hbm-budget-mb 32`` each) serve phase 6's final f32 model
+   (6,040 users x 3,707 columns) behind the port's router
+   (``python -m photon_ml_tpu_torch.tools.photon_serve fleet``, traced,
+   routing by ``userId``), 4 clients x 100 requests of 1-256 of phase
+   13 (c)'s records (read once there, with the scoring driver's scores
+   that every fleet score must equal bit for bit); member 1 is SIGKILLed
+   once half are answered, every request must resolve with scores or a
+   typed shed, and the router's ``serve_route`` ledger must account for
+   every dispatch; member 1 is relaunched and must be re-admitted
+   through the generation check, after which both members score; then
+   SIGTERM gives exit 75 for the router and the members. Rows per
+   second, p50/p99, the rows by shard, the members' tier hits, the
+   failovers and the re-admission time are printed.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
@@ -229,6 +258,7 @@ exits non-zero at once.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -602,8 +632,8 @@ def peak():
 rss = {}
 timed = tsd.timed_phase
 @contextlib.contextmanager
-def phase(name, logger=None, record=None):
-    with timed(name, logger, record) as t:
+def phase(name, logger=None, record=None, **kw):
+    with timed(name, logger, record, **kw) as t:
         yield t
     rss[name] = peak()
 tsd.timed_phase = phase
@@ -691,6 +721,209 @@ def random_effect_scoring(re_model, data) -> dict:
     return record
 
 
+# -- the run telemetry plane (phases 6, 13 (c) and 14) ---------------------
+
+#: the trace directory's files; ``telemetry.jsonl`` is the live stream's
+#: fallback, written when no consumer ever connects
+TRACE_FILES = ("run_manifest.json", "trace.json", "spans.jsonl",
+               "metrics.jsonl", "telemetry.jsonl")
+#: (span, depth) pairs of a traced GLMix training run, as the JAX
+#: package's driver nests them (``tests/test_torch_telemetry.py`` holds
+#: the two packages' runs equal on the CPU)
+TRAINING_NESTING = {
+    ("driver.phase", 0), ("cd.sweep", 1), ("cd.update", 2),
+    ("cd.dispatch", 2), ("cd.tracker_drain", 2), ("cd.hbm_sample", 2),
+    ("cd.hbm_watermark", 2), ("cd.epilogue_fetch", 3),
+    ("cd.validation", 3), ("optimizer.solve", 3), ("re.solve", 3)}
+#: seconds between heartbeats of the traced runs
+TRACE_HEARTBEAT_SECONDS = 2.0
+#: PR 12's untraced training driver run of phase 6 (PERF.md §5), beside
+#: which the traced run's wall time is printed
+UNTRACED_DRIVER_SECS = 52.67
+#: the service's request stages, the JAX package's names
+SERVE_STAGES = ("serve.queue_wait", "serve.batch_form", "serve.tier_gather",
+                "serve.device_score", "serve.reply")
+
+
+class TelemetryConsumer:
+    """A ``--telemetry-endpoint unix:`` consumer on a thread of its own:
+    every record it reads, with the ``time.perf_counter`` it arrived at."""
+
+    def __init__(self, path):
+        import socket
+        import threading
+
+        self.path = path
+        self.records = []
+        self._sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        self._sock.bind(path)
+        self._sock.listen(4)
+        self._sock.settimeout(0.1)
+        self._closed = False
+        self._threads = [threading.Thread(target=self._accept, daemon=True)]
+        self._threads[0].start()
+
+    def _accept(self):
+        import socket
+        import threading
+
+        while not self._closed:
+            try:
+                conn, _ = self._sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            t = threading.Thread(target=self._read, args=(conn,),
+                                 daemon=True)
+            self._threads.append(t)
+            t.start()
+
+    def _read(self, conn):
+        with conn, conn.makefile("rb") as fh:
+            for line in fh:
+                self.records.append((time.perf_counter(), json.loads(line)))
+
+    def close(self):
+        self._closed = True
+        self._sock.close()
+        for t in self._threads:
+            t.join(timeout=10)
+        os.unlink(self.path)
+
+
+def read_trace_dir(trace_dir) -> dict:
+    """The spans and metric records of a ``--trace-dir`` directory; raises
+    unless its four files exist (``telemetry.jsonl`` is checked by the
+    caller, which knows whether a consumer listened)."""
+    missing = [f for f in TRACE_FILES[:4]
+               if not os.path.exists(os.path.join(trace_dir, f))]
+    if missing:
+        raise AssertionError(f"{trace_dir} lacks {missing}")
+    with open(os.path.join(trace_dir, "spans.jsonl")) as f:
+        spans = [json.loads(ln) for ln in f]
+    with open(os.path.join(trace_dir, "metrics.jsonl")) as f:
+        metrics = [json.loads(ln) for ln in f]
+    with open(os.path.join(trace_dir, "run_manifest.json")) as f:
+        manifest = json.load(f)
+    if metrics[-1].get("kind") != "run_end":
+        raise AssertionError(f"{trace_dir}: metrics.jsonl does not end with "
+                             f"run_end: {metrics[-1]}")
+    return {"spans": spans, "metrics": metrics, "manifest": manifest,
+            "run_end": metrics[-1]}
+
+
+def span_self_ms(spans) -> dict:
+    """Per span name: count, total and self milliseconds (a span's time
+    less its direct children's, by containment on its thread)."""
+    out = {}
+    by_tid = {}
+    for s in spans:
+        by_tid.setdefault(s["tid"], []).append(s)
+    for group in by_tid.values():
+        group.sort(key=lambda s: (s["ts_us"], -s["dur_us"]))
+        stack = []  # [span, children's us]
+        for s in group:
+            end = s["ts_us"] + s["dur_us"]
+            while stack and stack[-1][0]["ts_us"] + stack[-1][0]["dur_us"] \
+                    < end:
+                _close_span(out, *stack.pop())
+            if stack:
+                stack[-1][1] += s["dur_us"]
+            stack.append([s, 0.0])
+        while stack:
+            _close_span(out, *stack.pop())
+    return {k: {"count": v[0], "total_ms": v[1] / 1e3, "self_ms": v[2] / 1e3}
+            for k, v in sorted(out.items(), key=lambda kv: -kv[1][2])}
+
+
+def _close_span(out, s, child_us):
+    e = out.setdefault(s["name"], [0, 0.0, 0.0])
+    e[0] += 1
+    e[1] += s["dur_us"]
+    e[2] += max(s["dur_us"] - child_us, 0.0)
+
+
+def training_telemetry(trace_dir, stream, t0, t_end, peak_after,
+                       solver_syncs) -> dict:
+    """Phase 6's checks of the traced training run: the trace directory's
+    files and ``run_end``, the spans of the JAX package's training path
+    nested as it nests them, heartbeats on the live stream while the
+    driver ran, and the ``hbm_bytes`` peak equal to
+    ``torch.cuda.max_memory_allocated()`` read just after the run (and
+    to ``run_end``'s ``peak_hbm_bytes``). Returns the record."""
+    got = read_trace_dir(trace_dir)
+    if got["run_end"]["status"] != "ok":
+        raise AssertionError(f"training run_end: {got['run_end']}")
+    nesting = {(s["name"], s["depth"]) for s in got["spans"]}
+    if not TRAINING_NESTING <= nesting:
+        raise AssertionError(f"training spans lack "
+                             f"{sorted(TRAINING_NESTING - nesting)}")
+    kinds = [r.get("kind") for _, r in stream]
+    beats = [at for at, r in stream
+             if r.get("kind") == "heartbeat" and t0 <= at <= t_end]
+    if not kinds or kinds[0] != "run_manifest" or kinds[-1] != "run_end" \
+            or not beats or "span" not in kinds:
+        raise AssertionError(f"live stream: {len(beats)} heartbeats while "
+                             f"the driver ran, kinds {sorted(set(kinds))}")
+    fetches = {dict(k)["site"]: v for k, v in
+               metric_values(got["metrics"], "host_fetches").items()}
+    updates = sum(1 for s in got["spans"] if s["name"] == "cd.update")
+    if fetches.get("cd.epilogue") != updates or updates != 4:
+        raise AssertionError(f"host fetches {fetches} over {updates} "
+                             f"updates")
+    record = {
+        "files": sorted(os.listdir(trace_dir)),
+        "spans": len(got["spans"]), "nesting_as_jax": True,
+        "stream_records": len(stream),
+        "stream_heartbeats_during_run": len(beats),
+        "host_fetches_by_site": fetches,
+        "host_syncs_per_update": sum(fetches.values()) / updates,
+        "solver_syncs_per_update": solver_syncs / updates,
+        "span_self_ms": span_self_ms(got["spans"]),
+        "manifest": {k: got["manifest"][k] for k in (
+            "torch_version", "cuda_version", "device_name",
+            "device_count")}}
+    if peak_after is not None:
+        gauge = {dict(k)["kind"]: v for k, v in
+                 metric_values(got["metrics"], "hbm_bytes").items()
+                 if dict(k)["device"] == "cuda:0"}
+        peaks = (gauge.get("peak_bytes_in_use"),
+                 got["run_end"].get("peak_hbm_bytes"), peak_after)
+        if len(set(peaks)) != 1:
+            raise AssertionError(f"hbm_bytes peak gauge, run_end peak and "
+                                 f"max_memory_allocated differ: {peaks}")
+        record["hbm_bytes"] = gauge
+        record["peak_hbm_bytes_equals_max_memory_allocated"] = True
+    return record
+
+
+def scoring_telemetry(trace_dir) -> dict:
+    """The traced scoring run (its stream endpoint had no consumer): all
+    five files, ``telemetry.jsonl`` from the manifest to ``run_end``."""
+    got = read_trace_dir(trace_dir)
+    with open(os.path.join(trace_dir, "telemetry.jsonl")) as f:
+        kinds = [json.loads(ln)["kind"] for ln in f]
+    names = sorted({s["name"] for s in got["spans"]})
+    if kinds[0] != "run_manifest" or kinds[-1] != "run_end" \
+            or got["run_end"]["status"] != "ok" or "driver.phase" not in names:
+        raise AssertionError(f"scoring trace: stream {kinds[:1]}..."
+                             f"{kinds[-1:]}, spans {names}")
+    return {"files": sorted(os.listdir(trace_dir)),
+            "fallback_stream_records": len(kinds), "spans": names,
+            "host_fetches_by_site": {
+                dict(k)["site"]: v for k, v in metric_values(
+                    got["metrics"], "host_fetches").items()}}
+
+
+def metric_values(metrics, name) -> dict:
+    """``{labels as a sorted tuple: value}`` of one metric's final records
+    in ``metrics.jsonl``."""
+    return {tuple(sorted(m["labels"].items())): m["value"] for m in metrics
+            if m.get("name") == name and "value" in m}
+
+
+
 def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
                  n_movies=3706, d_global=64):
     """The GLMix main path through the port's drivers (phase 6). Returns
@@ -704,8 +937,10 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     from photon_ml_tpu_torch.game.dataset import build_fixed_effect_dataset
     from photon_ml_tpu_torch.io import data_format as tdf
     from photon_ml_tpu_torch.io.model_io import load_scored_items
+    from photon_ml_tpu_torch.obs.metrics import REGISTRY
     from photon_ml_tpu_torch.ops import pallas_kernels as pk
     from photon_ml_tpu_torch.ops.losses import get_loss
+    from photon_ml_tpu_torch.optimize import common as opt_common
     from photon_ml_tpu_torch.serve.scoring import load_scoring_model
     from photon_ml_tpu_torch.tools.crash_resume_drill import (
         FIXTURE_PARTS, driver_argv, write_movielens_avro)
@@ -719,16 +954,39 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     write_movielens_avro(train, val, *rows, n_users, n_movies, d_global,
                          parts=FIXTURE_PARTS)
     avro_write_secs = time.perf_counter() - t0
-    argv = driver_argv(train, val, out, str(dev))
+    # traced: the trace directory, the live stream to a consumer here, the
+    # device plane armed
+    train_trace = os.path.join(workdir, "train_trace")
+    consumer = TelemetryConsumer(os.path.join(workdir, "telemetry.sock"))
+    argv = driver_argv(train, val, out, str(dev), extra=[
+        "--trace-dir", train_trace,
+        "--trace-heartbeat-seconds", str(TRACE_HEARTBEAT_SECONDS),
+        "--telemetry-endpoint", f"unix:{consumer.path}",
+        "--device-telemetry"])
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     tdf.reset_ingest_stats()
     pk.reset_launch_count()
+    opt_common.reset_solver_syncs()
+    REGISTRY.reset()  # metrics.jsonl counts this run only
     t0 = time.perf_counter()
-    trainer = ttd.run(argv)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    driver_secs = time.perf_counter() - t0
+    try:
+        trainer = ttd.run(argv)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        driver_secs = t_end - t0
+        peak_after = (torch.cuda.max_memory_allocated()
+                      if dev.type == "cuda" else None)
+        deadline = time.perf_counter() + 10
+        while time.perf_counter() < deadline and not any(
+                r.get("kind") == "run_end" for _, r in consumer.records):
+            time.sleep(0.05)
+    finally:
+        consumer.close()
+    telemetry = training_telemetry(
+        train_trace, consumer.records, t0, t_end, peak_after,
+        opt_common.SOLVER_SYNCS["count"])
     launches = pk.launch_count()
     by_path = dict(pk.fused_value_gradient_sums.launches_by_path)
     by_loss = launch_counts()["by_loss"]
@@ -765,14 +1023,21 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
         raise AssertionError("no state holds the best validation AUC")
 
     t0 = time.perf_counter()
+    # traced, with a stream endpoint that no consumer listens on: the
+    # records go to the trace directory's telemetry.jsonl
+    score_trace = os.path.join(workdir, "score_trace")
     scorer = run_scoring_driver([
         "--input-data-dirs", val,
         "--game-model-input-dir", os.path.join(out, "best"),
         "--output-dir", score_out,
         "--feature-shard-id-to-feature-section-keys-map", DRIVER_SECTIONS,
         "--random-effect-id-set", "userId", "--evaluator-type", "AUC",
-        "--device", str(dev)])
+        "--device", str(dev), "--trace-dir", score_trace,
+        "--telemetry-endpoint",
+        "unix:" + os.path.join(workdir, "no-consumer.sock"),
+        "--device-telemetry"])
     scoring_driver_secs = time.perf_counter() - t0
+    telemetry["scoring_driver"] = scoring_telemetry(score_trace)
     if scorer["ingest_parts"] != {"native_parts": FIXTURE_PARTS[1],
                                   "declined_parts": 0, "records_parts": 0}:
         raise AssertionError(f"the scoring driver's ingest left the native "
@@ -877,8 +1142,16 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
         "launches_by_loss": by_loss, "expected_path": expected,
         "max_memory_allocated": peak,
         "kernel_check": check,
+        "telemetry": telemetry,
     }
     print("driver phase: " + json.dumps(phase), file=sys.stderr, flush=True)
+    print(f"phase 6 traced ({smi}): training driver "
+          f"{driver_secs:.2f} s traced beside PR 12's untraced "
+          f"{UNTRACED_DRIVER_SECS} s; host syncs per update "
+          f"{telemetry['host_syncs_per_update']} by site "
+          f"{telemetry['host_fetches_by_site']}; span self ms "
+          f"{json.dumps(telemetry['span_self_ms'])}", file=sys.stderr,
+          flush=True)
     if dev.type == "cuda" and (launches <= 0
                                or by_path[expected] != launches):
         raise AssertionError(f"the driver's fixed effect did not launch "
@@ -3698,6 +3971,8 @@ BF16_TIER_REQUESTS = 25
 #: bf16 rounds a coefficient to 8 significant bits: relative error at
 #: most 2^-8 (round to nearest)
 BF16_REL = 2.0 ** -8
+#: phase 13 (c): the traced service's slowest-N exemplar reservoir
+EXEMPLAR_SLOTS = 8
 
 
 def bf16_library_phase(torch, dev, data, f32_glmix):
@@ -3767,15 +4042,23 @@ def bf16_library_phase(torch, dev, data, f32_glmix):
     return record, launches, err
 
 
-def bf16_driver_phase(torch, dev, fixture, f32_driver, workdir):
+def bf16_driver_phase(torch, dev, fixture, f32_driver, drill_fixture,
+                      workdir):
     """Phase 13 (b): the training driver with ``--precision bf16`` on phase
-    6's fixture and feature sets, in RAM and with
-    ``--random-effect-blocks-dir``: the two runs' metrics (seconds aside)
-    and models record for record equal, every launch on the path
-    ``kernel_path`` picks for ×65 bf16 rows. Returns the record, the
-    launches by run, the kernel's error on the bf16 ×65 batch and the
-    in-RAM run's output directory (its final model, ``output/grid-0``,
-    is (c)'s swap candidate)."""
+    6's fixture and feature sets, in RAM, beside phase 6's f32 run; then
+    on the drill's fixture (phase 7 (b), ``DRILL_ROWS``) in RAM and with
+    ``--random-effect-blocks-dir``: those two runs' metrics (seconds
+    aside) and models record for record equal. Every launch of the three
+    runs is on the path ``kernel_path`` picks for ×65 bf16 rows. Returns
+    the record, the launches by run, the kernel's error on the bf16 ×65
+    batch and the full-size run's output directory (its final model,
+    ``output/grid-0``, is (c)'s swap candidate).
+
+    The memmap run is on the drill's fixture, a cut of scale (PERF.md
+    §4): at full size it read the 1,000,209-row Avro once more (~40 s of
+    a script that measured 1,122.3 s against its 1,100 s budget, PR 13
+    run 1). Memmap equal to RAM stays shown at full width by phase 12 (c)
+    (f32, bit for bit) and at full size in bf16 by the in-RAM run."""
     from photon_ml_tpu_torch.cli import game_training_driver as ttd
     from photon_ml_tpu_torch.game.dataset import build_fixed_effect_dataset
     from photon_ml_tpu_torch.ops import pallas_kernels as pk
@@ -3786,13 +4069,15 @@ def bf16_driver_phase(torch, dev, fixture, f32_driver, workdir):
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     runs, launches, err, trainer = {}, {}, None, None
-    for name, extra in (("in_ram", []),
-                        ("blocks_dir", ["--random-effect-blocks-dir",
-                                        os.path.join(workdir, "blocks")])):
+    blocks = ["--random-effect-blocks-dir", os.path.join(workdir, "blocks")]
+    for name, (tr, va), extra in (
+            ("in_ram", (train, val),
+             ["--feature-name-and-term-set-path", feature_sets]),
+            ("drill_in_ram", drill_fixture, []),
+            ("drill_blocks_dir", drill_fixture, blocks)):
         out = os.path.join(workdir, name)
-        argv = driver_argv(train, val, out, str(dev), extra=[
-            "--precision", "bf16", "--feature-name-and-term-set-path",
-            feature_sets, *extra])
+        argv = driver_argv(tr, va, out, str(dev), extra=[
+            "--precision", "bf16", *extra])
         reset_counts(torch, dev)
         t0 = time.perf_counter()
         trainer = ttd.run(argv)
@@ -3830,7 +4115,8 @@ def bf16_driver_phase(torch, dev, fixture, f32_driver, workdir):
         check_launches(f"bf16 driver {name}", launches[name], expected,
                        "logistic", dev)
         del trainer
-    ram, mm = (os.path.join(workdir, k) for k in ("in_ram", "blocks_dir"))
+    ram, mm = (os.path.join(workdir, k) for k in ("drill_in_ram",
+                                                  "drill_blocks_dir"))
     if metrics_without_seconds(ram) != metrics_without_seconds(mm):
         raise AssertionError("bf16 driver: the --random-effect-blocks-dir "
                              "run's metrics differ from the in-RAM run's")
@@ -3846,6 +4132,10 @@ def bf16_driver_phase(torch, dev, fixture, f32_driver, workdir):
     record = {
         "runs": runs, "expected_path": expected,
         "blocks_dir_equals_in_ram": True,
+        "reduced": {"blocks_dir_rows": list(DRILL_ROWS),
+                    "why": "the memmap run on the drill's fixture: the "
+                           "script measured 1,122.3 s against its 1,100 s "
+                           "budget (PR 13 run 1)"},
         "objectives_f32": f32_driver["objectives"],
         "rel_gap_to_f32": [abs(a - b) / abs(b) for a, b in
                            zip(objs, f32_driver["objectives"])],
@@ -3854,31 +4144,40 @@ def bf16_driver_phase(torch, dev, fixture, f32_driver, workdir):
         - f32_driver["best_metric"],
         "kernel_vs_plain_max_abs_err": err}
     shutil.rmtree(os.path.join(workdir, "blocks"), ignore_errors=True)
-    return record, launches, err, ram
+    return record, launches, err, os.path.join(workdir, "in_ram")
 
 
 class ServiceProcess:
-    """``python -m photon_ml_tpu_torch.serve.service`` as a child: waits
-    for its ready line (stderr to a file under ``workdir``), and
-    :meth:`stop` sends SIGTERM and returns the exit code."""
+    """``python -m <module>`` (the scoring service unless told otherwise)
+    as a child: :meth:`wait_ready` waits for its ready line (stderr to a
+    file under ``workdir``), and :meth:`stop` sends SIGTERM and returns
+    the exit code."""
 
-    def __init__(self, args, workdir, name, timeout=300.0):
-        import select
-
+    def __init__(self, args, workdir, name, timeout=300.0, wait=True,
+                 module="photon_ml_tpu_torch.serve.service"):
+        self.name, self.timeout = name, timeout
         self.err_path = os.path.join(workdir, f"{name}.stderr")
         self._err = open(self.err_path, "w")
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "photon_ml_tpu_torch.serve.service",
-             *args], cwd=REPO, text=True, stdout=subprocess.PIPE,
-            stderr=self._err)
-        ready, _, _ = select.select([self.proc.stdout], [], [], timeout)
+            [sys.executable, "-m", module, *args], cwd=REPO, text=True,
+            stdout=subprocess.PIPE, stderr=self._err)
+        self.endpoint = None
+        if wait:
+            self.wait_ready()
+
+    def wait_ready(self) -> "ServiceProcess":
+        import select
+
+        ready, _, _ = select.select([self.proc.stdout], [], [],
+                                    self.timeout)
         line = self.proc.stdout.readline().strip() if ready else ""
         if not line.startswith("PHOTON_SERVE ready endpoint="):
             self.proc.kill()
             self.proc.wait()
-            raise AssertionError(f"{name}: no ready line ({line!r}):\n"
+            raise AssertionError(f"{self.name}: no ready line ({line!r}):\n"
                                  f"{self.stderr()[-3000:]}")
         self.endpoint = line.split("endpoint=", 1)[1]
+        return self
 
     def stderr(self) -> str:
         if not self._err.closed:
@@ -3897,6 +4196,13 @@ class ServiceProcess:
             self.proc.kill()
             self.proc.wait()
             raise
+        self._err.close()
+        return rc
+
+    def kill(self) -> int:
+        """SIGKILL: the process dies with no drain."""
+        self.proc.kill()
+        rc = self.proc.wait()
         self._err.close()
         return rc
 
@@ -3976,6 +4282,43 @@ def latency_summary(responses, secs) -> dict:
             "rows_per_sec": rows / secs, "seconds": secs,
             "client_p50_ms": float(np.percentile(lat, 50)),
             "client_p99_ms": float(np.percentile(lat, 99))}
+
+
+def serve_trace_record(trace_dir, status) -> dict:
+    """Phase 13 (c)'s and 14's checks of a traced service or router: the
+    trace directory's files, ``run_end`` with ``status``, and, where the
+    process scored, ``exemplars.jsonl`` (``EXEMPLAR_SLOTS`` records, each
+    a request's stage tree) and the ``serve.generation`` / ``serve.swap``
+    spans. Returns the stage totals of the sampled requests' spans (ms)
+    by the JAX package's stage names, and the exemplars' latencies."""
+    got = read_trace_dir(trace_dir)
+    if got["run_end"]["status"] != status:
+        raise AssertionError(f"{trace_dir}: run_end {got['run_end']}")
+    names = collections.Counter(s["name"] for s in got["spans"])
+    record = {"files": sorted(os.listdir(trace_dir)),
+              "spans": dict(names)}
+    if not os.path.exists(os.path.join(trace_dir, "exemplars.jsonl")):
+        return record
+    with open(os.path.join(trace_dir, "exemplars.jsonl")) as f:
+        exemplars = [json.loads(ln) for ln in f]
+    stages = ("serve.request",) + SERVE_STAGES
+    if len(exemplars) != EXEMPLAR_SLOTS or any(
+            [e["name"] for e in ex["events"]] != list(stages)
+            for ex in exemplars):
+        raise AssertionError(f"exemplars.jsonl: {len(exemplars)} records")
+    if not names["serve.generation"] or not names["serve.swap"]:
+        raise AssertionError(f"service spans: {dict(names)}")
+    stage_ms = {n: 0.0 for n in SERVE_STAGES}
+    for s in got["spans"]:
+        if s["name"] in stage_ms:
+            stage_ms[s["name"]] += s["dur_us"] / 1e3
+    record.update(
+        stage_ms=stage_ms, sampled_requests=names["serve.request"],
+        exemplar_latency_ms=sorted(ex["latency_ms"] for ex in exemplars),
+        slowest_exemplar_stage_ms={
+            e["name"]: e["dur_us"] / 1e3 for e in max(
+                exemplars, key=lambda ex: ex["latency_ms"])["events"]})
+    return record
 
 
 def serve_phase(torch, dev, smi, driver_dir, bf16_model_dir, workdir):
@@ -4080,10 +4423,14 @@ def serve_phase(torch, dev, smi, driver_dir, bf16_model_dir, workdir):
               "row_dot_on_card_equals_host": True,
               "row_dot_on_card_secs": row_dot_secs}
 
-    # -- the f32 tier, with the hot-swap under load ------------------------
+    # -- the f32 tier, with the hot-swap under load, traced -----------------
+    serve_trace = os.path.join(workdir, "f32_trace")
     t0 = time.perf_counter()
     svc = ServiceProcess(base + ["--listen", "unix:" + os.path.join(
-        workdir, "f32.sock")], workdir, "serve_f32")
+        workdir, "f32.sock"), "--trace-dir", serve_trace,
+        "--trace-heartbeat-seconds", str(TRACE_HEARTBEAT_SECONDS),
+        "--trace-exemplar-slots", str(EXEMPLAR_SLOTS)], workdir,
+        "serve_f32")
     start_secs = time.perf_counter() - t0
     swap = {}
 
@@ -4140,8 +4487,15 @@ def serve_phase(torch, dev, smi, driver_dir, bf16_model_dir, workdir):
         "stage_ms": stats["stage_ms"],
         "service_max_memory_allocated":
             stats.get("device_max_memory_allocated"),
-        "exit_code": rc}
+        "exit_code": rc,
+        "trace": serve_trace_record(serve_trace, "preempted")}
     print("phase 13 (c) f32 tier: " + json.dumps(record["f32_tier"]),
+          file=sys.stderr, flush=True)
+    sampled = record["f32_tier"]["trace"]["stage_ms"]
+    print(f"phase 13 (c) traced ({smi}): stage split of the sampled "
+          f"requests (ms) {json.dumps(sampled)}"
+          f"; of every request (serve_stage_ms sums) "
+          f"{json.dumps({k: v['sum'] for k, v in stats['stage_ms'].items()})}",
           file=sys.stderr, flush=True)
 
     # -- the bf16 tier ------------------------------------------------------
@@ -4190,15 +4544,270 @@ def serve_phase(torch, dev, smi, driver_dir, bf16_model_dir, workdir):
     print("phase 13 (c) bf16 tier: " + json.dumps(record["bf16_tier"]),
           file=sys.stderr, flush=True)
     shutil.rmtree(workdir, ignore_errors=True)
+    # phase 14 serves the same model to the same rows: it reads neither
+    # the Avro nor the scoring driver again
+    return record, {"records": records, "model_dir": f32_model,
+                    "driver_scores": driver_scores}
+
+
+# -- phase 14: the scorer fleet ---------------------------------------------
+
+#: phase 14: members behind the router, each with half the service's
+#: default 64 MB device-tier budget
+FLEET_MEMBERS, FLEET_HBM_BUDGET_MB = 2, 32
+#: phase 14: requests per client after the member's re-admission
+FLEET_AFTER_REQUESTS = 10
+
+
+def drive_fleet_clients(endpoint, records, requests, seed, num_shards,
+                        on_half=None):
+    """``SERVE_CLIENTS`` threads sending ``requests`` requests each of 1 to
+    ``SERVE_MAX_ROWS`` consecutive records through the router;
+    ``on_half`` runs once half are answered. A request resolves with
+    scores or a typed shed; anything else (another error, a timeout: a
+    hung request) is a failure. Returns the scored responses as (sent,
+    done, uids, scores), the sheds, the failures, the dispatches the
+    requests make (one per shard their rows touch), the rows sent to
+    each shard, and the seconds."""
+    import threading
+
+    from photon_ml_tpu_torch.serve.fleet import entity_of_row, entity_shard
+    from photon_ml_tpu_torch.serve.protocol import (
+        ServeClient, ShardUnavailableError, ShedError, typed_error)
+
+    total = SERVE_CLIENTS * requests
+    lock = threading.Lock()
+    half = threading.Event()
+    out, sheds, failures = [], [], []
+    counts = {"answered": 0, "dispatches": 0,
+              "shard_rows": [0] * num_shards}
+
+    def client(ci):
+        rng = np.random.default_rng(seed + ci)
+        try:
+            with ServeClient(endpoint, timeout=120.0) as c:
+                for _ in range(requests):
+                    n = int(rng.integers(1, SERVE_MAX_ROWS + 1))
+                    lo = int(rng.integers(0, len(records) - n))
+                    rows = records[lo:lo + n]
+                    shards = [entity_shard(entity_of_row(r, "userId"),
+                                           num_shards) for r in rows]
+                    sent = time.perf_counter()
+                    resp = c.score(rows)
+                    done = time.perf_counter()
+                    with lock:
+                        counts["dispatches"] += len(set(shards))
+                        for k in shards:
+                            counts["shard_rows"][k] += 1
+                        counts["answered"] += 1
+                        if counts["answered"] * 2 >= total:
+                            half.set()
+                        if resp.get("kind") == "scores":
+                            out.append((sent, done, resp["uids"],
+                                        resp["scores"]))
+                        elif isinstance(typed_error(resp),
+                                        (ShedError, ShardUnavailableError)):
+                            sheds.append(resp["error"])
+                        else:
+                            failures.append(f"client {ci}: {resp}")
+        except Exception as e:  # noqa: BLE001 — a hung or broken request
+            failures.append(f"client {ci}: {e!r}")
+        finally:
+            half.set()
+
+    threads = [threading.Thread(target=client, args=(ci,))
+               for ci in range(SERVE_CLIENTS)]
+    if on_half is not None:
+        threads.append(threading.Thread(
+            target=lambda: (half.wait(), on_half())))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return (out, sheds, failures, counts["dispatches"],
+            counts["shard_rows"], time.perf_counter() - t0)
+
+
+def router_stats(endpoint) -> dict:
+    from photon_ml_tpu_torch.serve.protocol import ServeClient
+
+    with ServeClient(endpoint, timeout=60.0) as c:
+        return c.stats()
+
+
+def wait_member_state(endpoint, member, state, admissions=None,
+                      timeout=120.0) -> float:
+    """Poll the router's stats until ``member`` is in ``state`` (with at
+    least ``admissions`` admissions); returns when it was seen."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        snap = router_stats(endpoint)["fleet"]["members"][member]
+        if snap["state"] == state and (
+                admissions is None or snap["admissions"] >= admissions):
+            return time.perf_counter()
+        time.sleep(0.05)
+    raise AssertionError(f"fleet member {member} never became {state}: "
+                         f"{router_stats(endpoint)['fleet']}")
+
+
+def fleet_phase(torch, dev, smi, served, workdir):
+    """Phase 14: the scorer fleet on the card. ``FLEET_MEMBERS`` port
+    services (``--serve-hbm-budget-mb 32`` each) serve phase 6's final
+    f32 model behind the port's router (``photon_serve fleet``, traced),
+    routing by ``userId``; ``SERVE_CLIENTS`` clients send ``SERVE_REQUESTS``
+    requests each of phase 13 (c)'s validation records, and member 1 is
+    SIGKILLed once half are answered. Every score equals the scoring
+    driver's for its uid bit for bit (phase 13 (c)'s reference), every
+    request resolves with scores or a typed shed (none hangs), and the
+    router's ``serve_route`` ledger accounts for every dispatch. Member 1
+    is relaunched and must be re-admitted through the generation check;
+    ``FLEET_AFTER_REQUESTS`` more requests a client then reach both
+    members. SIGTERM: the router exits 75, then the members. Returns the
+    phase record."""
+    from photon_ml_tpu_torch.serve.protocol import ServeClient
+
+    records, model_dir, ref = (served[k] for k in (
+        "records", "model_dir", "driver_scores"))
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+
+    def member_args(k):
+        return ["--game-model-input-dir", model_dir,
+                "--feature-shard-id-to-feature-section-keys-map",
+                DRIVER_SECTIONS, "--random-effect-id-set", "userId",
+                "--serve-hbm-budget-mb", str(FLEET_HBM_BUDGET_MB),
+                "--listen", "unix:" + os.path.join(workdir, f"m{k}.sock"),
+                "--device", str(dev)]
+
+    def check_scores(responses):
+        bad = sum(ref[u] != s for _, _, uids, scores in responses
+                  for u, s in zip(uids, scores))
+        if bad:
+            raise AssertionError(f"fleet: {bad} scores differ from the "
+                                 f"scoring driver's")
+
+    router_trace = os.path.join(workdir, "router_trace")
+    procs = []
+    record = {"phase": "fleet", "nvidia_smi": smi,
+              "members": FLEET_MEMBERS,
+              "member_hbm_budget_mb": FLEET_HBM_BUDGET_MB,
+              "records": len(records)}
+    try:
+        t0 = time.perf_counter()
+        members = [ServiceProcess(member_args(k), workdir, f"member{k}",
+                                  wait=False) for k in range(FLEET_MEMBERS)]
+        procs += members
+        for m in members:
+            m.wait_ready()
+        record["members_ready_secs"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        router = ServiceProcess(
+            ["fleet", "--listen", "unix:" + os.path.join(workdir, "r.sock"),
+             "--members", ",".join(m.endpoint for m in members),
+             "--route-id", "userId", "--heartbeat-seconds", "0.2",
+             "--trace-dir", router_trace,
+             "--trace-heartbeat-seconds", str(TRACE_HEARTBEAT_SECONDS)],
+            workdir, "router", module="photon_ml_tpu_torch.tools.photon_serve")
+        procs.append(router)
+        record["router_ready_secs"] = time.perf_counter() - t0
+        killed = {}
+
+        def kill_member():
+            killed["at"] = time.perf_counter()
+            killed["rc"] = members[1].kill()
+
+        responses, sheds, failures, dispatches, shard_rows, secs = \
+            drive_fleet_clients(router.endpoint, records, SERVE_REQUESTS,
+                                seed=41, num_shards=FLEET_MEMBERS,
+                                on_half=kill_member)
+        if failures:
+            raise AssertionError(f"fleet under a member kill: {failures[:3]}")
+        if "at" not in killed or killed["rc"] != -9:
+            raise AssertionError(f"member 1 was not killed: {killed}")
+        check_scores(responses)
+        wait_member_state(router.endpoint, 1, "dead")
+        stats = router_stats(router.endpoint)
+        route = stats["route"]
+        resolved = sum(route.get(k, 0) for k in ("ok", "error", "shed"))
+        if resolved != dispatches:
+            raise AssertionError(f"serve_route ledger {route} resolves "
+                                 f"{resolved} of {dispatches} dispatches")
+        record["under_kill"] = {
+            **latency_summary(responses, secs), "sheds": len(sheds),
+            "shed_reasons": sorted(set(sheds)),
+            "dispatches": dispatches, "serve_route": route,
+            "failovers": route.get("failover", 0),
+            "rows_by_shard": shard_rows,
+            "kill_after_secs": killed["at"] - min(r[0] for r in responses),
+            "scores_equal_scoring_driver": True}
+
+        # relaunch member 1 on the same socket: the router's health loop
+        # re-admits it through the generation check
+        t_launch = time.perf_counter()
+        members[1] = ServiceProcess(member_args(1), workdir, "member1b")
+        procs.append(members[1])
+        t_ready = time.perf_counter()
+        t_admitted = wait_member_state(router.endpoint, 1, "healthy",
+                                       admissions=2)
+        responses, sheds, failures, dispatches_after, shard_rows, secs = \
+            drive_fleet_clients(router.endpoint, records,
+                                FLEET_AFTER_REQUESTS, seed=43,
+                                num_shards=FLEET_MEMBERS)
+        if failures or sheds:
+            raise AssertionError(f"fleet after re-admission: "
+                                 f"{(failures + sheds)[:3]}")
+        check_scores(responses)
+        stats = router_stats(router.endpoint)
+        route_after = stats["route"]
+        resolved = sum(route_after.get(k, 0) for k in ("ok", "error",
+                                                        "shed"))
+        if resolved != dispatches + dispatches_after:
+            raise AssertionError(f"serve_route ledger {route_after} after "
+                                 f"re-admission")
+        hits = []
+        for m in members:
+            with ServeClient(m.endpoint, timeout=60.0) as c:
+                hits.append(c.stats()["tier_hits"])
+        if not all(sum(h.values()) for h in hits):
+            raise AssertionError(f"a member scored nothing: {hits}")
+        record["readmission"] = {
+            "relaunch_ready_secs": t_ready - t_launch,
+            "readmitted_after_ready_secs": t_admitted - t_ready,
+            "fleet": stats["fleet"]}
+        record["after_readmission"] = {
+            **latency_summary(responses, secs), "rows_by_shard": shard_rows,
+            "member_tier_hits": hits, "scores_equal_scoring_driver": True}
+
+        rc = router.stop()
+        err = router.stderr()
+        if rc != 75 or "PHOTON_PREEMPTED" not in err or "Traceback" in err:
+            raise AssertionError(f"router: exit {rc}:\n{err[-3000:]}")
+        rcs = [m.stop() for m in members]
+        if rcs != [75] * FLEET_MEMBERS:
+            raise AssertionError(f"members: exit {rcs}")
+        record["exit_codes"] = {"router": rc, "members": rcs,
+                                "killed_member": killed["rc"]}
+        record["router_trace"] = serve_trace_record(router_trace,
+                                                    "preempted")
+    finally:
+        for p in procs:
+            if p.proc.poll() is None:
+                p.proc.kill()
+                p.proc.wait()
+    print(f"phase 14 fleet ({smi}): " + json.dumps(record), file=sys.stderr,
+          flush=True)
+    shutil.rmtree(workdir, ignore_errors=True)
     return record
 
 
 def bf16_serve_phase(torch, dev, smi, data, f32_glmix, f32_driver, fixture,
-                     driver_dir, workdir):
+                     drill_fixture, driver_dir, workdir):
     """Phase 13: (a) bf16 GLMix in the library, (b) the bf16 training
-    drivers, (c) the scoring service with the hot-swap. Returns the phase
-    record, the kernel's launches by run and its errors against the plain
-    version."""
+    drivers, (c) the scoring service with the hot-swap, traced. Returns
+    the phase record, the kernel's launches by run, its errors against
+    the plain version and what (c) served (its records, the f32 model and
+    the scoring driver's scores by uid), which phase 14 serves again."""
     record = {"phase": "bf16_serve", "nvidia_smi": smi}
     t0 = time.perf_counter()
     record["a_library"], a_launches, a_err = bf16_library_phase(
@@ -4208,12 +4817,13 @@ def bf16_serve_phase(torch, dev, smi, data, f32_glmix, f32_driver, fixture,
           file=sys.stderr, flush=True)
     t1 = time.perf_counter()
     record["b_drivers"], b_launches, b_err, bf16_out = bf16_driver_phase(
-        torch, dev, fixture, f32_driver, os.path.join(workdir, "drivers"))
+        torch, dev, fixture, f32_driver, drill_fixture,
+        os.path.join(workdir, "drivers"))
     record["b_drivers"]["seconds"] = time.perf_counter() - t1
     print("phase 13 (b): " + json.dumps(record["b_drivers"]),
           file=sys.stderr, flush=True)
     t1 = time.perf_counter()
-    record["c_serve"] = serve_phase(
+    record["c_serve"], served = serve_phase(
         torch, dev, smi, driver_dir,
         os.path.join(bf16_out, "output", "grid-0"),
         os.path.join(workdir, "serve"))
@@ -4222,7 +4832,8 @@ def bf16_serve_phase(torch, dev, smi, data, f32_glmix, f32_driver, fixture,
     record["seconds"] = time.perf_counter() - t0
     launches = {"bf16_glmix": a_launches,
                 **{f"bf16_driver_{k}": v for k, v in b_launches.items()}}
-    return record, launches, [e for e in (a_err, b_err) if e is not None]
+    return (record, launches, [e for e in (a_err, b_err) if e is not None],
+            served)
 
 
 def main() -> int:
@@ -4526,7 +5137,6 @@ def main() -> int:
     factored, fac_launches, fac_errs, fac_rows = factored_phase(
         torch, dev, smi, data, drill_fixture,
         os.path.join(build, "factored"), hbm)
-    shutil.rmtree(os.path.join(build, "drill"), ignore_errors=True)
     emit(factored)
     for row in fac_rows:
         timings[(row["n"], row["d"], row["dtype"], row["path"],
@@ -4543,11 +5153,20 @@ def main() -> int:
     emit(wide)
 
     # -- 13. bf16 storage and the serving path -------------------------------
-    bf16, bf16_launches, bf16_errs = bf16_serve_phase(
-        torch, dev, smi, data, f32_glmix, phase, fixture, driver_dir,
-        os.path.join(build, "bf16_serve"))
-    shutil.rmtree(driver_dir, ignore_errors=True)
+    bf16, bf16_launches, bf16_errs, served = bf16_serve_phase(
+        torch, dev, smi, data, f32_glmix, phase, fixture, drill_fixture,
+        driver_dir, os.path.join(build, "bf16_serve"))
+    shutil.rmtree(os.path.join(build, "drill"), ignore_errors=True)
     emit(bf16)
+
+    # -- 14. the scorer fleet ----------------------------------------------
+    t0 = time.perf_counter()
+    fleet = fleet_phase(torch, dev, smi, served,
+                        os.path.join(build, "fleet"))
+    fleet["seconds"] = time.perf_counter() - t0
+    del served
+    shutil.rmtree(driver_dir, ignore_errors=True)
+    emit(fleet)
 
     # -- kernels line, card line, result ---------------------------------------
     cd_runs = {f"cd_{k}": v for k, v in cd_launches.items()}

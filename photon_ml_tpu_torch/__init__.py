@@ -15,6 +15,14 @@ The one hand-written kernel is the fused GLM value+gradient pass
 replaces the JAX package's Pallas ``fused_value_gradient_sums``.
 """
 
-from photon_ml_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # resolved on first use, so that the host-only modules (the fleet
+    # router, the telemetry readers) run without importing torch
+    if name == "resolve_device":
+        from photon_ml_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(name)

@@ -19,9 +19,9 @@ ways:
   The same command resumes bit-exact;
 - an injected ``kill``'s exit code.
 
-The JAX drivers' event bus also feeds the metrics stream through
-``obs/bridge.py``; the port has no telemetry yet, so its bus writes to the
-warn log only.
+The event bus writes every event to the warn log and, through
+``obs/bridge.py``, into the metrics registry (``metrics.jsonl`` under
+``--trace-dir``).
 """
 
 from __future__ import annotations
@@ -47,11 +47,14 @@ def clean_abort_types() -> tuple:
 
 
 def build_event_bus(warn):
-    """The drivers' event bus: every event lands in the warn log."""
+    """The drivers' event bus: every event lands in the warn log and, via
+    the bridge, in the metrics stream."""
+    from photon_ml_tpu_torch.obs.bridge import MetricsEventListener
     from photon_ml_tpu_torch.utils.events import EventEmitter
 
     events = EventEmitter()
     events.register_listener(lambda e: warn(f"event: {e}"))
+    events.register_listener(MetricsEventListener())
     return events
 
 

@@ -13,9 +13,11 @@ The flags are the JAX driver's plus ``--device`` (default ``cuda``).
 within its budget, as the JAX driver does (``:196-213``); over it the run
 ends with exit 3. ``--offheap-indexmap-dir`` reads the feature maps
 from a pre-built off-heap store (``--offheap-indexmap-num-partitions``
-must match it; ``:75-79``, ``:160-165``). Not ported yet, and refused
-with ``NotImplementedError`` through ``clean_abort``:
-``--num-processes > 1`` and the telemetry flags.
+must match it; ``:75-79``, ``:160-165``). The telemetry flags run as
+in the JAX driver (``:243-279``): ``--trace-dir`` writes the run's trace
+directory (``obs/run.py``), and ``run_end`` records how the run ended,
+also on exit 3. Not ported yet, and refused with ``NotImplementedError``
+through ``clean_abort``: ``--num-processes > 1``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from photon_ml_tpu_torch.cli import (
 from photon_ml_tpu_torch.cli.args import (
     add_device_flag,
     add_observability_flags,
+    check_telemetry_flags,
     parse_key_value_map,
     parse_section_keys_map,
     refuse_unported,
@@ -50,6 +53,7 @@ from photon_ml_tpu_torch.evaluation.evaluators import (
 )
 from photon_ml_tpu_torch.io.data_format import load_game_dataset_avro
 from photon_ml_tpu_torch.io.model_io import save_scored_items
+from photon_ml_tpu_torch.obs.run import start_observed_run_from_flags
 from photon_ml_tpu_torch.serve.scoring import (
     load_scoring_model,
     resolve_index_maps,
@@ -87,15 +91,14 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
     p.add_argument("--process-id", type=int, default=0)
     add_observability_flags(p)
     add_device_flag(p)
-    return p.parse_args(argv)
+    ns = p.parse_args(argv)
+    check_telemetry_flags(p, ns)
+    return ns
 
 
 def check_unported(ns: argparse.Namespace) -> None:
     refuse_unported(ns, [
         ("--num-processes", ns.num_processes > 1, "multi-process scoring"),
-        ("--trace-dir", ns.trace_dir, "telemetry"),
-        ("--telemetry-endpoint", ns.telemetry_endpoint, "telemetry"),
-        ("--device-telemetry", ns.device_telemetry, "telemetry"),
     ])
 
 
@@ -166,7 +169,8 @@ class GameScoringDriver:
                          self.phase_seconds):
             scores = score_game_dataset(model, data, device=self.device)
 
-        with timed_phase("saveScores", self.logger, self.phase_seconds):
+        with timed_phase("saveScores", self.logger, self.phase_seconds,
+                         span=False):
             save_scored_items(
                 os.path.join(ns.output_dir, "scores",
                              f"part-{ns.process_id:05d}.avro"),
@@ -205,17 +209,30 @@ def run(argv: Optional[Sequence[str]] = None) -> GameScoringDriver:
         raise clean_abort(e) from None
     resolve_device(ns.device)
     driver = GameScoringDriver(ns)
+    obs_run = start_observed_run_from_flags(
+        ns, process_index=ns.process_id, num_processes=ns.num_processes,
+        warn=driver.logger.warn)
     try:
         driver.run()
     except clean_abort_types() as e:
+        if obs_run is not None:  # the run_end record says why it ended
+            obs_run.set_exit_status("abort",
+                                    reason=f"{type(e).__name__}: {e}")
         raise clean_abort(e, log=driver.logger.error) from None
     except KeyboardInterrupt:
+        if obs_run is not None:
+            obs_run.set_exit_status("abort", reason="KeyboardInterrupt")
         raise clean_abort(KeyboardInterrupt("interrupted by operator"),
                           log=driver.logger.error) from None
     except Exception as e:
         driver.logger.error(f"GAME scoring failed: {e}")
+        if obs_run is not None:
+            obs_run.set_exit_status("error",
+                                    reason=f"{type(e).__name__}: {e}")
         raise
     finally:
+        if obs_run is not None:
+            obs_run.finish()
         driver.logger.close()
     return driver
 

@@ -52,7 +52,12 @@ files, and the factored coordinate's) in bf16, as the JAX driver does
 reduction stay f32. Flags whose feature is not ported yet raise
 ``NotImplementedError`` naming the flag and end the run through
 ``clean_abort`` (exit 3): multi-process runs and their supervision,
-entity sharding, quantized collectives and telemetry.
+entity sharding and quantized collectives. The telemetry flags
+(``--trace-dir``, ``--trace-heartbeat-seconds``, ``--trace-stall-seconds``,
+``--telemetry-endpoint``, ``--device-telemetry``) are validated as the
+JAX driver validates them (``check_telemetry_flags``, exit 2 on misuse)
+and run through ``obs/run.py``; ``run_end`` records how the run ended,
+on exit 75 and exit 3 too (``:1190-1242``).
 
 Validation rows are matched to the trained per-entity models by raw id:
 the validation id columns are re-encoded against the training vocabulary
@@ -85,12 +90,15 @@ from photon_ml_tpu_torch.cli.args import (
     add_device_flag,
     add_observability_flags,
     add_precision_flags,
+    check_telemetry_flags,
     parse_key_value_map,
     precision_dtype,
     parse_section_keys_map,
     refuse_unported,
 )
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.obs.metrics import REGISTRY
+from photon_ml_tpu_torch.obs.run import start_observed_run_from_flags
 from photon_ml_tpu_torch.evaluation.evaluators import (
     EvaluatorSpec,
     evaluate_many,
@@ -270,7 +278,9 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
     p.add_argument("--heartbeat-timeout", type=int, default=100)
     add_observability_flags(p)
     add_device_flag(p)
-    return p.parse_args(argv)
+    ns = p.parse_args(argv)
+    check_telemetry_flags(p, ns)
+    return ns
 
 
 def check_unported(ns: argparse.Namespace) -> None:
@@ -284,9 +294,6 @@ def check_unported(ns: argparse.Namespace) -> None:
          "entity sharding"),
         ("--collective-quant", ns.collective_quant != "none",
          "quantized collectives"),
-        ("--trace-dir", ns.trace_dir, "telemetry"),
-        ("--telemetry-endpoint", ns.telemetry_endpoint, "telemetry"),
-        ("--device-telemetry", ns.device_telemetry, "telemetry"),
     ])
 
 
@@ -607,6 +614,9 @@ class GameTrainingDriver:
 
     def run(self) -> CoordinateDescentResult:
         ns = self.ns
+        # the entity-axis size, as the JAX driver reports it (``:791``):
+        # the port runs one shard
+        REGISTRY.gauge("re_entity_shards").set(1)
         if os.path.isdir(ns.output_dir) and os.listdir(ns.output_dir):
             if parse_flag(ns.delete_output_dir_if_exists):
                 shutil.rmtree(ns.output_dir)
@@ -674,7 +684,8 @@ class GameTrainingDriver:
 
         output_mode = ns.model_output_mode or ModelOutputMode.ALL
         if output_mode != ModelOutputMode.NONE:
-            with timed_phase("saveModels", self.logger, self.phase_seconds):
+            with timed_phase("saveModels", self.logger, self.phase_seconds,
+                             span=False):
                 vocabs = dict(self.train_data.id_vocabs)
                 save_game_model(
                     best_result.best_model or best_result.model,
@@ -719,21 +730,36 @@ def run(argv: Optional[Sequence[str]] = None) -> GameTrainingDriver:
                           stop_file=ns.stop_file)
     stop.install_signal_handlers()
     driver.stop = stop
+    obs_run = start_observed_run_from_flags(ns, warn=driver.logger.warn)
     try:
         driver.run()
     except clean_abort_types() as e:
+        if obs_run is not None:  # the run_end record says why it ended
+            obs_run.set_exit_status("abort",
+                                    reason=f"{type(e).__name__}: {e}")
         raise clean_abort(e, log=driver.logger.error) from None
     except PreemptionRequested as e:
-        # the final snapshot is on disk: exit 75 so a supervisor requeues
+        # the final snapshot is on disk: drain the telemetry with status
+        # "preempted" and exit 75 so a supervisor requeues
+        if obs_run is not None:
+            obs_run.set_exit_status("preempted",
+                                    reason=f"{e.reason} step={e.step}")
         raise preempted_exit(e, log=driver.logger.warn) from None
     except KeyboardInterrupt:
+        if obs_run is not None:
+            obs_run.set_exit_status("abort", reason="KeyboardInterrupt")
         raise clean_abort(KeyboardInterrupt("interrupted by operator"),
                           log=driver.logger.error) from None
     except Exception as e:
         driver.logger.error(f"GAME training failed: {e}")
+        if obs_run is not None:
+            obs_run.set_exit_status("error",
+                                    reason=f"{type(e).__name__}: {e}")
         raise
     finally:
         stop.uninstall_signal_handlers()
+        if obs_run is not None:
+            obs_run.finish()
         driver.logger.close()
     return driver
 

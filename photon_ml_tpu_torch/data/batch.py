@@ -40,12 +40,14 @@ non-zeros over 100,000 columns, f32.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from photon_ml_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from photon_ml_tpu_torch.obs import compile as obs_compile
 
 Tensor = torch.Tensor
 
@@ -201,6 +203,7 @@ class ColumnSumPlan:
         device) and lay out every level; idempotent."""
         if self._source is None:
             return self
+        t0 = time.perf_counter_ns()
         indices, values = self._source
         n, k = indices.shape
         dev = indices.device
@@ -240,6 +243,9 @@ class ColumnSumPlan:
         out[present] = final
         self.out = out.to(_index_dtype(offset + 1))
         self._source = None
+        obs_compile.record_build("data.column_sum_plan",
+                                 obs_compile.NO_CACHE_ENTRY, t0,
+                                 nnz=int(len(pos)), columns=self.dim)
         return self
 
     def column_sum(self, row_scalars: Tensor, square: bool = False

@@ -8,9 +8,11 @@ decodes corrupt, is quarantined (skipped, with a
 warning) while ingestion goes on; once the lost fraction of the shards
 exceeds ``max_shard_loss_frac`` the load aborts cleanly with
 :class:`ShardLossExceededError` (exit 3 in the drivers). The default
-budget of 0 is strict: the first lost shard aborts. The JAX version also
-counts losses and the coverage on its metrics registry; the port has no
-telemetry yet, and :meth:`IngestPolicy.summary` is the record.
+budget of 0 is strict: the first lost shard aborts. Losses are counted on
+the metrics registry (``quarantined_shards{stage}``, once per shard) and
+:meth:`IngestPolicy.finish` sets the ``data_coverage`` gauge, as in the
+JAX package; :meth:`IngestPolicy.summary` is the record for
+``metrics.json``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+from photon_ml_tpu_torch.obs.metrics import REGISTRY
 from photon_ml_tpu_torch.utils.events import (
     EventEmitter,
     ShardQuarantinedEvent,
@@ -74,6 +77,7 @@ class IngestPolicy:
             QuarantinedShard(path=path, stage=stage, reason=repr(error)))
         if path not in self._announced:
             self._announced.add(path)
+            REGISTRY.counter("quarantined_shards").inc(stage=stage)
             if self._warn is not None:
                 self._warn(f"shard quarantined ({stage}): {path}: {error!r}")
             if self._events is not None:
@@ -111,7 +115,9 @@ class IngestPolicy:
         }
 
     def finish(self, log: Optional[Callable[[str], None]] = None) -> None:
-        """Log the degraded-mode summary when a shard was lost."""
+        """Set the ``data_coverage`` gauge; log the degraded-mode summary
+        when a shard was lost."""
+        REGISTRY.gauge("data_coverage").set(self.coverage_fraction)
         if self.quarantined and log is not None:
             log(f"DEGRADED ingest: {self.shards_lost} of "
                 f"{self.shards_ok + self.shards_lost} shard(s) "

@@ -25,6 +25,7 @@ import torch
 
 from photon_ml_tpu_torch.evaluation import metrics
 from photon_ml_tpu_torch.ops.losses import get_loss
+from photon_ml_tpu_torch.utils.sync_telemetry import record_host_fetch
 
 Tensor = torch.Tensor
 
@@ -145,7 +146,8 @@ def evaluate_many(specs: list[EvaluatorSpec], scores: Tensor, labels: Tensor,
                   entity_ids_by_type: Optional[dict[str, Tensor]] = None,
                   num_entities_by_type: Optional[dict[str, int]] = None
                   ) -> dict[str, float]:
-    """All requested metrics with ONE blocking device->host fetch."""
+    """All requested metrics with ONE blocking device->host fetch
+    (counted at site ``eval.metrics``)."""
     device_vals = []
     for spec in specs:
         eid = nent = None
@@ -160,6 +162,7 @@ def evaluate_many(specs: list[EvaluatorSpec], scores: Tensor, labels: Tensor,
             spec, scores, labels, weights, eid, nent))
     fetched = torch.stack(device_vals).tolist() if device_vals else []
     EVAL_FETCHES["count"] += 1
+    record_host_fetch(site="eval.metrics")
     return {spec.name: float(v) for spec, v in zip(specs, fetched)}
 
 

@@ -79,11 +79,26 @@ class RandomEffectTracker:
     convergence_codes: object  # [E] int8
 
     def materialize(self) -> "RandomEffectTracker":
+        """The three per-entity arrays in ONE device-to-host copy (counted
+        at site ``tracker.materialize``): widened to f64 on the device,
+        which is exact for the counts, the f32 values and the codes, and
+        cut back into their dtypes on the host. Idempotent."""
         if isinstance(self.iterations, torch.Tensor):
-            it, v, c = (t.cpu().numpy() for t in (
-                self.iterations, self.final_values, self.convergence_codes))
-            self.iterations, self.final_values = it, v
-            self.convergence_codes = c
+            from photon_ml_tpu_torch.utils.sync_telemetry import (
+                record_host_fetch,
+            )
+
+            arrays = (self.iterations, self.final_values,
+                      self.convergence_codes)
+            flat = torch.cat([a.reshape(-1).to(torch.float64)
+                              for a in arrays]).cpu()
+            record_host_fetch(site="tracker.materialize")
+            out, at = [], 0
+            for a in arrays:
+                out.append(flat[at:at + a.numel()].reshape(a.shape)
+                           .to(a.dtype).numpy())
+                at += a.numel()
+            self.iterations, self.final_values, self.convergence_codes = out
         return self
 
     def counts_by_convergence(self) -> dict[str, int]:

@@ -54,6 +54,7 @@ one saw.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Optional
@@ -64,6 +65,8 @@ import torch
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.game.coordinate import Coordinate, Tracker
 from photon_ml_tpu_torch.game.models import GameModel
+from photon_ml_tpu_torch.obs import devicemem, trace
+from photon_ml_tpu_torch.obs.metrics import REGISTRY
 from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.optimize.config import TASK_LOSS_NAME, TaskType
 from photon_ml_tpu_torch.utils.checkpoint import (
@@ -78,6 +81,7 @@ from photon_ml_tpu_torch.utils.events import (
 )
 from photon_ml_tpu_torch.utils.faults import InjectedFault, fault_point
 from photon_ml_tpu_torch.utils.preempt import PreemptionRequested
+from photon_ml_tpu_torch.utils.sync_telemetry import record_host_fetch
 
 Tensor = torch.Tensor
 
@@ -251,12 +255,28 @@ def _checkpoint_save_contained(manager, step: int, snapshot: dict,
         return True
     except CheckpointWriteError as e:
         CHECKPOINT_STATS["save_failures"] += 1
+        REGISTRY.counter("ckpt_save_failures").inc()
         emit(FaultEvent(point="ckpt.write_bytes", message=str(e)))
         log(lambda: f"checkpoint step {step} NOT saved (degraded, "
             f"training continues): {e}")
         return False
 
 
+def _sample_live_bytes(sweep: int, device) -> None:
+    """Sweep-boundary device-memory sample (``coordinate_descent.py:117``):
+    the ``hbm_live_bytes{site="cd.sweep_drain"}`` gauge and a
+    ``cd.hbm_sample`` span, taken only while a tracer is on. The bytes are
+    the CUDA allocator's ``memory_allocated`` on a CUDA device (host
+    bookkeeping, no device sync), else the live tensors' storage bytes
+    (``obs/devicemem.py`` ``live_bytes``)."""
+    if trace.get_tracer() is None:
+        return
+    total_bytes = devicemem.bytes_in_use(device)
+    REGISTRY.gauge("hbm_live_bytes").set(total_bytes, site="cd.sweep_drain")
+    with trace.span("cd.hbm_sample", sweep=sweep, live_bytes=total_bytes):
+        pass
+    # --device-telemetry: the sweep's per-coordinate commit watermarks
+    devicemem.drain_coordinate_watermarks(sweep)
 
 
 @dataclasses.dataclass
@@ -454,6 +474,7 @@ def run_coordinate_descent(
         payload = fetch_to_host({"states": states,
                                  "scores": {c: scores[c] for c in ids},
                                  "best_states": best_states})
+        record_host_fetch(site="ckpt.snapshot")
         HOT_LOOP_STATS["snapshot_fetches"] += 1
         saved = _checkpoint_save_contained(checkpoint_manager, step, {
             "sweep": sweep,
@@ -505,34 +526,38 @@ def run_coordinate_descent(
         t_wall, t0 = time.time(), time.perf_counter()
         counts_before = update_counts(block)
         cands, trackers, new_scores, new_regs = {}, {}, {}, {}
+
+        def current(c, new, i, cache):
+            if c in new:
+                return new[c]
+            return overlay[c][i] if c in overlay else cache[c]
+
         try:
-            for ci, cid in block:
-                coord = coordinates[cid]
-                # the other coordinates' sum, from the block-start total
-                partial = base_total - (overlay[cid][0] if cid in overlay
-                                        else scores[cid])
-                cand, tracker = coord.update(states[cid], partial)
-                cand = fault_point("cd.update", tag=f"{it}.{ci}",
-                                   arrays=cand)
-                if attempt > 0:
-                    cand = _damp_toward(states[cid], cand,
-                                        recovery.damping ** attempt)
-                cands[cid], trackers[cid] = cand, tracker
-                new_scores[cid] = coord.score(cand)
-                new_regs[cid] = coord.regularization_value_device(cand)
-
-            def current(c, new, i, cache):
-                if c in new:
-                    return new[c]
-                return overlay[c][i] if c in overlay else cache[c]
-
-            (new_total, objective_d, train_loss_d, _reg_d, finite_d,
-             state_finite_d) = epilogue(
-                tuple(current(c, new_scores, 0, scores) for c in ids),
-                tuple(current(c, new_regs, 1, reg_cache) for c in ids),
-                tuple(leaf for _, cid in block
-                      for leaf in _state_leaves(cands[cid])), labels,
-                weights, offsets)
+            with trace.span("cd.dispatch", sweep=it, size=len(block),
+                            coordinates=",".join(cid for _, cid in block)):
+                for ci, cid in block:
+                    coord = coordinates[cid]
+                    # the other coordinates' sum, from the block-start
+                    # total
+                    partial = base_total - (overlay[cid][0]
+                                            if cid in overlay
+                                            else scores[cid])
+                    cand, tracker = coord.update(states[cid], partial)
+                    cand = fault_point("cd.update", tag=f"{it}.{ci}",
+                                       arrays=cand)
+                    if attempt > 0:
+                        cand = _damp_toward(states[cid], cand,
+                                            recovery.damping ** attempt)
+                    cands[cid], trackers[cid] = cand, tracker
+                    new_scores[cid] = coord.score(cand)
+                    new_regs[cid] = coord.regularization_value_device(cand)
+                (new_total, objective_d, train_loss_d, _reg_d, finite_d,
+                 state_finite_d) = epilogue(
+                    tuple(current(c, new_scores, 0, scores) for c in ids),
+                    tuple(current(c, new_regs, 1, reg_cache) for c in ids),
+                    tuple(leaf for _, cid in block
+                          for leaf in _state_leaves(cands[cid])), labels,
+                    weights, offsets)
         except Exception:
             if len(block) > 1:
                 set_update_counts(block, counts_before)
@@ -557,9 +582,23 @@ def run_coordinate_descent(
         if p.pipelined:
             HOT_LOOP_STATS["pipelined_resolves"] += 1
             HOT_LOOP_STATS["overlap_secs"] += max(0.0, t0 - p.t_dispatched)
-        if p.ready is not None:
-            p.ready.synchronize()
-        objective, train_loss, finite, state_finite = p.host.tolist()
+        span_labels = {"sweep": p.it}
+        if len(p.block) == 1:
+            span_labels["coordinate"] = p.block[0][1]
+        else:
+            span_labels["coordinates"] = ",".join(
+                cid for _, cid in p.block)
+        with contextlib.ExitStack() as stack:
+            if p.pipelined:
+                # the wait left after the overlap window
+                stack.enter_context(
+                    trace.span("cd.pipeline_wait", **span_labels))
+            stack.enter_context(
+                trace.span("cd.epilogue_fetch", **span_labels))
+            if p.ready is not None:
+                p.ready.synchronize()
+            objective, train_loss, finite, state_finite = p.host.tolist()
+        record_host_fetch(site="cd.epilogue")
         HOT_LOOP_STATS["epilogue_wait_secs"] += time.perf_counter() - t0
         HOT_LOOP_STATS["epilogue_fetches"] += 1
         HOT_LOOP_STATS["updates"] += len(p.block)
@@ -594,6 +633,9 @@ def run_coordinate_descent(
             states[cid] = p.cands[cid]
             scores[cid] = p.new_scores[cid]
             reg_cache[cid] = p.new_regs[cid]
+            # --device-telemetry: the coordinate's watermark as its
+            # buffers land (a no-op unless armed; never a device sync)
+            devicemem.note_coordinate(cid, device)
         total = p.new_total
         dt = seconds if seconds is not None else time.time() - p.t_wall
         per = dt / len(p.block)
@@ -603,9 +645,11 @@ def run_coordinate_descent(
                 f"{p.trackers[cid].summary()}")
         metrics = None
         if validate:
-            model = publish_game_model(coordinates, states)
-            metrics = validation_evaluator(
-                model.score(validation_data, device=device))
+            with trace.span("cd.validation", sweep=p.it,
+                            coordinates=",".join(c for _, c in p.block)):
+                model = publish_game_model(coordinates, states)
+                metrics = validation_evaluator(
+                    model.score(validation_data, device=device))
             what = (f"coordinate {p.block[0][1]}" if len(p.block) == 1
                     else f"block {[cid for _, cid in p.block]}")
             log(lambda: f"iter {p.it} {what}: validation {metrics}")
@@ -628,16 +672,23 @@ def run_coordinate_descent(
                    allow_snapshots: bool = True, snapshot_due=None,
                    snapshot_next_ci=None) -> None:
         """One guarded coordinate update, dispatched and read in turn: the
-        retry / skip / abort / quarantine ladder. ``first_error`` is an
-        attempt-0 failure the pipelined path already caught;
-        ``allow_snapshots=False`` marks a member replayed inside a block
-        (its snapshots wait for the block's boundary);
+        retry / skip / abort / quarantine ladder, in a ``cd.update`` span.
+        ``first_error`` is an attempt-0 failure the pipelined path already
+        caught; ``allow_snapshots=False`` marks a member replayed inside a
+        block (its snapshots wait for the block's boundary);
         ``snapshot_due``/``snapshot_next_ci`` are the RAW block's."""
-        nonlocal consecutive_failures
         if snapshot_due is None:
             snapshot_due = snapshot_cadence_due([(ci, cid)], it)
         if snapshot_next_ci is None:
             snapshot_next_ci = ci + 1
+        with trace.span("cd.update", coordinate=cid, sweep=it):
+            member_ladder(ci, cid, it, first_error, allow_snapshots,
+                          snapshot_due, snapshot_next_ci)
+
+    def member_ladder(ci: int, cid: str, it: int, first_error,
+                      allow_snapshots: bool, snapshot_due: bool,
+                      snapshot_next_ci: int) -> None:
+        nonlocal consecutive_failures
         t0 = time.time()
         attempt = 0
         skipped = budgeted_skip = quarantine_now = False
@@ -742,8 +793,17 @@ def run_coordinate_descent(
         ``speculative`` is that successor: on failure it is rolled back
         FIRST, so no snapshot of the ladder holds its update counts."""
         try:
-            objective, _ = fetch_update(p)
-            commit_update(p, objective)
+            if len(p.block) == 1:
+                span = trace.span("cd.update", coordinate=p.block[0][1],
+                                  sweep=p.it)
+            else:
+                span = trace.span("cd.block", sweep=p.it,
+                                  size=len(p.block),
+                                  coordinates=",".join(
+                                      cid for _, cid in p.block))
+            with span:
+                objective, _ = fetch_update(p)
+                commit_update(p, objective)
             return True
         except (CoordinateDivergenceError, FloatingPointError) as e:
             if recovery is None:
@@ -806,91 +866,97 @@ def run_coordinate_descent(
                        snapshot_next_ci=next_ci)
 
     for it in range(start_iteration, num_iterations):
-        fault_point("cd.sweep", tag=str(it))
-        sweep_start = len(history)
-        eligible = [(ci, cid) for ci, cid in enumerate(ids)
-                    if not (it == start_iteration and ci < start_coordinate)]
-        blocks = [eligible[i:i + block_size]
-                  for i in range(0, len(eligible), block_size)]
-        pending: Optional[_InFlight] = None
-        for raw_block in blocks:
-            if stop is not None:
-                reason = stop.should_stop()
-                if reason is not None:
-                    # the commit barrier: settle the in-flight block, then
-                    # snapshot "about to run this block" and hand the
-                    # resume point to the caller
-                    if pending is not None:
-                        resolve_update(pending)
-                        pending = None
-                    if checkpoint_manager is not None:
-                        save_snapshot(it, raw_block[0][0])
-                    raise PreemptionRequested(reason, it, raw_block[0][0])
-            block = [(ci, cid) for ci, cid in raw_block
-                     if cid not in quarantined]
-            if not block:
-                continue
-            if not use_pipeline:
-                run_block(raw_block, it)
-                continue
-            if pending is not None and pending.snapshot_due:
-                # a snapshot never races a speculative successor
-                resolve_update(pending)
-                pending = None
-            if pending is not None:
-                base_total = pending.new_total
-                overlay = {cid: (pending.new_scores[cid],
-                                 pending.new_regs[cid])
-                           for _, cid in pending.block}
-            else:
-                base_total, overlay = total, {}
-            counts0 = update_counts(block)
-            try:
-                cur = dispatch_update(
-                    block, it, 0, base_total, overlay,
-                    snapshot_due=snapshot_cadence_due(raw_block, it),
-                    snapshot_next_ci=raw_block[-1][0] + 1)
-            except (InjectedFault, CoordinateDivergenceError,
-                    FloatingPointError) as e:
-                # the dispatch failed: settle the pending block first, as
-                # the sequential order would, with this block's update
-                # counts as they were before it (a snapshot of pending's
-                # ladder is "about to run this block"), then walk this
-                # block through the ladder, which owns the failed
-                # dispatch's advance as its attempt 0
-                if pending is not None:
-                    pending.pipelined = True
-                    counts_adv = update_counts(block)
-                    set_update_counts(block, counts0)
-                    resolve_update(pending)
-                    pending = None
-                    set_update_counts(block, counts_adv)
-                if recovery is None:
-                    raise
-                run_block(raw_block, it, first_error=e)
-                continue
-            inflight = len(cur.block) + (len(pending.block)
-                                         if pending is not None else 0)
-            HOT_LOOP_STATS["max_inflight"] = max(
-                HOT_LOOP_STATS["max_inflight"], inflight)
-            if pending is not None:
-                pending.pipelined = True
-                ok = resolve_update(pending, speculative=cur)
-                pending = None
-                if not ok:
-                    # the commit differs from what ``cur`` speculated on
-                    # (already rolled back): run it again from there
+        with trace.span("cd.sweep", sweep=it):
+            fault_point("cd.sweep", tag=str(it))
+            sweep_start = len(history)
+            eligible = [(ci, cid) for ci, cid in enumerate(ids)
+                        if not (it == start_iteration
+                                and ci < start_coordinate)]
+            blocks = [eligible[i:i + block_size]
+                      for i in range(0, len(eligible), block_size)]
+            pending: Optional[_InFlight] = None
+            for raw_block in blocks:
+                if stop is not None:
+                    reason = stop.should_stop()
+                    if reason is not None:
+                        # the commit barrier: settle the in-flight block, then
+                        # snapshot "about to run this block" and hand the
+                        # resume point to the caller
+                        if pending is not None:
+                            resolve_update(pending)
+                            pending = None
+                        if checkpoint_manager is not None:
+                            save_snapshot(it, raw_block[0][0])
+                        raise PreemptionRequested(reason, it, raw_block[0][0])
+                block = [(ci, cid) for ci, cid in raw_block
+                         if cid not in quarantined]
+                if not block:
+                    continue
+                if not use_pipeline:
                     run_block(raw_block, it)
                     continue
-            pending = cur
-        if pending is not None:
-            # sweep drain: the last block commits before the sweep ends
-            resolve_update(pending)
-        # sweep boundary: drain this sweep's lazy trackers
-        for h in history[sweep_start:]:
-            h.tracker.materialize()
-        if checkpoint_manager is not None:
-            save_snapshot(it, len(ids))
+                if pending is not None and pending.snapshot_due:
+                    # a snapshot never races a speculative successor
+                    resolve_update(pending)
+                    pending = None
+                if pending is not None:
+                    base_total = pending.new_total
+                    overlay = {cid: (pending.new_scores[cid],
+                                     pending.new_regs[cid])
+                               for _, cid in pending.block}
+                else:
+                    base_total, overlay = total, {}
+                counts0 = update_counts(block)
+                try:
+                    cur = dispatch_update(
+                        block, it, 0, base_total, overlay,
+                        snapshot_due=snapshot_cadence_due(raw_block, it),
+                        snapshot_next_ci=raw_block[-1][0] + 1)
+                except (InjectedFault, CoordinateDivergenceError,
+                        FloatingPointError) as e:
+                    # the dispatch failed: settle the pending block first, as
+                    # the sequential order would, with this block's update
+                    # counts as they were before it (a snapshot of pending's
+                    # ladder is "about to run this block"), then walk this
+                    # block through the ladder, which owns the failed
+                    # dispatch's advance as its attempt 0
+                    if pending is not None:
+                        pending.pipelined = True
+                        counts_adv = update_counts(block)
+                        set_update_counts(block, counts0)
+                        resolve_update(pending)
+                        pending = None
+                        set_update_counts(block, counts_adv)
+                    if recovery is None:
+                        raise
+                    run_block(raw_block, it, first_error=e)
+                    continue
+                inflight = len(cur.block) + (len(pending.block)
+                                             if pending is not None else 0)
+                REGISTRY.gauge("cd_inflight_updates").set(inflight)
+                HOT_LOOP_STATS["max_inflight"] = max(
+                    HOT_LOOP_STATS["max_inflight"], inflight)
+                if pending is not None:
+                    pending.pipelined = True
+                    ok = resolve_update(pending, speculative=cur)
+                    pending = None
+                    if not ok:
+                        # the commit differs from what ``cur`` speculated on
+                        # (already rolled back): run it again from there
+                        run_block(raw_block, it)
+                        continue
+                pending = cur
+            if pending is not None:
+                # sweep drain: the last block commits before the sweep ends
+                resolve_update(pending)
+            # sweep boundary: drain this sweep's lazy trackers, then the
+            # live-memory sample after the drain
+            with trace.span("cd.tracker_drain", sweep=it):
+                for h in history[sweep_start:]:
+                    h.tracker.materialize()
+            _sample_live_bytes(it, device)
+            if checkpoint_manager is not None:
+                save_snapshot(it, len(ids))
 
     return CoordinateDescentResult(
         model=publish_game_model(coordinates, states), states=history,

@@ -57,6 +57,7 @@ import torch
 
 from photon_ml_tpu_torch.data.batch import DenseBatch, acc_dtype_for
 from photon_ml_tpu_torch.game.dataset import RandomEffectDataset
+from photon_ml_tpu_torch.obs import trace
 from photon_ml_tpu_torch.ops.aggregators import GLMObjective
 from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.optimize.common import (
@@ -257,18 +258,23 @@ def _fit_blocks_compacted(X: Tensor, labels: Tensor, offsets: Tensor,
     idx: Optional[np.ndarray] = None
     carry = None
     cur = (X, labels, offsets, weights, x0)
-    spent = 0
+    spent = chunk_index = 0
     while True:
         budget = min(chunk, max_iter - spent)
         final_chunk = spent + budget >= max_iter
+        active_lanes = int(X.shape[0]) if idx is None else len(idx)
         if lane_seq is not None:
-            lane_seq.append(int(X.shape[0]) if idx is None else len(idx))
+            lane_seq.append(active_lanes)
         t0 = time.perf_counter()
-        out = _dispatch_fit(*cur, obj, l1, solver, budget, tolerance,
-                            boundary_convergence=not final_chunk,
-                            resume=carry, return_carry=not final_chunk)
-        still, still_local = state.absorb(idx, *out[:4],
-                                          CONV_MAX_ITERATIONS)
+        # one span per chunk, labelled with the real lanes entering it
+        with trace.span("re.compact_chunk", chunk=chunk_index,
+                        active_lanes=active_lanes, budget=budget):
+            out = _dispatch_fit(*cur, obj, l1, solver, budget, tolerance,
+                                boundary_convergence=not final_chunk,
+                                resume=carry, return_carry=not final_chunk)
+            still, still_local = state.absorb(idx, *out[:4],
+                                              CONV_MAX_ITERATIONS)
+        chunk_index += 1
         SOLVE_STATS["solve_secs"] += time.perf_counter() - t0
         SOLVE_STATS["chunks"] += 1
         spent += budget
@@ -326,14 +332,19 @@ class RandomEffectOptimizationProblem:
         solver = select_solver(cfg, self.task)
         l1 = cfg.regularization_context.l1_weight(cfg.regularization_weight)
         if dataset.buckets is not None:
-            return self._run_bucketed(dataset, offsets, initial, solver, l1)
+            with trace.span("re.solve", solver=solver, bucketed=True,
+                            entities=int(dataset.num_entities)):
+                return self._run_bucketed(dataset, offsets, initial,
+                                          solver, l1)
         e, _, d = dataset.X.shape
         acc = acc_dtype_for(dataset.X.dtype)
         x0 = solver_x0(acc, (e, d), initial, dataset.X.device)
-        return self._fit(dataset.X, dataset.labels, offsets.to(acc),
-                         dataset.weights, x0, self.objective(),
-                         torch.full((d,), l1, dtype=acc, device=x0.device),
-                         solver)
+        with trace.span("re.solve", solver=solver, bucketed=False,
+                        entities=int(e)):
+            return self._fit(dataset.X, dataset.labels, offsets.to(acc),
+                             dataset.weights, x0, self.objective(),
+                             torch.full((d,), l1, dtype=acc,
+                                        device=x0.device), solver)
 
     def _fit(self, X, labels, offsets, weights, x0, obj, l1: Tensor,
              solver: str):

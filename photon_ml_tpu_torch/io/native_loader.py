@@ -31,6 +31,7 @@ import os
 import platform
 import shutil
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -158,8 +159,14 @@ def get_host_lib() -> ctypes.CDLL:
         elif os.environ.get(ENV_HOST_LIB):
             raise RuntimeError(f"{ENV_HOST_LIB}={out} does not exist")
         else:
+            from photon_ml_tpu_torch.obs import compile as obs_compile
+
+            cause = obs_compile.library_cause(out)
+            t0 = time.perf_counter_ns()
             BUILD_INFO.update(_build(out, CXX_FLAGS,
                                      "csrc/host/*.cpp with g++"))
+            obs_compile.record_build("host.gxx:photon_host", cause, t0,
+                                     compiler="g++")
         try:
             lib = ctypes.CDLL(out)
         except OSError as e:

@@ -13,8 +13,9 @@ Everything here is stdlib-only and never touches torch — incrementing a
 counter can never introduce a device sync.
 
 Export is JSONL (:meth:`MetricsRegistry.snapshot` → one dict per
-metric/label-set). The port has no ``--trace-dir`` writer yet; the
-scoring service reads its counters and histograms for ``stats``.
+metric/label-set), written by the ``--trace-dir`` integration
+(``obs/run.py``) next to the Chrome trace; the scoring service also reads
+its counters and histograms for ``stats``.
 """
 
 from __future__ import annotations

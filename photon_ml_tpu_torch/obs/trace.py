@@ -12,8 +12,8 @@ and pay essentially nothing when tracing is disabled (the module-level
 ``span()`` returns a shared no-op singleton) and two
 ``time.perf_counter_ns`` reads plus one locked list append when enabled —
 no torch import, no device work, so instrumented hot loops keep their
-sync discipline. Tracing is off unless a caller enables a tracer; the
-port's entry points do not yet (``--trace-dir`` is refused).
+sync discipline. Tracing is off unless a caller enables a tracer, as
+``--trace-dir`` does through ``obs/run.py``.
 
 Export formats:
 

@@ -112,18 +112,24 @@ def build_all(names: Optional[list] = None) -> dict[str, ctypes.CDLL]:
     """Compile (in parallel, one ``nvcc`` per source) and load every kernel
     library not loaded yet; returns name -> ``ctypes.CDLL``."""
     names = list(SIGNATURES) if names is None else names
+    from photon_ml_tpu_torch.obs import compile as obs_compile
+
     todo = [n for n in names if n not in _LIBS]
-    jobs = {}
+    jobs, causes = {}, {}
+    t0 = time.perf_counter_ns()
     for name in todo:
         out = _lib_path(name)
         if os.path.exists(out):
             BUILD_INFO[name] = {"seconds": 0.0, "log": "reused " + out}
             continue
+        causes[name] = obs_compile.library_cause(out)
         jobs[name] = start_build(
             [_nvcc(), *NVCC_FLAGS, os.path.join(CSRC_DIR, name + ".cu")],
             out)
     for name, job in jobs.items():
         BUILD_INFO[name] = finish_build(job, f"{name}.cu with nvcc")
+        obs_compile.record_build(f"kernels.nvcc:{name}", causes[name], t0,
+                                 compiler="nvcc")
     for name in todo:
         lib = ctypes.CDLL(_lib_path(name))
         for fn, (restype, argtypes) in SIGNATURES[name].items():

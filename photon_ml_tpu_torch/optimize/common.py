@@ -147,6 +147,33 @@ class OptimizationResult:
             iterates=iterates)
 
 
+def _lane0_to_host(history: RunHistory, progressed: Tensor
+                   ) -> tuple[RunHistory, bool]:
+    """Lane 0's history and progress flag in ONE device-to-host copy
+    (counted at site ``optimizer.history``, as the JAX package's one
+    ``device_get``): every field is widened to f64 on the device (exact
+    for f32 values and the integer counts), concatenated, copied, and cut
+    back into a one-lane :class:`RunHistory` of CPU tensors in the
+    original dtypes."""
+    from photon_ml_tpu_torch.utils.sync_telemetry import record_host_fetch
+
+    parts = [history.num_iterations[:1], progressed.reshape(-1)[:1],
+             history.values[:1], history.grad_norms[:1]]
+    if history.iterates is not None:
+        parts.append(history.iterates[:1])
+    flat = torch.cat([p.reshape(-1).to(torch.float64) for p in parts]).cpu()
+    record_host_fetch(site="optimizer.history")
+    out, at = [], 0
+    for p in parts:
+        out.append(flat[at:at + p.numel()].reshape(p.shape).to(p.dtype))
+        at += p.numel()
+    k, prog, values, grad_norms = out[:4]
+    return (RunHistory(values=values, grad_norms=grad_norms,
+                       num_iterations=k,
+                       iterates=out[4] if len(out) > 4 else None),
+            bool(prog[0]))
+
+
 class DeferredOptimizationResult:
     """:class:`OptimizationResult` whose history stays on the device until
     a scalar field is first read (``common.py:158-221``): the coordinate
@@ -163,9 +190,11 @@ class DeferredOptimizationResult:
 
     def _force(self) -> OptimizationResult:
         if self._result is None:
+            history, progressed = _lane0_to_host(self._history,
+                                                 self._progressed)
             self._result = OptimizationResult.from_history(
-                self.coefficients, self._history, self._max_iter,
-                self._tolerance, bool(self._progressed[0]))
+                self.coefficients, history, self._max_iter,
+                self._tolerance, progressed)
             self._history = self._progressed = None
         return self._result
 
@@ -229,7 +258,8 @@ class LaneCompactionState:
         every lane in order). Returns the global ids and the chunk-local
         positions of the lanes that spent the chunk's budget without
         converging. The mask of those lanes is the chunk's one blocking
-        read (counted in ``SOLVER_SYNCS``)."""
+        read (counted in ``SOLVER_SYNCS`` and at site
+        ``re.compact_mask``)."""
         if idx is None:
             self.coefs, self.iterations, self.values, self.codes = \
                 c, it, v, k
@@ -245,8 +275,13 @@ class LaneCompactionState:
             self.iterations = iterations
             self.values = self.values.index_copy(0, rows, v)
             self.codes = self.codes.index_copy(0, rows, k)
+        from photon_ml_tpu_torch.utils.sync_telemetry import (
+            record_host_fetch,
+        )
+
         SOLVER_SYNCS["count"] += 1
         mask = (k == max_iterations_code).cpu().numpy()
+        record_host_fetch(site="re.compact_mask")
         return idx[mask], np.nonzero(mask)[0]
 
     def results(self) -> tuple[Tensor, Tensor, Tensor, Tensor]:

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
+from photon_ml_tpu_torch.obs import trace
 from photon_ml_tpu_torch.ops.aggregators import GLMObjective
 from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
@@ -133,17 +134,23 @@ class GLMOptimizationProblem:
             ) -> tuple[GeneralizedLinearModel, OptimizationResult]:
         """Train on a batch; returns (model in RAW feature space, result)."""
         obj = self.objective()
-        x, history, progressed = self.solve(obj, batch,
-                                            self._x0(batch, initial))
+        x0 = self._x0(batch, initial)
+        with trace.span("optimizer.solve", backend="local",
+                        optimizer=self.config.optimizer_type.name):
+            x, history, progressed = self.solve(obj, batch, x0)
         x = fault_point("optimizer.gradient", arrays=x)
         return self.publish(x, history, progressed, obj, batch)
 
     def run_lazy(self, batch, initial: Optional[Tensor] = None
                  ) -> DeferredOptimizationResult:
         """Like :meth:`run` but the history stays on the device until read
-        (``problem.py:239-275``)."""
-        x, history, progressed = self.solve(self.objective(), batch,
-                                            self._x0(batch, initial))
+        (``problem.py:239-275``); the ``optimizer.solve`` span times the
+        solve's host side (its loop-exit reads included), the deferred
+        result's read is a separate site."""
+        obj, x0 = self.objective(), self._x0(batch, initial)
+        with trace.span("optimizer.solve", backend="lazy",
+                        optimizer=self.config.optimizer_type.name):
+            x, history, progressed = self.solve(obj, batch, x0)
         x = fault_point("optimizer.gradient", arrays=x)
         cfg = self.config
         return DeferredOptimizationResult(x, history, progressed,

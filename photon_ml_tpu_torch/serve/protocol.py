@@ -2,8 +2,6 @@
 
 Port of ``photon_ml_tpu/serve/protocol.py``: the same messages, byte for
 byte, so either package's client speaks to either package's service.
-``parse_endpoint`` is the port's copy of ``photon_ml_tpu/obs/export.py:81``
-(the port has no telemetry exporter yet).
 
 Same transport family as the telemetry plane (``obs/export.py``):
 newline-delimited JSON objects over a stream socket, with an explicit
@@ -83,6 +81,7 @@ import json
 import socket
 from typing import Optional, Sequence
 
+from photon_ml_tpu_torch.obs.export import parse_endpoint
 from photon_ml_tpu_torch.utils.retry import (
     RetryExhaustedError,
     RetryPolicy,
@@ -101,37 +100,6 @@ SERVE_PROTO = 1
 CONNECT_RETRY_POLICY = RetryPolicy(
     max_attempts=5, base_delay_seconds=0.05, max_delay_seconds=1.0,
     retry_on=(OSError,), permanent_on=())
-
-
-def parse_endpoint(endpoint: str) -> tuple[str, object]:
-    """``(scheme, address)`` from an endpoint string: ``("tcp", (host,
-    port))``, ``("unix", path)``, or ``("file", path)``.
-
-    Raises ``ValueError`` on an EXPLICIT ``tcp://`` endpoint without a
-    valid ``host:port`` — silently treating a typo'd socket address as
-    a file path would ship the stream into a file named after the host
-    while the intended consumer hears nothing."""
-    ep = endpoint.strip()
-    if ep.startswith("tcp://"):
-        ep = ep[len("tcp://"):]
-        host, sep, port = ep.rpartition(":")
-        if not (sep and host and port.isdigit()):
-            raise ValueError(
-                f"telemetry endpoint {endpoint!r}: tcp:// needs "
-                f"host:port with a numeric port")
-        return "tcp", (host, int(port))
-    if ep.startswith("unix://"):
-        return "unix", ep[len("unix://"):] or "/"
-    elif ep.startswith("unix:"):
-        return "unix", ep[len("unix:"):]
-    elif ep.startswith("file://"):
-        return "file", ep[len("file://"):] or "/"
-    elif ep.startswith("file:"):
-        return "file", ep[len("file:"):]
-    host, sep, port = ep.rpartition(":")
-    if sep and host and port.isdigit():
-        return "tcp", (host, int(port))
-    return "file", ep  # a bare path: file-tail mode
 
 
 class ServeRequestError(RuntimeError):

@@ -3,13 +3,16 @@
 Port of ``photon_ml_tpu/serve/service.py``: the same threads, wire
 protocol, hot-swap state machine and exit codes, on the card given by
 ``--device`` (default ``cuda``; without CUDA it raises, there is no
-fallback to the CPU). The port has no telemetry plane yet, so
-``--trace-dir``, ``--trace-heartbeat-seconds``,
-``--trace-stall-seconds``, ``--trace-exemplar-slots`` (the slowest-N
-exemplars spill next to the trace), ``--telemetry-endpoint`` and
-``--device-telemetry`` are refused by name (exit 3, as the drivers
-refuse them); stage timings still feed ``serve_stage_ms`` and the
-``stats`` reply.
+fallback to the CPU). The telemetry flags are the JAX service's:
+``--trace-dir`` (the run's trace directory through ``obs/run.py``, its
+heartbeats carrying the ``serve_stage_ms`` totals, and the log
+``photon-serve.log`` there unless ``--log-file`` says otherwise),
+``--trace-heartbeat-seconds``, ``--trace-stall-seconds``,
+``--telemetry-endpoint``, ``--device-telemetry`` and
+``--trace-exemplar-slots`` (the slowest-N requests keep their full stage
+trees in ``exemplars.jsonl`` beside the spans, whatever the sample rate;
+``service.py:184-231``, ``:529-616``). Stage timings feed
+``serve_stage_ms`` and the ``stats`` reply with or without a trace.
 
 Thread layout (one process, one device context):
 
@@ -101,6 +104,7 @@ from photon_ml_tpu_torch.serve.protocol import (
     swap_response,
 )
 from photon_ml_tpu_torch.serve.reqtrace import (
+    ExemplarReservoir,
     HeadSampler,
     TraceIdMinter,
     child_span_id,
@@ -187,7 +191,9 @@ class ServeService:
                  probation_p99_pct: float = 100.0,
                  probation_p99_min_ms: float = 50.0,
                  probation_max_sheds: int = 0,
-                 trace_sample_rate: float = 0.05):
+                 trace_sample_rate: float = 0.05,
+                 exemplar_slots: int = 8,
+                 exemplar_path: Optional[str] = None):
         self.gens = GenerationStore(scorer, model_id, registry=registry)
         self.batcher = batcher
         self.model_id = model_id  # the BOOT model id; stats track gens
@@ -216,12 +222,16 @@ class ServeService:
         self.last_swap: Optional[dict] = None
         # -- request tracing (serve/reqtrace.py) -------------------------
         # Every score request gets a trace identity (locally minted when
-        # the wire carries none); ``sampled`` gates tracer-span emission
-        # and the reply's trace_id echo. Stage timing feeds
-        # ``serve_stage_ms`` for EVERY completed request. The slowest-N
-        # exemplar spill waits for the trace directory (``--trace-dir``).
+        # the wire carries none) so the slowest-N exemplar reservoir can
+        # name its keeps; ``sampled`` additionally gates tracer-span
+        # emission and the reply's trace_id echo. Stage timing feeds
+        # ``serve_stage_ms`` for EVERY completed request.
         self._sampler = HeadSampler(trace_sample_rate)
         self._minter = TraceIdMinter()
+        self._exemplars = ExemplarReservoir(max(int(exemplar_slots), 1))
+        self._exemplar_path = exemplar_path
+        self._exemplar_spilled_gen = 0
+        self._exemplar_last_spill = 0.0
         # boot marker for the status plane: generation + model id ride
         # a span (a no-op while no tracer is enabled)
         with trace.span("serve.generation", generation=1,
@@ -428,10 +438,12 @@ class ServeService:
             if batch:
                 self._score_batch(batch)
             elif draining:
+                self._maybe_spill_exemplars(force=True)
                 return reason
             if not draining:
                 self._step_swap()
                 self._check_probation()
+                self._maybe_spill_exemplars()
             for scorer in self.gens.reap():
                 # the retired generation's last pinned batch drained:
                 # release its device rows (device loop = the only
@@ -551,24 +563,80 @@ class ServeService:
                               scored_ns: int, stages: dict,
                               reply_ns: int, end_ns: int) -> None:
         """One replied request's trace bookkeeping: the ``reply`` stage's
-        observation and, when sampled, the ``serve.request`` span plus
-        its stage children on the tracer."""
+        observation; when sampled, the ``serve.request`` span plus its
+        stage children on the tracer; and, with a trace directory, an
+        offer to the slowest-N exemplar reservoir, whose record carries
+        the full stage-event tree whether or not the request was
+        sampled."""
         observe_stage("reply", (end_ns - reply_ns) / 1e6, self._registry)
-        if not w.sampled:
-            return
         seq = w.span_id or 0
-        for name, s_ns, e_ns in (
-                *self._stage_spans(w, formed_ns, scored_ns, stages),
-                ("serve.reply", reply_ns, end_ns)):
+        stage_spans = (
+            ("serve.queue_wait", w.enqueued_ns, w.picked_ns),
+            *self._stage_spans(w, formed_ns, scored_ns, stages),
+            ("serve.reply", reply_ns, end_ns))
+        if w.sampled:
+            # serve.queue_wait was emitted at batch pickup
+            for name, s_ns, e_ns in stage_spans[1:]:
+                trace.record_span(
+                    name, s_ns, e_ns, depth=1,
+                    trace_id=w.trace_id,
+                    span_id=child_span_id(w.trace_id, name, seq),
+                    parent=w.span_id)
             trace.record_span(
-                name, s_ns, e_ns, depth=1,
-                trace_id=w.trace_id,
-                span_id=child_span_id(w.trace_id, name, seq),
-                parent=w.span_id)
-        trace.record_span(
-            "serve.request", w.read_ns, end_ns,
-            trace_id=w.trace_id, span_id=w.span_id,
-            parent=w.parent_span, rows=len(w.rows), outcome="ok")
+                "serve.request", w.read_ns, end_ns,
+                trace_id=w.trace_id, span_id=w.span_id,
+                parent=w.parent_span, rows=len(w.rows), outcome="ok")
+        tracer = trace.get_tracer()
+        if tracer is None or self._exemplar_path is None:
+            return
+        tid = threading.get_ident()
+        events = [{"name": "serve.request", "tid": tid, "depth": 0,
+                   "ts_us": tracer.rel_ts_us(w.read_ns),
+                   "dur_us": (end_ns - w.read_ns) / 1e3,
+                   "labels": {"trace_id": w.trace_id,
+                              "span_id": w.span_id,
+                              "parent": w.parent_span,
+                              "rows": len(w.rows), "outcome": "ok"}}]
+        for name, s_ns, e_ns in stage_spans:
+            events.append({
+                "name": name, "tid": tid, "depth": 1,
+                "ts_us": tracer.rel_ts_us(s_ns),
+                "dur_us": (e_ns - s_ns) / 1e3,
+                "labels": {"trace_id": w.trace_id,
+                           "span_id": child_span_id(w.trace_id, name,
+                                                    seq),
+                           "parent": w.span_id}})
+        self._exemplars.offer(
+            (end_ns - w.read_ns) / 1e6,
+            {"trace_id": w.trace_id,
+             "request_id": str(w.request_id),
+             "sampled": w.sampled,
+             "latency_ms": (end_ns - w.read_ns) / 1e6,
+             "events": events})
+
+    def _maybe_spill_exemplars(self, force: bool = False) -> None:
+        """Rewrite ``exemplars.jsonl`` when the reservoir changed
+        (throttled to ~2 Hz; an atomic replace, so a reader never sees a
+        torn file). At most N records, beside ``spans.jsonl`` on the same
+        tracer timeline."""
+        if self._exemplar_path is None:
+            return
+        now = time.monotonic()
+        if not force and now - self._exemplar_last_spill < 0.5:
+            return
+        gen = self._exemplars.generation()
+        if gen == self._exemplar_spilled_gen:
+            return
+        self._exemplar_last_spill = now
+        self._exemplar_spilled_gen = gen
+        tmp = self._exemplar_path + ".tmp"
+        try:
+            with open(tmp, "w") as fh:
+                for rec in self._exemplars.snapshot():
+                    fh.write(json.dumps(rec) + "\n")
+            os.replace(tmp, self._exemplar_path)
+        except OSError:
+            pass  # drop-only: the exemplar spill never hurts serving
 
     # -- the hot-swap state machine -------------------------------------
 
@@ -818,8 +886,8 @@ class ServeService:
 
     def _stage_totals(self) -> dict:
         """``serve_stage_ms`` per stage: count, sum, min and max of the
-        observations (the JAX service ships them on its heartbeat; the
-        port has no telemetry plane, so ``stats`` carries them)."""
+        observations (the heartbeat's ``metric_totals`` carry them too,
+        under ``--trace-dir``)."""
         from photon_ml_tpu_torch.serve.reqtrace import STAGE_MS_BUCKETS
 
         hist = self._registry.histogram("serve_stage_ms",
@@ -858,6 +926,7 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
     from photon_ml_tpu_torch.cli.args import (
         add_device_flag,
         add_observability_flags,
+        check_telemetry_flags,
     )
 
     p = argparse.ArgumentParser(
@@ -931,39 +1000,22 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
                         "no RNG; wire-traced requests from the fleet "
                         "router are always traced; 0 disables, 1 "
                         "traces everything)")
-    p.add_argument("--trace-exemplar-slots", type=int, default=None,
-                   help="slowest-N exemplar reservoir size (written "
-                        "beside --trace-dir's spans; not ported, "
-                        "refused)")
+    p.add_argument("--trace-exemplar-slots", type=int, default=8,
+                   help="slowest-N exemplar reservoir size: the N "
+                        "slowest requests keep full stage traces in "
+                        "exemplars.jsonl regardless of the sample rate")
     p.add_argument("--max-serve-seconds", type=float, default=None,
                    help="scheduled stop: drain and exit 0 (SIGTERM "
                         "drains and exits 75 instead — requeue me)")
     p.add_argument("--stop-file")
     p.add_argument("--log-file",
-                   help="service log path (default: none)")
+                   help="service log path (default: photon-serve.log "
+                        "under --trace-dir, else none)")
     add_observability_flags(p)
-    # unset is None, so that any value given is refused by check_unported
-    p.set_defaults(trace_heartbeat_seconds=None, trace_stall_seconds=None)
     add_device_flag(p)
-    return p.parse_args(argv)
-
-
-def check_unported(ns: argparse.Namespace) -> None:
-    """``NotImplementedError`` for the first telemetry flag set: the port
-    has no telemetry plane yet."""
-    from photon_ml_tpu_torch.cli.args import refuse_unported
-
-    refuse_unported(ns, [
-        ("--trace-dir", ns.trace_dir, "telemetry"),
-        ("--trace-heartbeat-seconds",
-         ns.trace_heartbeat_seconds is not None, "telemetry"),
-        ("--trace-stall-seconds", ns.trace_stall_seconds is not None,
-         "telemetry"),
-        ("--trace-exemplar-slots", ns.trace_exemplar_slots is not None,
-         "telemetry"),
-        ("--telemetry-endpoint", ns.telemetry_endpoint, "telemetry"),
-        ("--device-telemetry", ns.device_telemetry, "telemetry"),
-    ])
+    ns = p.parse_args(argv)
+    check_telemetry_flags(p, ns)
+    return ns
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -977,6 +1029,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         parse_section_keys_map,
     )
     from photon_ml_tpu_torch.device import resolve_device
+    from photon_ml_tpu_torch.obs.run import start_observed_run_from_flags
     from photon_ml_tpu_torch.serve.scoring import (
         load_scoring_model,
         materialize_model,
@@ -990,13 +1043,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     )
 
     ns = parse_args(argv if argv is not None else sys.argv[1:])
-    try:
-        check_unported(ns)
-    except NotImplementedError as e:
-        raise clean_abort(e) from None
     # before any model is read: no CUDA is a RuntimeError, not a CPU run
     device = resolve_device(ns.device)
-    logger = PhotonLogger(ns.log_file, echo=False)
+    log_path = ns.log_file or (
+        os.path.join(ns.trace_dir, "photon-serve.log")
+        if ns.trace_dir else None)
+    logger = PhotonLogger(log_path, echo=False)
 
     section_keys = parse_section_keys_map(
         ns.feature_shard_id_to_feature_section_keys_map)
@@ -1012,6 +1064,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     stop = StopController(max_train_seconds=ns.max_serve_seconds,
                           stop_file=ns.stop_file)
     stop.install_signal_handlers()
+    obs_run = start_observed_run_from_flags(ns, warn=logger.warn)
     service = None
     try:
         def load_model(model_dir):
@@ -1054,7 +1107,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             probation_p99_pct=ns.swap_p99_regression_pct,
             probation_p99_min_ms=ns.swap_p99_min_delta_ms,
             probation_max_sheds=ns.swap_max_probation_sheds,
-            trace_sample_rate=ns.trace_sample_rate)
+            trace_sample_rate=ns.trace_sample_rate,
+            exemplar_slots=ns.trace_exemplar_slots,
+            exemplar_path=(os.path.join(ns.trace_dir, "exemplars.jsonl")
+                           if ns.trace_dir else None))
         service.start()
         logger.info(f"serving {ns.model_id} on {service.endpoint} "
                     f"({len(scorer.stores)} tiered coordinate(s), "
@@ -1066,20 +1122,34 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             # external preemption: requeue-me semantics, like training
             raise PreemptionRequested(reason, 0, 0)
         logger.info(f"scheduled stop ({reason}): drained and done")
+        if obs_run is not None:
+            obs_run.set_exit_status("ok", reason=reason or "")
     except clean_abort_types() as e:
+        if obs_run is not None:
+            obs_run.set_exit_status("abort",
+                                    reason=f"{type(e).__name__}: {e}")
         raise clean_abort(e, log=logger.error) from None
     except PreemptionRequested as e:
+        if obs_run is not None:
+            obs_run.set_exit_status("preempted", reason=e.reason)
         raise preempted_exit(e, log=logger.warn) from None
     except KeyboardInterrupt:
+        if obs_run is not None:
+            obs_run.set_exit_status("abort", reason="KeyboardInterrupt")
         raise clean_abort(KeyboardInterrupt("interrupted by operator"),
                           log=logger.error) from None
     except Exception as e:
         logger.error(f"scoring service failed: {e}")
+        if obs_run is not None:
+            obs_run.set_exit_status("error",
+                                    reason=f"{type(e).__name__}: {e}")
         raise
     finally:
         if service is not None:
             service.shutdown()
         stop.uninstall_signal_handlers()
+        if obs_run is not None:
+            obs_run.finish()
         logger.close()
 
 

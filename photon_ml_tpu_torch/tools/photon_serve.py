@@ -1,7 +1,6 @@
 """photon-serve: the always-on GAME scoring service, and its control verbs.
 
-Port of ``tools/photon_serve.py`` without the ``fleet`` verb (the fleet
-router is not ported yet). With no verb it runs the service
+Port of ``tools/photon_serve.py``. With no verb it runs the service
 (``photon_ml_tpu_torch.serve.service``, whose module form is the same)::
 
     python -m photon_ml_tpu_torch.tools.photon_serve \\
@@ -19,6 +18,19 @@ resolves, prints the ``swap_result`` JSON and exits 0 on ``ok``, 1 on
     python -m photon_ml_tpu_torch.tools.photon_serve swap \\
         --endpoint unix:/tmp/serve.sock --model-dir out/retrained \\
         [--model-id v2]
+
+``fleet`` runs the entity-sharded front-end router over N already
+running members (``photon_ml_tpu_torch.serve.router``, the JAX launcher's
+``:80-82``; host-only: it takes no ``--device``), and exits 75 on
+SIGTERM::
+
+    python -m photon_ml_tpu_torch.tools.photon_serve fleet \
+        --listen unix:/tmp/fleet.sock \
+        --members unix:/tmp/m0.sock,unix:/tmp/m1.sock \
+        --route-id userId [--trace-dir fleet-trace]
+
+Each member is a service started as above (on its card by default), or
+the JAX package's: the wire is the same.
 
 ``stats`` prints a running service's ``stats`` reply (generation, last
 swap, qps, p50/p99, tiers and their hits, the ``serve_stage_ms`` totals)
@@ -82,11 +94,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if argv and argv[0] == "stats":
         return stats_main(argv[1:])
     if argv and argv[0] == "fleet":
-        from photon_ml_tpu_torch.cli import clean_abort
+        from photon_ml_tpu_torch.serve.router import main as fleet_main
 
-        raise clean_abort(NotImplementedError(
-            "fleet is not ported to photon_ml_tpu_torch yet (the fleet "
-            "router)"))
+        fleet_main(argv[1:])
+        return 0
     from photon_ml_tpu_torch.serve.service import main as serve_main
 
     serve_main(argv)

@@ -37,6 +37,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.obs import trace
 from photon_ml_tpu_torch.utils.faults import fault_point, hits as fault_hits
 from photon_ml_tpu_torch.utils.retry import (
     RetryExhaustedError,
@@ -245,9 +246,13 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any) -> None:
         """Durable and atomic: write, checksum and fsync into a tmp dir,
-        then rename. A transient write failure (``ckpt.write_bytes``)
-        rewrites the tmp dir; a persistent one raises
-        :class:`CheckpointWriteError` with the tmp dir removed."""
+        then rename, in a ``ckpt.save`` span. A transient write failure
+        (``ckpt.write_bytes``) rewrites the tmp dir; a persistent one
+        raises :class:`CheckpointWriteError` with the tmp dir removed."""
+        with trace.span("ckpt.save", step=step):
+            self._save(step, state)
+
+    def _save(self, step: int, state: Any) -> None:
         t0 = time.perf_counter()
         self.clean_stale_tmp()
         final = self._step_dir(step)
@@ -332,9 +337,11 @@ class CheckpointManager:
         none intact, raises :class:`CheckpointCorruptionError`; a
         directory without steps raises ``FileNotFoundError`` (a fresh
         run). ``ckpt.restore`` fires on the chosen step before it is
-        read."""
+        read. Runs in a ``ckpt.restore`` span."""
         t0 = time.perf_counter()
-        out = self._restore(step)
+        with trace.span("ckpt.restore",
+                        step=(-1 if step is None else step)):
+            out = self._restore(step)
         dt = time.perf_counter() - t0
         CHECKPOINT_STATS["restores"] += 1
         CHECKPOINT_STATS["restore_seconds"] += dt

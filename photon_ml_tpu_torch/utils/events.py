@@ -5,9 +5,9 @@ EventEmitter.scala, Event.scala:27-66): ``EventEmitter`` with
 ``register_listener_by_name`` (the legacy driver's ``--event-listeners``),
 the legacy driver's setup, start, finish and optimization-log events
 (``:25-54``) and the events of the fault-tolerance layer. A listener that raises is contained: the failure is logged and
-counted in :data:`LISTENER_ERRORS` and the other listeners still run. The JAX drivers also bridge events into the metrics stream
-(``obs/bridge.py``); the port has no telemetry yet, so its drivers'
-bus writes to the warn log only.
+counted in :data:`LISTENER_ERRORS` and the other listeners still run.
+The drivers' bus writes every event to the warn log and bridges it into
+the metrics registry (``obs/bridge.py``).
 """
 
 from __future__ import annotations

@@ -105,6 +105,22 @@ FAULT_POINTS: dict[str, FaultPointInfo] = {
         "OffHeapIndexMap; tag = namespace), io/data_format.py "
         "NameAndTermFeatureSets.load (tag = directory basename)",
         modes=("raise", "io_error", "flaky", "slow")),
+    "obs.flush": FaultPointInfo(
+        "before the observability layer appends spans/metrics to the "
+        "trace dir (obs/run.py)",
+        modes=("io_error", "enospc", "flaky")),
+    "obs.export": FaultPointInfo(
+        "on the telemetry exporter's writer thread, before each "
+        "connect/write of a record batch to the --telemetry-endpoint "
+        "consumer (obs/export.py); a batch that exhausts its retries "
+        "is dropped and counted on telemetry_dropped, never blocks "
+        "training",
+        modes=("io_error", "slow", "flaky")),
+    "obs.otlp": FaultPointInfo(
+        "in the OTLP conversion before each HTTP POST of a converted "
+        "trace/metric batch to the collector (obs/otlp.py); a failed "
+        "POST is dropped and counted on telemetry_dropped{kind=otlp}",
+        modes=("io_error", "slow", "flaky")),
     "serve.request": FaultPointInfo(
         "in a scoring-service connection thread, per decoded request "
         "before dispatch (serve/service.py); tag = request kind. "

@@ -1,9 +1,8 @@
 """Run-scoped leveled logger + phase timers.
 
 Port of ``photon_ml_tpu/utils/logging.py`` — ``PhotonLogger`` (a leveled
-logger writing one file per run), ``Timer`` and ``timed_phase``. The JAX
-package's ``timed_phase`` also opens an ``obs.trace`` span (``:117``);
-the port has no tracing yet, so its phases are timed and logged only.
+logger writing one file per run), ``Timer`` and ``timed_phase``, which
+opens a ``driver.phase`` span as the JAX one does (``:117``).
 """
 
 from __future__ import annotations
@@ -98,13 +97,22 @@ class Timer:
 
 @contextlib.contextmanager
 def timed_phase(name: str, logger: Optional[PhotonLogger] = None,
-                record: Optional[dict] = None):
+                record: Optional[dict] = None, span: bool = True):
     """Driver-phase timing idiom (cli/game/training/Driver.scala:648-711):
     the phase's wall time is logged as ``<name> took <s>s`` and, with
-    ``record``, stored there under ``name`` in seconds."""
+    ``record``, stored there under ``name`` in seconds. The phase runs in
+    a ``driver.phase`` span (a no-op while no tracer is enabled) unless
+    ``span`` is false: a phase the JAX driver times without a span (the
+    model and score writes) keeps the two packages' traces alike."""
+    from photon_ml_tpu_torch.obs import trace
+
     t = Timer().start()
     try:
-        yield t
+        if span:
+            with trace.span("driver.phase", phase=name):
+                yield t
+        else:
+            yield t
     finally:
         t.stop()
         if logger:

@@ -6,9 +6,9 @@ Port of ``photon_ml_tpu/utils/retry.py`` — ``RetryPolicy``,
 (``OSError`` and :class:`~photon_ml_tpu_torch.utils.faults.InjectedFault`)
 are retried with exponential backoff; permanent ones (``ValueError`` from
 a corrupt decode, ``FileNotFoundError``) propagate on the first attempt.
-The JAX package counts each retry on its metrics registry and opens a
-``retry.attempt`` span; the port has no telemetry yet and counts retries
-by site in :data:`RETRIES`.
+Each retry is counted on the metrics registry (``retries{site}``; the
+mapping :data:`RETRIES` reads it by site) and runs inside a
+``retry.attempt`` span, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,14 +16,35 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import time
+from collections.abc import Mapping
 from typing import Callable, Optional, TypeVar
 
+from photon_ml_tpu_torch.obs import trace
+from photon_ml_tpu_torch.obs.metrics import REGISTRY
 from photon_ml_tpu_torch.utils.faults import InjectedFault
 
 T = TypeVar("T")
 
+
+class _RetriesBySite(Mapping):
+    """Read-only ``site -> retries`` view of the ``retries`` counter."""
+
+    def _counts(self) -> dict:
+        return {k: int(v) for k, v in
+                REGISTRY.counter("retries").by_label("site").items()}
+
+    def __getitem__(self, site: str) -> int:
+        return self._counts()[site]
+
+    def __iter__(self):
+        return iter(self._counts())
+
+    def __len__(self) -> int:
+        return len(self._counts())
+
+
 #: site -> retries taken in this process (first attempts are not counted)
-RETRIES: dict[str, int] = {}
+RETRIES: Mapping = _RetriesBySite()
 
 
 class RetryExhaustedError(RuntimeError):
@@ -83,15 +104,21 @@ def backoff_delays(site: str, policy: RetryPolicy = DEFAULT_POLICY
 
 
 def call_with_retry(fn: Callable[[], T], site: str,
-                    policy: RetryPolicy = DEFAULT_POLICY) -> T:
-    """Run ``fn`` with the retry protocol for ``site``; the last error of
-    an exhausted schedule is wrapped in :class:`RetryExhaustedError`."""
+                    policy: RetryPolicy = DEFAULT_POLICY,
+                    warn: Optional[Callable[[str], None]] = None) -> T:
+    """Run ``fn`` with the retry protocol for ``site``; each retry runs in
+    a ``retry.attempt`` span and counts on ``retries{site}``; the last
+    error of an exhausted schedule is wrapped in
+    :class:`RetryExhaustedError`."""
     t0 = time.monotonic()
     delays = backoff_delays(site, policy)
     attempt = 0
     while True:
         try:
-            return fn()
+            if attempt == 0:
+                return fn()
+            with trace.span("retry.attempt", site=site, attempt=attempt):
+                return fn()
         except policy.retry_on as e:
             if isinstance(e, policy.permanent_on):
                 raise
@@ -104,5 +131,8 @@ def call_with_retry(fn: Callable[[], T], site: str,
                     > policy.deadline_seconds):
                 raise RetryExhaustedError(site, attempt, e,
                                           deadline_hit=True) from e
-            RETRIES[site] = RETRIES.get(site, 0) + 1
+            REGISTRY.counter("retries").inc(site=site)
+            if warn is not None:
+                warn(f"{site}: attempt {attempt} failed ({e!r}); "
+                     f"retrying in {delay * 1e3:.0f} ms")
             time.sleep(delay)

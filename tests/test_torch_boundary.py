@@ -29,19 +29,27 @@
   ``tools/photon_serve``) is in both import checks; ``ServingScorer``,
   ``TieredCoefficientStore``, the service and its launcher raise without
   CUDA unless given ``device="cpu"`` / ``--device cpu`` (the service
-  before it reads a model or binds its socket), and the service refuses
-  the five telemetry flags with exit 3.
+  before it reads a model or binds its socket).
+- The fleet and the telemetry plane (``serve/fleet``, ``serve/router``,
+  ``obs/export``, ``heartbeat``, ``run``, ``bridge``, ``devicemem``,
+  ``compile``, ``otlp``, ``utils/sync_telemetry``) are in both import
+  checks; the router imports no torch and takes no ``--device``, while the
+  members the fleet verb fronts (services) default to CUDA and raise
+  without it; the telemetry flags are no longer refused by the drivers or
+  the service.
 - The wide and streamed builders (``csr_to_batch`` over 4,096 columns,
   ``build_random_effect_dataset_streamed``) raise without CUDA unless
   given ``device="cpu"``; a failed host build raises from the block
   packers instead of returning ``False``; the flags ported with them
   (``--offheap-indexmap-dir``, ``--offheap-indexmap-num-partitions``,
-  ``--random-effect-blocks-dir``) and ``--precision bf16`` are no longer
-  refused, while the still-unported ones (``--collective-quant`` among
-  them) end with exit 3.
+  ``--random-effect-blocks-dir``), ``--precision bf16`` and the telemetry
+  flags are no longer refused, while the still-unported ones
+  (``--num-processes``, ``--max-worker-restarts``, ``--re-entity-shards``
+  and ``--collective-quant``) end with exit 3.
 """
 
 import ast
+import json
 import os
 import pathlib
 import re
@@ -97,10 +105,17 @@ SERVE_MODULES = [
     "photon_ml_tpu_torch.serve.protocol", "photon_ml_tpu_torch.serve.tiers",
     "photon_ml_tpu_torch.serve.scoring", "photon_ml_tpu_torch.serve.service",
     "photon_ml_tpu_torch.tools.photon_serve"]
+FLEET_TELEMETRY_MODULES = [
+    "photon_ml_tpu_torch.serve.fleet", "photon_ml_tpu_torch.serve.router",
+    "photon_ml_tpu_torch.obs.export", "photon_ml_tpu_torch.obs.heartbeat",
+    "photon_ml_tpu_torch.obs.run", "photon_ml_tpu_torch.obs.bridge",
+    "photon_ml_tpu_torch.obs.devicemem", "photon_ml_tpu_torch.obs.compile",
+    "photon_ml_tpu_torch.obs.otlp",
+    "photon_ml_tpu_torch.utils.sync_telemetry"]
 NAMED_MODULES = (FAULT_TOLERANCE_MODULES + NATIVE_INGEST_MODULES
                  + SECOND_ORDER_MODULES + SAMPLER_MODULES
                  + SINGLE_GLM_MODULES + WIDE_STREAMED_MODULES
-                 + SERVE_MODULES)
+                 + SERVE_MODULES + FLEET_TELEMETRY_MODULES)
 
 
 def _forbidden(module: str) -> bool:
@@ -393,13 +408,16 @@ PORTED_FLAGS = [
     ["--offheap-indexmap-dir", "idx", "--offheap-indexmap-num-partitions",
      "2"],
     ["--random-effect-blocks-dir", "blk"],
-    ["--precision", "bf16"]]
+    ["--precision", "bf16"],
+    ["--trace-dir", "trace"],
+    ["--trace-dir", "trace", "--telemetry-endpoint", "127.0.0.1:1",
+     "--device-telemetry", "--trace-heartbeat-seconds", "0.5",
+     "--trace-stall-seconds", "30"]]
 STILL_UNPORTED = [
     ("--re-entity-shards", ["--re-entity-shards", "2"]),
     ("--collective-quant", ["--collective-quant", "int8"]),
     ("--num-processes", ["--num-processes", "2"]),
-    ("--trace-dir", ["--trace-dir", "trace"]),
-    ("--telemetry-endpoint", ["--telemetry-endpoint", "127.0.0.1:1"])]
+    ("--max-worker-restarts", ["--max-worker-restarts", "1"])]
 _TRAIN = ["--task-type", "LOGISTIC_REGRESSION",
           "--feature-shard-id-to-feature-section-keys-map",
           "global:globalFeatures", "--updating-sequence", "fixed",
@@ -420,6 +438,14 @@ def test_ported_flags_are_not_refused(extra, tmp_path):
         from photon_ml_tpu_torch.cli.args import precision_dtype
 
         assert precision_dtype(ns.precision) is torch.bfloat16
+    if extra[0] == "--trace-dir":
+        sns = tsd.parse_args(
+            ["--input-data-dirs", "t", "--game-model-input-dir", "m",
+             "--output-dir", str(tmp_path / "s"),
+             "--feature-shard-id-to-feature-section-keys-map",
+             "global:globalFeatures", "--device", "cpu", *extra])
+        tsd.check_unported(sns)
+        assert (ns.trace_dir, sns.trace_dir) == ("trace", "trace")
     if extra[0].startswith("--offheap"):
         tsd.check_unported(tsd.parse_args(
             ["--input-data-dirs", "t", "--game-model-input-dir", "m",
@@ -457,19 +483,69 @@ SERVE_TELEMETRY = [
 
 @pytest.mark.parametrize("flag,extra", SERVE_TELEMETRY,
                          ids=[f for f, _ in SERVE_TELEMETRY])
-def test_service_refuses_the_telemetry_flags(flag, extra, tmp_path, capsys):
+def test_service_accepts_the_telemetry_flags(flag, extra, tmp_path,
+                                             monkeypatch):
+    """With ``--trace-dir`` each telemetry flag is taken, and the service
+    goes on to read its model (here a directory that does not exist)
+    instead of ending with exit 3."""
+    from photon_ml_tpu_torch.serve import scoring as tsc
     from photon_ml_tpu_torch.serve import service as tsvc
 
-    sock = tmp_path / "s.sock"
-    with pytest.raises(SystemExit) as exc:
-        tsvc.main(["--game-model-input-dir", str(tmp_path / "m"),
-                   "--feature-shard-id-to-feature-section-keys-map",
-                   "global:globalFeatures", "--listen", f"unix:{sock}",
-                   "--device", "cpu", *extra])
-    assert exc.value.code == 3
-    assert f"PHOTON_ABORT kind=NotImplementedError: {flag} " in \
-        capsys.readouterr().err
-    assert not sock.exists()
+    argv = ["--game-model-input-dir", str(tmp_path / "m"),
+            "--feature-shard-id-to-feature-section-keys-map",
+            "global:globalFeatures", "--listen",
+            f"unix:{tmp_path / 's.sock'}", "--device", "cpu",
+            "--trace-dir", str(tmp_path / "trace"),
+            *(extra if flag != "--trace-dir" else ())]
+    ns = tsvc.parse_args(argv)
+    assert getattr(ns, flag.lstrip("-").replace("-", "_")) is not None
+    read = []
+
+    def load(model_dir, maps):
+        read.append(model_dir)
+        raise FileNotFoundError(model_dir)
+
+    monkeypatch.setattr(tsc, "load_scoring_model", load)
+    with pytest.raises(FileNotFoundError):
+        tsvc.main(argv)
+    assert read == [str(tmp_path / "m")]
+    end = json.loads((tmp_path / "trace" / "metrics.jsonl").read_text()
+                     .splitlines()[-1])
+    assert end["kind"] == "run_end" and end["status"] == "error"
+
+
+def test_router_imports_no_torch_and_takes_no_device():
+    from photon_ml_tpu_torch.serve import router as trouter
+
+    code = ("import sys\n"
+            f"sys.path.insert(0, {str(REPO)!r})\n"
+            "import photon_ml_tpu_torch.serve.router\n"
+            "import photon_ml_tpu_torch.tools.photon_serve\n"
+            "print('torch' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-I", "-c", code],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
+    assert not hasattr(trouter.parse_args(["--members", "a"]), "device")
+    with pytest.raises(SystemExit):
+        trouter.parse_args(["--members", "a", "--device", "cuda"])
+
+
+def test_fleet_members_default_to_the_card(no_cuda, tmp_path):
+    """A member behind the fleet verb is a service: ``--device`` defaults
+    to ``cuda`` and it raises without CUDA before it reads a model."""
+    from photon_ml_tpu_torch.serve import service as tsvc
+    from photon_ml_tpu_torch.tools import photon_serve
+
+    argv = ["--game-model-input-dir", str(tmp_path / "m"),
+            "--feature-shard-id-to-feature-section-keys-map",
+            "global:globalFeatures", "--listen",
+            f"unix:{tmp_path / 'm0.sock'}", "--trace-dir",
+            str(tmp_path / "trace")]
+    assert tsvc.parse_args(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        photon_serve.main(argv)
+    assert not (tmp_path / "m0.sock").exists()
 
 
 def test_serving_entry_points_refuse_cpu_without_being_asked(

@@ -466,9 +466,6 @@ TRAIN_UNPORTED = [
     ("--re-entity-shards", ["--re-entity-shards", "2"]),
     ("--re-entity-shards", ["--re-entity-shards", "auto"]),
     ("--collective-quant", ["--collective-quant", "int8"]),
-    ("--trace-dir", ["--trace-dir", "trace"]),
-    ("--telemetry-endpoint", ["--telemetry-endpoint", "127.0.0.1:1"]),
-    ("--device-telemetry", ["--device-telemetry"]),
 ]
 
 
@@ -513,9 +510,6 @@ def test_training_driver_runs_precision_bf16(runs, tmp_path, monkeypatch):
 
 SCORE_UNPORTED = [
     ("--num-processes", ["--num-processes", "2"]),
-    ("--trace-dir", ["--trace-dir", "trace"]),
-    ("--telemetry-endpoint", ["--telemetry-endpoint", "127.0.0.1:1"]),
-    ("--device-telemetry", ["--device-telemetry"]),
 ]
 
 

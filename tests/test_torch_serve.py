@@ -1009,14 +1009,19 @@ def test_service_process_answers_like_the_scoring_driver(tmp_path):
     assert "Traceback (most recent call last)" not in err
 
 
-def test_launcher_refuses_the_fleet_verb(capsys):
-    """The fleet router is not ported: its verb ends like an unported
-    flag (exit 3, one ``PHOTON_ABORT`` line); the service's telemetry
-    flags are pinned in ``tests/test_torch_boundary.py``."""
+def test_launcher_runs_the_fleet_verb(capsys):
+    """The ``fleet`` verb is the port's fleet router (its help is the
+    router's), which takes no ``--device``: the router touches none. The
+    router itself is exercised in ``tests/test_torch_fleet.py``."""
     from photon_ml_tpu_torch.tools import photon_serve
 
     with pytest.raises(SystemExit) as exc:
-        photon_serve.main(["fleet", "--members", "a,b"])
-    assert exc.value.code == 3
-    assert "PHOTON_ABORT kind=NotImplementedError: fleet is not ported" \
-        in capsys.readouterr().err
+        photon_serve.main(["fleet", "--help"])
+    assert exc.value.code == 0
+    out = capsys.readouterr().out
+    assert "photon-serve fleet" in out and "--members" in out
+    with pytest.raises(SystemExit) as exc:
+        photon_serve.main(["fleet", "--members", "a,b", "--device", "cuda"])
+    assert exc.value.code == 2
+    # (argparse reads ``--device`` as a prefix of ``--device-telemetry``)
+    assert "unrecognized arguments: cuda" in capsys.readouterr().err
