@@ -260,6 +260,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -369,11 +370,13 @@ def movielens_data(rng, n, n_users, n_movies, d_global,
 
 
 def glmix_coordinates(data, device, active_cap=128, feature_cap=128,
-                      num_buckets=4, case="lbfgs", dtype=None):
+                      num_buckets=4, case="lbfgs", dtype=None,
+                      entity_axis_size=1):
     """Fixed effect + per-user random effect with the configurations of
     ``GLMIX_CASES[case]`` (for "lbfgs": L-BFGS + L2, lambda 10 and 40
     iterations, then lambda 1 and 20 iterations, tolerance 1e-7); X and
-    the per-user blocks stored in ``dtype`` (f32 unless given)."""
+    the per-user blocks stored in ``dtype`` (f32 unless given); the
+    buckets padded to ``entity_axis_size`` lanes (phase 15)."""
     import torch
 
     from photon_ml_tpu_torch.game.coordinate import (
@@ -405,7 +408,8 @@ def glmix_coordinates(data, device, active_cap=128, feature_cap=128,
         "per-user": RandomEffectCoordinate(
             dataset=build_random_effect_dataset(
                 data, re_cfg, num_buckets=num_buckets,
-                dtype=dtype or torch.float32, device=device),
+                dtype=dtype or torch.float32, device=device,
+                entity_axis_size=entity_axis_size),
             problem=RandomEffectOptimizationProblem(
                 config=parse(glmix.per_user), task=task)),
     }
@@ -3230,6 +3234,10 @@ def single_glm_phase(torch, dev, smi, workdir, bench_shape=BIG_SHAPE,
 #: entities, seed; bench.py:2021 bench_ingest_streamed's chunk
 INGEST = dict(n=10_000_000, d=100_000, nnz=8, entities=50_000, seed=3)
 INGEST_CHUNK = 1_000_000
+#: rows of the draw on which phase 12 (a) holds the native index-map pack
+#: to the numpy scatter: a cut of scale (PERF.md §4), since the scatter
+#: took ~24 s at the full 10,000,000 rows of a script over its budget
+INGEST_PLAIN_ROWS = 1_000_000
 #: phase 12 (d): training / validation rows, hashed global features, users
 WIDE_ROWS = (200_000, 50_000)
 WIDE_FEATURES, WIDE_USERS = 100_000, 2_000
@@ -3392,14 +3400,19 @@ def ingest_phase(torch, dev, workdir, shape=INGEST, chunk=INGEST_CHUNK):
     rec["in_ram"] = {"block": list(ram.X.shape),
                      "passive_rows": ram.num_passive,
                      "rows_per_sec": n / rec["in_ram_secs"], **rss.record()}
+    # native pack against the numpy scatter, on a smaller draw of the
+    # same generator (INGEST_PLAIN_ROWS)
+    few = ingest_data(**{**shape, "n": min(shape["n"], INGEST_PLAIN_ROWS)})
+    native = build_random_effect_dataset(few, cfg, device=dev)
     t0 = time.perf_counter()
-    plain = build_random_effect_dataset(data, cfg, device=dev,
+    plain = build_random_effect_dataset(few, cfg, device=dev,
                                         native_pack=False)
     rec["in_ram_numpy_pack_secs"] = time.perf_counter() - t0
+    rec["numpy_pack_rows"] = few.num_samples
     rec["in_ram_native_equals_numpy_pack"] = bool(
-        torch.equal(ram.X, plain.X)
-        and torch.equal(ram.passive_X, plain.passive_X))
-    del plain
+        torch.equal(native.X, plain.X)
+        and torch.equal(native.passive_X, plain.passive_X))
+    del plain, native, few
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     if not rec["in_ram_native_equals_numpy_pack"]:
@@ -4042,45 +4055,47 @@ def bf16_library_phase(torch, dev, data, f32_glmix):
     return record, launches, err
 
 
-def bf16_driver_phase(torch, dev, fixture, f32_driver, drill_fixture,
-                      workdir):
-    """Phase 13 (b): the training driver with ``--precision bf16`` on phase
-    6's fixture and feature sets, in RAM, beside phase 6's f32 run; then
-    on the drill's fixture (phase 7 (b), ``DRILL_ROWS``) in RAM and with
-    ``--random-effect-blocks-dir``: those two runs' metrics (seconds
-    aside) and models record for record equal. Every launch of the three
-    runs is on the path ``kernel_path`` picks for ×65 bf16 rows. Returns
-    the record, the launches by run, the kernel's error on the bf16 ×65
-    batch and the full-size run's output directory (its final model,
-    ``output/grid-0``, is (c)'s swap candidate).
+def bf16_driver_phase(torch, dev, drill_fixture, workdir, f32_out):
+    """Phase 13 (b): the training driver on the drill's fixture (phase
+    7 (b), ``DRILL_ROWS``): in f32 (into ``f32_out``, which phase 15 (c)
+    holds its mesh run to), then with ``--precision bf16`` in RAM and with
+    ``--random-effect-blocks-dir``: the two bf16 runs' metrics (seconds
+    aside) and models record for record equal, the bf16 objectives and
+    best AUC beside the f32 run's. Every launch is on the path
+    ``kernel_path`` picks for ×65 rows of its dtype. Returns the record,
+    the launches by run, the kernel's error on the bf16 ×65 batch and the
+    bf16 in-RAM run's output directory (its final model, ``output/grid-0``,
+    is (c)'s swap candidate).
 
-    The memmap run is on the drill's fixture, a cut of scale (PERF.md
-    §4): at full size it read the 1,000,209-row Avro once more (~40 s of
-    a script that measured 1,122.3 s against its 1,100 s budget, PR 13
-    run 1). Memmap equal to RAM stays shown at full width by phase 12 (c)
-    (f32, bit for bit) and at full size in bf16 by the in-RAM run."""
+    A cut of scale (PERF.md §4): these runs are on the drill's fixture.
+    The memmap run moved there when the script measured 1,122.3 s against
+    its 1,100 s budget, and the full-size in-RAM run (~55 s, 46 s of it
+    the 1,000,209-row Avro read once more) when the script with phase 15
+    measured over 1,100 s again. bf16 at full width stays shown by phase
+    13 (a) (the library path, bit for bit repeated) and phase 4's ×65
+    bf16 timing row; memmap equal to RAM at full width by phase 12 (c)."""
     from photon_ml_tpu_torch.cli import game_training_driver as ttd
     from photon_ml_tpu_torch.game.dataset import build_fixed_effect_dataset
     from photon_ml_tpu_torch.ops import pallas_kernels as pk
     from photon_ml_tpu_torch.ops.losses import get_loss
     from photon_ml_tpu_torch.tools.crash_resume_drill import driver_argv
 
-    train, val, feature_sets = fixture
+    tr, va = drill_fixture
     shutil.rmtree(workdir, ignore_errors=True)
+    shutil.rmtree(f32_out, ignore_errors=True)
     os.makedirs(workdir)
-    runs, launches, err, trainer = {}, {}, None, None
+    runs, launches, err, paths = {}, {}, None, {}
+    bf16 = ["--precision", "bf16"]
     blocks = ["--random-effect-blocks-dir", os.path.join(workdir, "blocks")]
-    for name, (tr, va), extra in (
-            ("in_ram", (train, val),
-             ["--feature-name-and-term-set-path", feature_sets]),
-            ("drill_in_ram", drill_fixture, []),
-            ("drill_blocks_dir", drill_fixture, blocks)):
-        out = os.path.join(workdir, name)
-        argv = driver_argv(tr, va, out, str(dev), extra=[
-            "--precision", "bf16", *extra])
+    for name, out, extra, dtype in (
+            ("drill_f32", f32_out, [], torch.float32),
+            ("drill_in_ram", os.path.join(workdir, "drill_in_ram"), bf16,
+             torch.bfloat16),
+            ("drill_blocks_dir", os.path.join(workdir, "drill_blocks_dir"),
+             bf16 + blocks, torch.bfloat16)):
         reset_counts(torch, dev)
         t0 = time.perf_counter()
-        trainer = ttd.run(argv)
+        trainer = ttd.run(driver_argv(tr, va, out, str(dev), extra=extra))
         sync(torch, dev)
         secs = time.perf_counter() - t0
         launches[name] = launch_counts()
@@ -4097,22 +4112,21 @@ def bf16_driver_phase(torch, dev, fixture, f32_driver, drill_fixture,
             "best_metric": states["best"]["metric"],
             "launches_by_path": launches[name]["by_path"],
             "max_memory_allocated": peak_memory(torch, dev)}
-        if name == "in_ram":
-            fe = build_fixed_effect_dataset(trainer.train_data, "global",
-                                            dtype=torch.bfloat16, device=dev)
-            X = fe.batch.X
-            expected = pk.kernel_path(X.shape[1], X.dtype,
-                                      X.data_ptr() % 16 == 0)
-            if dev.type == "cuda":
-                w = trainer.best_result.model.models["fixed"].model \
-                    .coefficients.means.to(dev).contiguous()
-                err, _ = check_sums(
-                    torch, get_loss("logistic"), X, fe.batch.labels,
-                    fe.batch.offsets, fe.batch.weights, w,
-                    torch.zeros((), device=dev), scaled=True)
-            runs[name]["fixed_effect_shape"] = list(X.shape)
-            del fe, X
-        check_launches(f"bf16 driver {name}", launches[name], expected,
+        fe = build_fixed_effect_dataset(trainer.train_data, "global",
+                                        dtype=dtype, device=dev)
+        X = fe.batch.X
+        paths[name] = pk.kernel_path(X.shape[1], X.dtype,
+                                     X.data_ptr() % 16 == 0)
+        if name == "drill_in_ram" and dev.type == "cuda":
+            w = trainer.best_result.model.models["fixed"].model \
+                .coefficients.means.to(dev).contiguous()
+            err, _ = check_sums(
+                torch, get_loss("logistic"), X, fe.batch.labels,
+                fe.batch.offsets, fe.batch.weights, w,
+                torch.zeros((), device=dev), scaled=True)
+        runs[name]["fixed_effect_shape"] = list(X.shape)
+        del fe, X
+        check_launches(f"drill driver {name}", launches[name], paths[name],
                        "logistic", dev)
         del trainer
     ram, mm = (os.path.join(workdir, k) for k in ("drill_in_ram",
@@ -4125,26 +4139,30 @@ def bf16_driver_phase(torch, dev, fixture, f32_driver, drill_fixture,
             raise AssertionError(f"bf16 driver: the --random-effect-blocks-"
                                  f"dir run's {model} differs from the "
                                  f"in-RAM run's")
-    objs = runs["in_ram"]["objectives"]
-    if not all(np.isfinite(o) for o in objs) or not objs[3] <= objs[1] * (
+    objs = runs["drill_in_ram"]["objectives"]
+    f32 = runs["drill_f32"]
+    # under the per-user cap only a fixed-effect update must not raise the
+    # objective it starts from (PERF.md §2): sweep 2's, from sweep 1's end
+    if not all(np.isfinite(o) for o in objs) or not objs[2] <= objs[1] * (
             1 + 1e-6):
         raise AssertionError(f"bf16 driver objectives: {objs}")
     record = {
-        "runs": runs, "expected_path": expected,
+        "runs": runs, "expected_path": paths,
         "blocks_dir_equals_in_ram": True,
-        "reduced": {"blocks_dir_rows": list(DRILL_ROWS),
-                    "why": "the memmap run on the drill's fixture: the "
-                           "script measured 1,122.3 s against its 1,100 s "
-                           "budget (PR 13 run 1)"},
-        "objectives_f32": f32_driver["objectives"],
+        "reduced": {"rows": list(DRILL_ROWS),
+                    "why": "the drill's fixture: the script measured "
+                           "1,122.3 s (the memmap run moved) and over "
+                           "1,100 s once phase 15 was added (the full-size "
+                           "in-RAM run moved) against its 1,100 s budget"},
+        "objectives_f32": f32["objectives"],
         "rel_gap_to_f32": [abs(a - b) / abs(b) for a, b in
-                           zip(objs, f32_driver["objectives"])],
-        "best_auc_f32": f32_driver["best_metric"],
-        "best_auc_gap_to_f32": runs["in_ram"]["best_metric"]
-        - f32_driver["best_metric"],
+                           zip(objs, f32["objectives"])],
+        "best_auc_f32": f32["best_metric"],
+        "best_auc_gap_to_f32": runs["drill_in_ram"]["best_metric"]
+        - f32["best_metric"],
         "kernel_vs_plain_max_abs_err": err}
     shutil.rmtree(os.path.join(workdir, "blocks"), ignore_errors=True)
-    return record, launches, err, os.path.join(workdir, "in_ram")
+    return record, launches, err, ram
 
 
 class ServiceProcess:
@@ -4801,8 +4819,8 @@ def fleet_phase(torch, dev, smi, served, workdir):
     return record
 
 
-def bf16_serve_phase(torch, dev, smi, data, f32_glmix, f32_driver, fixture,
-                     drill_fixture, driver_dir, workdir):
+def bf16_serve_phase(torch, dev, smi, data, f32_glmix, drill_fixture,
+                     driver_dir, workdir, drill_f32_out):
     """Phase 13: (a) bf16 GLMix in the library, (b) the bf16 training
     drivers, (c) the scoring service with the hot-swap, traced. Returns
     the phase record, the kernel's launches by run, its errors against
@@ -4817,8 +4835,8 @@ def bf16_serve_phase(torch, dev, smi, data, f32_glmix, f32_driver, fixture,
           file=sys.stderr, flush=True)
     t1 = time.perf_counter()
     record["b_drivers"], b_launches, b_err, bf16_out = bf16_driver_phase(
-        torch, dev, fixture, f32_driver, drill_fixture,
-        os.path.join(workdir, "drivers"))
+        torch, dev, drill_fixture, os.path.join(workdir, "drivers"),
+        drill_f32_out)
     record["b_drivers"]["seconds"] = time.perf_counter() - t1
     print("phase 13 (b): " + json.dumps(record["b_drivers"]),
           file=sys.stderr, flush=True)
@@ -4834,6 +4852,393 @@ def bf16_serve_phase(torch, dev, smi, data, f32_glmix, f32_driver, fixture,
                 **{f"bf16_driver_{k}": v for k, v in b_launches.items()}}
     return (record, launches, [e for e in (a_err, b_err) if e is not None],
             served)
+
+
+# -- phase 15: the device mesh ----------------------------------------------
+
+#: shards of phase 15's meshes: four on the one card ([dev] * 4)
+MESH_SHARDS = 4
+#: phase 15 (b)'s bound on the int8 run's objectives against the exact
+#: ones: the int8 score exchange rounds each sample's per-user score to
+#: 1/254 of its 256-sample block's largest, and those scores are the fixed
+#: effect's offsets (measured on an NVIDIA H100: PERF.md §6)
+INT8_OBJECTIVE_RTOL = 1e-3
+#: phase 15 (b)'s bound on a data-sharded run's objectives against the
+#: unsharded f32 run: the fixed-effect updates within 1e-5 (the sharded
+#: sums reassociate: rel 3.9e-7 measured); the per-user updates after them
+#: within 1e-4, since a capped per-user solve amplifies its offsets' f32
+#: difference (rel 2.4e-5 after the last one at 4 x 1, 1.0e-6 at 2 x 2, on
+#: an NVIDIA H100: PERF.md §6). The witness of :func:`per_user_witness`
+#: shows the per-user gap comes from the offsets alone.
+SHARDED_FE_RTOL, SHARDED_RE_RTOL = 1e-5, 1e-4
+
+
+def mesh_coordinates(coords, entity_shards=1, shard_weight_update=False,
+                     quant="none"):
+    """New coordinates over ``coords``' datasets with the mesh's knobs on
+    their problems (update counts start anew)."""
+    import dataclasses
+
+    from photon_ml_tpu_torch.game.coordinate import (
+        FixedEffectCoordinate, RandomEffectCoordinate)
+
+    out = {}
+    for cid, c in coords.items():
+        if isinstance(c, FixedEffectCoordinate):
+            out[cid] = FixedEffectCoordinate(
+                dataset=c.dataset, problem=dataclasses.replace(
+                    c.problem, shard_weight_update=shard_weight_update,
+                    collective_quant=quant))
+        else:
+            out[cid] = RandomEffectCoordinate(
+                dataset=c.dataset, problem=dataclasses.replace(
+                    c.problem, entity_shards=entity_shards,
+                    collective_quant=quant))
+    return out
+
+
+def shard_split_bytes(coords, n_data, n_entity) -> dict:
+    """The bytes each shard's pieces hold: a data shard's rows of the
+    fixed effect's X and its three ``[n]`` vectors (rows padded to the
+    axis), an entity shard's lanes of every per-user bucket (X, labels,
+    offsets, weights, row ids). On one card they are views of the same
+    tensors; on a mesh of cards each would live on its own."""
+    from photon_ml_tpu_torch.parallel.mesh import pad_rows_to_multiple
+
+    X = coords["fixed"].dataset.batch.X
+    rows = pad_rows_to_multiple(int(X.shape[0]), n_data) // n_data
+    row_bytes = int(X.shape[1]) * X.element_size() + 12
+    lane_bytes = sum(
+        b.X[0].numel() * b.X.element_size() + b.labels[0].numel() * 12
+        + b.row_ids[0].numel() * 8
+        for b in coords["per-user"].dataset.buckets)
+    lanes = sum(int(b.X.shape[0]) for b in coords["per-user"].dataset
+                .buckets) // n_entity
+    return {"data_shard_bytes": [rows * row_bytes] * n_data,
+            "entity_shard_bytes": [lanes * lane_bytes] * n_entity}
+
+
+def mesh_cd_run(torch, dev, data, coords, mesh):
+    """``cd_run`` with ``mesh`` the default mesh, the collective-byte and
+    solve counters zeroed; returns the result and its record."""
+    from photon_ml_tpu_torch.game import random_effect as re_mod
+    from photon_ml_tpu_torch.obs.metrics import REGISTRY
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.parallel.mesh import set_default_mesh
+
+    REGISTRY.counter("collective_bytes").reset()
+    re_mod.reset_solve_stats()
+    set_default_mesh(mesh)
+    try:
+        res, counts = cd_run(torch, dev, data, coords)
+    finally:
+        set_default_mesh(None)
+    cb = REGISTRY.counter("collective_bytes")
+    return res, {
+        "secs": counts["secs"],
+        "objectives": [s.objective for s in res.states],
+        "launches": counts["launches"],
+        "launches_by_shard": dict(
+            pk.fused_value_gradient_sums.launches_by_shard),
+        "solver_syncs": counts["solver_syncs"],
+        "shard_real_lanes": re_mod.SOLVE_STATS["shard_real_lanes"],
+        "collective_bytes_by_site": cb.by_label("site"),
+        "collective_bytes_by_mode": cb.by_label("mode"),
+        "max_memory_allocated": peak_memory(torch, dev)}
+
+
+def record_last_update(coords, cid) -> dict:
+    """Wrap ``coords[cid].update`` so that the returned dict holds the
+    inputs (state, offsets) and the new state of its last call."""
+    coord = coords[cid]
+    inner = coord.update
+    last = {}
+
+    def update(state, extra_scores):
+        out = inner(state, extra_scores)
+        last.update(state=state, extra_scores=extra_scores, out=out[0])
+        return out
+
+    coord.update = update
+    return last
+
+
+def per_user_witness(torch, coords, res, last, phase5) -> dict:
+    """The 4 x 1 run's last per-user update again, unsharded and with no
+    mesh, from the inputs the run gave it (its per-user state and the
+    offsets of its data-sharded fixed effect): it must equal the run's
+    per-user state bit for bit, so that the per-user objective's gap to
+    phase 5 comes from those offsets and not from the mesh. Beside it, how
+    far the inputs moved: the fixed effect's coefficients and scores, and
+    the final per-user coefficients, against phase 5's."""
+    from photon_ml_tpu_torch.parallel.mesh import set_default_mesh
+
+    set_default_mesh(None)
+    again, _ = mesh_coordinates(coords)["per-user"].update(
+        last["state"], last["extra_scores"])
+    num_real = len(coords["per-user"].dataset.entity_codes)
+    c_run = res.model.models["per-user"].coefficients_projected
+    w4 = res.model.models["fixed"].model.coefficients.means
+    w5 = phase5["fixed"]
+    s4, s5 = coords["fixed"].score(w4), coords["fixed"].score(w5)
+    codes = {int(c): i for i, c in enumerate(
+        coords["per-user"].dataset.entity_codes)}
+    rows = torch.as_tensor([codes[int(c)] for c in phase5["codes"]],
+                           device=c_run.device)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    return {"rerun_equals_run": bool(torch.equal(again, last["out"])),
+            "run_state_is_model": bool(torch.equal(last["out"][:num_real],
+                                                   c_run)),
+            "fixed_coef_rel_to_phase5": rel(w4, w5),
+            "fixed_score_rel_to_phase5": rel(s4, s5),
+            "per_user_coef_rel_to_phase5": rel(c_run[rows],
+                                               phase5["per-user"])}
+
+
+def rel_by_coordinate(res, ref_objectives) -> dict:
+    """The largest relative objective gap to ``ref_objectives`` (one per
+    update, in order), over the fixed effect's updates and over the
+    per-user ones."""
+    out = {}
+    for s, r in zip(res.states, ref_objectives):
+        gap = abs(s.objective - r) / abs(r)
+        out[s.coordinate_id] = max(out.get(s.coordinate_id, 0.0), gap)
+    return out
+
+
+def equals_phase5(torch, res, coords, data, dev, phase5) -> dict:
+    """A run against phase 5's, bit for bit: per-update objectives, the
+    fixed effect's final state, the per-user states matched entity by
+    entity (the padded buckets order and count lanes otherwise), and the
+    published model's scores."""
+    codes = {int(c): i for i, c in enumerate(
+        coords["per-user"].dataset.entity_codes)}
+    c15 = res.model.models["per-user"].coefficients_projected
+    rows = torch.as_tensor([codes[int(c)] for c in phase5["codes"]],
+                           device=c15.device)
+    return {
+        "objectives": [s.objective for s in res.states]
+        == phase5["objectives"],
+        "fixed": bool(torch.equal(
+            res.model.models["fixed"].model.coefficients.means,
+            phase5["fixed"])),
+        "per_user": bool(torch.equal(c15[rows], phase5["per-user"])),
+        "scores": bool(torch.equal(res.model.score(data, device=dev),
+                                   phase5["scores"]))}
+
+
+def mesh_glmix_phase(torch, dev, data, phase5, hbm):
+    """Phase 15 (b): GLMix at full width on phase 5's in-memory data, the
+    per-user buckets padded to 4 lanes, on meshes of four shards of the
+    one card: 1 x 4 (entity-sharded per-user updates: bit for bit phase
+    5's unsharded run, entity by entity); 4 x 1 twice (the fixed effect's
+    rows over four shards: the fixed-effect updates' objectives within
+    rel 1e-5 of phase 5's and the per-user updates' within 1e-4, the last
+    per-user update rerun unsharded from the run's inputs bit for bit
+    (:func:`per_user_witness`), the two runs bit for bit, every launch on every shard stream, and the kernel
+    against its plain version on shard 0's batch); 2 x 2 with the sharded
+    weight update, without and with int8 on the wire. Each run's seconds,
+    peak memory and collective bytes; the per-shard byte split; the
+    kernel timed at a shard's shape (×64 and the driver's ×65). Returns
+    the record, launches by run, the kernel's error and the timing rows."""
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.ops.losses import get_loss
+    from photon_ml_tpu_torch.parallel.mesh import (
+        make_mesh, pad_rows_to_multiple)
+
+    K = MESH_SHARDS
+    t0 = time.perf_counter()
+    coords = glmix_coordinates(data, dev, entity_axis_size=K)
+    sync(torch, dev)
+    build_secs = time.perf_counter() - t0
+    runs, launches = {}, {}
+    shapes = {"entity_1x4": (1, K), "data_4x1": (K, 1),
+              "weight_update_2x2": (2, 2), "weight_update_2x2_int8": (2, 2)}
+    knobs = {"entity_1x4": dict(entity_shards=K),
+             "data_4x1": dict(),
+             "weight_update_2x2": dict(entity_shards=2,
+                                       shard_weight_update=True),
+             "weight_update_2x2_int8": dict(entity_shards=2,
+                                            shard_weight_update=True,
+                                            quant="int8")}
+    results = {}
+    for name, (nd, ne) in shapes.items():
+        mesh = make_mesh(num_data=nd, num_entity=ne, devices=[dev] * K)
+        for rep in ((0, 1) if name == "data_4x1" else (0,)):
+            key = name if rep == 0 else name + "_repeat"
+            run_coords = mesh_coordinates(coords, **knobs[name])
+            if key == "data_4x1":
+                last_update = record_last_update(run_coords, "per-user")
+            res, rec = mesh_cd_run(torch, dev, data, run_coords, mesh)
+            rec["mesh"] = [nd, ne]
+            rec["shard_split"] = shard_split_bytes(coords, nd, ne)
+            runs[key] = rec
+            launches[f"mesh_{key}"] = rec["launches"]
+            results[key] = res
+            print(f"phase 15 (b) {key}: " + json.dumps(rec),
+                  file=sys.stderr, flush=True)
+
+    eq = equals_phase5(torch, results["entity_1x4"], coords, data, dev,
+                       phase5)
+    if not all(eq.values()):
+        raise AssertionError(f"entity-sharded run != phase 5's: {eq}")
+    if runs["entity_1x4"]["shard_real_lanes"] <= 0:
+        raise AssertionError("the per-user updates never sharded")
+    rep_eq = runs_equal(torch, results["data_4x1"],
+                        results["data_4x1_repeat"], data, dev)
+    if not all_equal(rep_eq):
+        raise AssertionError(f"two 4 x 1 runs differ: {rep_eq}")
+    witness = per_user_witness(torch, coords, results["data_4x1"],
+                               last_update, phase5)
+    print("phase 15 (b) per-user witness: " + json.dumps(witness),
+          file=sys.stderr, flush=True)
+    if not (witness["rerun_equals_run"] and witness["run_state_is_model"]):
+        raise AssertionError(f"4 x 1 per-user witness: {witness}")
+    del last_update
+    rel = {k: rel_by_coordinate(results[k], phase5["objectives"])
+           for k in shapes}
+    for k in ("data_4x1", "weight_update_2x2"):
+        if not (rel[k]["fixed"] <= SHARDED_FE_RTOL
+                and rel[k]["per-user"] <= SHARDED_RE_RTOL):
+            raise AssertionError(f"{k}: objectives off by rel {rel[k]}")
+    if not max(rel["weight_update_2x2_int8"].values()) \
+            <= INT8_OBJECTIVE_RTOL:
+        raise AssertionError(f"int8 objectives off by rel "
+                             f"{rel['weight_update_2x2_int8']}")
+    by_shard = runs["data_4x1"]["launches_by_shard"]
+    total = sum(runs["data_4x1"]["launches"]["by_path"].values())
+    if dev.type == "cuda" and (sorted(by_shard) != list(range(K))
+                               or len(set(by_shard.values())) != 1
+                               or sum(by_shard.values()) != total):
+        raise AssertionError(f"launches by shard {by_shard} of {total}")
+    check_launches("mesh 4x1", runs["data_4x1"]["launches"], "stream",
+                   "logistic", dev)
+    int8_bytes = runs["weight_update_2x2_int8"]["collective_bytes_by_mode"]
+    if not int8_bytes.get("int8", 0) > 0:
+        raise AssertionError(f"no int8 bytes: {int8_bytes}")
+
+    # the kernel on shard 0's rows of the final 4 x 1 fixed-effect batch
+    res = results["data_4x1"]
+    batch = coords["fixed"].dataset.with_offsets(coords["per-user"].score(
+        res.model.models["per-user"].coefficients_projected))
+    n = int(batch.X.shape[0])
+    rows = pad_rows_to_multiple(n, K) // K
+    w_fe = res.model.models["fixed"].model.coefficients.means.contiguous()
+    err, worst = check_sums(
+        torch, get_loss("logistic"), batch.X[:rows].contiguous(),
+        batch.labels[:rows].contiguous(), batch.offsets[:rows].contiguous(),
+        batch.weights[:rows].contiguous(), w_fe,
+        torch.zeros((), device=dev), scaled=True)
+    shard_path = pk.kernel_path(int(batch.X.shape[1]), batch.X.dtype, True)
+    del batch, coords, results, res
+    torch.cuda.empty_cache()
+
+    # the kernel timed at a shard's shape: glmix's ×64 (stream) and the
+    # driver's ×65 (staged) over four shards
+    timing_rows = []
+    for d in (64, 65):
+        X, y, off, wt, w = kernel_inputs(torch, rows, d, seed=15,
+                                         device=dev)
+        for row in time_kernel(torch, hbm, get_loss("logistic"), X, y, off,
+                               wt, w, torch.tensor(0.0, device=dev)
+                               ).values():
+            timing_rows.append(row)
+            emit({"phase": "timing", "per_shard_of": K, **row})
+        del X, y, off, wt, w
+    torch.cuda.empty_cache()
+    return {"build_secs": build_secs, "runs": runs,
+            "entity_1x4_equals_phase5": eq, "data_4x1_repeat_equal": rep_eq,
+            "objectives_rel_to_phase5": rel,
+            "data_4x1_per_user_witness": witness,
+            "rtol": {"fixed": SHARDED_FE_RTOL, "per-user": SHARDED_RE_RTOL,
+                     "int8": INT8_OBJECTIVE_RTOL},
+            "shard_batch_kernel": {"rows": rows, "path": shard_path,
+                                   "max_abs_err": err,
+                                   "worst_delta_over_tolerance": worst}}, \
+        launches, err, timing_rows
+
+
+def mesh_driver_phase(torch, dev, drill_fixture, plain, workdir):
+    """Phase 15 (c): the training driver's console entry point (``main``,
+    in this process) on the drill's fixture with ``--re-entity-shards auto
+    --collective-quant int8``, traced: exit 0, where the flags used to
+    exit 3. On one card the mesh grants one entity shard (the manifest and
+    the gauge say 1), and the model equals, record for record, phase
+    13 (b)'s f32 run with the same argv without the two flags
+    (``plain``)."""
+    from photon_ml_tpu_torch.cli import game_training_driver as ttd
+    from photon_ml_tpu_torch.tools.crash_resume_drill import driver_argv
+
+    train, val = drill_fixture
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    mesh_out = os.path.join(workdir, "mesh")
+    trace = os.path.join(workdir, "trace")
+    reset_counts(torch, dev)
+    t0 = time.perf_counter()
+    argv = driver_argv(train, val, mesh_out, str(dev), extra=[
+        "--re-entity-shards", "auto", "--collective-quant", "int8",
+        "--trace-dir", trace])
+    try:
+        ttd.main(argv)
+        code = 0
+    except SystemExit as e:  # clean_abort's exit 3 for a refused flag
+        code = e.code
+    mesh_secs = time.perf_counter() - t0
+    if code != 0:
+        raise AssertionError(f"the mesh driver run exited {code}")
+    manifest = json.load(open(os.path.join(trace, "run_manifest.json")))
+    granted = manifest["flags"]["re_entity_shards"]
+    gauges = [r["value"] for r in map(json.loads, open(os.path.join(
+        trace, "metrics.jsonl"))) if r.get("name") == "re_entity_shards"]
+    gauge = gauges[-1] if gauges else None
+    same = model_records(plain) == model_records(mesh_out)
+    if granted != 1 or gauge != 1 or not same:
+        raise AssertionError(f"mesh driver run: granted {granted}, gauge "
+                             f"{gauge}, models equal {same}")
+    launches = launch_counts()
+    return {"exit_code": code, "granted_entity_shards": granted,
+            "re_entity_shards_gauge": gauge, "models_equal": same,
+            "mesh_secs": mesh_secs,
+            "launches_by_path": launches["by_path"]}, launches
+
+
+def mesh_phase(torch, dev, smi, data, phase5, drill_fixture, drill_f32,
+               workdir, hbm):
+    """Phase 15: (a) the multi-device gate on four shards of the card,
+    (b) GLMix on meshes (``mesh_glmix_phase``), (c) the driver with the
+    mesh's flags (``mesh_driver_phase``). What one card cannot show:
+    copies between cards, shards overlapping on several cards, and the
+    launch on a card that is not the current one (PERF.md §7)."""
+    from photon_ml_tpu_torch.parallel.multichip_check import (
+        check_game_step_multichip)
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check_game_step_multichip(MESH_SHARDS, devices=[dev] * MESH_SHARDS,
+                                  parity_summary=True)
+    gate_line = buf.getvalue().strip().splitlines()[-1]
+    print(gate_line, flush=True)
+    platform = "gpu" if dev.type == "cuda" else "cpu"
+    if not gate_line.startswith(f"multichip ok: platform={platform} "):
+        raise AssertionError(f"gate line: {gate_line}")
+    gate_secs = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    glmix, launches, err, timing_rows = mesh_glmix_phase(
+        torch, dev, data, phase5, hbm)
+    glmix["seconds"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    driver, launches["mesh_driver"] = mesh_driver_phase(
+        torch, dev, drill_fixture, drill_f32, workdir)
+    driver["seconds"] = time.perf_counter() - t1
+    return {"phase": "mesh", "nvidia_smi": smi,
+            "a_gate": {"line": gate_line, "seconds": gate_secs},
+            "b_glmix": glmix, "c_driver": driver,
+            "seconds": time.perf_counter() - t0}, launches, err, timing_rows
 
 
 def main() -> int:
@@ -5039,6 +5444,12 @@ def main() -> int:
     glmix_final = {
         "fixed": res.model.models["fixed"].model.coefficients.means,
         "per-user": res.model.models["per-user"].coefficients_projected}
+    # phase 15 holds its mesh runs to this run: per-update objectives,
+    # final states (per-user ones matched entity by entity) and scores
+    glmix_phase5 = {"objectives": [s.objective for s in res.states],
+                    "fixed": glmix_final["fixed"],
+                    "per-user": glmix_final["per-user"],
+                    "codes": re_ds.entity_codes, "scores": scores}
     emit({"phase": "glmix", "n": n, "users": n_users, "movies": n_movies,
           "d_global": 64,
           "re_buckets": [list(b.X.shape) for b in re_ds.buckets],
@@ -5153,10 +5564,10 @@ def main() -> int:
     emit(wide)
 
     # -- 13. bf16 storage and the serving path -------------------------------
+    drill_f32 = os.path.join(build, "drill_f32")
     bf16, bf16_launches, bf16_errs, served = bf16_serve_phase(
-        torch, dev, smi, data, f32_glmix, phase, fixture, drill_fixture,
-        driver_dir, os.path.join(build, "bf16_serve"))
-    shutil.rmtree(os.path.join(build, "drill"), ignore_errors=True)
+        torch, dev, smi, data, f32_glmix, drill_fixture, driver_dir,
+        os.path.join(build, "bf16_serve"), drill_f32)
     emit(bf16)
 
     # -- 14. the scorer fleet ----------------------------------------------
@@ -5167,6 +5578,17 @@ def main() -> int:
     del served
     shutil.rmtree(driver_dir, ignore_errors=True)
     emit(fleet)
+
+    # -- 15. the device mesh -------------------------------------------------
+    mesh, mesh_launches, mesh_err, mesh_rows = mesh_phase(
+        torch, dev, smi, data, glmix_phase5, drill_fixture, drill_f32,
+        os.path.join(build, "mesh"), hbm)
+    for d in ("drill", "drill_f32", "mesh"):
+        shutil.rmtree(os.path.join(build, d), ignore_errors=True)
+    emit(mesh)
+    for row in mesh_rows:
+        timings[(row["n"], row["d"], row["dtype"], row["path"],
+                 row["loss"])] = row
 
     # -- kernels line, card line, result ---------------------------------------
     cd_runs = {f"cd_{k}": v for k, v in cd_launches.items()}
@@ -5184,14 +5606,16 @@ def main() -> int:
             **{k: v["by_path"] for k, v in fac_runs.items()},
             **{k: v["by_path"] for k, v in single_launches.items()},
             "wide_streamed_c_in_ram": wide_launches["by_path"],
-            **{k: v["by_path"] for k, v in bf16_launches.items()}}
+            **{k: v["by_path"] for k, v in bf16_launches.items()},
+            **{k: v["by_path"] for k, v in mesh_launches.items()}}
     by_loss = {"glmix": glmix_by_loss, "driver": phase["launches_by_loss"],
                **{k: v["by_loss"] for k, v in second_order_runs.items()},
                **{k: v["by_loss"] for k, v in cd_runs.items()},
                **{k: v["by_loss"] for k, v in fac_runs.items()},
                **{k: v["by_loss"] for k, v in single_launches.items()},
                "wide_streamed_c_in_ram": wide_launches["by_loss"],
-               **{k: v["by_loss"] for k, v in bf16_launches.items()}}
+               **{k: v["by_loss"] for k, v in bf16_launches.items()},
+               **{k: v["by_loss"] for k, v in mesh_launches.items()}}
     total_by_path = {p: sum(r[p] for r in runs.values())
                      for p in by_path}
     main = timings[(*GLMIX_SHAPE, "float32", "stream", "logistic")]
@@ -5208,7 +5632,7 @@ def main() -> int:
         "launches_by_run": runs,
         "launches_by_loss": by_loss,
         "max_abs_err": max(main_err, driver_check["max_abs_err"],
-                           *fac_errs, single_err, *bf16_errs),
+                           *fac_errs, single_err, *bf16_errs, mesh_err),
         "ms": main["kernel_ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
@@ -5233,6 +5657,17 @@ def main() -> int:
                          "share_of_bound": driver["share_of_bound"],
                          "device_share_of_bound":
                              driver["device_share_of_bound"]},
+        "launches_by_shard": {
+            k: mesh["b_glmix"]["runs"][k]["launches_by_shard"]
+            for k in mesh["b_glmix"]["runs"]},
+        "per_shard_shapes": [
+            {"shape": [r["n"], r["d"]], "path": r["path"],
+             "ms": r["kernel_ms"], "device_ms": r["device_ms"],
+             "bound_ms": r["bound_ms"], "plain_ms": r["plain_ms"],
+             "library_ms": r["library_ms"],
+             "launches_per_shard": mesh["b_glmix"]["runs"]["data_4x1"][
+                 "launches_by_shard"].get(0, 0) if r["d"] == 64 else None}
+            for r in mesh_rows],
         "a1a_shape": {"shape": list(A1A_SHAPE), "path": a1a["path"],
                       "ms": a1a["kernel_ms"], "device_ms": a1a["device_ms"],
                       "bound_ms": a1a["bound_ms"],

@@ -54,16 +54,16 @@ def check_telemetry_flags(p: argparse.ArgumentParser,
 
 def add_precision_flags(p: argparse.ArgumentParser) -> None:
     """``--precision`` and ``--collective-quant``, as the JAX drivers
-    spell them; the port runs both precisions and ``--collective-quant
-    none`` only."""
+    spell them."""
     p.add_argument("--precision", choices=PRECISION_CHOICES, default="f32",
                    help="storage dtype for design-matrix tiles and entity "
                         "blocks; labels, offsets, weights, parameters and "
                         "every reduction stay f32")
     p.add_argument("--collective-quant", choices=("none", "int8"),
                    default="none",
-                   help="wire format of mesh collectives (the port has no "
-                        "mesh: none)")
+                   help="wire format of the device mesh's collectives: "
+                        "int8 ships blockwise-quantized payloads, summed "
+                        "in f32")
 
 
 def precision_dtype(precision: str) -> "torch.dtype":

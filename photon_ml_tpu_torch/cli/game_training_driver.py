@@ -49,10 +49,19 @@ ELL batch. ``--precision bf16`` stores every coordinate's design matrix
 (fixed effect, random-effect blocks, in RAM or paged from the memmap
 files, and the factored coordinate's) in bf16, as the JAX driver does
 (``:562-625``); labels, offsets, weights, coefficients and every
-reduction stay f32. Flags whose feature is not ported yet raise
-``NotImplementedError`` naming the flag and end the run through
-``clean_abort`` (exit 3): multi-process runs and their supervision,
-entity sharding and quantized collectives. The telemetry flags
+reduction stay f32. The device mesh (``:763-790``): the driver builds
+the default mesh over every visible device of ``--device``'s type
+(``parallel/mesh.setup_default_mesh``; one card or the CPU gives none),
+with ``--re-entity-shards`` devices on the entity axis (``auto``: all of
+them; a count that does not divide the devices falls back to the largest
+divisor, and the manifest records the granted count), the rest on the
+data axis. Fixed-effect solves then split their rows over the data axis
+(with the sharded weight update when the entity axis is > 1, ``:580``),
+random-effect blocks are padded to the entity axis and solved over it,
+and ``--collective-quant int8`` ships the sharded collectives in int8.
+Flags whose feature is not ported yet raise ``NotImplementedError``
+naming the flag and end the run through ``clean_abort`` (exit 3):
+multi-process runs and their supervision. The telemetry flags
 (``--trace-dir``, ``--trace-heartbeat-seconds``, ``--trace-stall-seconds``,
 ``--telemetry-endpoint``, ``--device-telemetry``) are validated as the
 JAX driver validates them (``check_telemetry_flags``, exit 2 on misuse)
@@ -125,6 +134,7 @@ from photon_ml_tpu_torch.game.dataset import (
 )
 from photon_ml_tpu_torch.game.random_effect import (
     AUTO_COMPACTION_CHUNK,
+    AUTO_ENTITY_SHARDS,
     RandomEffectOptimizationProblem,
 )
 from photon_ml_tpu_torch.io.data_format import (
@@ -140,6 +150,15 @@ from photon_ml_tpu_torch.optimize.config import (
     TaskType,
 )
 from photon_ml_tpu_torch.optimize.problem import GLMOptimizationProblem
+from photon_ml_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    ENTITY_AXIS,
+    get_default_mesh,
+    largest_entity_divisor,
+    set_default_mesh,
+    setup_default_mesh,
+    visible_devices,
+)
 from photon_ml_tpu_torch.utils import parse_flag
 from photon_ml_tpu_torch.utils.checkpoint import CheckpointManager
 from photon_ml_tpu_torch.utils.date_range import resolve_input_paths
@@ -290,10 +309,6 @@ def check_unported(ns: argparse.Namespace) -> None:
         ("--num-processes", ns.num_processes > 1, "multi-process runs"),
         ("--max-worker-restarts", ns.max_worker_restarts > 0,
          "worker supervision"),
-        ("--re-entity-shards", ns.re_entity_shards != 1,
-         "entity sharding"),
-        ("--collective-quant", ns.collective_quant != "none",
-         "quantized collectives"),
     ])
 
 
@@ -303,8 +318,11 @@ class GameTrainingDriver:
     def __init__(self, ns: argparse.Namespace,
                  logger: Optional[PhotonLogger] = None):
         check_unported(ns)
+        resolve_entity_shards(ns)
         self.ns = ns
         self.device = resolve_device(ns.device)
+        # the granted entity axis (``run`` builds the mesh)
+        self._entity_shards = 1
         self.task = TaskType[ns.task_type]
         self.section_keys = parse_section_keys_map(
             ns.feature_shard_id_to_feature_section_keys_map)
@@ -447,6 +465,8 @@ class GameTrainingDriver:
         point's optimization configs (Driver.train :352-533)."""
         coords = {}
         dtype = precision_dtype(self.ns.precision)
+        quant = self.ns.collective_quant
+        shards = self._entity_shards
         for cid in self.updating_sequence:
             if cid in self.fixed_data_configs:
                 ds = build_fixed_effect_dataset(
@@ -459,7 +479,12 @@ class GameTrainingDriver:
                             cid, GLMOptimizationConfiguration()),
                         task=self.task,
                         compute_variances=parse_flag(
-                            self.ns.compute_variance)))
+                            self.ns.compute_variance),
+                        # with entity sharding on, the data-axis shards
+                        # also split the weight update (engages only on a
+                        # data axis > 1)
+                        shard_weight_update=shards > 1,
+                        collective_quant=quant))
             elif cid in self.random_data_configs and cid in factored_cfgs:
                 re_cfg, latent_cfg, mf_cfg = factored_cfgs[cid]
                 coords[cid] = FactoredRandomEffectCoordinate(
@@ -468,9 +493,11 @@ class GameTrainingDriver:
                         dtype=dtype, device=self.device),
                     problem=RandomEffectOptimizationProblem(
                         config=re_cfg, task=self.task,
-                        lane_compaction_chunk=self._lane_chunk()),
+                        lane_compaction_chunk=self._lane_chunk(),
+                        collective_quant=quant),
                     latent_problem=GLMOptimizationProblem(
-                        config=latent_cfg, task=self.task),
+                        config=latent_cfg, task=self.task,
+                        collective_quant=quant),
                     latent_dim=mf_cfg.num_factors,
                     num_inner_iterations=mf_cfg.max_number_iterations)
             elif cid in self.random_data_configs:
@@ -485,17 +512,20 @@ class GameTrainingDriver:
                         num_buckets=num_buckets,
                         blocks_dir=os.path.join(
                             self.ns.random_effect_blocks_dir, cid),
-                        dtype=dtype, device=self.device)
+                        dtype=dtype, device=self.device,
+                        entity_axis_size=shards)
                 else:
                     ds = build_random_effect_dataset(
                         self.train_data, data_cfg, num_buckets=num_buckets,
-                        dtype=dtype, device=self.device)
+                        dtype=dtype, device=self.device,
+                        entity_axis_size=shards)
                 coords[cid] = RandomEffectCoordinate(
                     dataset=ds, problem=RandomEffectOptimizationProblem(
                         config=random_cfgs.get(
                             cid, GLMOptimizationConfiguration()),
                         task=self.task,
-                        lane_compaction_chunk=self._lane_chunk()))
+                        lane_compaction_chunk=self._lane_chunk(),
+                        entity_shards=shards, collective_quant=quant))
             else:
                 raise ValueError(
                     f"coordinate {cid!r} in updating sequence has no data "
@@ -613,10 +643,33 @@ class GameTrainingDriver:
         return best, results
 
     def run(self) -> CoordinateDescentResult:
+        """Train, select and write the models, on the default mesh this
+        run builds (the one that was installed before is put back)."""
+        prev_mesh = get_default_mesh()
+        try:
+            return self._run()
+        finally:
+            set_default_mesh(prev_mesh)
+
+    def _setup_mesh(self) -> None:
+        """``--re-entity-shards`` devices on the entity axis (resolved by
+        :func:`resolve_entity_shards`), the rest on the data axis
+        (``:763-790``); the granted entity axis goes to the
+        ``re_entity_shards`` gauge."""
+        mesh = setup_default_mesh(num_entity=int(self.ns.re_entity_shards),
+                                  device=self.device)
+        self._entity_shards = (int(mesh.shape[ENTITY_AXIS])
+                               if mesh is not None else 1)
+        REGISTRY.gauge("re_entity_shards").set(self._entity_shards)
+        if mesh is not None:
+            self.logger.info(
+                f"device mesh: data={mesh.shape[DATA_AXIS]} x "
+                f"entity={self._entity_shards} over "
+                f"{len(mesh.distinct_devices())} device(s)")
+
+    def _run(self) -> CoordinateDescentResult:
         ns = self.ns
-        # the entity-axis size, as the JAX driver reports it (``:791``):
-        # the port runs one shard
-        REGISTRY.gauge("re_entity_shards").set(1)
+        self._setup_mesh()
         if os.path.isdir(ns.output_dir) and os.listdir(ns.output_dir):
             if parse_flag(ns.delete_output_dir_if_exists):
                 shutil.rmtree(ns.output_dir)
@@ -708,6 +761,18 @@ class GameTrainingDriver:
         return best_result
 
 
+def resolve_entity_shards(ns: argparse.Namespace) -> None:
+    """Set ``ns.re_entity_shards`` to the entity axis the mesh will grant:
+    ``auto`` is every visible device of ``--device``'s type, and a count
+    that does not divide them falls back to the largest divisor. The run
+    manifest then records the granted count (``:1200-1213``); raises
+    ``RuntimeError`` for CUDA without it."""
+    n_dev = len(visible_devices(ns.device))
+    requested = (n_dev if ns.re_entity_shards == AUTO_ENTITY_SHARDS
+                 else ns.re_entity_shards)
+    ns.re_entity_shards = largest_entity_divisor(n_dev, max(1, requested))
+
+
 def run(argv: Optional[Sequence[str]] = None) -> GameTrainingDriver:
     """Run the driver; returns it (``best_result``, ``phase_seconds``; the
     models and ``metrics.json`` are on disk). A recognized terminal
@@ -721,7 +786,6 @@ def run(argv: Optional[Sequence[str]] = None) -> GameTrainingDriver:
         check_unported(ns)
     except clean_abort_types() as e:
         raise clean_abort(e) from None
-    resolve_device(ns.device)
     driver = GameTrainingDriver(ns)
     # graceful stop: SIGTERM/SIGINT latch the flag (a second delivery
     # forces), --max-train-seconds counts from now (ingest included),

@@ -92,6 +92,11 @@ from photon_ml_tpu_torch.optimize.config import (
     RegularizationType,
     TaskType,
 )
+from photon_ml_tpu_torch.parallel.mesh import (
+    get_default_mesh,
+    set_default_mesh,
+    setup_default_mesh,
+)
 from photon_ml_tpu_torch.stat.summary import summarize
 from photon_ml_tpu_torch.training import TrainedModel, train_glm_grid
 from photon_ml_tpu_torch.utils import parse_flag
@@ -617,7 +622,18 @@ class LegacyDriver(EventEmitter):
                       fh, indent=2)
 
     def run(self) -> None:
-        """Driver.run :142-202."""
+        """Driver.run :142-202, on the default mesh over every visible
+        device of the driver's type (``legacy_driver.py:636-641``): with
+        more than one, the grid's solves split their rows over the data
+        axis. The mesh installed before is put back."""
+        prev_mesh = get_default_mesh()
+        setup_default_mesh(device=self.device)
+        try:
+            self._run()
+        finally:
+            set_default_mesh(prev_mesh)
+
+    def _run(self) -> None:
         p = self.params
         if os.path.exists(p.output_directory) and os.listdir(
                 p.output_directory):

@@ -41,7 +41,10 @@ from photon_ml_tpu_torch.game.random_effect import (
     score_random_effect,
 )
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
-from photon_ml_tpu_torch.optimize.common import DeferredOptimizationResult
+from photon_ml_tpu_torch.optimize.common import (
+    DeferredOptimizationResult,
+    OptimizationResult,
+)
 from photon_ml_tpu_torch.optimize.config import TaskType
 from photon_ml_tpu_torch.optimize.problem import GLMOptimizationProblem
 from photon_ml_tpu_torch.sampler.samplers import down_sample
@@ -56,12 +59,14 @@ _CLASSIFICATION_TASKS = (TaskType.LOGISTIC_REGRESSION,
 @dataclasses.dataclass
 class FixedEffectTracker:
     """Fixed-effect solve record; the history stays on the device until
-    :meth:`materialize` (one fetch)."""
+    :meth:`materialize` (one fetch). A mesh-sharded solve hands in an
+    eager ``OptimizationResult``, read already."""
 
-    result: DeferredOptimizationResult
+    result: Union[DeferredOptimizationResult, OptimizationResult]
 
     def materialize(self) -> "FixedEffectTracker":
-        self.result._force()
+        if isinstance(self.result, DeferredOptimizationResult):
+            self.result._force()
         return self
 
     def summary(self) -> str:
@@ -77,12 +82,17 @@ class RandomEffectTracker:
     iterations: object  # [E]
     final_values: object  # [E]
     convergence_codes: object  # [E] int8
+    #: real entities: the arrays are cut to these at materialization (a
+    #: single block padded to the entity axis carries empty lanes past
+    #: them); None when the arrays are compact already
+    num_real: Optional[int] = None
 
     def materialize(self) -> "RandomEffectTracker":
         """The three per-entity arrays in ONE device-to-host copy (counted
         at site ``tracker.materialize``): widened to f64 on the device,
         which is exact for the counts, the f32 values and the codes, and
-        cut back into their dtypes on the host. Idempotent."""
+        cut back into their dtypes on the host (and to ``num_real``
+        entities). Idempotent."""
         if isinstance(self.iterations, torch.Tensor):
             from photon_ml_tpu_torch.utils.sync_telemetry import (
                 record_host_fetch,
@@ -98,6 +108,9 @@ class RandomEffectTracker:
                 out.append(flat[at:at + a.numel()].reshape(a.shape)
                            .to(a.dtype).numpy())
                 at += a.numel()
+            if self.num_real is not None:
+                out = [a[:self.num_real] for a in out]
+                self.num_real = None
             self.iterations, self.final_values, self.convergence_codes = out
         return self
 
@@ -220,20 +233,25 @@ class RandomEffectCoordinate:
         offsets = self.dataset.offsets_with(extra_scores)
         new_coefs, iters, values, codes = self.problem.run(
             self.dataset, offsets, initial=coefs)
-        return new_coefs, RandomEffectTracker(iters, values, codes)
+        return new_coefs, RandomEffectTracker(
+            iters, values, codes, num_real=len(self.dataset.entity_codes))
 
     def score(self, coefs: Tensor) -> Tensor:
-        return score_random_effect(self.dataset, coefs)
+        return score_random_effect(
+            self.dataset, coefs, entity_shards=self.problem.entity_shards,
+            collective_quant=self.problem.collective_quant)
 
     def regularization_value_device(self, coefs: Tensor):
         return self.problem.regularization_value_device(coefs)
 
     def publish(self, coefs: Tensor) -> RandomEffectModelInProjectedSpace:
+        # the empty lanes that pad a single block to the entity axis have
+        # no entity: the model keeps the real ones
         return RandomEffectModelInProjectedSpace(
             random_effect_type=self.dataset.config.random_effect_type,
             feature_shard_id=self.dataset.config.feature_shard_id,
             entity_codes=self.dataset.entity_codes,
-            coefficients_projected=coefs,
+            coefficients_projected=coefs[:len(self.dataset.entity_codes)],
             projectors=self.dataset.projectors,
             random_projector=self.dataset.random_projector)
 
@@ -345,8 +363,10 @@ class FactoredRandomEffectCoordinate:
 
     def score(self, state: tuple[Tensor, Tensor]) -> Tensor:
         coefs, B = state
-        return score_random_effect(self._latent_dataset(B, passive=True),
-                                   coefs)
+        return score_random_effect(
+            self._latent_dataset(B, passive=True), coefs,
+            entity_shards=self.problem.entity_shards,
+            collective_quant=self.problem.collective_quant)
 
     def regularization_value_device(self, state: tuple[Tensor, Tensor]):
         coefs, B = state

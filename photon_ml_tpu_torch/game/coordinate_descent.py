@@ -66,6 +66,7 @@ from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.game.coordinate import Coordinate, Tracker
 from photon_ml_tpu_torch.game.models import GameModel
 from photon_ml_tpu_torch.obs import devicemem, trace
+from photon_ml_tpu_torch.parallel.mesh import get_default_mesh
 from photon_ml_tpu_torch.obs.metrics import REGISTRY
 from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.optimize.config import TASK_LOSS_NAME, TaskType
@@ -273,6 +274,14 @@ def _sample_live_bytes(sweep: int, device) -> None:
         return
     total_bytes = devicemem.bytes_in_use(device)
     REGISTRY.gauge("hbm_live_bytes").set(total_bytes, site="cd.sweep_drain")
+    # a mesh-sharded run: the bytes of each device of the default mesh
+    # (``coordinate_descent.py:133-148``), so a lopsided partition shows
+    # as a lopsided per-device gauge
+    mesh = get_default_mesh()
+    if mesh is not None:
+        for d in mesh.distinct_devices():
+            REGISTRY.gauge("re_shard_hbm_live_bytes").set(
+                devicemem.bytes_in_use(d), shard=str(d))
     with trace.span("cd.hbm_sample", sweep=sweep, live_bytes=total_bytes):
         pass
     # --device-telemetry: the sweep's per-coordinate commit watermarks

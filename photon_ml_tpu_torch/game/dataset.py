@@ -643,16 +643,18 @@ def _reservoir_split(codes: np.ndarray,
 
 
 def _bucket_major_order(act_counts: np.ndarray, num_buckets: int,
-                        multiple: int
+                        multiple: int, num_bins: int = 1
                         ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """``(bucket_n_max, perm, bucket_sizes)``: the bucket plan's non-empty
     buckets and the entity order, bucket-major and balanced within each
-    bucket (``dataset.py:866-880``)."""
+    bucket over ``num_bins`` contiguous entity-axis shards
+    (``dataset.py:862-873``)."""
     bucket_n_max, bucket_of = _bucket_plan(act_counts, num_buckets, multiple)
     parts = []
     for b in range(len(bucket_n_max)):
         idx = np.flatnonzero(bucket_of == b)
-        parts.append(idx[balanced_entity_order(act_counts[idx], 1)])
+        parts.append(idx[balanced_entity_order(act_counts[idx],
+                                               max(1, num_bins))])
     kept = [(nm, p) for nm, p in zip(bucket_n_max, parts) if len(p)]
     return (np.array([nm for nm, _ in kept], dtype=np.int64),
             np.concatenate([p for _, p in kept]),
@@ -715,10 +717,12 @@ def _pack_entity_buckets(sub, ent_of_act, slot_of_act, act_labels,
                          act_offsets, act_weights, rows_act, n_samples,
                          bucket_sizes, bucket_n_max, projectors,
                          random_projector, d_red, dtype, device,
-                         native_pack: bool = True) -> list[EntityBucket]:
+                         native_pack: bool = True,
+                         entity_axis_size: int = 1) -> list[EntityBucket]:
     """Pack active rows into per-bucket (N_b, D_b) blocks
-    (``dataset.py:719-792``, one entity-axis shard); D_b narrows per
-    bucket under index-map projection only."""
+    (``dataset.py:719-792``); D_b narrows per bucket under index-map
+    projection only, and a bucket's E_b is padded to a multiple of
+    ``entity_axis_size`` so it splits evenly over the entity axis."""
     starts = np.concatenate([[0], np.cumsum(bucket_sizes)])
     bucket_of_act = np.searchsorted(starts, ent_of_act, side="right") - 1
     buckets: list[EntityBucket] = []
@@ -727,7 +731,7 @@ def _pack_entity_buckets(sub, ent_of_act, slot_of_act, act_labels,
         start = int(starts[b])
         n_b = int(bucket_n_max[b])
         d_b = _bucket_dim(projectors, start, nr, d_red, PAD_DIM_MULTIPLE)
-        e_b = max(1, nr)
+        e_b = _padded_entities(nr, entity_axis_size)
 
         mask = bucket_of_act == b
         loc = ent_of_act[mask] - start
@@ -759,16 +763,27 @@ def _pack_entity_buckets(sub, ent_of_act, slot_of_act, act_labels,
     return buckets
 
 
+def _padded_entities(e_real: int, entity_axis_size: int) -> int:
+    """Lanes of a block of ``e_real`` entities: a multiple of the entity
+    axis (at least 1), so its lanes split evenly over the shards."""
+    k = max(1, int(entity_axis_size))
+    return max(1, -(-max(e_real, 1) // k) * k)
+
+
 def build_random_effect_dataset(data: GameDataset,
                                 config: RandomEffectDataConfiguration,
                                 seed: int = 0, pad_rows_multiple: int = 8,
                                 dtype=torch.float32, num_buckets: int = 1,
-                                device="cuda", native_pack: bool = True
+                                device="cuda", native_pack: bool = True,
+                                entity_axis_size: int = 1
                                 ) -> RandomEffectDataset:
     """Group rows per entity, reservoir-cap, project, pad into device
-    blocks (``dataset.py:795-978``, one entity-axis shard). ``num_buckets
-    > 1`` engages (N, D) size bucketing; ``native_pack=False`` packs
-    index-map rows by the numpy scatter (the plain version)."""
+    blocks (``dataset.py:795-978``). ``num_buckets > 1`` engages (N, D)
+    size bucketing; ``native_pack=False`` packs index-map rows by the
+    numpy scatter (the plain version). ``entity_axis_size`` is the mesh's
+    entity axis: each block's entities are padded to a multiple of it
+    with empty lanes, and ordered by the greedy balancer over that many
+    bins so that contiguous entity shards carry balanced sample mass."""
     device = resolve_device(device)
     id_type = config.random_effect_type
     if id_type not in data.id_columns:
@@ -786,9 +801,10 @@ def build_random_effect_dataset(data: GameDataset,
     bucket_sizes = bucket_n_max = None
     if num_buckets > 1 and e_real > 1:
         bucket_n_max, perm, bucket_sizes = _bucket_major_order(
-            act_counts, num_buckets, pad_rows_multiple)
+            act_counts, num_buckets, pad_rows_multiple, entity_axis_size)
     else:
-        perm = balanced_entity_order(act_counts, 1)
+        perm = balanced_entity_order(act_counts,
+                                     max(1, entity_axis_size))
     ent_codes = split.uniq[perm].astype(np.int64)
     inv_perm = np.empty(e_real, dtype=np.int64)
     inv_perm[perm] = np.arange(e_real)
@@ -826,11 +842,12 @@ def build_random_effect_dataset(data: GameDataset,
             rows_act=rows_act, n_samples=n, bucket_sizes=bucket_sizes,
             bucket_n_max=bucket_n_max, projectors=projectors,
             random_projector=random_projector, d_red=d_red, dtype=dtype,
-            device=device, native_pack=native_pack)
+            device=device, native_pack=native_pack,
+            entity_axis_size=entity_axis_size)
         single = dict(X=None, labels=None, base_offsets=None, weights=None,
                       row_ids=None)
     else:
-        e_pad = max(1, e_real)
+        e_pad = _padded_entities(e_real, entity_axis_size)
         n_max = int(counts.max()) if e_real else 1
         n_max = max(1, -(-n_max // pad_rows_multiple) * pad_rows_multiple)
         X = np.zeros((e_pad, n_max, d_red), dtype=np.float32)
@@ -893,9 +910,11 @@ def build_random_effect_dataset_streamed(
         seed: int = 0, pad_rows_multiple: int = 8, num_buckets: int = 1,
         blocks_dir: Optional[str] = None,
         dtype=torch.float32, device="cuda",
-        native_pack: bool = True) -> RandomEffectDataset:
-    """Random-effect blocks from streamed parts (``dataset.py:993-1295``,
-    one entity-axis shard), optionally memmap-backed.
+        native_pack: bool = True,
+        entity_axis_size: int = 1) -> RandomEffectDataset:
+    """Random-effect blocks from streamed parts (``dataset.py:993-1295``),
+    optionally memmap-backed; ``entity_axis_size`` pads and balances each
+    bucket for the entity axis as the in-RAM builder does.
 
     ``stream_factory()`` returns a fresh iterator over parts
     ``(csr_chunk [M, raw_dim], entity_codes [M], labels [M], offsets [M],
@@ -937,7 +956,8 @@ def build_random_effect_dataset_streamed(
     active_mask, passive_mask = split.active_mask, split.passive_mask
     e_real = len(split.uniq)
     bucket_n_max, perm, bucket_sizes = _bucket_major_order(
-        split.act_counts, max(1, num_buckets), pad_rows_multiple)
+        split.act_counts, max(1, num_buckets), pad_rows_multiple,
+        entity_axis_size)
     ent_codes = split.uniq[perm].astype(np.int64)
     inv_perm = np.empty(e_real, dtype=np.int64)
     inv_perm[perm] = np.arange(e_real)
@@ -988,7 +1008,7 @@ def build_random_effect_dataset_streamed(
         nr, n_b = int(bucket_sizes[b]), int(bucket_n_max[b])
         start = int(b_starts[b])
         d_b = _bucket_dim(projectors, start, nr, d_red, PAD_DIM_MULTIPLE)
-        e_b = max(1, nr)
+        e_b = _padded_entities(nr, entity_axis_size)
         Xs.append(_alloc_rows((e_b, n_b, d_b), blocks_dir, f"bucket{b}_X"))
         labs.append(np.zeros((e_b, n_b), np.float32))
         offsb.append(np.zeros((e_b, n_b), np.float32))

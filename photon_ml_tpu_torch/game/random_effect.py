@@ -8,8 +8,9 @@ JAX package ``vmap``s a single-lane solver over entities; here the
 the per-lane convergence classification of ``:258-287``, the same for
 every solver), ``_fit_blocks_compacted`` (``:361-453``),
 ``RandomEffectOptimizationProblem`` with ``_fit``/``run``/
-``_run_bucketed`` (``:739-975``) and the score exchange ``score_active``/
-``score_passive``/``score_random_effect`` (``:978-1058``).
+``_run_bucketed`` (``:739-975``), the score exchange ``score_active``/
+``score_passive``/``score_random_effect`` (``:978-1058``) and the
+mesh-sharded dispatch (``:457-740``).
 
 Lane compaction (``lane_compaction_chunk`` > 0, or
 ``AUTO_COMPACTION_CHUNK`` for the tuner's choice): the solve runs in
@@ -43,12 +44,38 @@ lane-batched ops promote it to f32 inside each elementwise product
 (``data/batch.py``), coefficients, offsets and every sum stay f32, and
 no bucket is copied to f32 ahead of the solve.
 
-Entity sharding waits for the multi-GPU slice.
+Entity sharding (``entity_shards`` > 1 with a default mesh whose entity
+axis is > 1, the driver's ``--re-entity-shards``): a block's lanes are
+split over the entity axis and every shard solves its own lanes on its
+own device (``parallel/collectives.run_shards``; in a thread of its own,
+or in turn when every shard is on one device), with no collective inside
+the solve; lanes are independent, and the 3-D batch
+ops reduce each lane alone, so the sharded fit equals the unsharded one
+bit for bit. Lane compaction runs per shard: after each chunk the host
+splits the still-active lanes by their home shard, pads every shard's
+list to one width (with copies of one of its lanes, at least
+``padded_lane_count``'s floor) and each shard gathers its lanes from its
+own slice of the block and of its carry. This is a loop of its own
+beside ``_fit_blocks_compacted`` rather than that loop called once per
+shard, because it keeps the reference's sync contract: a chunk is one
+dispatch over the whole axis and costs the one blocking read of the
+unconverged mask that an unsharded chunk costs. Per-shard loops would
+read K masks per chunk, and each read stalls the host until that shard's
+queued work ends (on one card, where the shards run in turn, K stalls
+where there was one). The score exchange scores each
+shard's lanes into a sample-axis partial and sums the partials over the
+entity axis in shard order (``qpsum``: int8 on the wire with
+``collective_quant="int8"``); without quantization that sum adds exact
+zeros and equals the unsharded score. A block whose lanes do not divide
+the axis, or a run without such a mesh, runs unsharded with one logged
+warning per cause. ``re.shard_dispatch`` is the fault point on a sharded
+block's coefficients.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Optional
 
@@ -75,8 +102,21 @@ from photon_ml_tpu_torch.optimize.problem import (
     regularization_penalty,
     select_solver,
 )
+from photon_ml_tpu_torch.parallel.collectives import run_shards, tree_to
+from photon_ml_tpu_torch.parallel.mesh import (
+    ENTITY_AXIS,
+    ensure_addressable,
+    get_default_mesh,
+)
+from photon_ml_tpu_torch.parallel.quantized_collectives import (
+    qpsum,
+    record_collective_bytes,
+)
+from photon_ml_tpu_torch.utils.faults import fault_point
 
 Tensor = torch.Tensor
+
+logger = logging.getLogger(__name__)
 
 CONV_MAX_ITERATIONS = 0
 CONV_FUNCTION_VALUES = 1
@@ -93,19 +133,29 @@ CONVERGENCE_CODE_NAMES = {
 #: Per-solve telemetry: dispatches (a single solve or one chunk), chunks,
 #: host seconds in chunk solves (their reads included) and in the
 #: gathers between chunks, and a rolling window of the active-lane counts
-#: entering each re-dispatched chunk.
+#: entering each re-dispatched chunk. The ``shard_*`` keys count the
+#: entity-sharded path: real and padded lanes of its dispatches and a
+#: rolling window of the per-shard active-lane counts.
 SOLVE_STATS = {"dispatches": 0, "chunks": 0, "solve_secs": 0.0,
-               "compact_secs": 0.0, "lane_counts": []}
+               "compact_secs": 0.0, "lane_counts": [],
+               "shard_real_lanes": 0, "shard_padded_lanes": 0,
+               "shard_lane_counts": []}
 
 
 def reset_solve_stats() -> None:
     SOLVE_STATS.update({"dispatches": 0, "chunks": 0, "solve_secs": 0.0,
-                        "compact_secs": 0.0, "lane_counts": []})
+                        "compact_secs": 0.0, "lane_counts": [],
+                        "shard_real_lanes": 0, "shard_padded_lanes": 0,
+                        "shard_lane_counts": []})
 
 
 #: ``lane_compaction_chunk`` value (driver flag ``auto``): the problem's
 #: :class:`ChunkAutoTuner` picks the chunk and re-tunes it between solves.
 AUTO_COMPACTION_CHUNK = -1
+
+#: ``--re-entity-shards`` value ``auto``: every visible device on the
+#: mesh's entity axis (the driver resolves it before building the mesh).
+AUTO_ENTITY_SHARDS = -1
 
 
 def _pow2_at_most(x: int) -> int:
@@ -299,6 +349,236 @@ def _fit_blocks_compacted(X: Tensor, labels: Tensor, offsets: Tensor,
     return state.results()
 
 
+# ---------------------------------------------------------------------------
+# Mesh-sharded dispatch (``random_effect.py:457-740``): a block's lanes split
+# over the entity axis, one thread per shard, no collective inside a solve.
+# ---------------------------------------------------------------------------
+
+
+def _lane_pieces(t: Tensor, devices: list) -> list:
+    """``t``'s lanes split evenly over ``devices``, each piece on its
+    device (a view where it is ``t``'s own)."""
+    step = int(t.shape[0]) // len(devices)
+    return [t[i * step:(i + 1) * step].to(d) for i, d in enumerate(devices)]
+
+
+def _gather_lanes(outs: list, device: torch.device) -> list:
+    """The shards' lane outputs (coefficients, iterations, values, codes)
+    concatenated in shard order on ``device``."""
+    return [ensure_addressable([o[j] for o in outs]).to(device)
+            for j in range(4)]
+
+
+def _dispatch_fit_sharded(devices: list, pieces: list, x0: Tensor, obj,
+                          l1: Tensor, solver: str, max_iter: int,
+                          tolerance: float,
+                          boundary_convergence: bool = False,
+                          return_carry: bool = False):
+    """Every shard solves its own lanes (``pieces``: X, labels, offsets,
+    weights split by :func:`_lane_pieces`) from its slice of ``x0``.
+    Returns the lane outputs on ``x0``'s device and, with
+    ``return_carry``, the per-shard carries (each on its shard's
+    device)."""
+    x0_pieces = _lane_pieces(x0, devices)
+    e = int(x0.shape[0])
+    SOLVE_STATS["dispatches"] += 1
+    SOLVE_STATS["shard_real_lanes"] += e  # a full dispatch has no pad
+    SOLVE_STATS["shard_padded_lanes"] += e
+
+    def body(X, labels, offsets, weights, initial):
+        dev = initial.device
+        return _fit_blocks_impl(X, labels, offsets, weights, initial,
+                                tree_to(obj, dev), l1.to(dev), solver,
+                                max_iter, tolerance,
+                                boundary_convergence=boundary_convergence,
+                                return_carry=return_carry)
+
+    outs = run_shards(body, devices, ENTITY_AXIS,
+                      [(*p, x) for p, x in zip(zip(*pieces), x0_pieces)],
+                      collectives=False)
+    lanes = _gather_lanes(outs, x0.device)
+    return lanes, ([o[4] for o in outs] if return_carry else None)
+
+
+def _dispatch_fit_sharded_resume(devices: list, pieces: list,
+                                 rows_data: np.ndarray,
+                                 rows_carry: np.ndarray, carries: list,
+                                 obj, l1: Tensor, solver: str,
+                                 max_iter: int, tolerance: float,
+                                 boundary_convergence: bool,
+                                 return_carry: bool, device: torch.device):
+    """A resumed compacted chunk: shard ``s`` gathers the lanes of row
+    ``s`` of ``rows_data`` (ids local to its slice of the block) and of
+    ``rows_carry`` (positions in its previous carry) and resumes them."""
+
+    def body(X, labels, offsets, weights, idx_d, idx_c, carry):
+        dev = X.device
+        d = torch.as_tensor(idx_d, device=dev)
+        res = type(carry)(*(t[torch.as_tensor(idx_c, device=t.device)]
+                            for t in carry))
+        return _fit_blocks_impl(X[d], labels[d], offsets[d], weights[d],
+                                res.x, tree_to(obj, dev), l1.to(dev),
+                                solver, max_iter, tolerance,
+                                boundary_convergence=boundary_convergence,
+                                resume=res, return_carry=return_carry)
+
+    SOLVE_STATS["dispatches"] += 1
+    args = [(*p, rows_data[s], rows_carry[s], carries[s])
+            for s, p in enumerate(zip(*pieces))]
+    outs = run_shards(body, devices, ENTITY_AXIS, args, collectives=False)
+    lanes = _gather_lanes(outs, device)
+    return lanes, ([o[4] for o in outs] if return_carry else None)
+
+
+def _fit_blocks_compacted_sharded(devices: list, X: Tensor, labels: Tensor,
+                                  offsets: Tensor, weights: Tensor,
+                                  x0: Tensor, obj, l1: Tensor, solver: str,
+                                  max_iter: int, tolerance: float,
+                                  chunk: int,
+                                  lane_seq: Optional[list] = None):
+    """:func:`_fit_blocks_compacted` with per-shard compaction
+    (``random_effect.py:552-671``). A lane's home shard never changes
+    (global id // lanes per shard). After each chunk the host splits the
+    still-active lanes by owner and pads every shard's list to one width
+    ``L`` with copies of one of the shard's lanes (a shard with no active
+    lane re-runs one of its converged lanes, a no-op: its carry fails the
+    loop test at once). Each chunk costs one read (the unconverged mask),
+    as the unsharded loop's does: the reason this is not
+    :func:`_fit_blocks_compacted` run once per shard (module docstring)."""
+    K = len(devices)
+    e = int(X.shape[0])
+    e_shard = e // K
+    d = int(X.shape[2])
+    pieces = [_lane_pieces(t, devices) for t in (X, labels, offsets,
+                                                 weights)]
+    state = LaneCompactionState.initial(x0, x0.dtype)
+    idx: Optional[np.ndarray] = None  # flat [K * L] global ids
+    mask: Optional[np.ndarray] = None  # flat [K * L] real-slot flags
+    carries = None
+    cur_rows = None
+    prev_width = e_shard
+    prev_global = np.arange(e, dtype=np.int64).reshape(K, e_shard)
+    spent = chunk_index = 0
+    while True:
+        budget = min(chunk, max_iter - spent)
+        final_chunk = spent + budget >= max_iter
+        active_lanes = e if idx is None else int(mask.sum())
+        if lane_seq is not None:
+            lane_seq.append(active_lanes)
+        t0 = time.perf_counter()
+        with trace.span("re.shard_chunk", chunk=chunk_index,
+                        active_lanes=active_lanes, budget=budget,
+                        shards=K):
+            common = dict(boundary_convergence=not final_chunk,
+                          return_carry=not final_chunk)
+            if idx is None:
+                lanes, new_carries = _dispatch_fit_sharded(
+                    devices, pieces, x0, obj, l1, solver, budget,
+                    tolerance, **common)
+                still, still_local = state.absorb(None, *lanes,
+                                                  CONV_MAX_ITERATIONS)
+            else:
+                lanes, new_carries = _dispatch_fit_sharded_resume(
+                    devices, pieces, cur_rows[0], cur_rows[1], carries,
+                    obj, l1, solver, budget, tolerance, device=x0.device,
+                    **common)
+                still, still_local = state.absorb_padded(
+                    idx, mask, *lanes, CONV_MAX_ITERATIONS)
+        chunk_index += 1
+        SOLVE_STATS["solve_secs"] += time.perf_counter() - t0
+        SOLVE_STATS["chunks"] += 1
+        spent += budget
+        if final_chunk or len(still) == 0:
+            break
+        t0 = time.perf_counter()
+        carries = new_carries
+        owner = still_local // prev_width
+        counts = np.bincount(owner, minlength=K)
+        L = padded_lane_count(int(counts.max()), e_shard, d)
+        rows_global = np.empty((K, L), np.int64)
+        rows_carry = np.zeros((K, L), np.int64)
+        rows_mask = np.zeros((K, L), bool)
+        for s in range(K):
+            sel = owner == s
+            g_ids = still[sel]
+            l_pos = still_local[sel] % prev_width
+            n = len(g_ids)
+            fill_g, fill_c = ((g_ids[0], l_pos[0]) if n
+                              else (prev_global[s, 0], 0))
+            rows_global[s] = fill_g
+            rows_carry[s] = fill_c
+            rows_global[s, :n] = g_ids
+            rows_carry[s, :n] = l_pos
+            rows_mask[s, :n] = True
+        idx = rows_global.reshape(-1)
+        mask = rows_mask.reshape(-1)
+        cur_rows = (rows_global
+                    - np.arange(K, dtype=np.int64)[:, None] * e_shard,
+                    rows_carry)
+        prev_global = rows_global
+        prev_width = L
+        SOLVE_STATS["compact_secs"] += time.perf_counter() - t0
+        SOLVE_STATS["shard_real_lanes"] += int(counts.sum())
+        SOLVE_STATS["shard_padded_lanes"] += K * L
+        SOLVE_STATS["shard_lane_counts"] = (
+            SOLVE_STATS["shard_lane_counts"][-15:] + [counts.tolist()])
+        SOLVE_STATS["lane_counts"] = (SOLVE_STATS["lane_counts"][-63:]
+                                      + [len(still)])
+    return state.results()
+
+
+#: fallback causes already logged (one warning per cause, not per sweep)
+_SHARD_FALLBACK_WARNED: set = set()
+
+
+def _resolve_entity_shards(entity_shards: int, num_lanes: int):
+    """(devices of the entity axis, K) when the sharded path engages for a
+    block of ``num_lanes`` lanes, else (None, 1) with one logged warning
+    per cause (``random_effect.py:678-707``)."""
+    if entity_shards <= 1:
+        return None, 1
+    mesh = get_default_mesh()
+    K = int(mesh.shape[ENTITY_AXIS]) if mesh is not None else 1
+    if K <= 1:
+        reason = ("no-mesh", entity_shards)
+        if reason not in _SHARD_FALLBACK_WARNED:
+            _SHARD_FALLBACK_WARNED.add(reason)
+            logger.warning(
+                "re-entity-shards=%d requested but no default mesh with an "
+                "entity axis > 1 is installed; running unsharded",
+                entity_shards)
+        return None, 1
+    if num_lanes % K != 0:
+        reason = ("ragged", num_lanes, K)
+        if reason not in _SHARD_FALLBACK_WARNED:
+            _SHARD_FALLBACK_WARNED.add(reason)
+            logger.warning(
+                "entity block of %d lanes does not divide %d entity "
+                "shards; running this block unsharded (build the dataset "
+                "with entity_axis_size=%d to pad it)", num_lanes, K, K)
+        return None, 1
+    return mesh.axis_devices(ENTITY_AXIS), K
+
+
+def _sharded_score(devices: list, X: Tensor, coefs: Tensor,
+                   row_ids: Tensor, weights: Tensor, num_samples: int,
+                   collective_quant: str = "none") -> Tensor:
+    """The active-score exchange over the entity axis
+    (``random_effect.py:710-740``): every shard scores its lanes into a
+    sample-axis partial, and the partials are summed over the axis in
+    shard order (int8 on the wire with ``collective_quant``); returns the
+    sum on ``coefs``' device."""
+    pieces = [_lane_pieces(t, devices) for t in (X, coefs, row_ids,
+                                                 weights)]
+
+    def body(X_s, c_s, r_s, w_s):
+        return qpsum(score_active(X_s, c_s, r_s, w_s, num_samples),
+                     ENTITY_AXIS, mode=collective_quant)
+
+    outs = run_shards(body, devices, ENTITY_AXIS, list(zip(*pieces)))
+    return outs[0].to(coefs.device)
+
+
 @dataclasses.dataclass(frozen=True)
 class RandomEffectOptimizationProblem:
     """Per-entity GLM problems for one random-effect coordinate: one config
@@ -313,6 +593,13 @@ class RandomEffectOptimizationProblem:
     #: the problem's own tuner, alive across sweeps
     chunk_tuner: ChunkAutoTuner = dataclasses.field(
         default_factory=ChunkAutoTuner, compare=False, repr=False)
+    #: > 1: split each block's lanes over the default mesh's entity axis
+    #: (``--re-entity-shards``); engages with a mesh whose entity axis is
+    #: > 1 and a block whose lanes divide it, else runs unsharded
+    entity_shards: int = 1
+    #: wire format of the sharded score exchange ("none" | "int8"); the
+    #: per-entity solves have no collective
+    collective_quant: str = "none"
 
     def objective(self) -> GLMObjective:
         cfg = self.config
@@ -344,19 +631,45 @@ class RandomEffectOptimizationProblem:
             return self._fit(dataset.X, dataset.labels, offsets.to(acc),
                              dataset.weights, x0, self.objective(),
                              torch.full((d,), l1, dtype=acc,
-                                        device=x0.device), solver)
+                                        device=x0.device), solver,
+                             fault_tag="0")
 
     def _fit(self, X, labels, offsets, weights, x0, obj, l1: Tensor,
-             solver: str):
+             solver: str, fault_tag: Optional[str] = None):
         """One entity block: compacted in chunks when
-        ``lane_compaction_chunk`` engages, else one dispatch
+        ``lane_compaction_chunk`` engages, else one dispatch; over the
+        mesh's entity axis when ``entity_shards`` engages
         (``random_effect.py:788-840``)."""
         cfg = self.config
         chunk = self.lane_compaction_chunk
         auto = chunk == AUTO_COMPACTION_CHUNK
         if auto:
             chunk = self.chunk_tuner.chunk_for(solver, cfg.max_iterations)
-        if 0 < chunk < cfg.max_iterations and int(X.shape[0]) > 1:
+        e = int(X.shape[0])
+        devices, shards = _resolve_entity_shards(self.entity_shards, e)
+        if shards > 1:
+            with trace.span("re.shard_solve", solver=solver, shards=shards,
+                            lanes=e):
+                if 0 < chunk < cfg.max_iterations and e // shards > 1:
+                    lane_seq = [] if auto else None
+                    out = _fit_blocks_compacted_sharded(
+                        devices, X, labels, offsets, weights, x0, obj, l1,
+                        solver, cfg.max_iterations, float(cfg.tolerance),
+                        chunk, lane_seq=lane_seq)
+                    if auto:
+                        self.chunk_tuner.update(solver, cfg.max_iterations,
+                                                lane_seq)
+                else:
+                    pieces = [_lane_pieces(t, devices)
+                              for t in (X, labels, offsets, weights)]
+                    out, _ = _dispatch_fit_sharded(
+                        devices, pieces, x0, obj, l1, solver,
+                        cfg.max_iterations, float(cfg.tolerance))
+            # a fault inside a sharded solve rides the CD recovery ladder
+            poisoned = fault_point("re.shard_dispatch", tag=fault_tag,
+                                   arrays=out[0])
+            return (poisoned, *out[1:])
+        if 0 < chunk < cfg.max_iterations and e > 1:
             lane_seq = [] if auto else None
             out = _fit_blocks_compacted(
                 X, labels, offsets, weights, x0, obj, l1, solver,
@@ -378,7 +691,7 @@ class RandomEffectOptimizationProblem:
         dev = dataset.device
         obj = self.objective()
         outs = []
-        for bucket, off_b in zip(dataset.buckets, offsets):
+        for bi, (bucket, off_b) in enumerate(zip(dataset.buckets, offsets)):
             # a host block is copied here and dropped after its solve
             X = device_block(bucket.X, dev, dataset.storage_dtype)
             acc = acc_dtype_for(X.dtype)
@@ -392,7 +705,8 @@ class RandomEffectOptimizationProblem:
                     (0, 0, 0, e_b - nr))
             outs.append(self._fit(
                 X, bucket.labels, off_b.to(acc), bucket.weights, x0_b,
-                obj, torch.full((d_b,), l1, dtype=acc, device=dev), solver))
+                obj, torch.full((d_b,), l1, dtype=acc, device=dev), solver,
+                fault_tag=str(bi)))
             del X
         acc = outs[0][0].dtype  # the solver state's
         pairs = list(zip(dataset.buckets, outs))
@@ -446,11 +760,29 @@ def score_passive(passive_X, passive_entity: Tensor, coefs: Tensor,
     return flat[:num_samples]
 
 
-def score_random_effect(dataset: RandomEffectDataset,
-                        coefs: Tensor) -> Tensor:
+def score_random_effect(dataset: RandomEffectDataset, coefs: Tensor,
+                        entity_shards: int = 1,
+                        collective_quant: str = "none") -> Tensor:
     """Full sample-axis score vector (active + passive) for a coordinate;
-    ``coefs`` is the compact global block ``[num_entities, reduced_dim]``."""
+    ``coefs`` is the compact global block ``[num_entities, reduced_dim]``.
+    With ``entity_shards`` > 1 (engaging as the sharded solve does) each
+    block's active scores come from the entity-sharded exchange, whose
+    wire bytes count on ``collective_bytes{site="re.score_psum"}``."""
     n = dataset.num_samples
+
+    def score_block(X, c_b, row_ids, weights):
+        devices, shards = _resolve_entity_shards(entity_shards,
+                                                 int(X.shape[0]))
+        if shards > 1:
+            with trace.span("re.shard_score", shards=shards,
+                            lanes=int(X.shape[0])):
+                out = _sharded_score(devices, X, c_b, row_ids, weights, n,
+                                     collective_quant)
+                record_collective_bytes("re.score_psum", collective_quant,
+                                        n)
+                return out
+        return score_active(X, c_b, row_ids, weights, n)
+
     if dataset.buckets is not None:
         s = coefs.new_zeros(n, dtype=torch.float32)
         for b in dataset.buckets:
@@ -459,11 +791,10 @@ def score_random_effect(dataset: RandomEffectDataset,
             c_b = coefs.new_zeros((e_b, d_b))
             c_b[:b.num_real] = coefs[b.entity_start:b.entity_start
                                      + b.num_real, :d_b]
-            s = s + score_active(X, c_b, b.row_ids, b.weights, n)
+            s = s + score_block(X, c_b, b.row_ids, b.weights)
             del X
     else:
-        s = score_active(dataset.X, coefs, dataset.row_ids, dataset.weights,
-                         n)
+        s = score_block(dataset.X, coefs, dataset.row_ids, dataset.weights)
     if dataset.num_passive:
         s = s + score_passive(dataset.passive_X, dataset.passive_entity,
                               coefs, dataset.passive_row_ids, n,

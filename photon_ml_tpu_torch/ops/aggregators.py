@@ -1,11 +1,17 @@
 """GLM objective: value+gradient, Hessian-vector, Hessian-diagonal.
 
-Port of ``photon_ml_tpu/ops/aggregators.py:35-220`` without the mesh
-collectives (``axis_name``/``qpsum`` wait for the multi-GPU slice).
+Port of ``photon_ml_tpu/ops/aggregators.py:30-220``.
 
 - ``_pallas_sums`` (``:35-55``): a 2-D dense batch that passes the gate
   goes through the fused CUDA kernel; everything else takes the two-pass
   torch form below (``:85-91``), the JAX package's own non-Pallas path.
+  Under the mesh's shard runner the gate sees the shard's own rows, so
+  the kernel runs on every shard at that shard's shape, as
+  ``pallas_supported(inside_shard_map=True)`` allows in the JAX package.
+- ``axis_name``/``collective_quant`` (``:58-194``): with an axis set, the
+  value, the d-vector sums and the prefactor sums are reduced over the
+  shards with ``parallel.quantized_collectives.qpsum`` (the int8 wire
+  format engages for the d-vector sums only; scalars ship plain).
 - 3-D ``[E, N, D]`` batches (the random-effect entity blocks) run the same
   formulas with a leading lane axis: coefficients ``[E, D]``, values
   ``[E]`` — what ``jax.vmap`` of the 2-D function computes.
@@ -25,6 +31,7 @@ from photon_ml_tpu_torch.ops.pallas_kernels import (
     fused_value_gradient_sums,
     pallas_supported,
 )
+from photon_ml_tpu_torch.parallel.quantized_collectives import qpsum
 
 Tensor = torch.Tensor
 
@@ -44,8 +51,11 @@ def _pallas_sums(loss: PointwiseLoss, w_eff: Tensor, margin_shift: Tensor,
 
 
 def value_and_gradient(loss: PointwiseLoss, norm: NormalizationContext,
-                       coef: Tensor, batch) -> tuple[Tensor, Tensor]:
-    """Weighted loss value and gradient in normalized coefficient space."""
+                       coef: Tensor, batch, axis_name: Optional[str] = None,
+                       collective_quant: str = "none"
+                       ) -> tuple[Tensor, Tensor]:
+    """Weighted loss value and gradient in normalized coefficient space;
+    the sums are reduced over ``axis_name``'s shards when it is set."""
     w_eff, margin_shift = norm.effective_coefficients(coef)
     sums = _pallas_sums(loss, w_eff, margin_shift, batch)
     if sums is not None:
@@ -57,31 +67,42 @@ def value_and_gradient(loss: PointwiseLoss, norm: NormalizationContext,
         r = batch.weights * d1
         vector_sum = batch.weighted_feature_sum(r)
         prefactor_sum = r.sum(-1)
+    value = qpsum(value, axis_name, mode=collective_quant)
+    vector_sum = qpsum(vector_sum, axis_name, mode=collective_quant)
+    prefactor_sum = qpsum(prefactor_sum, axis_name, mode=collective_quant)
     return value, norm.reconstruct_gradient(vector_sum, prefactor_sum)
 
 
 def hessian_vector(loss: PointwiseLoss, norm: NormalizationContext,
-                   coef: Tensor, vector: Tensor, batch) -> Tensor:
+                   coef: Tensor, vector: Tensor, batch,
+                   axis_name: Optional[str] = None,
+                   collective_quant: str = "none") -> Tensor:
     """Gauss-Newton Hessian-vector product H v (``aggregators.py:98-123``)."""
     w_eff, margin_shift = norm.effective_coefficients(coef)
     v_eff, v_shift = norm.effective_coefficients(vector)
     z = batch.margins(w_eff, margin_shift)
     zv = batch.margins(v_eff, v_shift) - batch.offsets
     r = batch.weights * loss.d2(z, batch.labels) * zv
-    return norm.reconstruct_gradient(batch.weighted_feature_sum(r),
-                                     r.sum(-1))
+    return norm.reconstruct_gradient(
+        qpsum(batch.weighted_feature_sum(r), axis_name,
+              mode=collective_quant),
+        qpsum(r.sum(-1), axis_name, mode=collective_quant))
 
 
 def hessian_diagonal(loss: PointwiseLoss, norm: NormalizationContext,
-                     coef: Tensor, batch) -> Tensor:
+                     coef: Tensor, batch, axis_name: Optional[str] = None,
+                     collective_quant: str = "none") -> Tensor:
     """Diagonal of the Gauss-Newton Hessian (``aggregators.py:126-154``)."""
     w_eff, margin_shift = norm.effective_coefficients(coef)
     z = batch.margins(w_eff, margin_shift)
     r = batch.weights * loss.d2(z, batch.labels)
-    diag = batch.hadamard_square_sum(r)
+    diag = qpsum(batch.hadamard_square_sum(r), axis_name,
+                 mode=collective_quant)
     if norm.shifts is not None:
-        lin_sum = batch.weighted_feature_sum(r)
-        scalar_sum = r.sum(-1).unsqueeze(-1)
+        lin_sum = qpsum(batch.weighted_feature_sum(r), axis_name,
+                        mode=collective_quant)
+        scalar_sum = qpsum(r.sum(-1), axis_name,
+                           mode=collective_quant).unsqueeze(-1)
         diag = diag - 2.0 * norm.shifts * lin_sum \
             + norm.shifts ** 2 * scalar_sum
     if norm.factors is not None:
@@ -93,12 +114,16 @@ def hessian_diagonal(loss: PointwiseLoss, norm: NormalizationContext,
 class GLMObjective:
     """GLM objective over a batch with the L2 mixin folded in
     (``aggregators.py:157-220``): + lambda/2 ||w||^2 on the value,
-    + lambda w on the gradient, + lambda v on Hv, + lambda on the diagonal."""
+    + lambda w on the gradient, + lambda v on Hv, + lambda on the diagonal.
+    ``axis_name`` (set inside a shard body) reduces every sum over that
+    axis's shards, with the ``collective_quant`` wire format."""
 
     loss: PointwiseLoss
     norm: NormalizationContext = NormalizationContext()
     l2_lambda: float = 0.0
     has_hessian: bool = True
+    axis_name: Optional[str] = None
+    collective_quant: str = "none"
 
     def value(self, coef: Tensor, batch) -> Tensor:
         return self.calculate(coef, batch)[0]
@@ -107,17 +132,21 @@ class GLMObjective:
         return self.calculate(coef, batch)[1]
 
     def calculate(self, coef: Tensor, batch) -> tuple[Tensor, Tensor]:
-        value, grad = value_and_gradient(self.loss, self.norm, coef, batch)
+        value, grad = value_and_gradient(self.loss, self.norm, coef, batch,
+                                         self.axis_name,
+                                         self.collective_quant)
         value = value + 0.5 * self.l2_lambda * (coef * coef).sum(-1)
         grad = grad + self.l2_lambda * coef
         return value, grad
 
     def hessian_vector(self, coef: Tensor, vector: Tensor, batch) -> Tensor:
-        hv = hessian_vector(self.loss, self.norm, coef, vector, batch)
+        hv = hessian_vector(self.loss, self.norm, coef, vector, batch,
+                            self.axis_name, self.collective_quant)
         return hv + self.l2_lambda * vector
 
     def hessian_diagonal(self, coef: Tensor, batch) -> Tensor:
-        return hessian_diagonal(self.loss, self.norm, coef, batch) \
+        return hessian_diagonal(self.loss, self.norm, coef, batch,
+                                self.axis_name, self.collective_quant) \
             + self.l2_lambda
 
     def with_l2(self, l2_lambda: float) -> "GLMObjective":

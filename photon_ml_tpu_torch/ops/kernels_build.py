@@ -8,6 +8,12 @@ and an unchanged one is reused. Libraries are loaded with ``ctypes``;
 pointers and the CUDA stream travel as ``c_void_p``. Nothing here touches
 ``torch.utils.cpp_extension``: a plain C interface builds in seconds.
 
+A CUDA library's hash also covers the machine
+(``utils/compile_cache.machine_fingerprint``: the ``nvcc`` version, the
+card's compute capability, torch's version), so a build made for another
+machine is never loaded; ``PHOTON_COMPILE_CACHE_DIR`` and
+``PHOTON_DISABLE_COMPILE_CACHE`` move or bypass the cache.
+
 The build is never attempted at import time — only the first kernel
 launch (or an explicit :func:`build_all`) calls it. The hashed file name
 and the compile-to-``.tmp``-then-rename step (:func:`cached_library`,
@@ -24,6 +30,8 @@ import shutil
 import subprocess
 import time
 from typing import Optional, Sequence
+
+from photon_ml_tpu_torch.utils import compile_cache
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -67,16 +75,19 @@ def _nvcc() -> str:
 
 def cached_library(stem: str, sources: Sequence[str],
                    flags: Sequence[str], salt: str = "") -> str:
-    """Path under :data:`BUILD_DIR` of the library built from ``sources``
-    with ``flags``: the file name carries a hash of the sources, the flags
-    and ``salt``, so an edit rebuilds and an unchanged build is reused."""
+    """Path in the build cache (:data:`BUILD_DIR` unless
+    ``utils/compile_cache`` moves it) of the library built from
+    ``sources`` with ``flags``: the file name carries a hash of the
+    sources, the flags and ``salt``, so an edit rebuilds and an unchanged
+    build is reused."""
     h = hashlib.sha256()
     for src in sources:
         with open(src, "rb") as f:
             h.update(f.read())
     h.update(" ".join(flags).encode())
     h.update(salt.encode())
-    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+    return os.path.join(compile_cache.cache_dir(BUILD_DIR),
+                        f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
 def start_build(cmd: Sequence[str], out: str) -> tuple:
@@ -105,7 +116,8 @@ def finish_build(job: tuple, what: str) -> dict:
 
 def _lib_path(name: str) -> str:
     return cached_library(name, [os.path.join(CSRC_DIR, name + ".cu")],
-                          NVCC_FLAGS)
+                          NVCC_FLAGS,
+                          salt=compile_cache.machine_fingerprint(_nvcc()))
 
 
 def build_all(names: Optional[list] = None) -> dict[str, ctypes.CDLL]:

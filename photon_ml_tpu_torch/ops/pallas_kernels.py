@@ -24,12 +24,18 @@ design matrix X once for both ``X.w`` and ``X^T r``:
   ``"staged"`` (row tiles through shared memory, every other shape);
   :func:`stream_geometry` is the stream path's split of a row over lanes.
   Launches are counted per path in
-  ``fused_value_gradient_sums.launches_by_path`` and per loss in
-  ``fused_value_gradient_sums.launches_by_loss``.
+  ``fused_value_gradient_sums.launches_by_path``, per loss in
+  ``fused_value_gradient_sums.launches_by_loss`` and, from the bodies of
+  a mesh's shard runner (``parallel/collectives.py``), per data-axis
+  shard in ``fused_value_gradient_sums.launches_by_shard``.
+- A launch runs with its tensors' device current
+  (``torch.cuda.device``): a shard's thread may have another card
+  current, and a launch onto a stream of another device fails.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -37,6 +43,8 @@ import torch
 from photon_ml_tpu_torch.device import check_on_device, resolve_device
 from photon_ml_tpu_torch.ops import kernels_build
 from photon_ml_tpu_torch.ops.losses import LOSSES, PointwiseLoss
+from photon_ml_tpu_torch.parallel import collectives
+from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS
 
 Tensor = torch.Tensor
 
@@ -52,6 +60,7 @@ STREAM_MAX_ROW_BYTES = 1024
 # the partials scratch; the launcher picks the grid from the occupancy.
 _CTAS_PER_SM = 8
 _MAX_CTAS: dict[int, int] = {}  # device index -> partials scratch rows
+_COUNT_LOCK = threading.Lock()
 
 
 def pallas_supported(n: int, d: int, dtype: torch.dtype, device) -> bool:
@@ -151,31 +160,47 @@ def _launch(loss: PointwiseLoss, X: Tensor, labels: Tensor, offsets: Tensor,
         max_ctas = _MAX_CTAS[dev.index] = _CTAS_PER_SM * \
             torch.cuda.get_device_properties(dev).multi_processor_count
     f32 = dict(dtype=torch.float32, device=dev)
-    # pass 1's partials in one buffer: vectors [max_ctas, d], then the
-    # values and prefactors [max_ctas] each; pass 2 reads them on the same
-    # stream before the allocator can hand the buffer out again
-    part = torch.empty(max_ctas * (d + 2), **f32)
-    out_vec = torch.empty(d, **f32)
-    out_val = torch.empty((), **f32)
-    out_pre = torch.empty((), **f32)
-    part_vec = part.data_ptr()
-    part_val = part_vec + 4 * max_ctas * d
-    rc = lib.photon_fused_value_gradient(
-        X.data_ptr(), _KERNEL_DTYPES[X.dtype], labels.data_ptr(),
-        offsets.data_ptr(), weights.data_ptr(), w_eff.data_ptr(),
-        margin_shift.data_ptr(), n, d, loss.code, _PATHS[path],
-        geom.lanes_per_row, geom.vecs_per_lane, max_ctas, part_vec,
-        part_val, part_val + 4 * max_ctas, out_vec.data_ptr(),
-        out_val.data_ptr(), out_pre.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    # the launch goes to ``dev``'s stream with ``dev`` current: the runtime
+    # API launches on the current device, and a shard of a mesh calls this
+    # from a thread whose current device may be another card
+    with torch.cuda.device(dev):
+        # pass 1's partials in one buffer: vectors [max_ctas, d], then the
+        # values and prefactors [max_ctas] each; pass 2 reads them on the
+        # same stream before the allocator can hand the buffer out again
+        part = torch.empty(max_ctas * (d + 2), **f32)
+        out_vec = torch.empty(d, **f32)
+        out_val = torch.empty((), **f32)
+        out_pre = torch.empty((), **f32)
+        part_vec = part.data_ptr()
+        part_val = part_vec + 4 * max_ctas * d
+        rc = lib.photon_fused_value_gradient(
+            X.data_ptr(), _KERNEL_DTYPES[X.dtype], labels.data_ptr(),
+            offsets.data_ptr(), weights.data_ptr(), w_eff.data_ptr(),
+            margin_shift.data_ptr(), n, d, loss.code, _PATHS[path],
+            geom.lanes_per_row, geom.vecs_per_lane, max_ctas, part_vec,
+            part_val, part_val + 4 * max_ctas, out_vec.data_ptr(),
+            out_val.data_ptr(), out_pre.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.photon_cuda_error_string(rc).decode()
         raise RuntimeError(f"fused_value_gradient {path} launch failed: "
                            f"{msg} ({rc})")
-    fused_value_gradient_sums.launches += 1
-    fused_value_gradient_sums.launches_by_path[path] += 1
-    fused_value_gradient_sums.launches_by_loss[loss.name] += 1
+    _count_launch(path, loss.name)
     return out_val, out_vec, out_pre
+
+
+def _count_launch(path: str, loss_name: str) -> None:
+    """One launch on the counts (the shards of a mesh launch from several
+    threads at once, hence the lock); a launch from a shard body also
+    counts under its data-axis position in ``launches_by_shard``."""
+    shard = collectives.bound_index(DATA_AXIS)
+    with _COUNT_LOCK:
+        fused_value_gradient_sums.launches += 1
+        fused_value_gradient_sums.launches_by_path[path] += 1
+        fused_value_gradient_sums.launches_by_loss[loss_name] += 1
+        if shard is not None:
+            by_shard = fused_value_gradient_sums.launches_by_shard
+            by_shard[shard] = by_shard.get(shard, 0) + 1
 
 
 class _FusedSums(torch.autograd.Function):
@@ -229,10 +254,15 @@ def fused_value_gradient_sums(
 def reset_launch_count() -> None:
     """Zero the kernel's launch counts (plain-version calls never count):
     ``fused_value_gradient_sums.launches`` in all, ``launches_by_path``
-    by pass-1 path and ``launches_by_loss`` by loss."""
-    fused_value_gradient_sums.launches = 0
-    fused_value_gradient_sums.launches_by_path = dict.fromkeys(_PATHS, 0)
-    fused_value_gradient_sums.launches_by_loss = dict.fromkeys(LOSSES, 0)
+    by pass-1 path, ``launches_by_loss`` by loss and
+    ``launches_by_shard`` by data-axis shard of a mesh."""
+    with _COUNT_LOCK:
+        fused_value_gradient_sums.launches = 0
+        fused_value_gradient_sums.launches_by_path = dict.fromkeys(_PATHS,
+                                                                   0)
+        fused_value_gradient_sums.launches_by_loss = dict.fromkeys(LOSSES,
+                                                                   0)
+        fused_value_gradient_sums.launches_by_shard = {}
 
 
 reset_launch_count()

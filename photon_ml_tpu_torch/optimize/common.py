@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -38,9 +39,19 @@ def reset_solver_syncs() -> None:
     SOLVER_SYNCS["count"] = 0
 
 
+_SYNCS_LOCK = threading.Lock()
+
+
+def count_solver_sync() -> None:
+    """One solver read on ``SOLVER_SYNCS`` (a mesh's shards read from
+    several threads at once, hence the lock)."""
+    with _SYNCS_LOCK:
+        SOLVER_SYNCS["count"] += 1
+
+
 def host_flags(*flags: Tensor) -> list[bool]:
     """Fetch several device booleans in ONE blocking read (counted)."""
-    SOLVER_SYNCS["count"] += 1
+    count_solver_sync()
     return [bool(v) for v in torch.stack(list(flags)).tolist()]
 
 
@@ -95,10 +106,18 @@ def solver_x0(acc_dtype: torch.dtype, shape, initial: Optional[Tensor],
     return initial.to(torch.promote_types(acc_dtype, initial.dtype))
 
 
-def finite_step(accepted: Tensor, f: Tensor, g: Tensor) -> Tensor:
+def finite_step(accepted: Tensor, f: Tensor, g: Tensor,
+                axis_name: Optional[str] = None) -> Tensor:
     """Per-lane accept flag & a non-finite guard (``common.py:71-90``): a
-    NaN/Inf objective or gradient never enters the accepted state."""
-    return accepted & torch.isfinite(f) & torch.isfinite(g).all(-1)
+    NaN/Inf objective or gradient never enters the accepted state. With
+    ``axis_name`` (a sharded weight update, ``g`` a slice) the verdict is
+    summed over the axis, so every shard takes the same one."""
+    fin = torch.isfinite(f) & torch.isfinite(g).all(-1)
+    if axis_name is not None:
+        from photon_ml_tpu_torch.parallel.collectives import psum
+
+        fin = psum((~fin).to(torch.int32), axis_name) == 0
+    return accepted & fin
 
 
 class RunHistory(NamedTuple):
@@ -279,10 +298,39 @@ class LaneCompactionState:
             record_host_fetch,
         )
 
-        SOLVER_SYNCS["count"] += 1
+        count_solver_sync()
         mask = (k == max_iterations_code).cpu().numpy()
         record_host_fetch(site="re.compact_mask")
         return idx[mask], np.nonzero(mask)[0]
+
+    def absorb_padded(self, idx: np.ndarray, mask: np.ndarray, c: Tensor,
+                      it: Tensor, v: Tensor, k: Tensor,
+                      max_iterations_code: int
+                      ) -> tuple[np.ndarray, np.ndarray]:
+        """:meth:`absorb` for a mesh-sharded chunk (``common.py:299-330``):
+        the chunk's lanes come in the per-shard padded layout (flat
+        ``[K * L]``), ``idx`` maps every slot to its global lane and
+        ``mask`` flags the real slots; only those are folded in (a pad
+        slot repeats a real lane of its shard). Returns the global ids and
+        the flat positions of the real lanes that spent the budget; one
+        blocking read, as :meth:`absorb`."""
+        from photon_ml_tpu_torch.utils.sync_telemetry import (
+            record_host_fetch,
+        )
+
+        real = torch.as_tensor(np.nonzero(mask)[0], device=c.device)
+        rows = torch.as_tensor(idx[mask], device=c.device)
+        self.coefs = self.coefs.index_copy(0, rows, c[real])
+        iterations = self.iterations.clone()
+        iterations[rows] += it[real]
+        self.iterations = iterations
+        self.values = self.values.index_copy(0, rows, v[real])
+        self.codes = self.codes.index_copy(0, rows, k[real])
+        count_solver_sync()
+        unconverged = (k == max_iterations_code).cpu().numpy()
+        record_host_fetch(site="re.compact_mask")
+        local = np.nonzero(mask & unconverged)[0]
+        return idx[local], local
 
     def results(self) -> tuple[Tensor, Tensor, Tensor, Tensor]:
         return self.coefs, self.iterations, self.values, self.codes

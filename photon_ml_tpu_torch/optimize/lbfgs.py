@@ -29,7 +29,15 @@ and selecting per lane would give the same bits (an unmoved point
 evaluates the same) at the price of one more kernel launch per
 iteration. ``track_iterates`` keeps ``[L, max_iter + 1, D]`` iterates in
 the history, row ``it`` the accepted iterate (``lbfgs.py:211``,
-``:289``). The sharded weight update is left for a later slice.
+``:289``).
+
+``update_axis_name`` is the sharded weight update (arXiv 2004.13336,
+``lbfgs.py:85-105``): ``x``, ``g`` and the curvature pairs are this
+shard's slice of the coefficient vector, and every d-vector reduction
+(:func:`axis_dot`, :func:`axis_norm`, the finite-step verdict) is summed
+over the axis's shards, so the sharded recursion is the full-dimension
+one up to reduction order. It refuses a box and ``track_iterates``, as
+the JAX solver does.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from photon_ml_tpu_torch.optimize.common import (
     should_continue,
 )
 from photon_ml_tpu_torch.optimize.linesearch import strong_wolfe
+from photon_ml_tpu_torch.parallel.quantized_collectives import qpsum
 
 Tensor = torch.Tensor
 
@@ -85,11 +94,42 @@ def _norm(a: Tensor) -> Tensor:
     return torch.sqrt((a * a).sum(-1))
 
 
+def axis_dot(axis_name: Optional[str], collective_quant: str = "none"):
+    """The lanes' dot product, summed over ``axis_name``'s shards when the
+    vectors are slices of a sharded weight update (``lbfgs.py:85-98``);
+    the payload is one value per lane, which ``qpsum`` ships plain."""
+    if axis_name is None:
+        return _dot
+    return lambda a, b: qpsum(_dot(a, b), axis_name, mode=collective_quant)
+
+
+def axis_norm(axis_name: Optional[str], collective_quant: str = "none"):
+    """The lanes' 2-norm, summed over ``axis_name`` (see :func:`axis_dot`)."""
+    if axis_name is None:
+        return _norm
+    return lambda a: torch.sqrt(qpsum((a * a).sum(-1), axis_name,
+                                      mode=collective_quant))
+
+
+def refuse_sharded_extras(update_axis_name: Optional[str], box,
+                          track_iterates: bool) -> None:
+    """The sharded weight update takes neither a box nor
+    ``track_iterates`` (``lbfgs.py:170-174``)."""
+    if update_axis_name is not None and (box is not None or track_iterates):
+        raise ValueError(
+            "sharded weight update supports neither box constraints nor "
+            "track_iterates")
+
+
 def two_loop_direction(g: Tensor, S: Tensor, Y: Tensor, rho: Tensor,
-                       valid: Tensor, head: Tensor) -> Tensor:
+                       valid: Tensor, head: Tensor,
+                       axis_name: Optional[str] = None,
+                       collective_quant: str = "none") -> Tensor:
     """Two-loop recursion over each lane's masked circular history
     (``lbfgs.py:108-147``). ``g [L, D]``, ``S/Y [L, m, D]``,
-    ``rho/valid [L, m]``, ``head [L]``."""
+    ``rho/valid [L, m]``, ``head [L]``; with ``axis_name`` the vectors are
+    shards and every inner product is summed over the axis."""
+    _dot = axis_dot(axis_name, collective_quant)
     L, m, _ = S.shape
     lanes = torch.arange(L, device=g.device)
     slots = torch.arange(m, device=g.device)
@@ -193,6 +233,8 @@ def minimize_lbfgs(
     return_carry: bool = False,
     box: Optional[BoxConstraints] = None,
     track_iterates: bool = False,
+    update_axis_name: Optional[str] = None,
+    collective_quant: str = "none",
 ):
     """Minimize ``f(x, data)`` independently in every lane of ``x0 [L, D]``.
 
@@ -204,8 +246,14 @@ def minimize_lbfgs(
     check keeps the carried anchors, and the first step is not the
     1/||d|| start of a fresh solve. ``box`` (bounds ``[D]``) projects
     every accepted step; ``track_iterates`` adds the iterates to the
-    history.
+    history. ``update_axis_name`` makes ``x0`` this shard's slice of a
+    sharded weight update (``value_and_grad_fn`` then takes and returns
+    slices) and sums every d-vector reduction over the axis with the
+    ``collective_quant`` wire format.
     """
+    refuse_sharded_extras(update_axis_name, box, track_iterates)
+    _dot = axis_dot(update_axis_name, collective_quant)
+    _norm = axis_norm(update_axis_name, collective_quant)
     L, d = x0.shape
     dtype, dev = x0.dtype, x0.device
     if resume is None:
@@ -237,7 +285,8 @@ def minimize_lbfgs(
         if not any_active:
             break
 
-        direction = two_loop_direction(g, S, Y, rho, valid, head)
+        direction = two_loop_direction(g, S, Y, rho, valid, head,
+                                       update_axis_name, collective_quant)
         dphi0 = _dot(g, direction)
         # not a descent direction -> steepest descent
         bad = dphi0 >= 0.0
@@ -259,7 +308,7 @@ def minimize_lbfgs(
         x_new = x + ls.alpha[:, None] * direction
         x_new, f_new, g_new = project_and_refresh(
             value_and_grad_fn, data, x_new, ls.value, ls.grad, box, active)
-        ok = finite_step(ls.ok, f_new, g_new)
+        ok = finite_step(ls.ok, f_new, g_new, update_axis_name)
 
         s = x_new - x
         y = g_new - g

@@ -26,7 +26,11 @@ those of an independent run.
   and no second evaluation is needed; ``track_iterates`` keeps the
   accepted iterates as the port's L-BFGS does.
 
-The sharded weight update is left for a later slice.
+- ``update_axis_name`` is the sharded weight update (``owlqn.py:92-116``):
+  ``x``, ``g`` and ``l1`` are this shard's slices, the L1 penalty and
+  every d-vector reduction are summed over the axis; the pseudo-gradient
+  and the orthant projections stay elementwise. A box or
+  ``track_iterates`` is refused with it, as in the JAX solver.
 """
 
 from __future__ import annotations
@@ -45,13 +49,15 @@ from photon_ml_tpu_torch.optimize.common import (
 )
 from photon_ml_tpu_torch.optimize.lbfgs import (
     LBFGSResume,
-    _dot,
-    _norm,
+    axis_dot,
+    axis_norm,
     new_iterates,
     record_iterate,
+    refuse_sharded_extras,
     store_pair,
     two_loop_direction,
 )
+from photon_ml_tpu_torch.parallel.quantized_collectives import qpsum
 
 Tensor = torch.Tensor
 
@@ -85,6 +91,8 @@ def minimize_owlqn(
     return_carry: bool = False,
     box: Optional[BoxConstraints] = None,
     track_iterates: bool = False,
+    update_axis_name: Optional[str] = None,
+    collective_quant: str = "none",
 ):
     """Minimize ``f(x, data) + l1 ||x||_1`` independently in every lane of
     ``x0 [L, D]``.
@@ -95,8 +103,12 @@ def minimize_owlqn(
     norms those of the pseudo-gradient. Returns ``(x [L, D], RunHistory,
     made_progress [L])``, and the carry after them with ``return_carry``;
     ``resume`` continues from a carry as ``minimize_lbfgs`` does;
-    ``box`` and ``track_iterates`` are ``minimize_lbfgs``'s.
+    ``box``, ``track_iterates`` and ``update_axis_name`` are
+    ``minimize_lbfgs``'s.
     """
+    refuse_sharded_extras(update_axis_name, box, track_iterates)
+    _dot = axis_dot(update_axis_name, collective_quant)
+    _norm = axis_norm(update_axis_name, collective_quant)
     L, d = x0.shape
     dtype, dev = x0.dtype, x0.device
     l1 = torch.as_tensor(l1, dtype=dtype, device=dev).expand(L, d)
@@ -105,7 +117,9 @@ def minimize_owlqn(
 
     def full_objective(x):
         f, g = value_and_grad_fn(x, data)
-        return f + (l1 * x.abs()).sum(-1, dtype=pen_dtype), g
+        penalty = qpsum((l1 * x.abs()).sum(-1, dtype=pen_dtype),
+                        update_axis_name, mode=collective_quant)
+        return f + penalty, g
 
     if resume is None:
         f, g = full_objective(x0)
@@ -138,7 +152,8 @@ def minimize_owlqn(
         if not any_active:
             break
 
-        direction = two_loop_direction(pg, S, Y, rho, valid, head)
+        direction = two_loop_direction(pg, S, Y, rho, valid, head,
+                                       update_axis_name, collective_quant)
         # keep only the components that descend along -pg
         direction = torch.where(direction * pg < 0.0, direction,
                                 torch.zeros_like(direction))
@@ -171,7 +186,7 @@ def minimize_owlqn(
             a = torch.where(searching & ~ok, a * 0.5, a)
             k += 1
         # non-finite trial values never enter the carry
-        accepted = finite_step(accepted, f_new, g_new)
+        accepted = finite_step(accepted, f_new, g_new, update_axis_name)
 
         # curvature pairs from the smooth gradients
         s, y = x_new - x, g_new - g

@@ -28,12 +28,15 @@ single one bit for bit; a resumed chunk never re-tightens the region.
 ``box`` projects an accepted step and evaluates the objective again where
 that moved it (``tron.py:268-276``), decided by one more counted read an
 iteration as in the port's L-BFGS; ``track_iterates`` keeps the iterates
-(row ``it`` the accepted point). The sharded weight update is left for a
-later slice.
+(row ``it`` the accepted point). ``update_axis_name`` is the sharded
+weight update (``tron.py:170-273``, ``:331-353``): the CG and region
+arithmetic sum every d-vector reduction over the axis, ``hvp_fn`` takes
+and returns slices; a box or ``track_iterates`` is refused with it.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -46,11 +49,12 @@ from photon_ml_tpu_torch.optimize.common import (
     should_continue,
 )
 from photon_ml_tpu_torch.optimize.lbfgs import (
-    _dot,
-    _norm,
+    axis_dot,
+    axis_norm,
     new_iterates,
     project_and_refresh,
     record_iterate,
+    refuse_sharded_extras,
 )
 
 Tensor = torch.Tensor
@@ -86,18 +90,30 @@ class TRONResume(NamedTuple):
     g0n: Tensor  # [L]
 
 
+_STATS_LOCK = threading.Lock()
+
+
+def _count(key: str) -> None:
+    with _STATS_LOCK:  # a mesh's shards count from several threads
+        TRON_STATS[key] += 1
+
+
 def reset_tron_stats() -> None:
     for k in TRON_STATS:
         TRON_STATS[k] = 0
 
 
 def _truncated_cg(hvp: Callable[[Tensor], Tensor], gradient: Tensor,
-                  delta: Tensor, active: Tensor
+                  delta: Tensor, active: Tensor,
+                  axis_name: Optional[str] = None,
+                  collective_quant: str = "none"
                   ) -> tuple[Tensor, Tensor]:
     """Approximately solve H s = -g within ||s|| <= delta, per lane
     (``tron.py:61-124``). ``hvp(v [L, D])`` computes H v for every lane;
     lanes with ``active`` false start finished. Returns (step [L, D],
-    residual [L, D])."""
+    residual [L, D]); with ``axis_name`` the vectors are shards."""
+    _dot = axis_dot(axis_name, collective_quant)
+    _norm = axis_norm(axis_name, collective_quant)
     tol = 0.1 * _norm(gradient)
     r = -gradient
     direction = r
@@ -110,7 +126,7 @@ def _truncated_cg(hvp: Callable[[Tensor], Tensor], gradient: Tensor,
         if not host_flags(running.any())[0]:
             break
         hd = hvp(direction)
-        TRON_STATS["cg_iterations"] += 1
+        _count("cg_iterations")
         alpha = r_tr / _dot(direction, hd)
         step_in = step + alpha[:, None] * direction
         outside = _norm(step_in) > delta
@@ -152,6 +168,8 @@ def minimize_tron(
     return_carry: bool = False,
     box: Optional[BoxConstraints] = None,
     track_iterates: bool = False,
+    update_axis_name: Optional[str] = None,
+    collective_quant: str = "none",
 ):
     """Trust-region Newton independently in every lane of ``x0 [L, D]``.
 
@@ -160,9 +178,12 @@ def minimize_tron(
     ``[L, D]``. Returns ``(x [L, D], RunHistory, made_progress [L])``; the
     history's iteration count counts accepted steps only. With
     ``return_carry`` the :class:`TRONResume` follows; ``resume`` continues
-    from one (``x0`` is ignored). ``box`` and ``track_iterates`` are
-    ``minimize_lbfgs``'s.
+    from one (``x0`` is ignored). ``box``, ``track_iterates`` and
+    ``update_axis_name`` are ``minimize_lbfgs``'s.
     """
+    refuse_sharded_extras(update_axis_name, box, track_iterates)
+    _dot = axis_dot(update_axis_name, collective_quant)
+    _norm = axis_norm(update_axis_name, collective_quant)
     L, _ = x0.shape
     dev = x0.device
     if resume is None:
@@ -192,10 +213,11 @@ def minimize_tron(
         (any_active,) = host_flags(active.any())
         if not any_active:
             break
-        TRON_STATS["outer_iterations"] += 1
+        _count("outer_iterations")
 
         step, residual = _truncated_cg(
-            lambda v, x=x: hvp_fn(x, v, data), g, delta, active)
+            lambda v, x=x: hvp_fn(x, v, data), g, delta, active,
+            update_axis_name, collective_quant)
         x_try = x + step
         gs = _dot(g, step)
         predicted = -0.5 * (gs - _dot(step, residual))
@@ -231,7 +253,7 @@ def minimize_tron(
                                                 _SIGMA3 * new_delta)))))
 
         improved = active & finite_step(actual > _ETA0 * predicted, f_try,
-                                        g_try)
+                                        g_try, update_axis_name)
         x_try, f_try, g_try = project_and_refresh(
             value_and_grad_fn, data, x_try, f_try, g_try, box, improved)
         i2 = improved[:, None]

@@ -76,6 +76,11 @@ FAULT_POINTS: dict[str, FaultPointInfo] = {
     "optimizer.gradient": FaultPointInfo(
         "on the solver output of a GLM solve (optimize/problem.py)",
         modes=("raise", "nan")),
+    "re.shard_dispatch": FaultPointInfo(
+        "on the coefficient block of a mesh-sharded random-effect solve, "
+        "after the sharded dispatch resolves (game/random_effect.py); "
+        "tag = bucket index",
+        modes=("raise", "nan")),
     "ckpt.save": FaultPointInfo(
         "after a snapshot's tmp dir is written, before the atomic rename "
         "(utils/checkpoint.py)",

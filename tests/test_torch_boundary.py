@@ -42,10 +42,16 @@
   given ``device="cpu"``; a failed host build raises from the block
   packers instead of returning ``False``; the flags ported with them
   (``--offheap-indexmap-dir``, ``--offheap-indexmap-num-partitions``,
-  ``--random-effect-blocks-dir``), ``--precision bf16`` and the telemetry
-  flags are no longer refused, while the still-unported ones
-  (``--num-processes``, ``--max-worker-restarts``, ``--re-entity-shards``
-  and ``--collective-quant``) end with exit 3.
+  ``--random-effect-blocks-dir``), ``--precision bf16``, the telemetry
+  flags and the device mesh's (``--re-entity-shards``,
+  ``--collective-quant``) are no longer refused, while the still-unported
+  ones (``--num-processes``, ``--max-worker-restarts``) end with exit 3.
+- The device mesh (``parallel/*``, ``utils/backend_probe``,
+  ``utils/compile_cache``) is in both import checks;
+  ``setup_default_mesh``, ``make_mesh`` and the CUDA device probe raise
+  without CUDA instead of building a CPU mesh; the kernel's launch runs
+  with its tensors' device current, and a shard body runs with its
+  shard's device current.
 """
 
 import ast
@@ -112,10 +118,18 @@ FLEET_TELEMETRY_MODULES = [
     "photon_ml_tpu_torch.obs.devicemem", "photon_ml_tpu_torch.obs.compile",
     "photon_ml_tpu_torch.obs.otlp",
     "photon_ml_tpu_torch.utils.sync_telemetry"]
+MESH_MODULES = [
+    "photon_ml_tpu_torch.parallel.mesh",
+    "photon_ml_tpu_torch.parallel.collectives",
+    "photon_ml_tpu_torch.parallel.quantized_collectives",
+    "photon_ml_tpu_torch.parallel.distributed",
+    "photon_ml_tpu_torch.parallel.multichip_check",
+    "photon_ml_tpu_torch.utils.backend_probe",
+    "photon_ml_tpu_torch.utils.compile_cache"]
 NAMED_MODULES = (FAULT_TOLERANCE_MODULES + NATIVE_INGEST_MODULES
                  + SECOND_ORDER_MODULES + SAMPLER_MODULES
                  + SINGLE_GLM_MODULES + WIDE_STREAMED_MODULES
-                 + SERVE_MODULES + FLEET_TELEMETRY_MODULES)
+                 + SERVE_MODULES + FLEET_TELEMETRY_MODULES + MESH_MODULES)
 
 
 def _forbidden(module: str) -> bool:
@@ -153,7 +167,7 @@ def test_every_port_package_is_walked():
     subpackages = {p.parent.name for p in PKG.rglob("__init__.py")}
     assert {"cli", "io", "evaluation", "serve", "utils", "game", "ops",
             "optimize", "data", "tools", "stat", "diagnostics",
-            "obs"} <= subpackages
+            "obs", "parallel"} <= subpackages
     walked = {p.relative_to(PKG).parts[0] for p in SOURCES
               if p.is_relative_to(PKG)}
     assert subpackages - {PKG.name} <= walked
@@ -349,6 +363,105 @@ def test_dense_batch_defaults_to_the_card(no_cuda):
     assert torch.equal(batch.weights, torch.ones(3))
 
 
+def test_mesh_and_device_probe_refuse_cpu_without_being_asked(no_cuda):
+    from photon_ml_tpu_torch.parallel import mesh as tmesh
+    from photon_ml_tpu_torch.utils import backend_probe
+
+    tmesh.set_default_mesh(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmesh.setup_default_mesh(num_entity=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmesh.make_mesh()
+    assert tmesh.get_default_mesh() is None
+    # the CPU is a mesh of one device only when asked for: no mesh
+    assert tmesh.setup_default_mesh(device="cpu") is None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        backend_probe.probe_cuda_devices(timeout_secs=120)
+
+
+def _record_current_device(monkeypatch):
+    """Stand-ins for ``torch.cuda.device`` and ``torch.cuda.set_device``
+    (which record the device they make current, per thread) and for the
+    stream, event and property lookups, so the launch path and the shard
+    runner run on a host without a card."""
+    import contextlib
+    import threading
+    from types import SimpleNamespace
+
+    state = threading.local()
+
+    @contextlib.contextmanager
+    def device(d):
+        prev = getattr(state, "current", "cuda:0")
+        state.current = str(torch.device(d))
+        try:
+            yield
+        finally:
+            state.current = prev
+
+    def set_device(d):
+        state.current = str(torch.device(d))
+
+    def stream_obj(*a, **k):
+        return SimpleNamespace(cuda_stream=0, wait_stream=lambda s: None,
+                               wait_event=lambda e: None,
+                               record_event=lambda: object())
+
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "set_device", set_device)
+    monkeypatch.setattr(torch.cuda, "current_stream", stream_obj)
+    monkeypatch.setattr(torch.cuda, "Stream", stream_obj)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: SimpleNamespace(multi_processor_count=1))
+    return lambda: getattr(state, "current", "cuda:0")
+
+
+def test_kernel_launch_runs_under_its_own_device(monkeypatch):
+    """The launch on a card that is not the current one makes that card
+    current for the ctypes call (a launch onto another device's stream
+    fails on a mesh of cards)."""
+    current = _record_current_device(monkeypatch)
+    seen = []
+
+    class Lib:
+        def photon_fused_value_gradient(self, *args):
+            seen.append(current())
+            return 0
+
+    class OnCard1(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda", 1)
+
+    real_empty = torch.empty
+    monkeypatch.setattr(tpk.kernels_build, "load", lambda name: Lib())
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: real_empty(
+        *a, **{**k, "device": "cpu"}))
+    monkeypatch.setattr(tpk, "_MAX_CTAS", {})
+
+    def card(t):
+        return t.as_subclass(OnCard1)
+
+    n, d = 8, 4
+    vec = card(torch.zeros(n))
+    tpk._launch(tl.get_loss("logistic"), card(torch.zeros(n, d)), vec, vec,
+                vec, card(torch.zeros(d)), card(torch.zeros(1)))
+    tpk.reset_launch_count()
+    assert seen == ["cuda:1"]
+    assert current() == "cuda:0"  # put back after the launch
+
+
+def test_shard_bodies_run_under_their_own_device(monkeypatch):
+    from photon_ml_tpu_torch.parallel.collectives import run_shards
+
+    current = _record_current_device(monkeypatch)
+    devs = [torch.device("cuda", i) for i in (0, 1, 2, 3)]
+    out = run_shards(lambda: current(), devs, "data", [()] * 4)
+    assert out == ["cuda:0", "cuda:1", "cuda:2", "cuda:3"]
+
+
 def test_kernel_build_is_not_triggered_by_import():
     from photon_ml_tpu_torch.ops import kernels_build
 
@@ -412,10 +525,10 @@ PORTED_FLAGS = [
     ["--trace-dir", "trace"],
     ["--trace-dir", "trace", "--telemetry-endpoint", "127.0.0.1:1",
      "--device-telemetry", "--trace-heartbeat-seconds", "0.5",
-     "--trace-stall-seconds", "30"]]
+     "--trace-stall-seconds", "30"],
+    ["--re-entity-shards", "2"],
+    ["--collective-quant", "int8"]]
 STILL_UNPORTED = [
-    ("--re-entity-shards", ["--re-entity-shards", "2"]),
-    ("--collective-quant", ["--collective-quant", "int8"]),
     ("--num-processes", ["--num-processes", "2"]),
     ("--max-worker-restarts", ["--max-worker-restarts", "1"])]
 _TRAIN = ["--task-type", "LOGISTIC_REGRESSION",
@@ -434,6 +547,10 @@ def test_ported_flags_are_not_refused(extra, tmp_path):
     ns = ttd.parse_args(["--train-input-dirs", "t", "--output-dir",
                          str(tmp_path / "o"), *_TRAIN, *extra])
     ttd.check_unported(ns)
+    if extra[0] == "--re-entity-shards":
+        assert ns.re_entity_shards == 2
+    if extra[0] == "--collective-quant":
+        assert ns.collective_quant == "int8"
     if extra[0] == "--precision":
         from photon_ml_tpu_torch.cli.args import precision_dtype
 

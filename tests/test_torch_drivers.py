@@ -463,6 +463,10 @@ def test_python_m_entry_points_run_on_cpu(runs, tmp_path):
 TRAIN_UNPORTED = [
     ("--num-processes", ["--num-processes", "2"]),
     ("--max-worker-restarts", ["--max-worker-restarts", "1"]),
+]
+#: the device mesh's flags, refused until the mesh was ported: the
+#: driver takes them, and on the one CPU device grants one entity shard
+TRAIN_MESH_FLAGS = [
     ("--re-entity-shards", ["--re-entity-shards", "2"]),
     ("--re-entity-shards", ["--re-entity-shards", "auto"]),
     ("--collective-quant", ["--collective-quant", "int8"]),
@@ -484,6 +488,21 @@ def test_training_driver_refuses_unported_flags(tmp_path, capsys, flag,
     err = capsys.readouterr().err
     assert f"PHOTON_ABORT kind=NotImplementedError: {flag} " in err
     assert not os.path.exists(tmp_path / "out")
+
+
+@pytest.mark.parametrize("flag,extra", TRAIN_MESH_FLAGS,
+                         ids=[f"{f}={e[-1]}" for f, e in TRAIN_MESH_FLAGS])
+def test_training_driver_accepts_the_mesh_flags(tmp_path, flag, extra):
+    argv = ["--train-input-dirs", str(tmp_path / "none.avro"),
+            "--output-dir", str(tmp_path / "out"), *TRAIN_FLAGS,
+            "--device", "cpu", *extra]
+    ns = ttd.parse_args(argv)
+    ttd.check_unported(ns)
+    ttd.resolve_entity_shards(ns)
+    driver = ttd.GameTrainingDriver(ns)
+    assert ns.re_entity_shards == 1  # one CPU device: one entity shard
+    assert driver.ns.collective_quant == ("int8" if flag.endswith("quant")
+                                          else "none")
 
 
 def test_training_driver_runs_precision_bf16(runs, tmp_path, monkeypatch):
