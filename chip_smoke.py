@@ -90,8 +90,10 @@ Phases, one JSON line each on stdout:
    and on the CPU, objectives within rel 1e-4; a ``torch.profiler`` pass
    over one per-user update of L-BFGS, TRON and OWL-QN on phase 5's
    per-user coordinate (wall seconds, device busy time and idle share,
-   solver reads); (c) the training driver twice on phase 6's
-   fixture (linear TRON + L2 with ``--compute-variance``, Poisson L-BFGS +
+   solver reads); (c) the training driver twice on the drill's fixture
+   (phase 7 (b), 40,000 / 5,000 rows: cut from phase 6's fixture to
+   make room for phase 16) with phase 6's feature sets
+   (linear TRON + L2 with ``--compute-variance``, Poisson L-BFGS +
    elastic net; two sweeps, 4 buckets, per-user cap 128): finite
    objectives, no fixed-effect update raising the objective (a per-user
    update may: it sees only each user's 128 active rows, in both
@@ -186,7 +188,9 @@ Phases, one JSON line each on stdout:
    (equal, timed), ``ell_from_csr`` to the card, the in-RAM random-effect
    build (cap 32, keep 64, INDEX_MAP) native-packed and numpy-packed
    (equal), and the streamed build in ``bench.py:2021``'s 1,000,000-row
-   chunks into memmap blocks, equal to the in-RAM one array for array,
+   chunks into memmap blocks, equal to the in-RAM one array for array
+   (both builders on the generator's first ``INGEST_BUILDER_ROWS``
+   rows, a cut of scale made for phase 16),
    with host RSS peaks and the bytes on disk; (b) logistic L-BFGS + L2 on
    that ELL batch (at most 30 iterations): two evaluations equal, an
    evaluation timed against its bytes bound, a solve resumed from its
@@ -195,8 +199,8 @@ Phases, one JSON line each on stdout:
    one pipelined sweep of phase 5's GLMix with the per-user blocks in RAM
    on the card, then built streamed into memmap files: states,
    objectives and scores bit for bit, seconds and device memory; (d) a
-   wide GAME fixture (200,000 / 50,000 rows, 100,000 hashed global
-   features, 8 a row, a per-user bag over 2,000 users): the
+   wide GAME fixture (50,000 / 12,500 rows, cut for phase 16; 100,000
+   hashed global features, 8 a row, a per-user bag over 2,000 users): the
    feature-indexing job with the off-heap store, the training driver
    plain, with ``--random-effect-blocks-dir`` and with that and the
    off-heap store (models record for record and metrics equal, no kernel
@@ -221,7 +225,8 @@ Phases, one JSON line each on stdout:
    card serving phase 6's final f32 model (its ``best/`` is the first
    state, with no per-user coefficients) on a unix socket under the
    default 64 MB tier budget: 4 client threads send requests of 1-256
-   validation records (100 each, and a tail past the swap), hot-swapped
+   validation records (``SERVE_REQUESTS`` each, and a tail past the
+   swap), hot-swapped
    to (b)'s model once half are answered with the canary gate open;
    every response equals, bit for bit, the scoring driver's scores
    (run on the same model and rows) before the flip or the library's
@@ -239,16 +244,38 @@ Phases, one JSON line each on stdout:
    (``--serve-hbm-budget-mb 32`` each) serve phase 6's final f32 model
    (6,040 users x 3,707 columns) behind the port's router
    (``python -m photon_ml_tpu_torch.tools.photon_serve fleet``, traced,
-   routing by ``userId``), 4 clients x 100 requests of 1-256 of phase
-   13 (c)'s records (read once there, with the scoring driver's scores
-   that every fleet score must equal bit for bit); member 1 is SIGKILLed
-   once half are answered, every request must resolve with scores or a
+   routing by ``userId``), 4 clients x ``SERVE_REQUESTS`` requests of
+   1-256 of phase 13 (c)'s records (read once there, with the scoring
+   driver's scores that every fleet score must equal bit for bit);
+   member 1 is SIGKILLed once half are answered, every request must
+   resolve with scores or a
    typed shed, and the router's ``serve_route`` ledger must account for
    every dispatch; member 1 is relaunched and must be re-admitted
    through the generation check, after which both members score; then
    SIGTERM gives exit 75 for the router and the members. Rows per
    second, p50/p99, the rows by shard, the members' tier hits, the
    failovers and the re-admission time are printed.
+15. mesh — the device mesh on four shards of the card: the multi-device
+   gate, GLMix on data, entity and data x entity meshes (plain and int8
+   on the wire) held to phase 5's run, and the training driver with
+   ``--re-entity-shards auto --collective-quant int8``.
+16. gang — processes joined over ``torch.distributed`` (gloo, staged
+   through host memory) on the one card: (a) 2 processes x 2 shards fit
+   phase 5's fixed effect, each feeding its half of the rows, and equal
+   1 process x 4 shards over the same row layout bit for bit (the
+   launches and process-group bytes of each process are printed); (b)
+   two members of the training driver (``--num-processes 2``) on phase
+   6's fixture and feature sets at full width, both
+   ``MULTIHOST_GAME_OK`` with ``devices=2 re_entity_axis=2``, identical
+   npz files, coefficients and objective within ``GANG_BOUNDS`` of
+   phase 6's final state, then the scoring driver split over two
+   processes, whose records equal phase 6's scoring run record for
+   record; (c) on the drill's rows as part files, a supervised gang
+   (``--max-worker-restarts 1``, checkpoints) whose member 1 is
+   SIGKILLed after process 0's first snapshot re-forms, resumes
+   (``MULTIHOST_RESUME``) and ends on the uninterrupted gang's npz bit
+   for bit, and one member's SIGTERM stops a fresh gang with exit 75 on
+   both members at one coordinate.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
@@ -1160,13 +1187,12 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
                                or by_path[expected] != launches):
         raise AssertionError(f"the driver's fixed effect did not launch "
                              f"the kernel on the {expected} path: {by_path}")
-    # the fixture stays for phases 8, 9 and 13, with the feature sets, and
-    # the final model (output/grid-0) for phase 13's service: best/ is
-    # the first state, before any per-user update
+    # the fixture stays for phases 8, 9, 13 and 16, with the feature sets,
+    # the final model (output/grid-0) for phase 13's service and phase 16's
+    # gang (best/ is the first state, before any per-user update), and
+    # best/ with its scoring run for phase 16's split scoring run
     feature_sets = save_feature_sets(trainer.index_maps,
                                      os.path.join(workdir, "feature_sets"))
-    shutil.rmtree(os.path.join(out, "best"), ignore_errors=True)
-    shutil.rmtree(score_out, ignore_errors=True)
     return phase, launches, by_path, check, (train, val, feature_sets)
 
 
@@ -1335,11 +1361,24 @@ def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
                        for f in ("train.avro", "validate.avro"))
 
 
+#: (n, d) -> (generator state after w_true, X, w_true): phases 8 and 11
+#: draw the same 262,144 x 2,048 X (~15 s of numpy each), so it is drawn
+#: once (to make room for phase 16)
+_BENCH_X_W: dict = {}
+
+
 def bench_x_w(n, d):
-    """``bench.py:169-172 _data()``'s generator (seed 0), X and w_true."""
+    """``bench.py:169-172 _data()``'s generator (seed 0), X and w_true;
+    the generator comes back at its state after w_true, as if drawn
+    anew, and X is shared between calls (its callers only read it)."""
+    if (n, d) not in _BENCH_X_W:
+        rng = np.random.default_rng(0)
+        X = rng.normal(size=(n, d)).astype(np.float32)
+        w_true = (rng.normal(size=d) / np.sqrt(d)).astype(np.float32)
+        _BENCH_X_W[(n, d)] = (rng.bit_generator.state, X, w_true)
+    state, X, w_true = _BENCH_X_W[(n, d)]
     rng = np.random.default_rng(0)
-    X = rng.normal(size=(n, d)).astype(np.float32)
-    w_true = (rng.normal(size=d) / np.sqrt(d)).astype(np.float32)
+    rng.bit_generator.state = state
     return rng, X, w_true
 
 
@@ -1591,8 +1630,9 @@ def config3_phase(torch, dev, shape=CONFIG3_SHAPE, reps=3):
 
 def second_order_driver_phase(torch, dev, train, val, feature_sets,
                               workdir):
-    """Phase 8 (c): the drivers on phase 6's fixture and feature sets with
-    the second-order argvs (two sweeps, 4 buckets, per-user cap 128), then
+    """Phase 8 (c): the drivers on a fixture (``main`` passes the drill's,
+    phase 7 (b)) and phase 6's feature sets with the second-order argvs
+    (two sweeps, 4 buckets, per-user cap 128), then
     the scoring driver on the Poisson run's ``best/``. Returns the record
     and the launches by run."""
     from photon_ml_tpu_torch.cli import game_training_driver as ttd
@@ -1683,7 +1723,11 @@ def second_order_driver_phase(torch, dev, train, val, feature_sets,
         problems.append(f"scoring driver POISSON_LOSS {got} != best "
                         f"validation POISSON_LOSS {want}")
     shutil.rmtree(workdir, ignore_errors=True)
-    record = {"runs": runs, "scoring_driver_secs": scoring_secs,
+    record = {"fixture": train,
+              "reduced": {"why": "the drill's fixture (phase 7 (b)) since "
+                                 "phase 16: two full-size driver runs took "
+                                 "~90 s, which phase 16 needs"},
+              "runs": runs, "scoring_driver_secs": scoring_secs,
               "scoring_driver_poisson_loss": got,
               "scoring_phase_seconds": scorer["phase_seconds"]}
     print("second-order drivers: " + json.dumps(record), file=sys.stderr,
@@ -1951,9 +1995,12 @@ def compaction_profile(torch, dev, dataset, extra_scores):
     """Phase 9 (b): one per-user update of each solver (phase 5's per-user
     coordinate; the per-user configs of phases 5 and 8) as one dispatch,
     with chunk 4 and with the auto-tuned chunk: coefficients, iterations
-    and codes bit for bit equal; wall and device busy time (under
-    ``torch.profiler``), the solvers' reads and the active lanes of every
-    re-dispatched chunk."""
+    and codes bit for bit equal; wall time, the solvers' reads and the
+    active lanes of every re-dispatched chunk, and for the single
+    dispatch the device busy time under ``torch.profiler`` (the chunked
+    runs' profiles were cut for phase 16: a profiled update costs ~4 s of
+    trace processing, and the card's idle share is the single
+    dispatch's, PERF.md §5)."""
     from torch.profiler import ProfilerActivity, profile
 
     from photon_ml_tpu_torch.game import random_effect as gre
@@ -1992,13 +2039,15 @@ def compaction_profile(torch, dev, dataset, extra_scores):
             if not equal:
                 problems.append(f"{case} {label}: not equal to the single "
                                 f"dispatch")
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                coord.update(None, extra_scores)
-                sync(torch, dev)
-                profiled = time.perf_counter() - t0
-            busy_us = trace_device_busy_us(prof)
+            busy_us = profiled = None
+            if label == "single":
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    coord.update(None, extra_scores)
+                    sync(torch, dev)
+                    profiled = time.perf_counter() - t0
+                busy_us = trace_device_busy_us(prof)
             runs[label] = {
                 "wall_secs": wall, "wall_secs_profiled": profiled,
                 "device_busy_secs": (None if busy_us is None
@@ -3238,8 +3287,15 @@ INGEST_CHUNK = 1_000_000
 #: to the numpy scatter: a cut of scale (PERF.md §4), since the scatter
 #: took ~24 s at the full 10,000,000 rows of a script over its budget
 INGEST_PLAIN_ROWS = 1_000_000
+#: rows of the draw on which phase 12 (a) runs both random-effect builders
+#: and holds them equal: a cut of scale (PERF.md §4) for phase 16: the two
+#: builds took ~66 s at 10,000,000 rows on a slow host; the ELL pack and
+#: (b)'s batch keep the full draw
+INGEST_BUILDER_ROWS = 2_500_000
 #: phase 12 (d): training / validation rows, hashed global features, users
-WIDE_ROWS = (200_000, 50_000)
+#: (a quarter of the earlier 200,000 / 50,000, a cut of scale: the
+#: fixture write, the indexing job and three training runs took ~103 s)
+WIDE_ROWS = (50_000, 12_500)
 WIDE_FEATURES, WIDE_USERS = 100_000, 2_000
 WIDE_SECTIONS = "global:globalFeatures|user:userFeatures"
 #: phase 12 (e): rcv1.binary's training split (rows, features, mean
@@ -3392,6 +3448,13 @@ def ingest_phase(torch, dev, workdir, shape=INGEST, chunk=INGEST_CHUNK):
         random_effect_type="u", feature_shard_id="s", num_partitions=1,
         num_active_data_points_upper_bound=32,
         num_features_to_keep_upper_bound=64)
+    # the builders on a smaller draw of the same generator
+    del data, mat
+    data = ingest_data(**{**shape, "n": min(shape["n"],
+                                             INGEST_BUILDER_ROWS)})
+    mat = data.feature_shards["s"]
+    n = mat.shape[0]
+    rec["builder_rows"] = n
     with RssPeak() as rss:
         t0 = time.perf_counter()
         ram = build_random_effect_dataset(data, cfg, device=dev)
@@ -3979,7 +4042,10 @@ def wide_streamed_phase(torch, dev, smi, data, workdir, hbm,
 #: request (rows drawn uniformly from 1 to it) against the f32 tier, with
 #: the hot-swap when half the requests have been answered; then requests
 #: per thread against the bf16 tier
-SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_ROWS = 4, 100, 256
+#: (50 requests a client, half the earlier 100, a cut of depth for phase
+#: 16's room: phases 13 (c) and 14 spent ~43 s on 100 a client on a slow
+#: host)
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_ROWS = 4, 50, 256
 BF16_TIER_REQUESTS = 25
 #: bf16 rounds a coefficient to 8 significant bits: relative error at
 #: most 2^-8 (round to nearest)
@@ -5241,6 +5307,577 @@ def mesh_phase(torch, dev, smi, data, phase5, drill_fixture, drill_f32,
             "seconds": time.perf_counter() - t0}, launches, err, timing_rows
 
 
+# -- phase 16: the process gang ---------------------------------------------
+
+#: phase 16 (c): the drill's rows (``DRILL_ROWS``) written as part files,
+#: so that each of two members reads a round-robin share of them
+GANG_DRILL_PARTS = (4, 1)
+#: phase 16 (b): the gang's coefficients against phase 6's single-process
+#: final state, max |gap| over max |phase 6| per coordinate, and its
+#: objective's relative gap: about twice what the card gave (NVIDIA H100
+#: 80GB HBM3, 700.00 W: 3.58e-2, 8.70e-3, 1.43, 7.11e-3). The gang groups
+#: the rows by process, so each of the 369 users past the active cap of
+#: 128 keeps another reservoir sample of its rows, and the fixed effect
+#: moves with their scores; the 5,671 users within the cap keep all their
+#: rows and are held tighter.
+GANG_BOUNDS = {"fixed": 7.5e-2, "per_user_within_cap": 2e-2,
+               "per_user_all": 3.0, "objective": 1.5e-2}
+
+#: phase 16 (a): one member of the witness. argv: repo, workdir, process
+#: id, port, the fixed effect's configuration, shards per process, device
+GANG_WITNESS_CHILD = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from photon_ml_tpu_torch.data.batch import DenseBatch
+from photon_ml_tpu_torch.ops import pallas_kernels as pk
+from photon_ml_tpu_torch.optimize.config import (
+    GLMOptimizationConfiguration, TaskType)
+from photon_ml_tpu_torch.optimize.problem import GLMOptimizationProblem
+from photon_ml_tpu_torch.parallel import multihost as mh
+from photon_ml_tpu_torch.parallel.collectives import (
+    PROCESS_GROUP_STATS, reset_process_group_stats)
+from photon_ml_tpu_torch.parallel.distributed import run_glm_shard_map
+from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+workdir, pid, port = sys.argv[2], int(sys.argv[3]), sys.argv[4]
+cfg, shards = sys.argv[5], int(sys.argv[6])
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = mh.gang_device(sys.argv[7], pid)
+cols = {k: np.load(f"{workdir}/{k}.npy", mmap_mode="r")
+        for k in ("X", "labels", "offsets", "weights")}
+half = cols["labels"].shape[0] // 2
+mine = slice(pid * half, (pid + 1) * half)
+batch = DenseBatch(**{k: torch.from_numpy(np.ascontiguousarray(v[mine]))
+                      .to(dev) for k, v in cols.items()})
+span = mh._distributed_initialize(f"127.0.0.1:{port}", 2, pid,
+                                  initialization_timeout=120,
+                                  heartbeat_timeout=120)
+try:
+    mesh = make_mesh(num_data=shards, devices=[dev] * shards, span=span,
+                     span_axis=DATA_AXIS)
+    problem = GLMOptimizationProblem(
+        config=GLMOptimizationConfiguration.parse(cfg),
+        task=TaskType.LOGISTIC_REGRESSION)
+    pk.reset_launch_count()
+    reset_process_group_stats()
+    t = time.perf_counter()
+    model, result = run_glm_shard_map(problem, batch, mesh)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    np.save(f"{workdir}/w{pid}.npy", model.coefficients.means.cpu().numpy())
+    k = pk.fused_value_gradient_sums
+    print("GANG_WITNESS " + json.dumps({
+        "process": pid, "fit_secs": secs, "objective": float(result.value),
+        "iterations": int(result.iterations),
+        "launches": pk.launch_count(),
+        "launches_by_path": dict(k.launches_by_path),
+        "launches_by_loss": dict(k.launches_by_loss),
+        "launches_by_shard": {str(s): n
+                              for s, n in k.launches_by_shard.items()},
+        "process_group": dict(PROCESS_GROUP_STATS)}), flush=True)
+finally:
+    mh._distributed_shutdown()
+"""
+
+#: phase 16 (b): one member of the training driver's gang, reporting its
+#: launches, traffic and seconds. argv: repo, raw-coefficients file, the
+#: driver's argv
+GANG_DRIVER_CHILD = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from photon_ml_tpu_torch.cli import game_training_driver as ttd
+from photon_ml_tpu_torch.io.data_format import INGEST_STATS
+from photon_ml_tpu_torch.ops import pallas_kernels as pk
+from photon_ml_tpu_torch.parallel.collectives import PROCESS_GROUP_STATS
+torch.backends.cuda.matmul.allow_tf32 = False
+pk.reset_launch_count()
+t = time.perf_counter()
+driver = ttd.run(sys.argv[3:])
+cuda = driver.device.type == "cuda"
+if cuda:
+    torch.cuda.synchronize()
+wall = time.perf_counter() - t
+res = driver.multihost_result
+raw = res["random_effect_raw"]["perUser"]
+ids = sorted(raw)
+np.savez(sys.argv[2], fixed=res["fixed"]["fixed"], ids=np.asarray(ids),
+         per_user=np.stack([raw[i] for i in ids]))
+k = pk.fused_value_gradient_sums
+print("GANG_MEMBER " + json.dumps({
+    "wall_secs": wall, "phase_seconds": driver.phase_seconds,
+    "launches": pk.launch_count(),
+    "launches_by_path": dict(k.launches_by_path),
+    "launches_by_loss": dict(k.launches_by_loss),
+    "process_group": dict(PROCESS_GROUP_STATS),
+    "ingest_parts": dict(INGEST_STATS),
+    "max_memory_allocated": (torch.cuda.max_memory_allocated() if cuda
+                             else None)}), flush=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_gang(argvs, workdir, name):
+    """One child per argv (``python`` + argv, from the repository root),
+    stdout piped, stderr to ``<workdir>/<name>.p<i>.stderr``."""
+    procs = []
+    for i, argv in enumerate(argvs):
+        err = open(os.path.join(workdir, f"{name}.p{i}.stderr"), "w")
+        procs.append(subprocess.Popen([sys.executable, *argv], cwd=REPO,
+                                      text=True, stdout=subprocess.PIPE,
+                                      stderr=err))
+        err.close()
+    return procs
+
+
+def finish_gang(procs, workdir, name, timeout=600.0) -> list:
+    """Wait for every child (killing all of them on a timeout or error);
+    returns ``[(exit code, stdout, stderr)]``."""
+    outs = []
+    try:
+        for i, p in enumerate(procs):
+            out, _ = p.communicate(timeout=timeout)
+            with open(os.path.join(workdir, f"{name}.p{i}.stderr")) as f:
+                outs.append((p.returncode, out, f.read()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def run_gang(argvs, workdir, name, timeout=600.0, ok=True) -> list:
+    outs = finish_gang(start_gang(argvs, workdir, name), workdir, name,
+                       timeout)
+    for i, (rc, out, err) in enumerate(outs):
+        if ok and rc != 0:
+            raise AssertionError(f"{name} member {i} exited {rc}:\n"
+                                 f"{out[-2000:]}\n{err[-4000:]}")
+    return outs
+
+
+def tagged(out: str, tag: str) -> dict:
+    (line,) = [x for x in out.splitlines() if x.startswith(tag + " ")]
+    return json.loads(line[len(tag) + 1:])
+
+
+def gang_argv(train, out, feature_sets, device, *extra) -> list:
+    """Phase 6's training argv (``driver_argv``) for a gang member: no
+    validation or evaluators (the multi-process driver refuses both, as
+    the JAX one does) and no model directories."""
+    from photon_ml_tpu_torch.tools.crash_resume_drill import driver_argv
+
+    argv = driver_argv(train, "", out, device, extra=[
+        "--feature-name-and-term-set-path", feature_sets,
+        "--model-output-mode", "NONE", *extra])
+    for flag in ("--validate-input-dirs", "--evaluator-type"):
+        i = argv.index(flag)
+        del argv[i:i + 2]
+    return argv
+
+
+def children_of(pid: int) -> list:
+    """The pids whose parent is ``pid`` (read from ``/proc``)."""
+    kids = []
+    for name in os.listdir("/proc"):
+        if name.isdigit():
+            try:
+                with open(f"/proc/{name}/stat") as f:
+                    stat = f.read()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                kids.append(int(name))
+    return kids
+
+
+def gang_witness_phase(torch, dev, data, workdir):
+    """Phase 16 (a): 2 processes x 2 shards of the card fit phase 5's
+    fixed effect, each feeding its half of the padded rows, and must
+    equal 1 process x 4 shards over the same row layout bit for bit."""
+    from photon_ml_tpu_torch.data.batch import pad_batch
+    from photon_ml_tpu_torch.game.dataset import build_fixed_effect_dataset
+    from photon_ml_tpu_torch.optimize.config import (
+        GLMOptimizationConfiguration, TaskType)
+    from photon_ml_tpu_torch.optimize.problem import GLMOptimizationProblem
+    from photon_ml_tpu_torch.ops import pallas_kernels as pk
+    from photon_ml_tpu_torch.parallel.distributed import run_glm_shard_map
+    from photon_ml_tpu_torch.parallel.mesh import (make_mesh,
+                                                   pad_rows_to_multiple)
+    from photon_ml_tpu_torch.tools.glmix_cases import GLMIX_CASES
+
+    t0 = time.perf_counter()
+    cfg = GLMIX_CASES["lbfgs"].fixed
+    batch = build_fixed_effect_dataset(data, "global", device=dev).batch
+    n = int(batch.labels.shape[0])
+    # the padded rows split into two halves of two shards each: the
+    # layout of 1 x 4 (``run_glm_shard_map`` pads to 4 shards alike)
+    batch = pad_batch(batch, pad_rows_to_multiple(n, MESH_SHARDS))
+    for k in ("X", "labels", "offsets", "weights"):
+        np.save(os.path.join(workdir, f"{k}.npy"),
+                getattr(batch, k).cpu().numpy())
+    port = free_port()
+    outs = run_gang([["-c", GANG_WITNESS_CHILD, REPO, workdir, str(i),
+                      str(port), cfg, str(MESH_SHARDS // 2), str(dev)]
+                     for i in range(2)], workdir, "witness", timeout=300)
+    members = [tagged(o, "GANG_WITNESS") for _, o, _ in outs]
+    problem = GLMOptimizationProblem(
+        config=GLMOptimizationConfiguration.parse(cfg),
+        task=TaskType.LOGISTIC_REGRESSION)
+    pk.reset_launch_count()
+    model, result = run_glm_shard_map(
+        problem, batch, make_mesh(num_data=MESH_SHARDS,
+                                  devices=[dev] * MESH_SHARDS))
+    single_launches = pk.launch_count()
+    w = model.coefficients.means.cpu().numpy()
+    for i, m in enumerate(members):
+        wi = np.load(os.path.join(workdir, f"w{i}.npy"))
+        if not (np.array_equal(wi, w) and m["objective"] == result.value):
+            raise AssertionError(
+                f"2 x 2 member {i} differs from 1 x 4: max |dw| "
+                f"{float(np.abs(wi - w).max()):.3g}, objective "
+                f"{m['objective']} vs {result.value}")
+        if dev.type == "cuda" and (m["launches"] <= 0 or set(
+                m["launches_by_shard"]) != {str(2 * i), str(2 * i + 1)}):
+            raise AssertionError(f"member {i} did not launch the kernel on "
+                                 f"its shards: {m}")
+    print(f"phase 16 (a): 2 x 2 = 1 x 4 bit for bit; launches per process "
+          f"{[m['launches'] for m in members]} (1 x 4: {single_launches}); "
+          f"bytes sent through the process group "
+          f"{[m['process_group']['bytes_sent'] for m in members]}",
+          file=sys.stderr, flush=True)
+    return {"rows": n, "padded_rows": int(batch.labels.shape[0]),
+            "shards_per_process": MESH_SHARDS // 2, "bit_equal": True,
+            "objective": float(result.value),
+            "iterations": int(result.iterations),
+            "members": members, "single_process_launches": single_launches,
+            "seconds": time.perf_counter() - t0}, members
+
+
+def gang_driver_phase(torch, dev, fixture, driver_dir, workdir,
+                      rows=DRIVER_ROWS, n_users=6040):
+    """Phase 16 (b): two members of the training driver on phase 6's
+    fixture and feature sets, held to phase 6's final state within
+    ``GANG_BOUNDS``; then the scoring driver split over two processes,
+    equal record for record to phase 6's scoring run."""
+    from photon_ml_tpu_torch.io.data_format import NameAndTermFeatureSets
+    from photon_ml_tpu_torch.io.model_io import (load_game_model,
+                                                 load_scored_items)
+    from photon_ml_tpu_torch.tools.crash_resume_drill import FIXTURE_PARTS
+
+    t0 = time.perf_counter()
+    train, val, feature_sets = fixture
+    out = os.path.join(workdir, "train_out")
+    port = free_port()
+    argv = gang_argv(train, out, feature_sets, str(dev))
+    outs = run_gang([["-c", GANG_DRIVER_CHILD, REPO,
+                      os.path.join(workdir, f"raw.p{i}.npz"), *argv,
+                      "--num-processes", "2", "--process-id", str(i),
+                      "--coordinator", f"127.0.0.1:{port}"]
+                     for i in range(2)], workdir, "driver", timeout=600)
+    members = []
+    for i, (_, so, _) in enumerate(outs):
+        line = [x for x in so.splitlines()
+                if x.startswith("MULTIHOST_GAME_OK")]
+        if len(line) != 1 or f"process={i} of=2 devices=2 re_entity_axis=2 " \
+                not in line[0]:
+            raise AssertionError(f"member {i}: no MULTIHOST_GAME_OK line "
+                                 f"with devices=2 re_entity_axis=2:\n{so}")
+        m = tagged(so, "GANG_MEMBER")
+        m["line"] = line[0]
+        members.append(m)
+        if dev.type == "cuda" and (m["launches"] <= 0 or m[
+                "launches_by_path"]["staged"] != m["launches"]):
+            raise AssertionError(f"member {i} did not launch the kernel "
+                                 f"on the staged path: {m}")
+        if m["ingest_parts"] != {"native_parts": FIXTURE_PARTS[0] // 2,
+                                 "declined_parts": 0, "records_parts": 0}:
+            raise AssertionError(f"member {i} left the native ingest: "
+                                 f"{m['ingest_parts']}")
+    npz = [dict(np.load(os.path.join(out, f"multihost_result.p{i}.npz")))
+           for i in range(2)]
+    if sorted(npz[0]) != sorted(npz[1]) or not all(
+            np.array_equal(npz[0][k], npz[1][k]) for k in npz[0]):
+        raise AssertionError("the members' npz files differ")
+    raw = [dict(np.load(os.path.join(workdir, f"raw.p{i}.npz")))
+           for i in range(2)]
+    if not all(np.array_equal(raw[0][k], raw[1][k]) for k in raw[0]):
+        raise AssertionError("the members' raw coefficients differ")
+
+    # phase 6's final state (output/grid-0) in the feature sets' indices
+    sections = dict(x.split(":") for x in DRIVER_SECTIONS.split("|"))
+    sets = NameAndTermFeatureSets.load(feature_sets,
+                                       sorted(sections.values()))
+    maps = {s: sets.index_map([sec], add_intercept=True)
+            for s, sec in sections.items()}
+    ref, _ = load_game_model(os.path.join(driver_dir, "train_out", "output",
+                                          "grid-0"), maps)
+    ref_fixed = ref.models["fixed"].model.coefficients.means.cpu().numpy()
+    ref_re = ref.models["perUser"]
+    ref_ids = [str(x) for x in ref_re.entity_ids]
+    ref_coefs = ref_re.coefficients.cpu().numpy()
+    order = {k: i for i, k in enumerate(ref_ids)}
+    gang_ids = [str(x) for x in raw[0]["ids"]]
+    if sorted(gang_ids) != sorted(ref_ids):
+        raise AssertionError("the gang's users differ from phase 6's")
+    ref_rows = ref_coefs[[order[k] for k in gang_ids]]
+    per_user_gap = np.abs(raw[0]["per_user"] - ref_rows).max(axis=1)
+    metrics = json.load(open(os.path.join(driver_dir, "train_out",
+                                          "metrics.json")))
+    ref_obj = metrics["grid"][0]["states"][-1]["objective"]
+    counts = rows_per_user(*rows, n_users=n_users)
+    within = np.asarray([counts[int(k)] <= 128 for k in gang_ids])
+    scale_re = float(np.abs(ref_rows).max())
+    gaps = {
+        "fixed": float(np.abs(raw[0]["fixed"] - ref_fixed).max()
+                       / np.abs(ref_fixed).max()),
+        "per_user_within_cap": float(per_user_gap[within].max()
+                                     / scale_re),
+        "per_user_all": float(per_user_gap.max() / scale_re),
+        "objective": abs(float(npz[0]["objective"]) - ref_obj)
+        / abs(ref_obj)}
+    print(f"phase 16 (b): gaps to phase 6 {gaps} (bounds {GANG_BOUNDS}); "
+          f"users within the cap {int(within.sum())} of {len(within)}",
+          file=sys.stderr, flush=True)
+    for k, v in gaps.items():
+        if not v <= GANG_BOUNDS[k]:
+            raise AssertionError(f"the gang's {k} gap {v:.3g} to phase 6 "
+                                 f"passes its bound {GANG_BOUNDS[k]}")
+    train_secs = time.perf_counter() - t0
+
+    # the scoring driver split over two processes, on phase 6's best/
+    t1 = time.perf_counter()
+    score_out = os.path.join(workdir, "score_out")
+    run_gang([["-m", "photon_ml_tpu_torch.cli.game_scoring_driver",
+               "--input-data-dirs", val,
+               "--game-model-input-dir", os.path.join(driver_dir,
+                                                      "train_out", "best"),
+               "--output-dir", score_out,
+               "--feature-shard-id-to-feature-section-keys-map",
+               DRIVER_SECTIONS, "--random-effect-id-set", "userId",
+               "--device", str(dev), "--num-processes", "2",
+               "--process-id", str(i)]
+              for i in range(2)], workdir, "score", timeout=300)
+    parts = sorted(os.listdir(os.path.join(score_out, "scores")))
+    if parts != ["part-00000.avro", "part-00001.avro"]:
+        raise AssertionError(f"scoring parts: {parts}")
+    split = [r for p in parts for r in load_scored_items(
+        os.path.join(score_out, "scores", p))]
+    whole = load_scored_items(os.path.join(driver_dir, "score_out",
+                                           "scores", "part-00000.avro"))
+    key = (lambda r: r["uid"])
+    if sorted(split, key=key) != sorted(whole, key=key):
+        raise AssertionError("the split scoring run's records differ from "
+                             "phase 6's")
+    score_secs = time.perf_counter() - t1
+    return {"rows": {"train": rows[0], "validate": rows[1]},
+            "members": members, "gaps_to_phase6": gaps,
+            "bounds": GANG_BOUNDS,
+            "users_within_cap": int(within.sum()), "users": len(within),
+            "objective": float(npz[0]["objective"]),
+            "phase6_objective": ref_obj,
+            "train_gang_secs": train_secs,
+            "scoring_records": len(split), "scoring_records_equal": True,
+            "scoring_gang_secs": score_secs,
+            "seconds": time.perf_counter() - t0}, members
+
+
+def rows_per_user(n_train, n_val, n_users=6040, seed=7) -> np.ndarray:
+    """Training rows of each user of ``write_movielens_avro``'s fixture
+    (its first draw): the users past the active cap of 128 are the ones
+    whose active rows are a reservoir sample."""
+    users = (np.random.default_rng(seed).zipf(1.3, size=n_train + n_val)
+             % n_users)[:n_train]
+    return np.bincount(users, minlength=n_users)
+
+
+def published_steps(ckpt) -> list:
+    from photon_ml_tpu_torch.utils.checkpoint import CheckpointManager
+
+    return CheckpointManager(ckpt).all_steps() if os.path.isdir(ckpt) \
+        else []
+
+
+def gang_supervision_phase(torch, dev, workdir, rows=DRILL_ROWS,
+                           n_users=6040, n_movies=3706, sweeps=3):
+    """Phase 16 (c): on the drill's rows as part files, an uninterrupted
+    gang beside a fresh gang whose member 1 is SIGTERMed (both members
+    must exit 75 at one coordinate); then a supervised gang whose member 1
+    is SIGKILLed after process 0's first snapshot, which must re-form,
+    resume and end on the uninterrupted gang's npz bit for bit."""
+    import signal
+
+    from photon_ml_tpu_torch.io.data_format import NameAndTermFeatureSets
+    from photon_ml_tpu_torch.tools.crash_resume_drill import (
+        write_movielens_avro)
+
+    t0 = time.perf_counter()
+    train, val = (os.path.join(workdir, k) for k in ("train", "validate"))
+    write_movielens_avro(train, val, *rows, n_users, n_movies, 64,
+                         parts=GANG_DRILL_PARTS)
+    sets = os.path.join(workdir, "feature_sets")
+    sections = sorted(x.split(":")[1] for x in DRIVER_SECTIONS.split("|"))
+    NameAndTermFeatureSets.from_paths([train], sections).save(sets)
+    write_secs = time.perf_counter() - t0
+
+    def members(out, *extra):
+        port = free_port()
+        return [["-m", "photon_ml_tpu_torch.cli.game_training_driver",
+                 *gang_argv(train, out, sets, str(dev), "--num-iterations",
+                            str(sweeps), *extra),
+                 "--num-processes", "2", "--process-id", str(i),
+                 "--coordinator", f"127.0.0.1:{port}"] for i in range(2)]
+
+    def npz(out, i):
+        return dict(np.load(os.path.join(out, f"multihost_result.p{i}.npz")))
+
+    # the uninterrupted gang and the SIGTERMed one side by side (four
+    # processes on the card), then the supervised gang alone
+    t1 = time.perf_counter()
+    ref_out, stop_out = (os.path.join(workdir, k) for k in ("reference",
+                                                            "stopped"))
+    ref_procs = start_gang(members(ref_out), workdir, "reference")
+    procs = start_gang(members(stop_out, "--num-iterations", "1000"),
+                       workdir, "stopped")
+    try:
+        log = os.path.join(stop_out, "game-training.p1.log")
+        deadline = time.time() + 120
+        while time.time() < deadline and not (
+                os.path.exists(log) and "part file(s)" in open(log).read()):
+            time.sleep(0.01)
+        procs[1].send_signal(signal.SIGTERM)
+    except BaseException:
+        finish_gang(procs, workdir, "stopped", timeout=1)
+        finish_gang(ref_procs, workdir, "reference", timeout=1)
+        raise
+    outs = finish_gang(procs, workdir, "stopped", timeout=300)
+    ref_outs = finish_gang(ref_procs, workdir, "reference", timeout=300)
+    steps = set()
+    for i, (rc, so, err) in enumerate(outs):
+        lines = [x for x in err.splitlines()
+                 if x.startswith("PHOTON_PREEMPTED")]
+        if rc != 75 or len(lines) != 1:
+            raise AssertionError(f"stopped member {i} exited {rc}:\n"
+                                 f"{err[-3000:]}")
+        steps.add(lines[0].split()[1])
+    if len(steps) != 1:
+        raise AssertionError(f"the members stopped at {steps}")
+    sigterm = {"exits": [o[0] for o in outs], "step": steps.pop()}
+    for i, (rc, so, err) in enumerate(ref_outs):
+        if rc != 0:
+            raise AssertionError(f"reference member {i} exited {rc}:\n"
+                                 f"{err[-3000:]}")
+    ref = npz(ref_out, 0)
+    side_by_side_secs = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    sup_out, ckpt = (os.path.join(workdir, k) for k in ("supervised",
+                                                        "ckpt"))
+    procs = start_gang(members(
+        sup_out, "--max-worker-restarts", "1", "--worker-backoff-base",
+        "0.5", "--heartbeat-timeout", "60", "--checkpoint-dir", ckpt,
+        "--checkpoint-every-coordinates", "1"), workdir, "supervised")
+    try:
+        worker = None
+        deadline = time.time() + 120
+        while worker is None and time.time() < deadline:
+            kids = children_of(procs[1].pid)
+            worker = kids[0] if kids else None
+            time.sleep(0.01)
+        steps = []
+        while not steps and time.time() < deadline:
+            steps = published_steps(ckpt)
+            if procs[1].poll() is not None:
+                break
+            time.sleep(0.01)
+        if worker is None or not steps:
+            raise AssertionError(f"no worker or no snapshot to kill after "
+                                 f"(worker {worker}, steps {steps})")
+        os.kill(worker, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        at_kill = max(published_steps(ckpt))
+        t_first = None
+        while t_first is None and time.time() < deadline + 180:
+            if max(published_steps(ckpt), default=-1) > at_kill:
+                t_first = time.perf_counter()
+            elif all(p.poll() is not None for p in procs):
+                break
+            time.sleep(0.01)
+    except BaseException:
+        finish_gang(procs, workdir, "supervised", timeout=1)
+        raise
+    outs = finish_gang(procs, workdir, "supervised", timeout=300)
+    for i, (rc, so, err) in enumerate(outs):
+        if rc != 0 or f"SUPERVISOR_OK worker=p{i} restarts=1" not in so:
+            raise AssertionError(f"supervised member {i} exited {rc}:\n"
+                                 f"{so[-2000:]}\n{err[-4000:]}")
+    resume = [x for x in outs[0][1].splitlines()
+              if x.startswith("MULTIHOST_RESUME")]
+    if not resume or t_first is None:
+        raise AssertionError(f"the re-formed gang did not resume: "
+                             f"{outs[0][1][-2000:]}")
+    for i in range(2):
+        got = npz(sup_out, i)
+        if sorted(got) != sorted(ref) or not all(
+                np.array_equal(got[k], ref[k]) for k in ref):
+            raise AssertionError(f"the resumed gang's member {i} differs "
+                                 f"from the uninterrupted gang")
+    supervisor_lines = [x for _, so, _ in outs for x in so.splitlines()
+                        if x.startswith("SUPERVISOR_OK")]
+    print(f"phase 16 (c): {resume[0]}; " + "; ".join(supervisor_lines)
+          + f"; kill to the re-formed gang's first update "
+          f"{t_first - t_kill:.2f} s; the resumed npz = the uninterrupted "
+          f"gang's bit for bit; SIGTERM: both exit 75 at {sigterm['step']}",
+          file=sys.stderr, flush=True)
+    return {"rows": {"train": rows[0], "validate": rows[1]},
+            "parts": list(GANG_DRILL_PARTS), "fixture_write_secs": write_secs,
+            "reference_and_sigterm_secs": side_by_side_secs,
+            "supervised": {"resume": resume[0],
+                           "supervisor_lines": supervisor_lines,
+                           "kill_to_first_update_secs": t_first - t_kill,
+                           "killed_after_step": at_kill,
+                           "bit_equal": True,
+                           "seconds": time.perf_counter() - t1},
+            "sigterm": sigterm,
+            "seconds": time.perf_counter() - t0}
+
+
+def gang_phase(torch, dev, smi, data, fixture, driver_dir, workdir,
+               driver_kw=None, drill_kw=None):
+    """Phase 16: the process gang on the card, (a) to (c); ``driver_kw``
+    and ``drill_kw`` give (b) and (c) the sizes of a smaller fixture (a
+    dry run on the CPU)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(workdir, ignore_errors=True)
+    for k in ("a", "b", "c"):
+        os.makedirs(os.path.join(workdir, k))
+    witness, witness_members = gang_witness_phase(
+        torch, dev, data, os.path.join(workdir, "a"))
+    driver, driver_members = gang_driver_phase(
+        torch, dev, fixture, driver_dir, os.path.join(workdir, "b"),
+        **(driver_kw or {}))
+    supervision = gang_supervision_phase(
+        torch, dev, os.path.join(workdir, "c"), **(drill_kw or {}))
+    launches = {f"gang_witness_p{i}": m for i, m in
+                enumerate(witness_members)}
+    launches.update({f"gang_driver_p{i}": m for i, m in
+                     enumerate(driver_members)})
+    return {"phase": "gang", "nvidia_smi": smi, "a_witness": witness,
+            "b_drivers": driver, "c_supervision": supervision,
+            "seconds": time.perf_counter() - t0}, launches
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -5527,7 +6164,8 @@ def main() -> int:
     print("per-user profile: " + json.dumps(profile), file=sys.stderr,
           flush=True)
     drivers2, drivers2_launches = second_order_driver_phase(
-        torch, dev, *fixture, os.path.join(build, "second_order"))
+        torch, dev, *drill_fixture, fixture[2],
+        os.path.join(build, "second_order"))
     emit({"phase": "second_order", "nvidia_smi": smi, "config2": cfg2,
           "config3": cfg3, "drivers": drivers2, "small_vs_cpu": small2,
           "per_user_profile": profile,
@@ -5576,7 +6214,6 @@ def main() -> int:
                         os.path.join(build, "fleet"))
     fleet["seconds"] = time.perf_counter() - t0
     del served
-    shutil.rmtree(driver_dir, ignore_errors=True)
     emit(fleet)
 
     # -- 15. the device mesh -------------------------------------------------
@@ -5589,6 +6226,13 @@ def main() -> int:
     for row in mesh_rows:
         timings[(row["n"], row["d"], row["dtype"], row["path"],
                  row["loss"])] = row
+
+    # -- 16. the process gang ----------------------------------------------
+    gang, gang_launches = gang_phase(torch, dev, smi, data, fixture,
+                                     driver_dir, os.path.join(build, "gang"))
+    for d in (driver_dir, os.path.join(build, "gang")):
+        shutil.rmtree(d, ignore_errors=True)
+    emit(gang)
 
     # -- kernels line, card line, result ---------------------------------------
     cd_runs = {f"cd_{k}": v for k, v in cd_launches.items()}
@@ -5607,7 +6251,8 @@ def main() -> int:
             **{k: v["by_path"] for k, v in single_launches.items()},
             "wide_streamed_c_in_ram": wide_launches["by_path"],
             **{k: v["by_path"] for k, v in bf16_launches.items()},
-            **{k: v["by_path"] for k, v in mesh_launches.items()}}
+            **{k: v["by_path"] for k, v in mesh_launches.items()},
+            **{k: v["launches_by_path"] for k, v in gang_launches.items()}}
     by_loss = {"glmix": glmix_by_loss, "driver": phase["launches_by_loss"],
                **{k: v["by_loss"] for k, v in second_order_runs.items()},
                **{k: v["by_loss"] for k, v in cd_runs.items()},
@@ -5615,7 +6260,9 @@ def main() -> int:
                **{k: v["by_loss"] for k, v in single_launches.items()},
                "wide_streamed_c_in_ram": wide_launches["by_loss"],
                **{k: v["by_loss"] for k, v in bf16_launches.items()},
-               **{k: v["by_loss"] for k, v in mesh_launches.items()}}
+               **{k: v["by_loss"] for k, v in mesh_launches.items()},
+               **{k: v["launches_by_loss"]
+                  for k, v in gang_launches.items()}}
     total_by_path = {p: sum(r[p] for r in runs.values())
                      for p in by_path}
     main = timings[(*GLMIX_SHAPE, "float32", "stream", "logistic")]
@@ -5646,7 +6293,7 @@ def main() -> int:
                   for p, r in (("stream", main), ("staged", staged))},
         "rows": [{k: r[k] for k in (
             "n", "d", "dtype", "path", "loss", "kernel_ms", "device_ms",
-            "plain_ms",
+            "host_ms", "plain_ms",
             "plain_device_ms", "library_ms", "library_device_ms",
             "bound_ms", "bound_by", "share_of_bound",
             "device_share_of_bound")} for r in timings.values()],
@@ -5660,6 +6307,8 @@ def main() -> int:
         "launches_by_shard": {
             k: mesh["b_glmix"]["runs"][k]["launches_by_shard"]
             for k in mesh["b_glmix"]["runs"]},
+        "launches_per_gang_process": {
+            k: v["launches"] for k, v in gang_launches.items()},
         "per_shard_shapes": [
             {"shape": [r["n"], r["d"]], "path": r["path"],
              "ms": r["kernel_ms"], "device_ms": r["device_ms"],

@@ -16,8 +16,13 @@ from a pre-built off-heap store (``--offheap-indexmap-num-partitions``
 must match it; ``:75-79``, ``:160-165``). The telemetry flags run as
 in the JAX driver (``:243-279``): ``--trace-dir`` writes the run's trace
 directory (``obs/run.py``), and ``run_end`` records how the run ended,
-also on exit 3. Not ported yet, and refused with ``NotImplementedError``
-through ``clean_abort``: ``--num-processes > 1``.
+also on exit 3. ``--num-processes N`` with ``--process-id i``
+(``:133-196``) scores the i-th round-robin share of the part files into
+``scores/part-<i>.avro``; scoring is per row, so the processes need no
+coordination. Evaluators (they need every score) and
+``--delete-output-dir-if-exists`` (it would delete the other processes'
+parts) are refused there, before the output directory is touched.
+``check_unported`` refuses nothing now.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from photon_ml_tpu_torch.evaluation.evaluators import (
     evaluate_many,
     resolve_entity_ids,
 )
+from photon_ml_tpu_torch.io.avro import expand_part_paths
 from photon_ml_tpu_torch.io.data_format import load_game_dataset_avro
 from photon_ml_tpu_torch.io.model_io import save_scored_items
 from photon_ml_tpu_torch.obs.run import start_observed_run_from_flags
@@ -97,9 +103,29 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
 
 
 def check_unported(ns: argparse.Namespace) -> None:
-    refuse_unported(ns, [
-        ("--num-processes", ns.num_processes > 1, "multi-process scoring"),
-    ])
+    """``NotImplementedError`` for a flag the port does not run yet: none
+    is left."""
+    refuse_unported(ns, [])
+
+
+def check_process_split(ns: argparse.Namespace, evaluators) -> None:
+    """The multi-process refusals (``:133-148``), before any output-dir
+    handling: the output directory is shared by every process."""
+    if ns.num_processes <= 1:
+        return
+    if evaluators:
+        raise ValueError(
+            "evaluators need the full score set; run them on the "
+            "combined output, not under --num-processes > 1")
+    if not 0 <= ns.process_id < ns.num_processes:
+        raise ValueError(
+            f"--process-id {ns.process_id} out of range for "
+            f"--num-processes {ns.num_processes}")
+    if parse_flag(ns.delete_output_dir_if_exists):
+        raise ValueError(
+            "--delete-output-dir-if-exists would delete other "
+            "processes' score parts; clear the output dir once "
+            "before launching the processes")
 
 
 class GameScoringDriver:
@@ -130,6 +156,7 @@ class GameScoringDriver:
 
     def run(self) -> np.ndarray:
         ns = self.ns
+        check_process_split(ns, self.evaluators)
         if os.path.isdir(ns.output_dir) and os.listdir(ns.output_dir) \
                 and parse_flag(ns.delete_output_dir_if_exists):
             shutil.rmtree(ns.output_dir)
@@ -149,6 +176,19 @@ class GameScoringDriver:
             {x.strip() for x in ns.random_effect_id_set.split(",")
              if x.strip()}
             | {e.id_type for e in self.evaluators if e.id_type})
+        input_paths = resolve_input_paths(ns.input_data_dirs, ns.date_range,
+                                          ns.date_range_days_ago)
+        if ns.num_processes > 1:
+            # this process's round-robin share of the part files
+            files = expand_part_paths(input_paths)
+            input_paths = files[ns.process_id::ns.num_processes]
+            if not input_paths:
+                raise ValueError(
+                    f"process {ns.process_id} received no part files "
+                    f"({len(files)} file(s) across {ns.num_processes})")
+            self.logger.info(
+                f"process {ns.process_id}/{ns.num_processes}: scoring "
+                f"{len(input_paths)} of {len(files)} part file(s)")
         with timed_phase("prepareGameDataSet", self.logger,
                          self.phase_seconds):
             self.ingest = build_ingest_policy(
@@ -156,10 +196,9 @@ class GameScoringDriver:
                 events=build_event_bus(self.logger.warn),
                 warn=self.logger.warn)
             data = load_game_dataset_avro(
-                resolve_input_paths(ns.input_data_dirs, ns.date_range,
-                                    ns.date_range_days_ago),
-                self.section_keys, index_maps, id_types=id_types,
-                response_required=False, policy=self.ingest)
+                input_paths, self.section_keys, index_maps,
+                id_types=id_types, response_required=False,
+                policy=self.ingest)
             self.ingest.finish(log=self.logger.warn)
         self.logger.info(
             f"scoring {data.num_samples} samples (data coverage "
@@ -198,16 +237,18 @@ class GameScoringDriver:
 
 def run(argv: Optional[Sequence[str]] = None) -> GameScoringDriver:
     """Run the driver; returns it (scores are on disk, metrics in
-    ``driver.metrics``). A recognized terminal condition (an unported
-    flag, shard loss over budget, a KeyboardInterrupt) ends the run with
-    the ``PHOTON_ABORT`` line and exit code 3; a missing CUDA device
-    raises ``RuntimeError``."""
+    ``driver.metrics``). A recognized terminal condition (shard loss over
+    budget, a KeyboardInterrupt) ends the run with the ``PHOTON_ABORT``
+    line and exit code 3; a missing CUDA device raises ``RuntimeError``;
+    a refused process split raises ``ValueError`` before any output."""
     ns = parse_args(list(argv) if argv is not None else sys.argv[1:])
     try:
         check_unported(ns)
     except clean_abort_types() as e:
         raise clean_abort(e) from None
     resolve_device(ns.device)
+    check_process_split(ns, [x for x in ns.evaluator_type.split(",")
+                             if x.strip()])
     driver = GameScoringDriver(ns)
     obs_run = start_observed_run_from_flags(
         ns, process_index=ns.process_id, num_processes=ns.num_processes,

@@ -59,9 +59,21 @@ data axis. Fixed-effect solves then split their rows over the data axis
 (with the sharded weight update when the entity axis is > 1, ``:580``),
 random-effect blocks are padded to the entity axis and solved over it,
 and ``--collective-quant int8`` ships the sharded collectives in int8.
-Flags whose feature is not ported yet raise ``NotImplementedError``
-naming the flag and end the run through ``clean_abort`` (exit 3):
-multi-process runs and their supervision. The telemetry flags
+Multi-process runs (``:882-1182``): ``--num-processes N`` with
+``--process-id``, ``--coordinator host:port`` (``--coordinator-timeout``
+bounds the gang's formation, ``--heartbeat-timeout`` every collective)
+runs this process as one member of a gang over ``torch.distributed``
+(``parallel/multihost.run_game_worker``) on its round-robin share of the
+part files; the configuration is checked first, with the JAX driver's
+refusals and messages (:func:`_check_multihost_args`), and each member
+writes ``game-training.p<i>.log`` and ``multihost_result.p<i>.npz``,
+prints ``MULTIHOST_GAME_OK``, and exits 75 on a gang stop.
+``--max-worker-restarts`` (with ``--worker-backoff-base`` and
+``--worker-backoff-max``) re-execs the member as a supervised child and
+relaunches it with bounded backoff. A member on the card uses
+``cuda:<process id % device count>``. ``check_unported`` refuses nothing
+now; it stays the hook for a flag the port takes before it runs it. The
+telemetry flags
 (``--trace-dir``, ``--trace-heartbeat-seconds``, ``--trace-stall-seconds``,
 ``--telemetry-endpoint``, ``--device-telemetry``) are validated as the
 JAX driver validates them (``check_telemetry_flags``, exit 2 on misuse)
@@ -304,12 +316,8 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
 
 def check_unported(ns: argparse.Namespace) -> None:
     """``NotImplementedError`` for the first flag set that asks for a
-    feature the port does not run yet."""
-    refuse_unported(ns, [
-        ("--num-processes", ns.num_processes > 1, "multi-process runs"),
-        ("--max-worker-restarts", ns.max_worker_restarts > 0,
-         "worker supervision"),
-    ])
+    feature the port does not run yet: none is left."""
+    refuse_unported(ns, [])
 
 
 class GameTrainingDriver:
@@ -318,7 +326,8 @@ class GameTrainingDriver:
     def __init__(self, ns: argparse.Namespace,
                  logger: Optional[PhotonLogger] = None):
         check_unported(ns)
-        resolve_entity_shards(ns)
+        if ns.num_processes <= 1:  # a gang member has its own entity axis
+            resolve_entity_shards(ns)
         self.ns = ns
         self.device = resolve_device(ns.device)
         # the granted entity axis (``run`` builds the mesh)
@@ -375,6 +384,8 @@ class GameTrainingDriver:
         self.best_result: Optional[CoordinateDescentResult] = None
         #: phase name -> wall seconds of the last run
         self.phase_seconds: dict[str, float] = {}
+        #: a gang member's result (``parallel/multihost.run_game_worker``)
+        self.multihost_result: Optional[dict] = None
 
     def _lane_chunk(self) -> int:
         """``--re-lane-compaction-chunk``: the auto value, or the chunk
@@ -773,19 +784,292 @@ def resolve_entity_shards(ns: argparse.Namespace) -> None:
     ns.re_entity_shards = largest_entity_divisor(n_dev, max(1, requested))
 
 
-def run(argv: Optional[Sequence[str]] = None) -> GameTrainingDriver:
+def _check_multihost_args(ns: argparse.Namespace) -> None:
+    """The multi-process configuration check (``:882-959``), run before
+    any worker or supervisor starts: a configuration error fails at once
+    with the JAX driver's message instead of spending a supervisor's
+    restart budget. Flags the multi-process path does not run are
+    refused, as in the JAX driver; ``--checkpoint-dir`` is taken (process
+    0 owns the snapshots)."""
+    if not ns.coordinator:
+        raise ValueError(
+            "--coordinator host:port is required with --num-processes > 1")
+    if not (ns.feature_name_and_term_set_path
+            or getattr(ns, "offheap_indexmap_dir", None)):
+        raise ValueError(
+            "multi-host mode needs pre-built feature maps: pass "
+            "--feature-name-and-term-set-path or --offheap-indexmap-dir "
+            "(every process must hold identical maps)")
+    unsupported = []
+    # the default (None) is no request for model output; only an
+    # explicit ALL/BEST is refused
+    if ns.model_output_mode not in (None, ModelOutputMode.NONE):
+        unsupported.append(
+            f"--model-output-mode {ns.model_output_mode} (only NONE: "
+            f"results are written as multihost_result.p<i>.npz, not avro "
+            f"model dirs)")
+    if ns.validate_input_dirs:
+        unsupported.append("--validate-input-dirs")
+    if ns.evaluator_type.strip():
+        unsupported.append("--evaluator-type")
+    if ns.recovery_policy != "none":
+        unsupported.append(
+            "--recovery-policy (divergence recovery is wired into the "
+            "single-process coordinate-descent loop only)")
+    if ns.re_lane_compaction_chunk != 0:  # 0 is "off"; auto (-1) counts
+        unsupported.append(
+            "--re-lane-compaction-chunk (lane compaction gathers active "
+            "lanes with per-chunk host round-trips; the multi-host solve "
+            "keeps its entity axis mesh-sharded and runs the "
+            "single-dispatch path)")
+    if ns.re_entity_shards != 1:  # 1 is "off"; auto counts
+        unsupported.append(
+            "--re-entity-shards (the multi-host worker already shards its "
+            "entity axis over the global mesh via GSPMD; the explicit "
+            "shard_map path is wired into the single-process driver only)")
+    if ns.cd_block_size != 1:
+        unsupported.append(
+            "--cd-block-size (the multi-host worker runs its own "
+            "gang-synchronous CD loop; block-parallel sweeps are wired "
+            "into the single-process coordinate-descent loop only)")
+    if ns.cd_pipeline_depth is not None:
+        unsupported.append(
+            "--cd-pipeline-depth (the multi-host worker runs its own "
+            "gang-synchronous CD loop; there is no per-coordinate "
+            "dispatch pipeline to configure there)")
+    if ns.max_shard_loss_frac > 0:
+        unsupported.append(
+            "--max-shard-loss-frac (shard quarantine is wired into the "
+            "single-process ingest; the multi-host workers must all "
+            "agree on the surviving row set, which needs a gang-level "
+            "coverage consensus that does not exist yet)")
+    if unsupported:
+        raise ValueError(
+            "multi-host mode (--num-processes > 1) does not support: "
+            + "; ".join(unsupported))
+    if ns.checkpoint_dir and ns.process_id == 0 \
+            and os.path.isdir(ns.checkpoint_dir):
+        # an all-corrupt directory is terminal: refuse it here, before a
+        # supervisor spends its restarts on it (process 0 alone reads it)
+        CheckpointManager(ns.checkpoint_dir).raise_if_all_corrupt()
+
+
+def _run_multihost(ns: argparse.Namespace) -> GameTrainingDriver:
+    """This process as one member of a multi-process run (``:962-1120``):
+    its round-robin share of the part files, the gang loop of
+    ``parallel/multihost.run_game_worker`` on its device, one
+    ``multihost_result.p<i>.npz`` with the JAX keys and the
+    ``MULTIHOST_GAME_OK`` line; a gang stop exits 75 on every member.
+    Returns the driver, with ``multihost_result``."""
+    from photon_ml_tpu_torch.io.avro import expand_part_paths
+    from photon_ml_tpu_torch.parallel.multihost import (
+        gang_device,
+        run_game_worker,
+    )
+
+    device = gang_device(ns.device, ns.process_id)  # no CUDA: RuntimeError
+    os.makedirs(ns.output_dir, exist_ok=True)
+    driver = GameTrainingDriver(ns, logger=PhotonLogger(
+        os.path.join(ns.output_dir,
+                     f"game-training.p{ns.process_id}.log"), echo=False))
+    # any member's signal, deadline or stop file stops the whole gang at
+    # one coordinate (the flags are all-gathered at each committed update)
+    stop = StopController(max_train_seconds=ns.max_train_seconds,
+                          stop_file=ns.stop_file)
+    stop.install_signal_handlers()
+    # each member writes its own trace.<i>.json / metrics.<i>.jsonl; a
+    # relaunched member keeps the crashed one's records
+    obs_run = start_observed_run_from_flags(
+        ns, process_index=ns.process_id, num_processes=ns.num_processes,
+        warn=driver.logger.warn,
+        preserve_existing=bool(os.environ.get(_SUPERVISED_ENV)))
+    try:
+        with timed_phase("prepareFeatureMaps", driver.logger,
+                         driver.phase_seconds):
+            driver.prepare_feature_maps()
+        fixed_ids = [c for c in driver.updating_sequence
+                     if c in driver.fixed_data_configs]
+        re_ids = [c for c in driver.updating_sequence
+                  if c in driver.random_data_configs]
+        if len(fixed_ids) != 1 or not re_ids:
+            raise ValueError(
+                "multi-host mode needs exactly one fixed coordinate and "
+                "at least one random-effect coordinate (plain or "
+                "factored)")
+        if (len(driver.fixed_opt_grid) > 1 or len(driver.random_opt_grid) > 1
+                or len(driver.factored_grid) > 1):
+            raise ValueError("multi-host mode supports a single grid point")
+        f_cid = fixed_ids[0]
+        f_opt = driver.fixed_opt_grid[0].get(
+            f_cid, GLMOptimizationConfiguration())
+        random_coordinates = [
+            (cid, driver.random_data_configs[cid],
+             driver.random_opt_grid[0].get(
+                 cid, GLMOptimizationConfiguration()),
+             driver.factored_grid[0].get(cid))
+            for cid in re_ids]
+        if not 0 <= ns.process_id < ns.num_processes:
+            raise ValueError(
+                f"--process-id {ns.process_id} out of range for "
+                f"--num-processes {ns.num_processes}")
+        files = expand_part_paths(resolve_input_paths(
+            ns.train_input_dirs, ns.train_date_range,
+            ns.train_date_range_days_ago))
+        local_files = files[ns.process_id::ns.num_processes]
+        if not local_files:
+            raise ValueError(
+                f"process {ns.process_id} received no part files "
+                f"({len(files)} file(s) across {ns.num_processes} "
+                "processes)")
+        driver.logger.info(
+            f"process {ns.process_id}/{ns.num_processes}: "
+            f"{len(local_files)} of {len(files)} part file(s)")
+        result = run_game_worker(
+            ns.process_id, ns.num_processes, ns.coordinator, local_files,
+            driver.section_keys, driver.index_maps,
+            (f_cid, driver.fixed_data_configs[f_cid], f_opt),
+            random_coordinates, driver.task,
+            num_iterations=ns.num_iterations,
+            num_buckets=max(1, int(ns.random_effect_block_buckets)),
+            initialization_timeout=ns.coordinator_timeout,
+            heartbeat_timeout=ns.heartbeat_timeout,
+            checkpoint_dir=ns.checkpoint_dir,
+            checkpoint_every_coordinates=ns.checkpoint_every_coordinates,
+            # one subdirectory per member: no two write the same memmaps
+            blocks_dir=(os.path.join(ns.random_effect_blocks_dir,
+                                     f"p{ns.process_id}")
+                        if ns.random_effect_blocks_dir else None),
+            precision=ns.precision, collective_quant=ns.collective_quant,
+            stop=stop, device=device)
+        driver.multihost_result = result
+        driver.phase_seconds.update(result["seconds"])
+        arrays = {
+            "fixed": result["fixed"][f_cid],
+            "objective": np.asarray(result["objective"]),
+            "re_coordinate_ids": np.asarray(
+                sorted(result["random_effect"])),
+        }
+        for cid, table in result["random_effect"].items():
+            ids = sorted(table)
+            arrays[f"re_ids__{cid}"] = np.asarray(ids)
+            arrays[f"re_coefs__{cid}"] = (
+                np.stack([table[i] for i in ids])
+                if ids else np.zeros((0, 0)))
+        np.savez(os.path.join(ns.output_dir,
+                              f"multihost_result.p{ns.process_id}.npz"),
+                 **arrays)
+        print(f"MULTIHOST_GAME_OK process={ns.process_id} "
+              f"of={ns.num_processes} devices={result['global_devices']} "
+              f"re_entity_axis={result['re_entity_axis_devices']} "
+              f"re_coordinates={','.join(sorted(result['random_effect']))} "
+              f"rows={result['rows_global']} "
+              f"objective={result['objective']:.6f}", flush=True)
+    except PreemptionRequested as e:
+        # every member raises at the same coordinate, after the snapshot
+        if obs_run is not None:
+            obs_run.set_exit_status("preempted",
+                                    reason=f"{e.reason} step={e.step}")
+        raise preempted_exit(e, log=driver.logger.warn) from None
+    except KeyboardInterrupt:
+        if obs_run is not None:
+            obs_run.set_exit_status("abort", reason="KeyboardInterrupt")
+        raise clean_abort(KeyboardInterrupt("interrupted by operator"),
+                          log=driver.logger.error) from None
+    except Exception as e:
+        driver.logger.error(f"multi-host GAME training failed: {e}")
+        if obs_run is not None:
+            obs_run.set_exit_status("error",
+                                    reason=f"{type(e).__name__}: {e}")
+        raise
+    finally:
+        stop.uninstall_signal_handlers()
+        if obs_run is not None:
+            obs_run.finish()
+        driver.logger.close()
+    return driver
+
+
+#: set in a supervised member's environment
+_SUPERVISED_ENV = "PHOTON_GAME_SUPERVISED"
+
+
+def _run_supervised(ns: argparse.Namespace, argv: Sequence[str]) -> None:
+    """Supervise this host's member (``:1123-1167``): re-exec the driver
+    as a child and relaunch it with bounded backoff and jitter when it
+    fails (a peer's death included: the survivors' collectives raise
+    within the heartbeat bound, and every host's supervisor re-forms the
+    gang). Restarts go to ``supervisor.p<i>.log`` and the
+    ``SUPERVISOR_OK worker=p<i> restarts=<n>`` line."""
+    import subprocess
+
+    from photon_ml_tpu_torch.parallel.multihost import (
+        SupervisorExhaustedError,
+        WorkerSupervisor,
+    )
+
+    if torch.device(ns.device).type == "cuda" \
+            and not torch.cuda.is_available():
+        # refused here, not by every relaunch (no CUDA context is made)
+        resolve_device(ns.device)
+    os.makedirs(ns.output_dir, exist_ok=True)
+    logger = PhotonLogger(
+        os.path.join(ns.output_dir, f"supervisor.p{ns.process_id}.log"),
+        echo=False)
+    name = f"worker p{ns.process_id}"
+
+    def spawn(attempt: int):
+        env = dict(os.environ)
+        env[_SUPERVISED_ENV] = "1"
+        logger.info(f"{name}: launch attempt {attempt}")
+        return subprocess.Popen(
+            [sys.executable, "-m",
+             "photon_ml_tpu_torch.cli.game_training_driver", *argv],
+            env=env)
+
+    sup = WorkerSupervisor(
+        spawn, max_restarts=ns.max_worker_restarts,
+        backoff_base_seconds=ns.worker_backoff_base,
+        backoff_max_seconds=ns.worker_backoff_max,
+        name=name, log=logger.warn)
+    try:
+        restarts = sup.run()
+    except SupervisorExhaustedError as e:
+        logger.error(f"{name}: {e}")
+        logger.close()
+        raise SystemExit(
+            f"multi-host worker process {ns.process_id} failed permanently "
+            f"after {e.restarts} restart(s); see the per-process driver "
+            f"log under {ns.output_dir}") from e
+    logger.info(f"{name}: completed with {restarts} restart(s)")
+    logger.close()
+    print(f"SUPERVISOR_OK worker=p{ns.process_id} restarts={restarts}",
+          flush=True)
+
+
+def run(argv: Optional[Sequence[str]] = None
+        ) -> Optional[GameTrainingDriver]:
     """Run the driver; returns it (``best_result``, ``phase_seconds``; the
     models and ``metrics.json`` are on disk). A recognized terminal
-    condition (an unported flag, shard loss over budget, an all-corrupt
-    checkpoint directory, an unrecovered injected fault, a
-    KeyboardInterrupt) ends the run with the ``PHOTON_ABORT`` line and
-    exit code 3; a graceful stop with the ``PHOTON_PREEMPTED`` line and
-    exit code 75; a missing CUDA device raises ``RuntimeError``."""
-    ns = parse_args(list(argv) if argv is not None else sys.argv[1:])
+    condition (shard loss over budget, an all-corrupt checkpoint
+    directory, an unrecovered injected fault, a KeyboardInterrupt) ends
+    the run with the ``PHOTON_ABORT`` line and exit code 3; a graceful
+    stop with the ``PHOTON_PREEMPTED`` line and exit code 75; a missing
+    CUDA device raises ``RuntimeError``. With ``--num-processes`` > 1 this
+    process is one member of a gang (:func:`_run_multihost`; its driver
+    is returned), or, with ``--max-worker-restarts``, the member's
+    supervisor (None is returned)."""
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    ns = parse_args(argv)
     try:
         check_unported(ns)
     except clean_abort_types() as e:
         raise clean_abort(e) from None
+    if ns.num_processes > 1:
+        _check_multihost_args(ns)
+        if ns.max_worker_restarts > 0 and not os.environ.get(
+                _SUPERVISED_ENV):
+            return _run_supervised(ns, argv)
+        return _run_multihost(ns)
     driver = GameTrainingDriver(ns)
     # graceful stop: SIGTERM/SIGINT latch the flag (a second delivery
     # forces), --max-train-seconds counts from now (ingest included),

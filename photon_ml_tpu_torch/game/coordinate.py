@@ -280,6 +280,12 @@ class FactoredRandomEffectCoordinate:
     B₀ is ``normal(PRNGKey(seed), (K, D)) / sqrt(K)`` drawn on the host in
     f32 (``utils/prng.py``), the JAX package's bits, so the card and the
     CPU start from the same point.
+
+    On a gang member (a dataset sliced over the processes of the default
+    mesh's entity axis) the per-entity solve gathers every slice
+    (``game/random_effect.py``), the Kronecker rows are this slice's, and
+    the refit runs over a data axis spanning the same processes, so every
+    member ends with the same B.
     """
 
     dataset: RandomEffectDataset
@@ -331,6 +337,8 @@ class FactoredRandomEffectCoordinate:
         entity-major ``offsets``."""
         ds = self.dataset
         e, n, d = ds.X.shape
+        if ds.entity_shard[1] > 1:  # this slice's entities
+            coefs = coefs[ds.local_entity_offset:ds.local_entity_offset + e]
         # f32 for bf16 blocks: the product promotes X, as the JAX
         # package's einsum does (``preferred_element_type=f32``)
         kron = (coefs.to(acc_dtype_for(ds.X.dtype))[:, None, :, None]
@@ -354,12 +362,34 @@ class FactoredRandomEffectCoordinate:
             # the lazy solve: the refit's history stays on the device (the
             # JAX package's ``run`` differs only by the variances, which
             # the latent problem does not compute)
-            result = self.latent_problem.run_lazy(
-                self.kronecker_batch(coefs, offsets), initial=B.reshape(-1))
+            result = self._refit(self.kronecker_batch(coefs, offsets), B)
             B = result.coefficients.reshape(B.shape)
             inner.append((RandomEffectTracker(iters, values, codes),
                           FixedEffectTracker(result)))
         return (coefs, B), FactoredRandomEffectTracker(inner)
+
+    def _refit(self, batch: DenseBatch, B: Tensor):
+        """The refit of B over ``batch``: local, or on a gang member over
+        a data axis spanning the processes of the entity axis."""
+        if self.dataset.entity_shard[1] <= 1:
+            return self.latent_problem.run_lazy(batch, initial=B.reshape(-1))
+        from photon_ml_tpu_torch.parallel.distributed import (
+            run_glm_shard_map,
+        )
+        from photon_ml_tpu_torch.parallel.mesh import (
+            DATA_AXIS,
+            ENTITY_AXIS,
+            get_default_mesh,
+            make_mesh,
+        )
+
+        mesh = get_default_mesh()
+        devices = mesh.axis_devices(ENTITY_AXIS)
+        data_mesh = make_mesh(num_data=len(devices), devices=devices,
+                              span=mesh.span_of(ENTITY_AXIS),
+                              span_axis=DATA_AXIS)
+        return run_glm_shard_map(self.latent_problem, batch, data_mesh,
+                                 initial=B.reshape(-1))[1]
 
     def score(self, state: tuple[Tensor, Tensor]) -> Tensor:
         coefs, B = state

@@ -292,7 +292,9 @@ class EntityBucket:
     332-358``): bucket row ``i < num_real`` is global entity
     ``entity_start + i``; padded rows have weight 0 and row id N. ``X``
     is a device tensor, or an ``np.memmap`` on the host when the streamed
-    builder had a ``blocks_dir``."""
+    builder had a ``blocks_dir``. A bucket built for one process of a
+    gang (``entity_shard``) holds the rows ``[local_entity_offset,
+    local_entity_offset + E_b / K)`` of the bucket's padded entity axis."""
 
     entity_start: int
     num_real: int
@@ -301,6 +303,7 @@ class EntityBucket:
     base_offsets: Tensor
     weights: Tensor  # 0 = padding
     row_ids: Tensor  # [E_b, N_b] int64 (num_samples = discard slot)
+    local_entity_offset: int = 0
 
 
 @dataclasses.dataclass
@@ -333,12 +336,20 @@ class RandomEffectDataset:
     #: the dtype host feature blocks (f32 memmaps) take on that device:
     #: ``--precision``'s storage dtype applies when a block is paged in
     storage_dtype: torch.dtype = torch.float32
+    #: ``(k, K)``: the blocks are the k-th of K contiguous slices of the
+    #: entity axis, one per process of a gang (``entity_shard`` of the
+    #: streamed builder); the solver and the score exchange gather the
+    #: slices over the default mesh's process-spanning entity axis
+    entity_shard: tuple = (0, 1)
+    #: the single block's first row on the whole entity axis (a sliced
+    #: single block; a bucket carries its own)
+    local_entity_offset: int = 0
 
     @property
     def num_entities(self) -> int:
         if self.buckets is not None:
             return sum(b.num_real for b in self.buckets)
-        return int(self.X.shape[0])
+        return int(self.X.shape[0]) * int(self.entity_shard[1])
 
     @property
     def reduced_dim(self) -> int:
@@ -911,7 +922,9 @@ def build_random_effect_dataset_streamed(
         blocks_dir: Optional[str] = None,
         dtype=torch.float32, device="cuda",
         native_pack: bool = True,
-        entity_axis_size: int = 1) -> RandomEffectDataset:
+        entity_axis_size: int = 1,
+        keep_host_blocks: bool = False,
+        entity_shard: Optional[tuple] = None) -> RandomEffectDataset:
     """Random-effect blocks from streamed parts (``dataset.py:993-1295``),
     optionally memmap-backed; ``entity_axis_size`` pads and balances each
     bucket for the entity axis as the in-RAM builder does.
@@ -932,8 +945,26 @@ def build_random_effect_dataset_streamed(
     ``dtype`` applies when a block is paged to the device (the dataset's
     ``storage_dtype``), as it applies at the device commit of RAM blocks.
     The result is always bucketed (``num_buckets=1``: one bucket) and
-    equals the in-RAM builder's array for array."""
+    equals the in-RAM builder's array for array.
+
+    ``entity_shard=(k, K)`` (``dataset.py:1038-1050``, ``:1159-1170``)
+    builds only the k-th of K contiguous slices of every bucket's padded
+    entity axis: the bucket plan stays global (it comes from the O(N)
+    scalar columns), and each process of a gang allocates and fills its
+    own slice, ``E_b / K`` entities starting at the bucket's
+    ``local_entity_offset``. ``entity_axis_size`` must be divisible by K;
+    passive rows stay whole. ``keep_host_blocks`` leaves the blocks
+    (features, labels, offsets, weights, row ids; passive rows too) as
+    host arrays until the caller places them. ``entity_shard=(0, 1)``
+    gives the unsharded dataset, array for array."""
     device = resolve_device(device)
+    shard_k, shard_count = (0, 1) if entity_shard is None else entity_shard
+    if not 0 <= shard_k < shard_count:
+        raise ValueError(f"entity_shard index {shard_k} out of range for "
+                         f"{shard_count} shards")
+    if entity_axis_size % shard_count != 0:
+        raise ValueError(f"entity_shard needs entity_axis_size divisible "
+                         f"by {shard_count}, got {entity_axis_size}")
     # ---- pass 1: scalar columns only ---------------------------------------
     codes_parts, y_parts, off_parts, wt_parts = [], [], [], []
     for _, c, y, o, w in stream_factory():
@@ -1004,16 +1035,19 @@ def build_random_effect_dataset_streamed(
     # ---- destination blocks -------------------------------------------------
     b_starts = np.concatenate([[0], np.cumsum(bucket_sizes)])
     Xs, labs, offsb, wtsb, rids, dims = [], [], [], [], [], []
+    slice_lo = []  # this slice's first row of each bucket's entity axis
     for b in range(len(bucket_sizes)):
         nr, n_b = int(bucket_sizes[b]), int(bucket_n_max[b])
         start = int(b_starts[b])
         d_b = _bucket_dim(projectors, start, nr, d_red, PAD_DIM_MULTIPLE)
-        e_b = _padded_entities(nr, entity_axis_size)
-        Xs.append(_alloc_rows((e_b, n_b, d_b), blocks_dir, f"bucket{b}_X"))
-        labs.append(np.zeros((e_b, n_b), np.float32))
-        offsb.append(np.zeros((e_b, n_b), np.float32))
-        wtsb.append(np.zeros((e_b, n_b), np.float32))
-        rids.append(np.full((e_b, n_b), n, np.int64))
+        e_loc = _padded_entities(nr, entity_axis_size) // shard_count
+        slice_lo.append(shard_k * e_loc)
+        Xs.append(_alloc_rows((e_loc, n_b, d_b), blocks_dir,
+                              f"bucket{b}_X"))
+        labs.append(np.zeros((e_loc, n_b), np.float32))
+        offsb.append(np.zeros((e_loc, n_b), np.float32))
+        wtsb.append(np.zeros((e_loc, n_b), np.float32))
+        rids.append(np.full((e_loc, n_b), n, np.int64))
         dims.append(d_b)
     p_X = (_alloc_rows((n_passive, d_red), blocks_dir, "passive_X")
            if n_passive else None)
@@ -1036,14 +1070,24 @@ def build_random_effect_dataset_streamed(
             for b in np.unique(b_of):
                 mask = b_of == b
                 start, nr = int(b_starts[b]), int(bucket_sizes[b])
+                lo_b = slice_lo[b]
+                if shard_count > 1:  # this slice's entities only
+                    in_bucket = ent - start
+                    mask &= ((in_bucket >= lo_b)
+                             & (in_bucket < lo_b + labs[b].shape[0]))
+                    if not mask.any():
+                        continue
                 n_b = int(bucket_n_max[b])
-                loc = ent[mask] - start
+                loc = ent[mask] - start - lo_b
                 sl = slot[mask]
+                # the projector rows of this slice's real entities
+                tbl = slice(start + lo_b,
+                            start + min(nr, lo_b + labs[b].shape[0]))
                 _fill_feature_rows(
                     sub_a[mask], Xs[b], loc * n_b + sl, projectors,
                     random_projector, table_ent=loc, global_ent=ent[mask],
                     raw_indices=None if projectors is None
-                    else projectors.raw_indices[start:start + nr, :dims[b]],
+                    else projectors.raw_indices[tbl, :dims[b]],
                     native_pack=native_pack)
                 labs[b][loc, sl] = resp[rows_g[mask]]
                 offsb[b][loc, sl] = offs[rows_g[mask]]
@@ -1071,28 +1115,32 @@ def build_random_effect_dataset_streamed(
         if host:
             X.flush()
             return X
+        if keep_host_blocks:
+            return X
         return _to_device(X, device, dtype)
+
+    def place(a):
+        return a if keep_host_blocks else _to_device(a, device)
 
     buckets = [EntityBucket(
         entity_start=int(b_starts[b]), num_real=int(bucket_sizes[b]),
-        X=feature_block(Xs[b]), labels=_to_device(labs[b], device),
-        base_offsets=_to_device(offsb[b], device),
-        weights=_to_device(wtsb[b], device),
-        row_ids=_to_device(rids[b], device))
+        X=feature_block(Xs[b]), labels=place(labs[b]),
+        base_offsets=place(offsb[b]), weights=place(wtsb[b]),
+        row_ids=place(rids[b]), local_entity_offset=slice_lo[b])
         for b in range(len(bucket_sizes))]
     passive = {}
     if p_X is not None:
         passive = dict(
-            passive_X=feature_block(p_X),
-            passive_entity=_to_device(p_ent, device),
-            passive_row_ids=_to_device(p_rows, device),
-            passive_offsets=_to_device(p_off, device, torch.float32))
+            passive_X=feature_block(p_X), passive_entity=place(p_ent),
+            passive_row_ids=place(p_rows),
+            passive_offsets=(p_off.astype(np.float32) if keep_host_blocks
+                             else _to_device(p_off, device, torch.float32)))
     return RandomEffectDataset(
         config=config, entity_codes=ent_codes, X=None, labels=None,
         base_offsets=None, weights=None, row_ids=None, num_samples=n,
         projectors=projectors, random_projector=random_projector,
         buckets=buckets, _reduced_dim=d_red, device=device,
-        storage_dtype=dtype, **passive)
+        storage_dtype=dtype, entity_shard=(shard_k, shard_count), **passive)
 
 
 def dataset_row_stream(data: GameDataset,

@@ -70,6 +70,16 @@ zeros and equals the unsharded score. A block whose lanes do not divide
 the axis, or a run without such a mesh, runs unsharded with one logged
 warning per cause. ``re.shard_dispatch`` is the fault point on a sharded
 block's coefficients.
+
+Across a gang's processes (``parallel/multihost.py``): the default mesh's
+entity axis spans the processes, and each process holds only its slice of
+every block (``RandomEffectDataset.entity_shard``, from the streamed
+builder's ``entity_shard``). A process solves its slice's lanes over its
+own shards of the axis, and the slices' outputs are gathered over the
+process group in process order into the compact global block, which every
+process keeps whole. The score exchange sums every shard's sample-axis
+partial of every process in global shard order, and passive rows, which
+every process holds whole, are scored with the global block.
 """
 
 from __future__ import annotations
@@ -102,7 +112,11 @@ from photon_ml_tpu_torch.optimize.problem import (
     regularization_penalty,
     select_solver,
 )
-from photon_ml_tpu_torch.parallel.collectives import run_shards, tree_to
+from photon_ml_tpu_torch.parallel.collectives import (
+    ProcessSpan,
+    run_shards,
+    tree_to,
+)
 from photon_ml_tpu_torch.parallel.mesh import (
     ENTITY_AXIS,
     ensure_addressable,
@@ -532,9 +546,11 @@ _SHARD_FALLBACK_WARNED: set = set()
 
 
 def _resolve_entity_shards(entity_shards: int, num_lanes: int):
-    """(devices of the entity axis, K) when the sharded path engages for a
-    block of ``num_lanes`` lanes, else (None, 1) with one logged warning
-    per cause (``random_effect.py:678-707``)."""
+    """(this process's devices of the entity axis, K) when the sharded path
+    engages for a block of ``num_lanes`` lanes (this process's slice of
+    them on a process-spanning axis), else (None, 1) with one logged
+    warning per cause (``random_effect.py:678-707``). K counts the whole
+    axis."""
     if entity_shards <= 1:
         return None, 1
     mesh = get_default_mesh()
@@ -548,7 +564,12 @@ def _resolve_entity_shards(entity_shards: int, num_lanes: int):
                 "entity axis > 1 is installed; running unsharded",
                 entity_shards)
         return None, 1
-    if num_lanes % K != 0:
+    devices = mesh.axis_devices(ENTITY_AXIS)
+    if num_lanes % len(devices) != 0:
+        if mesh.span is not None:  # a gang must not fall back per process
+            raise ValueError(
+                f"entity slice of {num_lanes} lanes does not divide this "
+                f"process's {len(devices)} entity shards")
         reason = ("ragged", num_lanes, K)
         if reason not in _SHARD_FALLBACK_WARNED:
             _SHARD_FALLBACK_WARNED.add(reason)
@@ -557,17 +578,57 @@ def _resolve_entity_shards(entity_shards: int, num_lanes: int):
                 "shards; running this block unsharded (build the dataset "
                 "with entity_axis_size=%d to pad it)", num_lanes, K, K)
         return None, 1
-    return mesh.axis_devices(ENTITY_AXIS), K
+    return devices, K
+
+
+def _entity_axis_span() -> Optional[ProcessSpan]:
+    """The process span of the default mesh's entity axis, if any."""
+    mesh = get_default_mesh()
+    return None if mesh is None else mesh.span_of(ENTITY_AXIS)
+
+
+def _process_span(dataset: RandomEffectDataset) -> Optional[ProcessSpan]:
+    """The process span a gang member's sliced ``dataset`` is gathered
+    over (the default mesh's entity axis); None for a whole dataset."""
+    k = int(dataset.entity_shard[1])
+    if k <= 1:
+        return None
+    span = _entity_axis_span()
+    if span is None or span.size != k:
+        raise RuntimeError(
+            f"a dataset sliced over {k} processes needs a default mesh "
+            f"whose entity axis spans {k} processes, got "
+            f"{get_default_mesh()!r}")
+    return span
+
+
+def _local_lanes(coefs: Tensor, offset: int, lanes: int) -> Tensor:
+    """Rows ``[offset, offset + lanes)`` of a block's padded coefficients
+    ``coefs`` (rows past its end are zero: padding lanes)."""
+    out = coefs.new_zeros((lanes,) + tuple(coefs.shape[1:]))
+    real = max(0, min(int(coefs.shape[0]) - offset, lanes))
+    out[:real] = coefs[offset:offset + real]
+    return out
+
+
+def _gather_slices(out: tuple, span: Optional[ProcessSpan]) -> tuple:
+    """A solve's lane outputs (coefficients, iterations, values, codes)
+    of every process's slice, concatenated in process order."""
+    if span is None:
+        return out
+    return tuple(torch.cat(span.all_gather(t)) for t in out)
 
 
 def _sharded_score(devices: list, X: Tensor, coefs: Tensor,
                    row_ids: Tensor, weights: Tensor, num_samples: int,
-                   collective_quant: str = "none") -> Tensor:
+                   collective_quant: str = "none",
+                   span: Optional[ProcessSpan] = None) -> Tensor:
     """The active-score exchange over the entity axis
     (``random_effect.py:710-740``): every shard scores its lanes into a
     sample-axis partial, and the partials are summed over the axis in
-    shard order (int8 on the wire with ``collective_quant``); returns the
-    sum on ``coefs``' device."""
+    shard order (int8 on the wire with ``collective_quant``; over every
+    process's shards with ``span``); returns the sum on ``coefs``'
+    device."""
     pieces = [_lane_pieces(t, devices) for t in (X, coefs, row_ids,
                                                  weights)]
 
@@ -575,7 +636,8 @@ def _sharded_score(devices: list, X: Tensor, coefs: Tensor,
         return qpsum(score_active(X_s, c_s, r_s, w_s, num_samples),
                      ENTITY_AXIS, mode=collective_quant)
 
-    outs = run_shards(body, devices, ENTITY_AXIS, list(zip(*pieces)))
+    outs = run_shards(body, devices, ENTITY_AXIS, list(zip(*pieces)),
+                      span=span)
     return outs[0].to(coefs.device)
 
 
@@ -625,14 +687,17 @@ class RandomEffectOptimizationProblem:
                                           solver, l1)
         e, _, d = dataset.X.shape
         acc = acc_dtype_for(dataset.X.dtype)
+        span = _process_span(dataset)
+        if span is not None and initial is not None:
+            initial = _local_lanes(initial, dataset.local_entity_offset, e)
         x0 = solver_x0(acc, (e, d), initial, dataset.X.device)
         with trace.span("re.solve", solver=solver, bucketed=False,
                         entities=int(e)):
-            return self._fit(dataset.X, dataset.labels, offsets.to(acc),
-                             dataset.weights, x0, self.objective(),
-                             torch.full((d,), l1, dtype=acc,
-                                        device=x0.device), solver,
-                             fault_tag="0")
+            return _gather_slices(self._fit(
+                dataset.X, dataset.labels, offsets.to(acc), dataset.weights,
+                x0, self.objective(),
+                torch.full((d,), l1, dtype=acc, device=x0.device), solver,
+                fault_tag="0"), span)
 
     def _fit(self, X, labels, offsets, weights, x0, obj, l1: Tensor,
              solver: str, fault_tag: Optional[str] = None):
@@ -650,7 +715,7 @@ class RandomEffectOptimizationProblem:
         if shards > 1:
             with trace.span("re.shard_solve", solver=solver, shards=shards,
                             lanes=e):
-                if 0 < chunk < cfg.max_iterations and e // shards > 1:
+                if 0 < chunk < cfg.max_iterations and e // len(devices) > 1:
                     lane_seq = [] if auto else None
                     out = _fit_blocks_compacted_sharded(
                         devices, X, labels, offsets, weights, x0, obj, l1,
@@ -690,23 +755,23 @@ class RandomEffectOptimizationProblem:
         d_red = dataset.reduced_dim
         dev = dataset.device
         obj = self.objective()
+        span = _process_span(dataset)
         outs = []
         for bi, (bucket, off_b) in enumerate(zip(dataset.buckets, offsets)):
             # a host block is copied here and dropped after its solve
             X = device_block(bucket.X, dev, dataset.storage_dtype)
             acc = acc_dtype_for(X.dtype)
-            e_b, _, d_b = X.shape
+            e_b, _, d_b = X.shape  # this process's slice on a gang
             nr, start = bucket.num_real, bucket.entity_start
             if initial is None:
                 x0_b = torch.zeros((e_b, d_b), dtype=acc, device=dev)
             else:
-                x0_b = torch.nn.functional.pad(
-                    initial.to(acc)[start:start + nr, :d_b],
-                    (0, 0, 0, e_b - nr))
-            outs.append(self._fit(
+                x0_b = _local_lanes(initial.to(acc)[start:start + nr, :d_b],
+                                    bucket.local_entity_offset, e_b)
+            outs.append(_gather_slices(self._fit(
                 X, bucket.labels, off_b.to(acc), bucket.weights, x0_b,
                 obj, torch.full((d_b,), l1, dtype=acc, device=dev), solver,
-                fault_tag=str(bi)))
+                fault_tag=str(bi)), span))
             del X
         acc = outs[0][0].dtype  # the solver state's
         pairs = list(zip(dataset.buckets, outs))
@@ -767,17 +832,28 @@ def score_random_effect(dataset: RandomEffectDataset, coefs: Tensor,
     ``coefs`` is the compact global block ``[num_entities, reduced_dim]``.
     With ``entity_shards`` > 1 (engaging as the sharded solve does) each
     block's active scores come from the entity-sharded exchange, whose
-    wire bytes count on ``collective_bytes{site="re.score_psum"}``."""
+    wire bytes count on ``collective_bytes{site="re.score_psum"}``. A
+    gang member's sliced dataset scores its slice's active rows, and the
+    exchange over the process-spanning entity axis adds every process's
+    partial."""
     n = dataset.num_samples
+    span = _process_span(dataset)
 
-    def score_block(X, c_b, row_ids, weights):
+    def score_block(X, c_b, row_ids, weights, offset=0):
+        if span is not None:
+            c_b = _local_lanes(c_b, offset, int(X.shape[0]))
         devices, shards = _resolve_entity_shards(entity_shards,
                                                  int(X.shape[0]))
+        axis_span = _entity_axis_span() if shards > 1 else None
+        if span is not None and axis_span is None:
+            raise RuntimeError("a sliced dataset scores over the "
+                               "process-spanning entity axis only (set "
+                               "entity_shards to the whole axis)")
         if shards > 1:
             with trace.span("re.shard_score", shards=shards,
                             lanes=int(X.shape[0])):
                 out = _sharded_score(devices, X, c_b, row_ids, weights, n,
-                                     collective_quant)
+                                     collective_quant, axis_span)
                 record_collective_bytes("re.score_psum", collective_quant,
                                         n)
                 return out
@@ -788,13 +864,15 @@ def score_random_effect(dataset: RandomEffectDataset, coefs: Tensor,
         for b in dataset.buckets:
             X = device_block(b.X, coefs.device, dataset.storage_dtype)
             e_b, _, d_b = X.shape
-            c_b = coefs.new_zeros((e_b, d_b))
-            c_b[:b.num_real] = coefs[b.entity_start:b.entity_start
-                                     + b.num_real, :d_b]
-            s = s + score_block(X, c_b, b.row_ids, b.weights)
+            c_b = coefs[b.entity_start:b.entity_start + b.num_real, :d_b]
+            if span is None:
+                c_b = _local_lanes(c_b, 0, e_b)
+            s = s + score_block(X, c_b, b.row_ids, b.weights,
+                                b.local_entity_offset)
             del X
     else:
-        s = score_block(dataset.X, coefs, dataset.row_ids, dataset.weights)
+        s = score_block(dataset.X, coefs, dataset.row_ids, dataset.weights,
+                        dataset.local_entity_offset)
     if dataset.num_passive:
         s = s + score_passive(dataset.passive_X, dataset.passive_entity,
                               coefs, dataset.passive_row_ids, n,

@@ -21,6 +21,20 @@ Outside a shard runner an axis name is unbound and every collective
 raises ``NameError``, as ``lax.psum`` does outside ``shard_map``; a None
 axis is the identity (the unsharded callers' convention).
 
+An axis may span processes (``span``, a :class:`ProcessSpan`: a gang of
+processes joined by a ``torch.distributed`` process group). Each process
+then runs its own shards of the axis in threads as above, and the
+combining shard of each process gathers **every** shard's deposit from
+every process through the process group (no per-process pre-sum) before
+it combines them, in global shard order: process-major, then the
+process's own shard order. So P processes x k shards give the bits of
+one process x P*k shards over the same rows, and every replica gets the
+same result. :func:`axis_index` is then the global shard index. The
+exchange is staged through host memory (pinned on CUDA): the deposits are
+copied to the host, gathered over gloo and copied back, because one card
+can host several processes of a gang and NCCL refuses two ranks on one
+device.
+
 A collective is a rendezvous of all the axis's threads at a barrier.
 When a shard raises, the barrier is aborted, so the others leave their
 wait instead of hanging, and :func:`run_shards` raises the first error.
@@ -53,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import time
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -60,6 +75,52 @@ import torch
 _CTX = threading.local()
 
 SHARD_BARRIER_SECONDS = 1800.0
+
+#: Traffic of this process through its process group: the collectives it
+#: joined, the bytes it sent (each gather sends its own payload once) and
+#: the wall seconds it spent in them (waiting for its peers included).
+PROCESS_GROUP_STATS = {"collectives": 0, "bytes_sent": 0, "seconds": 0.0}
+
+
+def reset_process_group_stats() -> None:
+    PROCESS_GROUP_STATS.update(collectives=0, bytes_sent=0, seconds=0.0)
+
+
+class ProcessSpan:
+    """This process's place in a gang: ``rank`` of ``size`` processes of
+    the default ``torch.distributed`` process group (gloo). Every gather
+    goes through host memory; a gang member that dies makes the
+    survivors' next gather raise within the group's timeout."""
+
+    def __init__(self, rank: int, size: int):
+        self.rank = int(rank)
+        self.size = int(size)
+
+    def all_gather_bytes(self, payload: torch.Tensor) -> list:
+        """Every process's ``payload`` (a 1-D uint8 host tensor of the
+        same length on every process) in process order."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        outs = [torch.empty_like(payload) for _ in range(self.size)]
+        dist.all_gather(outs, payload)
+        PROCESS_GROUP_STATS["seconds"] += time.perf_counter() - t0
+        PROCESS_GROUP_STATS["collectives"] += 1
+        PROCESS_GROUP_STATS["bytes_sent"] += int(payload.numel())
+        return outs
+
+    def all_gather(self, t: torch.Tensor) -> list:
+        """Every process's ``t`` (same shape and dtype everywhere) in
+        process order, each on ``t``'s device: staged through host memory,
+        pinned when ``t`` is on CUDA."""
+        flat = t.detach().contiguous().reshape(-1)
+        raw = flat.view(torch.uint8) if flat.numel() else flat.new_empty(
+            0, dtype=torch.uint8)
+        host = torch.empty(raw.numel(), dtype=torch.uint8,
+                           pin_memory=t.device.type == "cuda")
+        host.copy_(raw)
+        outs = self.all_gather_bytes(host)
+        return [o.to(t.device).view(t.dtype).reshape(t.shape) for o in outs]
 
 
 def _current_stream(dev: torch.device):
@@ -92,8 +153,10 @@ class _Group:
     """One axis's shards: their devices, a barrier and the slots of the
     collective in flight."""
 
-    def __init__(self, devices: Sequence[torch.device]):
+    def __init__(self, devices: Sequence[torch.device],
+                 span: Optional[ProcessSpan] = None):
         self.devices = list(devices)
+        self.span = span
         self.barrier = threading.Barrier(len(self.devices),
                                          timeout=SHARD_BARRIER_SECONDS)
         self.slots: list = [None] * len(self.devices)
@@ -101,14 +164,27 @@ class _Group:
         self.result = None
         self.result_event = None
 
+    def global_index(self, index: int) -> int:
+        """A local shard's position on the whole (process-spanning) axis."""
+        rank = self.span.rank if self.span is not None else 0
+        return rank * len(self.devices) + index
+
+    def _global_slots(self, dev: torch.device) -> list:
+        """Every shard's deposit of every process, in global shard order,
+        on ``dev``."""
+        if self.span is None:
+            return self.slots
+        local = torch.stack([s.to(dev) for s in self.slots])
+        return [s for part in self.span.all_gather(local) for s in part]
+
     def exchange(self, index: int, value: torch.Tensor,
                  combine: Callable[[list, torch.device], torch.Tensor]
                  ) -> torch.Tensor:
-        """Deposit ``value``, let shard 0 ``combine`` every slot on its
-        device, and return a copy of the result on this shard's device.
-        Shard 0 writes the next result only after every shard has passed
-        the next deposit, so no shard reads a result that is being
-        replaced."""
+        """Deposit ``value``, let shard 0 ``combine`` every slot (of every
+        process, when the axis spans processes) on its device, and return
+        a copy of the result on this shard's device. Shard 0 writes the
+        next result only after every shard has passed the next deposit,
+        so no shard reads a result that is being replaced."""
         self.slots[index] = value
         self.events[index] = _record(value)
         self.barrier.wait()
@@ -116,7 +192,7 @@ class _Group:
         if index == 0:
             for slot, event in zip(self.slots, self.events):
                 _await(slot, event, dev0)
-            self.result = combine(self.slots, dev0)
+            self.result = combine(self._global_slots(dev0), dev0)
             self.result_event = _record(self.result)
         self.barrier.wait()
         result = self.result
@@ -136,12 +212,17 @@ def bound_index(axis_name: str) -> Optional[int]:
     """This shard's position on ``axis_name``; None where the axis is not
     bound (outside a shard body of that axis)."""
     axes = getattr(_CTX, "axes", None) or {}
-    return axes[axis_name][1] if axis_name in axes else None
+    if axis_name not in axes:
+        return None
+    group, index = axes[axis_name]
+    return group.global_index(index)
 
 
 def axis_index(axis_name: str) -> int:
-    """This shard's position on ``axis_name``."""
-    return _bound(axis_name)[1]
+    """This shard's position on ``axis_name`` (on the whole axis, when it
+    spans processes)."""
+    group, index = _bound(axis_name)
+    return group.global_index(index)
 
 
 def _sum_in_order(slots: list, dev: torch.device) -> torch.Tensor:
@@ -208,7 +289,8 @@ def _shard_stream(dev: torch.device, caller):
 
 def run_shards(body: Callable, devices: Sequence[torch.device],
                axis_name: str, args_per_shard: Sequence[tuple],
-               collectives: bool = True) -> list:
+               collectives: bool = True,
+               span: Optional[ProcessSpan] = None) -> list:
     """Run ``body(*args_per_shard[i])`` for every shard ``i`` of
     ``axis_name``, each in its own thread with ``devices[i]`` current (and,
     on CUDA, a stream of its own), and return the outputs in shard order;
@@ -216,14 +298,16 @@ def run_shards(body: Callable, devices: Sequence[torch.device],
     enclosing runner stay bound. When a shard raises, the others are
     released from their barrier and the first error is raised here.
     A body that makes no collective (``collectives=False``) on shards of
-    one device runs in this thread, shard after shard."""
+    one device runs in this thread, shard after shard. With ``span`` the
+    axis spans the gang's processes: ``devices`` are this process's
+    shards, and every process of the gang must run the same body."""
     n = len(devices)
     if len(args_per_shard) != n:
         raise ValueError(f"{len(args_per_shard)} argument sets for "
                          f"{n} shards")
     if not collectives and len(set(devices)) == 1:
-        return _run_in_turn(body, devices, axis_name, args_per_shard)
-    group = _Group(devices)
+        return _run_in_turn(body, devices, axis_name, args_per_shard, span)
+    group = _Group(devices, span)
     outs: list = [None] * n
     errors: list = [None] * n
     done: list = [None] * n  # each shard stream's last event
@@ -264,11 +348,13 @@ def run_shards(body: Callable, devices: Sequence[torch.device],
     return outs
 
 
-class _InTurn:
+class _InTurn(_Group):
     """The group of shards run in turn: it has no rendezvous."""
 
-    def __init__(self, devices: Sequence[torch.device]):
+    def __init__(self, devices: Sequence[torch.device],
+                 span: Optional[ProcessSpan] = None):
         self.devices = list(devices)
+        self.span = span
 
     def exchange(self, index, value, combine):
         raise RuntimeError("a collective in a body run with "
@@ -276,8 +362,9 @@ class _InTurn:
 
 
 def _run_in_turn(body: Callable, devices: Sequence[torch.device],
-                 axis_name: str, args_per_shard: Sequence[tuple]) -> list:
-    group = _InTurn(devices)
+                 axis_name: str, args_per_shard: Sequence[tuple],
+                 span: Optional[ProcessSpan] = None) -> list:
+    group = _InTurn(devices, span)
     parent = dict(getattr(_CTX, "axes", None) or {})
     scope = (torch.cuda.device(devices[0]) if devices[0].type == "cuda"
              else contextlib.nullcontext())
@@ -294,12 +381,14 @@ def _run_in_turn(body: Callable, devices: Sequence[torch.device],
 
 def shard_map(body: Callable, devices: Sequence[torch.device],
               axis_name: str, in_specs: Sequence[Optional[str]],
-              out_specs: Sequence[Optional[str]]) -> Callable:
+              out_specs: Sequence[Optional[str]],
+              span: Optional[ProcessSpan] = None) -> Callable:
     """``shard_map`` over one axis: the returned function takes, for an
     input whose spec is ``axis_name``, a sequence of per-shard pieces (one
     per device) and, for a None spec, one value copied to every shard's
     device. Outputs whose spec is ``axis_name`` come back as per-shard
-    lists; a None spec (replicated) returns shard 0's."""
+    lists; a None spec (replicated) returns shard 0's. ``span``: the
+    axis spans the gang's processes (:func:`run_shards`)."""
 
     def run(*args):
         if len(args) != len(in_specs):
@@ -314,7 +403,7 @@ def shard_map(body: Callable, devices: Sequence[torch.device],
                 else:
                     shard_args.append(a[i])
             per_shard.append(tuple(shard_args))
-        outs = run_shards(body, devices, axis_name, per_shard)
+        outs = run_shards(body, devices, axis_name, per_shard, span=span)
         result = []
         for j, spec in enumerate(out_specs):
             if spec is None:

@@ -22,6 +22,13 @@ runner standing in for its ``_shard_map`` (``:46-58``) is
   stay 0 (their gradient is 0, and OWL-QN's pseudo-gradient at x = 0,
   g = 0 is 0).
 
+Over a mesh whose data axis spans a gang's processes
+(``parallel/multihost.py``) each process passes its own rows: they are
+padded and split over this process's shards, and the sums and the
+sharded update's gathers run over every process's shards in global shard
+order, so P processes x k shards give the bits of one process x P*k
+shards over the same row layout.
+
 Parity with the local solve: the sums are reassociated (a sum of
 per-shard partials), so in f64 both reach the same optimum to machine
 epsilon, and in f32 they agree to the f32 noise floor.
@@ -64,11 +71,13 @@ def run_glm_shard_map(
 
     ``batch`` is a row-major batch (``DenseBatch`` or ``EllBatch``),
     padded here with zero-weight rows to a multiple of the data axis, or
-    the per-shard list :func:`parallel.mesh.shard_batch` returns. The
+    the per-shard list :func:`parallel.mesh.shard_batch` returns; on a
+    mesh whose data axis spans processes, this process's rows. The
     variances, when the problem computes them, are the shards' Hessian
     diagonals summed over the axis."""
     devices = mesh.axis_devices(DATA_AXIS)
     n_shards = len(devices)
+    span = mesh.span_of(DATA_AXIS)
     if isinstance(batch, list):  # DenseBatch is a tuple: test for list
         shards = batch
     else:
@@ -93,7 +102,8 @@ def run_glm_shard_map(
         shard_update = False
 
     if shard_update:
-        local_fit = _sharded_update_local_fit(problem, dim, n_shards)
+        local_fit = _sharded_update_local_fit(problem, dim,
+                                              mesh.shape[DATA_AXIS])
     else:
         def local_fit(shard, x0_rep, obj_rep):
             x, history, progressed = problem.solve(obj_rep, shard, x0_rep)
@@ -104,7 +114,7 @@ def run_glm_shard_map(
     # shard's device with the start point
     fit = shard_map(local_fit, devices, DATA_AXIS,
                     in_specs=(DATA_AXIS, None, None),
-                    out_specs=(None, None, None, None))
+                    out_specs=(None, None, None, None), span=span)
     x, history, progressed, variances = fit(shards, x0, obj)
 
     # host-side collective ledger: one d-vector gradient sum per
@@ -116,10 +126,11 @@ def run_glm_shard_map(
     record_collective_bytes("fe.grad_psum", problem.collective_quant, dim,
                             itemsize=itemsize, rounds=iters)
     if shard_update:
-        d_pad = pad_rows_to_multiple(dim, n_shards)
+        n_global = mesh.shape[DATA_AXIS]
+        d_pad = pad_rows_to_multiple(dim, n_global)
         record_collective_bytes("fe.iterate_gather",
                                 problem.collective_quant,
-                                d_pad // n_shards, itemsize=itemsize,
+                                d_pad // n_global, itemsize=itemsize,
                                 rounds=iters)
     return problem.publish(x, history, progressed, variances=variances)
 
@@ -136,8 +147,9 @@ def _variances(problem: GLMOptimizationProblem, obj, x: Tensor, shard
 def _sharded_update_local_fit(problem: GLMOptimizationProblem,
                               dim: int, n_shards: int):
     """The per-shard body of a weight-update-sharded fit: the coefficient
-    vector zero-padded to a multiple of ``n_shards`` and split evenly; the
-    solver runs on this shard's slice with ``update_axis_name`` set."""
+    vector zero-padded to a multiple of ``n_shards`` (the whole axis's)
+    and split evenly; the solver runs on this shard's slice with
+    ``update_axis_name`` set."""
     d_pad = pad_rows_to_multiple(dim, n_shards)
     shard_d = d_pad // n_shards
     quant = problem.collective_quant

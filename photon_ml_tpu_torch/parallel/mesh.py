@@ -20,6 +20,15 @@ raises, as every entry point of the port does. :func:`make_mesh` takes
 an explicit device list in which a device may repeat: that is how the
 CPU tests run 2, 4 or 8 shards in one process and the one card runs 4.
 
+A mesh may span the processes of a gang (``make_mesh(..., span=,
+span_axis=)``; ``parallel/multihost.py`` forms the gang): its device grid
+is this process's, and one axis, ``span_axis``, continues over every
+process, process-major. ``shape`` is then the global shape (that axis
+times the process count), as a JAX mesh over every host's devices has;
+``axis_devices`` and ``local_shape`` are this process's, and the shard
+runner's collectives over that axis gather every process's shards
+(``collectives.ProcessSpan``).
+
 A placement (:func:`data_sharding`) says how a tensor is laid over the
 mesh (a replicated input is the shard runner's ``None`` spec,
 ``collectives.shard_map``); :func:`shard_batch` splits a batch's rows over the
@@ -36,6 +45,7 @@ import torch
 
 from photon_ml_tpu_torch.data.batch import DenseBatch, EllBatch
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.parallel.collectives import ProcessSpan
 
 DATA_AXIS = "data"
 ENTITY_AXIS = "entity"
@@ -47,20 +57,43 @@ class Mesh:
     """A data x entity grid of devices (``jax.sharding.Mesh`` with the
     axes ``(DATA_AXIS, ENTITY_AXIS)``)."""
 
-    def __init__(self, devices: np.ndarray):
+    def __init__(self, devices: np.ndarray,
+                 span: Optional[ProcessSpan] = None,
+                 span_axis: Optional[str] = None):
         if devices.ndim != 2:
             raise ValueError(f"mesh devices must be 2-D, got {devices.shape}")
+        if (span is None) != (span_axis is None) or span_axis not in (
+                None, DATA_AXIS, ENTITY_AXIS):
+            raise ValueError(f"a process span needs one of the axes "
+                             f"{(DATA_AXIS, ENTITY_AXIS)}, got {span_axis!r}")
         self.devices = devices
+        self.span = span
+        self.span_axis = span_axis
 
     @property
-    def shape(self) -> dict:
+    def local_shape(self) -> dict:
+        """This process's grid."""
         return {DATA_AXIS: int(self.devices.shape[0]),
                 ENTITY_AXIS: int(self.devices.shape[1])}
 
+    @property
+    def shape(self) -> dict:
+        """The global grid: the spanning axis counts every process's
+        shards."""
+        shape = self.local_shape
+        if self.span is not None:
+            shape[self.span_axis] *= self.span.size
+        return shape
+
+    def span_of(self, axis: str) -> Optional[ProcessSpan]:
+        """The process span of ``axis``; None when it is this process's
+        alone."""
+        return self.span if axis == self.span_axis else None
+
     def axis_devices(self, axis: str) -> list:
-        """The devices along ``axis`` at index 0 of the other axis: the
-        shards of a body that splits over ``axis`` alone (the replicas
-        along the other axis would compute the same bits)."""
+        """This process's devices along ``axis`` at index 0 of the other
+        axis: the shards of a body that splits over ``axis`` alone (the
+        replicas along the other axis would compute the same bits)."""
         if axis == DATA_AXIS:
             return list(self.devices[:, 0])
         if axis == ENTITY_AXIS:
@@ -76,9 +109,12 @@ class Mesh:
         return out
 
     def __repr__(self) -> str:
+        spans = ("" if self.span is None else
+                 f", {self.span_axis} over {self.span.size} processes")
         return (f"Mesh(data={self.shape[DATA_AXIS]}, "
                 f"entity={self.shape[ENTITY_AXIS]}, "
-                f"devices={[str(d) for d in self.devices.reshape(-1)]})")
+                f"devices={[str(d) for d in self.devices.reshape(-1)]}"
+                f"{spans})")
 
 
 def set_default_mesh(mesh: Optional[Mesh]) -> None:
@@ -136,10 +172,14 @@ def setup_default_mesh(num_entity: int = 1, device="cuda"
 
 
 def make_mesh(num_data: Optional[int] = None, num_entity: int = 1,
-              devices: Optional[Sequence] = None, device="cuda") -> Mesh:
+              devices: Optional[Sequence] = None, device="cuda",
+              span: Optional[ProcessSpan] = None,
+              span_axis: Optional[str] = None) -> Mesh:
     """A (data x entity) mesh over ``devices`` (default: every visible
     device of ``device``'s type); all of them on the data axis unless
-    ``num_entity`` splits it. A device may appear more than once."""
+    ``num_entity`` splits it. A device may appear more than once. With
+    ``span`` the axis ``span_axis`` continues over the gang's processes
+    (``devices`` are this process's)."""
     devs = list(devices) if devices is not None else visible_devices(device)
     devs = [torch.device(d) for d in devs]
     n = len(devs)
@@ -150,7 +190,8 @@ def make_mesh(num_data: Optional[int] = None, num_entity: int = 1,
             f"mesh {num_data}x{num_entity} != {n} available devices")
     arr = np.empty(n, dtype=object)
     arr[:] = devs
-    return Mesh(arr.reshape(num_data, num_entity))
+    return Mesh(arr.reshape(num_data, num_entity), span=span,
+                span_axis=span_axis)
 
 
 class Placement(NamedTuple):
@@ -179,11 +220,11 @@ def data_sharding(mesh: Mesh) -> Placement:
 
 
 def shard_batch(batch, mesh: Mesh) -> list:
-    """The batch's rows split over the mesh's data axis: one batch per
-    data-axis device, each on its device (a view where the device is the
+    """The batch's rows split over this process's data-axis devices: one
+    batch per device, each on its device (a view where the device is the
     batch's own). Rows must divide the axis: pad with zero-weight rows
     first (``data/batch.pad_batch``)."""
-    n_shards = mesh.shape[DATA_AXIS]
+    n_shards = mesh.local_shape[DATA_AXIS]
     rows = int(batch.labels.shape[0])
     if rows % n_shards != 0:
         raise ValueError(

@@ -126,6 +126,10 @@ FAULT_POINTS: dict[str, FaultPointInfo] = {
         "trace/metric batch to the collector (obs/otlp.py); a failed "
         "POST is dropped and counted on telemetry_dropped{kind=otlp}",
         modes=("io_error", "slow", "flaky")),
+    "worker.start": FaultPointInfo(
+        "in a multi-process gang member right after the gang forms "
+        "(parallel/multihost.py); tag = process id",
+        modes=("raise", "kill", "delay")),
     "serve.request": FaultPointInfo(
         "in a scoring-service connection thread, per decoded request "
         "before dispatch (serve/service.py); tag = request kind. "

@@ -44,14 +44,20 @@
   (``--offheap-indexmap-dir``, ``--offheap-indexmap-num-partitions``,
   ``--random-effect-blocks-dir``), ``--precision bf16``, the telemetry
   flags and the device mesh's (``--re-entity-shards``,
-  ``--collective-quant``) are no longer refused, while the still-unported
-  ones (``--num-processes``, ``--max-worker-restarts``) end with exit 3.
+  ``--collective-quant``) are no longer refused, and neither are the
+  multi-process ones (``--num-processes``, ``--max-worker-restarts``):
+  a multi-process argv is checked (here: refused for its missing
+  ``--coordinator``) before anything is written.
 - The device mesh (``parallel/*``, ``utils/backend_probe``,
   ``utils/compile_cache``) is in both import checks;
   ``setup_default_mesh``, ``make_mesh`` and the CUDA device probe raise
   without CUDA instead of building a CPU mesh; the kernel's launch runs
   with its tensors' device current, and a shard body runs with its
   shard's device current.
+- The gang (``parallel/multihost``) is in both import checks; its entry
+  points (``gang_device``, ``run_worker``, ``run_game_worker``) and the
+  drivers' multi-process runs raise without CUDA before a gang forms or
+  an output is written.
 """
 
 import ast
@@ -126,10 +132,12 @@ MESH_MODULES = [
     "photon_ml_tpu_torch.parallel.multichip_check",
     "photon_ml_tpu_torch.utils.backend_probe",
     "photon_ml_tpu_torch.utils.compile_cache"]
+MULTIHOST_MODULES = ["photon_ml_tpu_torch.parallel.multihost"]
 NAMED_MODULES = (FAULT_TOLERANCE_MODULES + NATIVE_INGEST_MODULES
                  + SECOND_ORDER_MODULES + SAMPLER_MODULES
                  + SINGLE_GLM_MODULES + WIDE_STREAMED_MODULES
-                 + SERVE_MODULES + FLEET_TELEMETRY_MODULES + MESH_MODULES)
+                 + SERVE_MODULES + FLEET_TELEMETRY_MODULES + MESH_MODULES
+                 + MULTIHOST_MODULES)
 
 
 def _forbidden(module: str) -> bool:
@@ -528,9 +536,12 @@ PORTED_FLAGS = [
      "--trace-stall-seconds", "30"],
     ["--re-entity-shards", "2"],
     ["--collective-quant", "int8"]]
+#: the multi-process flags, refused with exit 3 until the gang was
+#: ported: each argv now reaches the multi-process check
 STILL_UNPORTED = [
     ("--num-processes", ["--num-processes", "2"]),
-    ("--max-worker-restarts", ["--max-worker-restarts", "1"])]
+    ("--max-worker-restarts", ["--max-worker-restarts", "1",
+                               "--num-processes", "2"])]
 _TRAIN = ["--task-type", "LOGISTIC_REGRESSION",
           "--feature-shard-id-to-feature-section-keys-map",
           "global:globalFeatures", "--updating-sequence", "fixed",
@@ -578,15 +589,53 @@ def test_ported_flags_are_not_refused(extra, tmp_path):
 @pytest.mark.parametrize("flag,extra", STILL_UNPORTED,
                          ids=[f for f, _ in STILL_UNPORTED])
 def test_unported_flags_still_exit_3(flag, extra, tmp_path, capsys):
+    """No longer refused as unported: the argv reaches the multi-process
+    check, which refuses it for its missing coordinator with the JAX
+    driver's message, before anything is written."""
     from photon_ml_tpu_torch.cli import game_training_driver as ttd
 
-    with pytest.raises(SystemExit) as exc:
+    with pytest.raises(ValueError, match="--coordinator host:port is "
+                                         "required"):
         ttd.main(["--train-input-dirs", "t", "--output-dir",
                   str(tmp_path / "o"), *_TRAIN, *extra])
-    assert exc.value.code == 3
-    assert f"PHOTON_ABORT kind=NotImplementedError: {flag} " in \
-        capsys.readouterr().err
+    assert "PHOTON_ABORT" not in capsys.readouterr().err
     assert not (tmp_path / "o").exists()
+
+
+def test_gang_entry_points_refuse_cpu_without_being_asked(no_cuda,
+                                                         tmp_path):
+    from photon_ml_tpu_torch.cli import game_scoring_driver as tsd
+    from photon_ml_tpu_torch.cli import game_training_driver as ttd
+    from photon_ml_tpu_torch.parallel import multihost as tmh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmh.gang_device("cuda", 0)
+    # raised before the gang forms: nothing listens on this coordinator
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmh.run_worker(0, 2, "127.0.0.1:9")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmh.run_game_worker(0, 2, "127.0.0.1:9", [], {}, {}, None, [],
+                            None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttd.main(["--train-input-dirs", "t", "--output-dir",
+                  str(tmp_path / "o"), *_TRAIN[:-2], "--num-processes", "2",
+                  "--coordinator", "127.0.0.1:9",
+                  "--feature-name-and-term-set-path", "fs",
+                  "--model-output-mode", "NONE"])
+    with pytest.raises(RuntimeError, match="CUDA"):  # the supervisor
+        ttd.main(["--train-input-dirs", "t", "--output-dir",
+                  str(tmp_path / "o"), *_TRAIN[:-2], "--num-processes", "2",
+                  "--coordinator", "127.0.0.1:9",
+                  "--feature-name-and-term-set-path", "fs",
+                  "--model-output-mode", "NONE",
+                  "--max-worker-restarts", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsd.main(["--input-data-dirs", "t", "--game-model-input-dir", "m",
+                  "--output-dir", str(tmp_path / "s"),
+                  "--feature-shard-id-to-feature-section-keys-map",
+                  "global:globalFeatures", "--num-processes", "2"])
+    assert not (tmp_path / "o").exists()
+    assert not (tmp_path / "s").exists()
 
 
 SERVE_TELEMETRY = [

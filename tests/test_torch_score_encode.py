@@ -9,7 +9,17 @@
 - ``RandomEffectModel.score`` runs in O(nnz): equal bit for bit to the
   dense ``[N, D_raw]`` form it replaced and to the JAX package's
   ``RandomEffectModel.score``; an entity without a model scores 0.
+
+The JAX package builds its native library on first use with ``make`` in
+its source tree and, in a process whose build or load failed, latches
+the failure. Test processes that start at once would race that build, so
+:func:`load_jax_native_lib` builds and loads it under a lock held across
+processes before a comparison calls into it.
 """
+
+import fcntl
+import os
+import time
 
 import jax
 import numpy as np
@@ -30,6 +40,32 @@ torch.set_num_threads(1)
 
 COLUMNS = [(u, lab, w) for u in (False, True) for lab in (False, True)
            for w in (False, True)]
+
+
+def load_jax_native_lib(monkeypatch, attempts: int = 3):
+    """The JAX package's native library, built and loaded under an
+    ``flock`` beside ``native/build/`` so that one process at a time
+    builds it. A failure this process latched earlier (a build that lost
+    the race, a half-written library) is cleared through ``monkeypatch``
+    and the load is tried again under the lock, at most ``attempts``
+    times; the library must load."""
+    build_dir = os.path.join(jnative._NATIVE_DIR, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    lib = None
+    with open(os.path.join(build_dir, ".build.lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            for _ in range(attempts):
+                if jnative._build_failed:
+                    monkeypatch.setattr(jnative, "_build_failed", False)
+                lib = jnative.get_native_lib()
+                if lib is not None:
+                    break
+                time.sleep(1.0)  # a build outside the lock may be ending
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    assert lib is not None, "the JAX package's native library did not load"
+    return lib
 
 
 def _columns(n, seed=0):
@@ -65,7 +101,8 @@ def test_native_score_files_block_edges(tmp_path, n):
 
 @pytest.mark.parametrize("with_uid,with_label,with_weight", COLUMNS[::3])
 def test_record_stream_is_the_jax_encoders(with_uid, with_label,
-                                           with_weight):
+                                           with_weight, monkeypatch):
+    load_jax_native_lib(monkeypatch)
     scores, uids, labels, weights = _columns(500, seed=2)
     kw = dict(uids=uids if with_uid else None,
               labels=labels if with_label else None,
