@@ -8,7 +8,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, one JSON line each on stdout:
 
 1. device — the card's name and power limit, TF32 off for matmuls and cuDNN.
-2. build  — ``nvcc`` builds every kernel of the port from ``csrc/``.
+2. build  — ``nvcc`` builds every kernel of the port from ``csrc/``, while
+   two threads write the Avro fixtures of phases 6 and 7 (b) (joined
+   before phase 4).
 3. kernel — each kernel's wrapper on the card against its plain PyTorch
    version on the same inputs (every loss, f32 and bf16 X, ragged and exact
    small shapes that reach every geometry of the stream path and the
@@ -199,7 +201,7 @@ Phases, one JSON line each on stdout:
    one pipelined sweep of phase 5's GLMix with the per-user blocks in RAM
    on the card, then built streamed into memmap files: states,
    objectives and scores bit for bit, seconds and device memory; (d) a
-   wide GAME fixture (50,000 / 12,500 rows, cut for phase 16; 100,000
+   wide GAME fixture (25,000 / 6,250 rows, cut for time; 100,000
    hashed global features, 8 a row, a per-user bag over 2,000 users): the
    feature-indexing job with the off-heap store, the training driver
    plain, with ``--random-effect-blocks-dir`` and with that and the
@@ -232,7 +234,7 @@ Phases, one JSON line each on stdout:
    (run on the same model and rows) before the flip or the library's
    scores of the candidate after it, none is shed, ``stats`` reports
    generation 2, and SIGTERM drains to exit 75; then the bf16 tier (all
-   users fit) on 4 x 25 requests, every score within its bf16 bound.
+   users fit) on 4 x 15 requests, every score within its bf16 bound.
    Rows per second, client p50/p99, the tier hit split, the
    ``serve_stage_ms`` totals, the swap's blackout and the service's
    peak device memory are printed. The f32-tier service runs traced
@@ -270,7 +272,8 @@ Phases, one JSON line each on stdout:
    npz files, coefficients and objective within ``GANG_BOUNDS`` of
    phase 6's final state, then the scoring driver split over two
    processes, whose records equal phase 6's scoring run record for
-   record; (c) on the drill's rows as part files, a supervised gang
+   record; (c) on the drill's rows as part files, two sweeps, a
+   supervised gang
    (``--max-worker-restarts 1``, checkpoints) whose member 1 is
    SIGKILLed after process 0's first snapshot re-forms, resumes
    (``MULTIHOST_RESUME``) and ends on the uninterrupted gang's npz bit
@@ -286,6 +289,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -955,15 +959,34 @@ def metric_values(metrics, name) -> dict:
 
 
 
+def write_driver_fixture(workdir, rows=DRIVER_ROWS, n_users=6040,
+                         n_movies=3706, d_global=64) -> float:
+    """Phase 6's Avro fixture (``train/`` and ``validate/`` part files,
+    written by a spawn pool) in ``workdir``, emptied first; returns the
+    seconds the write took."""
+    from photon_ml_tpu_torch.tools.crash_resume_drill import (
+        FIXTURE_PARTS, write_movielens_avro)
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    write_movielens_avro(os.path.join(workdir, "train"),
+                         os.path.join(workdir, "validate"), *rows, n_users,
+                         n_movies, d_global, parts=FIXTURE_PARTS)
+    return time.perf_counter() - t0
+
+
 def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
-                 n_movies=3706, d_global=64):
+                 n_movies=3706, d_global=64, avro_write_secs=None):
     """The GLMix main path through the port's drivers (phase 6). Returns
     the phase record, the kernel launches of the training run, the
     kernel-vs-plain check on the driver's own fixed-effect batch and the
     fixture: its (training, validation) directories and the feature sets
     of the driver's scan, saved for ``--feature-name-and-term-set-path``,
     which stay in ``workdir``; raises on any failed check, the kernel's
-    last."""
+    last. ``avro_write_secs`` says the fixture is in ``workdir`` already
+    (:func:`write_driver_fixture`, run beside phases 2 and 3) and how long
+    its write took; without it the fixture is written here."""
     from photon_ml_tpu_torch.cli import game_training_driver as ttd
     from photon_ml_tpu_torch.game.dataset import build_fixed_effect_dataset
     from photon_ml_tpu_torch.io import data_format as tdf
@@ -974,17 +997,14 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     from photon_ml_tpu_torch.optimize import common as opt_common
     from photon_ml_tpu_torch.serve.scoring import load_scoring_model
     from photon_ml_tpu_torch.tools.crash_resume_drill import (
-        FIXTURE_PARTS, driver_argv, write_movielens_avro)
+        FIXTURE_PARTS, driver_argv)
 
-    shutil.rmtree(workdir, ignore_errors=True)
-    os.makedirs(workdir)
+    if avro_write_secs is None:
+        avro_write_secs = write_driver_fixture(workdir, rows, n_users,
+                                               n_movies, d_global)
     train, val = (os.path.join(workdir, k) for k in ("train", "validate"))
     out, score_out = (os.path.join(workdir, k) for k in ("train_out",
                                                           "score_out"))
-    t0 = time.perf_counter()
-    write_movielens_avro(train, val, *rows, n_users, n_movies, d_global,
-                         parts=FIXTURE_PARTS)
-    avro_write_secs = time.perf_counter() - t0
     # traced: the trace directory, the live stream to a consumer here, the
     # device plane armed
     train_trace = os.path.join(workdir, "train_trace")
@@ -1305,20 +1325,48 @@ def resume_phase(torch, dev, data, want, workdir):
     }, crash_by_path, resumed_by_path
 
 
-def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
-                d_global=64):
-    """Phase 7 (b): the crash/resume drill through the drivers on the
-    card, six processes on an Avro fixture at full width. Returns the
-    record, the launches by role and the fixture's (training, validation)
-    files, which stay in ``workdir``; raises on any failed check."""
+def write_drill_fixture(workdir, rows=DRILL_ROWS, n_users=6040,
+                        n_movies=3706, d_global=64) -> float:
+    """Phase 7 (b)'s fixture in ``workdir/fixture`` (``workdir`` emptied
+    first), written by a spawned process: the writer is pure Python, so
+    in a thread it would hold the interpreter lock against the main one.
+    Returns the seconds the write took."""
+    import multiprocessing
+
     from photon_ml_tpu_torch.tools import crash_resume_drill as drill
 
     shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = multiprocessing.get_context("spawn").Process(
+        target=drill.write_fixture, args=(os.path.join(workdir, "fixture"),),
+        kwargs=dict(rows=rows, n_users=n_users, n_movies=n_movies,
+                    d_global=d_global))
+    proc.start()
+    proc.join()
+    if proc.exitcode != 0:
+        raise RuntimeError(f"the drill's fixture writer exited "
+                           f"{proc.exitcode}")
+    return time.perf_counter() - t0
+
+
+def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
+                d_global=64, write_secs=None):
+    """Phase 7 (b): the crash/resume drill through the drivers on the
+    card, six processes on an Avro fixture at full width. Returns the
+    record, the launches by role and the fixture's (training, validation)
+    files, which stay in ``workdir``; raises on any failed check.
+    ``write_secs`` says the fixture is in ``workdir`` already
+    (:func:`write_drill_fixture`, run beside phases 2 and 3) and how long
+    its write took; without it the fixture is written here."""
+    from photon_ml_tpu_torch.tools import crash_resume_drill as drill
+
     fixture = os.path.join(workdir, "fixture")
-    t = time.perf_counter()
-    drill.write_fixture(fixture, rows=rows, n_users=n_users,
-                        n_movies=n_movies, d_global=d_global)
-    write_secs = time.perf_counter() - t
+    if write_secs is None:
+        shutil.rmtree(workdir, ignore_errors=True)
+        t = time.perf_counter()
+        drill.write_fixture(fixture, rows=rows, n_users=n_users,
+                            n_movies=n_movies, d_global=d_global)
+        write_secs = time.perf_counter() - t
     record = drill.run_drill(fixture, os.path.join(workdir, "roles"),
                              device=str(dev), timeout=600)
     roles, launches = {}, {}
@@ -3289,13 +3337,15 @@ INGEST_CHUNK = 1_000_000
 INGEST_PLAIN_ROWS = 1_000_000
 #: rows of the draw on which phase 12 (a) runs both random-effect builders
 #: and holds them equal: a cut of scale (PERF.md §4) for phase 16: the two
-#: builds took ~66 s at 10,000,000 rows on a slow host; the ELL pack and
-#: (b)'s batch keep the full draw
-INGEST_BUILDER_ROWS = 2_500_000
+#: builds took ~66 s at 10,000,000 rows on a slow host, and ~34 s at the
+#: later 2,500,000 on another; the ELL pack and (b)'s batch keep the full
+#: draw, and the streamed build still spans two of its 1,000,000-row chunks
+INGEST_BUILDER_ROWS = 1_250_000
 #: phase 12 (d): training / validation rows, hashed global features, users
-#: (a quarter of the earlier 200,000 / 50,000, a cut of scale: the
-#: fixture write, the indexing job and three training runs took ~103 s)
-WIDE_ROWS = (50_000, 12_500)
+#: (an eighth of the earlier 200,000 / 50,000, a cut of scale: the
+#: fixture write, the indexing job and three training runs took ~103 s,
+#: then ~46 s at 50,000 / 12,500 on a slow host)
+WIDE_ROWS = (25_000, 6_250)
 WIDE_FEATURES, WIDE_USERS = 100_000, 2_000
 WIDE_SECTIONS = "global:globalFeatures|user:userFeatures"
 #: phase 12 (e): rcv1.binary's training split (rows, features, mean
@@ -4042,11 +4092,11 @@ def wide_streamed_phase(torch, dev, smi, data, workdir, hbm,
 #: request (rows drawn uniformly from 1 to it) against the f32 tier, with
 #: the hot-swap when half the requests have been answered; then requests
 #: per thread against the bf16 tier
-#: (50 requests a client, half the earlier 100, a cut of depth for phase
-#: 16's room: phases 13 (c) and 14 spent ~43 s on 100 a client on a slow
-#: host)
-SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_ROWS = 4, 50, 256
-BF16_TIER_REQUESTS = 25
+#: (30 requests a client, down from 100 and then 50, a cut of depth for
+#: the script's time limit: phases 13 (c) and 14 spent ~43 s on 100 a
+#: client on a slow host)
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_ROWS = 4, 30, 256
+BF16_TIER_REQUESTS = 15
 #: bf16 rounds a coefficient to 8 significant bits: relative error at
 #: most 2^-8 (round to nearest)
 BF16_REL = 2.0 ** -8
@@ -5710,7 +5760,7 @@ def published_steps(ckpt) -> list:
 
 
 def gang_supervision_phase(torch, dev, workdir, rows=DRILL_ROWS,
-                           n_users=6040, n_movies=3706, sweeps=3):
+                           n_users=6040, n_movies=3706, sweeps=2):
     """Phase 16 (c): on the drill's rows as part files, an uninterrupted
     gang beside a fresh gang whose member 1 is SIGTERMed (both members
     must exit 75 at one coordinate); then a supervised gang whose member 1
@@ -5917,6 +5967,17 @@ def main() -> int:
           "hbm_bytes_per_s": hbm,
           "seconds": time.perf_counter() - t0})
 
+    # the Avro fixtures of phases 6 and 7 (b) are written beside phases 2
+    # and 3 (CPU-bound writers next to nvcc and a GPU-bound check) and
+    # joined before phase 4 times the kernel: a cut of wall time, not of
+    # depth (PERF.md §4)
+    build = os.path.join(REPO, "photon_ml_tpu_torch", "_build")
+    driver_dir = os.path.join(build, "driver_phase")
+    writers = concurrent.futures.ThreadPoolExecutor(2)
+    driver_write = writers.submit(write_driver_fixture, driver_dir)
+    drill_write = writers.submit(write_drill_fixture,
+                                 os.path.join(build, "drill"))
+
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     kernels_build.build_all()
@@ -5979,30 +6040,36 @@ def main() -> int:
           "stream_refuses_partial_vector_rows": True,
           "seconds": time.perf_counter() - t0})
 
+    driver_write_secs = driver_write.result()
+    drill_write_secs = drill_write.result()
+    writers.shutdown()
+
     # -- 4. timing -------------------------------------------------------------
     t0 = time.perf_counter()
     timings = {}
     f32_bf16 = (torch.float32, torch.bfloat16)
-    # (shape, loss, dtypes): the GLMix shape, the driver's (f32, and bf16
-    # as --precision bf16 runs it: phase 13 (b)), 262,144 x 2,048, and the
-    # second-order main path's losses at their shapes (phase 8 (b) and (a))
-    for (n, d), lname, dtypes in (
-            (GLMIX_SHAPE, "logistic", f32_bf16),
-            (DRIVER_SHAPE, "logistic", f32_bf16),
-            (BIG_SHAPE, "logistic", f32_bf16),
-            (CONFIG3_SHAPE, "poisson", (torch.float32,)),
-            (BIG_SHAPE, "squared", (torch.float32,)),
-            (A1A_SHAPE, "logistic", (torch.float32,))):
-        loss = get_loss(lname)
+    # (shape, [(loss, dtypes)]): the GLMix shape, the driver's (f32, and
+    # bf16 as --precision bf16 runs it: phase 13 (b)), 262,144 x 2,048, and
+    # the second-order main path's losses at their shapes (phase 8 (b) and
+    # (a)); each shape's inputs are drawn once for all its losses
+    for (n, d), cases in (
+            (GLMIX_SHAPE, [("logistic", f32_bf16)]),
+            (DRIVER_SHAPE, [("logistic", f32_bf16)]),
+            (BIG_SHAPE, [("logistic", f32_bf16),
+                         ("squared", (torch.float32,))]),
+            (CONFIG3_SHAPE, [("poisson", (torch.float32,))]),
+            (A1A_SHAPE, [("logistic", (torch.float32,))])):
         X, y, off, wt, w = kernel_inputs(torch, n, d, seed=11, device=dev)
         shift = torch.tensor(0.0, device=dev)
-        for dtype in dtypes:
-            Xc = X.to(dtype).contiguous()
-            for row in time_kernel(torch, hbm, loss, Xc, y, off, wt, w,
-                                   shift).values():
-                timings[(n, d, row["dtype"], row["path"], lname)] = row
-                emit({"phase": "timing", **row})
-            del Xc
+        for lname, dtypes in cases:
+            loss = get_loss(lname)
+            for dtype in dtypes:
+                Xc = X.to(dtype).contiguous()
+                for row in time_kernel(torch, hbm, loss, Xc, y, off, wt, w,
+                                       shift).values():
+                    timings[(n, d, row["dtype"], row["path"], lname)] = row
+                    emit({"phase": "timing", **row})
+                del Xc
         del X, y, off, wt, w
         torch.cuda.empty_cache()
     emit({"phase": "timing_done", "seconds": time.perf_counter() - t0})
@@ -6119,16 +6186,14 @@ def main() -> int:
 
     # -- 6. GLMix through the port's drivers ---------------------------------
     t0 = time.perf_counter()
-    driver_dir = os.path.join(REPO, "photon_ml_tpu_torch", "_build",
-                              "driver_phase")
     phase, driver_launches, driver_by_path, driver_check, fixture = \
-        driver_phase(torch, dev, smi, driver_dir)
+        driver_phase(torch, dev, smi, driver_dir,
+                     avro_write_secs=driver_write_secs)
     phase["seconds"] = time.perf_counter() - t0
     emit(phase)
 
     # -- 7. resume: in process at full size, then real process deaths ------
     t0 = time.perf_counter()
-    build = os.path.join(REPO, "photon_ml_tpu_torch", "_build")
     in_process, resume_crash, resume_resumed = resume_phase(
         torch, dev, data, glmix_final, os.path.join(build, "resume_phase"))
     in_process["seconds"] = time.perf_counter() - t0
@@ -6136,7 +6201,7 @@ def main() -> int:
           flush=True)
     t1 = time.perf_counter()
     drill_rec, drill_launches, drill_fixture = drill_phase(
-        dev, os.path.join(build, "drill"))
+        dev, os.path.join(build, "drill"), write_secs=drill_write_secs)
     drill_rec["seconds"] = time.perf_counter() - t1
     emit({"phase": "resume", "nvidia_smi": smi, "in_process": in_process,
           "drill": drill_rec,

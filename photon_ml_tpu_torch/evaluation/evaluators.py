@@ -160,7 +160,7 @@ def evaluate_many(specs: list[EvaluatorSpec], scores: Tensor, labels: Tensor,
                     f"type {spec.id_type!r}")
         device_vals.append(_device_metric(
             spec, scores, labels, weights, eid, nent))
-    fetched = torch.stack(device_vals).tolist() if device_vals else []
+    fetched = torch.stack(device_vals).cpu().tolist() if device_vals else []
     EVAL_FETCHES["count"] += 1
     record_host_fetch(site="eval.metrics")
     return {spec.name: float(v) for spec, v in zip(specs, fetched)}

@@ -28,6 +28,7 @@ from photon_ml_tpu_torch.evaluation import metrics
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.optimize.config import TaskType
+from photon_ml_tpu_torch.utils.sync_telemetry import record_host_fetch
 
 # Metric name constants (Evaluation.scala:32-39).
 MEAN_ABSOLUTE_ERROR = "MEAN_ABSOLUTE_ERROR"
@@ -120,6 +121,7 @@ def evaluate_model_grid(models: Sequence[GeneralizedLinearModel],
         torch.stack(_model_metrics(task, batch.labels, z, batch.weights,
                                    W.shape[1]))
         for z in margins], dim=1).cpu().numpy()
+    record_host_fetch(site="eval.grid")
     names = _metric_names(task)
     return [{name: float(packed[j, i]) for j, name in enumerate(names)}
             for i in range(len(models))]

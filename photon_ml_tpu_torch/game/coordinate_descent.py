@@ -222,9 +222,10 @@ def publish_game_model(coordinates: dict, states: dict) -> GameModel:
 
 def fetch_to_host(groups: dict) -> dict:
     """``{name: {cid: state} | None}`` -> the same with numpy arrays (a
-    tuple state stays a tuple), in ONE device-to-host copy: the f32 leaves
-    are flattened into one tensor on their device, copied once, and cut
-    back into their shapes."""
+    tuple state stays a tuple), in ONE device-to-host copy (counted at
+    site ``ckpt.snapshot``, its one caller's): the f32 leaves are
+    flattened into one tensor on their device, copied once, and cut back
+    into their shapes."""
     leaves = [(name, cid, t) for name, group in groups.items()
               if group is not None for cid, state in group.items()
               for t in _state_leaves(state)]
@@ -237,6 +238,7 @@ def fetch_to_host(groups: dict) -> dict:
         return out
     host = torch.cat([t.detach().reshape(-1)
                       for _, _, t in leaves]).cpu().numpy()
+    record_host_fetch(site="ckpt.snapshot")
     pieces = iter(np.split(host, np.cumsum([t.numel()
                                             for _, _, t in leaves])[:-1]))
     for name, group in groups.items():
@@ -483,7 +485,6 @@ def run_coordinate_descent(
         payload = fetch_to_host({"states": states,
                                  "scores": {c: scores[c] for c in ids},
                                  "best_states": best_states})
-        record_host_fetch(site="ckpt.snapshot")
         HOT_LOOP_STATS["snapshot_fetches"] += 1
         saved = _checkpoint_save_contained(checkpoint_manager, step, {
             "sweep": sweep,

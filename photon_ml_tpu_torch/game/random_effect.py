@@ -95,6 +95,7 @@ import torch
 from photon_ml_tpu_torch.data.batch import DenseBatch, acc_dtype_for
 from photon_ml_tpu_torch.game.dataset import RandomEffectDataset
 from photon_ml_tpu_torch.obs import trace
+from photon_ml_tpu_torch.obs.metrics import REGISTRY
 from photon_ml_tpu_torch.ops.aggregators import GLMObjective
 from photon_ml_tpu_torch.ops.losses import get_loss
 from photon_ml_tpu_torch.optimize.common import (
@@ -338,6 +339,7 @@ def _fit_blocks_compacted(X: Tensor, labels: Tensor, offsets: Tensor,
                                 resume=carry, return_carry=not final_chunk)
             still, still_local = state.absorb(idx, *out[:4],
                                               CONV_MAX_ITERATIONS)
+        REGISTRY.histogram("re_chunk_active_lanes").observe(active_lanes)
         chunk_index += 1
         SOLVE_STATS["solve_secs"] += time.perf_counter() - t0
         SOLVE_STATS["chunks"] += 1
@@ -498,6 +500,7 @@ def _fit_blocks_compacted_sharded(devices: list, X: Tensor, labels: Tensor,
                     **common)
                 still, still_local = state.absorb_padded(
                     idx, mask, *lanes, CONV_MAX_ITERATIONS)
+        REGISTRY.histogram("re_chunk_active_lanes").observe(active_lanes)
         chunk_index += 1
         SOLVE_STATS["solve_secs"] += time.perf_counter() - t0
         SOLVE_STATS["chunks"] += 1

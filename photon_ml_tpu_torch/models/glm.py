@@ -18,6 +18,7 @@ from photon_ml_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 
 from photon_ml_tpu_torch.ops.losses import sigmoid
 from photon_ml_tpu_torch.optimize.config import TaskType
+from photon_ml_tpu_torch.utils.sync_telemetry import record_host_fetch
 
 Tensor = torch.Tensor
 
@@ -88,8 +89,11 @@ class GeneralizedLinearModel:
         return (self.compute_score(features, offsets) >= 0.0).to(torch.int32)
 
     def validate_coefficients(self) -> bool:
-        """No NaN/Inf among the means (one host read)."""
-        return bool(torch.isfinite(self.coefficients.means).all())
+        """No NaN/Inf among the means (one host read, counted at site
+        ``glm.validate`` as in the JAX package)."""
+        flag = torch.isfinite(self.coefficients.means).all().cpu()
+        record_host_fetch(site="glm.validate")
+        return bool(flag)
 
     def with_coefficients(self, coefficients: Coefficients
                           ) -> "GeneralizedLinearModel":

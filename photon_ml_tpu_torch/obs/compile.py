@@ -92,7 +92,6 @@ def record_build(site: str, cause: str, start_ns: int,
     tracer = trace.get_tracer()
     if tracer is not None:
         # nested where it ran: under the span open on this thread
-        tracer.record_span("build.compile", start_ns, end_ns,
-                           depth=len(tracer._stack()),
-                           labels={"site": site, "cause": cause,
-                                   "secs": round(secs, 6), **labels})
+        trace.record_span("build.compile", start_ns, end_ns,
+                          depth=len(tracer._stack()), site=site,
+                          cause=cause, secs=round(secs, 6), **labels)

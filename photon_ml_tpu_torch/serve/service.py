@@ -532,32 +532,21 @@ class ServeService:
 
     # -- request tracing -------------------------------------------------
 
-    @staticmethod
-    def _stage_spans(w: ScoreWork, formed_ns: int, scored_ns: int,
-                     stages: dict) -> tuple:
-        """``(name, start_ns, end_ns)`` of a request's stages from batch
-        formation to its scores (``serve.queue_wait`` is emitted at batch
-        pickup, ``serve.reply`` once the reply is written).
+    def _observe_stages(self, w: ScoreWork, formed_ns: int,
+                        scored_ns: int, stages: dict) -> None:
+        """One ``serve_stage_ms{stage}`` observation per stage up to the
+        scores, for EVERY request (sampling never gates stage timing).
 
         ``tier_gather``/``device_score`` are batch-level costs — every
         request in the batch waited on them, so each observes the full
         duration; the span tree renders them as contiguous segments
         after batch formation (an attribution convention, not a
         per-request measurement)."""
-        gather_ns = int(stages.get("tier_gather", 0))
-        device_ns = int(stages.get("device_score", 0))
-        return (("serve.batch_form", w.picked_ns, formed_ns),
-                ("serve.tier_gather", formed_ns, formed_ns + gather_ns),
-                ("serve.device_score", scored_ns - device_ns, scored_ns))
-
-    def _observe_stages(self, w: ScoreWork, formed_ns: int,
-                        scored_ns: int, stages: dict) -> None:
-        """One ``serve_stage_ms{stage}`` observation per stage up to the
-        scores, for EVERY request (sampling never gates stage timing)."""
-        for name, s_ns, e_ns in self._stage_spans(w, formed_ns, scored_ns,
-                                                  stages):
-            observe_stage(name[len("serve."):], (e_ns - s_ns) / 1e6,
-                          self._registry)
+        for stage, ns in (
+                ("batch_form", formed_ns - w.picked_ns),
+                ("tier_gather", int(stages.get("tier_gather", 0))),
+                ("device_score", int(stages.get("device_score", 0)))):
+            observe_stage(stage, ns / 1e6, self._registry)
 
     def _finish_request_trace(self, w: ScoreWork, formed_ns: int,
                               scored_ns: int, stages: dict,
@@ -570,10 +559,15 @@ class ServeService:
         sampled."""
         observe_stage("reply", (end_ns - reply_ns) / 1e6, self._registry)
         seq = w.span_id or 0
+        gather_ns = int(stages.get("tier_gather", 0))
+        device_ns = int(stages.get("device_score", 0))
         stage_spans = (
             ("serve.queue_wait", w.enqueued_ns, w.picked_ns),
-            *self._stage_spans(w, formed_ns, scored_ns, stages),
-            ("serve.reply", reply_ns, end_ns))
+            ("serve.batch_form", w.picked_ns, formed_ns),
+            ("serve.tier_gather", formed_ns, formed_ns + gather_ns),
+            ("serve.device_score", scored_ns - device_ns, scored_ns),
+            ("serve.reply", reply_ns, end_ns),
+        )
         if w.sampled:
             # serve.queue_wait was emitted at batch pickup
             for name, s_ns, e_ns in stage_spans[1:]:

@@ -19,6 +19,7 @@ import torch
 
 from photon_ml_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from photon_ml_tpu_torch.game.dataset import canonicalized_csr
+from photon_ml_tpu_torch.utils.sync_telemetry import record_host_fetch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +61,7 @@ def summarize(X, device=DEFAULT_DEVICE) -> BasicStatisticalSummary:
         X.abs().mean(0)])
     # every statistic comes back in this one fetch
     host = stats.cpu().numpy()
+    record_host_fetch(site="stat.summary")
     return BasicStatisticalSummary(
         count=int(n), **{k: host[i] for i, k in enumerate(_FIELDS)})
 

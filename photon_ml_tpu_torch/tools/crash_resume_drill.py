@@ -310,6 +310,7 @@ def _last_snapshot(ckpt_dir: str) -> dict:
     if step is None:
         raise AssertionError(f"no intact snapshot in {ckpt_dir}")
     snap = mgr.restore(step)
+    # photonlint: allow-W501(the drill stores the step it restored into the snapshot itself; no save site writes it)
     snap["step"] = step
     return snap
 

@@ -4,8 +4,10 @@ Port of ``photon_ml_tpu/utils/events.py`` (reference: photon-ml event/
 EventEmitter.scala, Event.scala:27-66): ``EventEmitter`` with
 ``register_listener_by_name`` (the legacy driver's ``--event-listeners``),
 the legacy driver's setup, start, finish and optimization-log events
-(``:25-54``) and the events of the fault-tolerance layer. A listener that raises is contained: the failure is logged and
-counted in :data:`LISTENER_ERRORS` and the other listeners still run.
+(``:25-54``) and the events of the fault-tolerance layer. A listener that
+raises is contained: the failure is logged and counted on the
+``listener_errors{listener}`` counter of ``obs.metrics.REGISTRY``, as in
+the JAX package, and the other listeners still run.
 The drivers' bus writes every event to the warn log and bridges it into
 the metrics registry (``obs/bridge.py``).
 """
@@ -16,10 +18,6 @@ import dataclasses
 import importlib
 import threading
 from typing import Any, Callable, Optional
-
-#: listener name -> contained exceptions in this process
-LISTENER_ERRORS: dict[str, int] = {}
-
 
 @dataclasses.dataclass(frozen=True)
 class Event:
@@ -146,9 +144,11 @@ class EventEmitter:
             try:
                 listener(event)
             except Exception as e:  # noqa: BLE001 — containment is the point
+                from photon_ml_tpu_torch.obs.metrics import REGISTRY
+
                 name = getattr(listener, "__qualname__",
                                type(listener).__name__)
-                LISTENER_ERRORS[name] = LISTENER_ERRORS.get(name, 0) + 1
+                REGISTRY.counter("listener_errors").inc(listener=name)
                 _error_logger().warn(
                     f"event listener {name!r} raised on "
                     f"{type(event).__name__}: {e!r} (contained)")

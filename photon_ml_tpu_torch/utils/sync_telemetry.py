@@ -7,9 +7,12 @@ blocking device→host read that the JAX package counts calls
 :func:`record_host_fetch` next to its read: the coordinate-descent
 epilogue (``cd.epilogue``), the lazy tracker and optimizer-history reads
 (``tracker.materialize``, ``optimizer.history``), the lane-compaction
-mask (``re.compact_mask``), a checkpoint snapshot (``ckpt.snapshot``)
-and the validation metrics (``eval.metrics``). A run's count over its
-coordinate updates is ``host_syncs_per_update``.
+mask (``re.compact_mask``), a checkpoint snapshot (``ckpt.snapshot``),
+the validation metrics (``eval.metrics``), a model grid's metrics
+(``eval.grid``), the coefficient check (``glm.validate``) and a feature
+summary (``stat.summary``). A run's count over its coordinate updates is
+``host_syncs_per_update``. The port's photonlint (W104) finds a blocking
+copy or wait whose function does not call :func:`record_host_fetch`.
 
 A thin shim over the labeled ``host_fetches`` counter in
 ``photon_ml_tpu_torch.obs.metrics.REGISTRY`` (one storage, two views):

@@ -58,6 +58,8 @@
   points (``gang_device``, ``run_worker``, ``run_game_worker``) and the
   drivers' multi-process runs raise without CUDA before a gang forms or
   an output is written.
+- The port's photonlint (``analysis/*`` and ``tools/photonlint``) is in
+  both import checks.
 """
 
 import ast
@@ -133,11 +135,17 @@ MESH_MODULES = [
     "photon_ml_tpu_torch.utils.backend_probe",
     "photon_ml_tpu_torch.utils.compile_cache"]
 MULTIHOST_MODULES = ["photon_ml_tpu_torch.parallel.multihost"]
+ANALYSIS_MODULES = [
+    f"photon_ml_tpu_torch.analysis.{m}" for m in (
+        "core", "package", "dataflow", "cache", "sarif", "rules_faults",
+        "rules_checkpoint", "rules_threads", "rules_protocol",
+        "rules_telemetry", "rules_sync", "runner")] + [
+    "photon_ml_tpu_torch.tools.photonlint"]
 NAMED_MODULES = (FAULT_TOLERANCE_MODULES + NATIVE_INGEST_MODULES
                  + SECOND_ORDER_MODULES + SAMPLER_MODULES
                  + SINGLE_GLM_MODULES + WIDE_STREAMED_MODULES
                  + SERVE_MODULES + FLEET_TELEMETRY_MODULES + MESH_MODULES
-                 + MULTIHOST_MODULES)
+                 + MULTIHOST_MODULES + ANALYSIS_MODULES)
 
 
 def _forbidden(module: str) -> bool:
@@ -175,7 +183,7 @@ def test_every_port_package_is_walked():
     subpackages = {p.parent.name for p in PKG.rglob("__init__.py")}
     assert {"cli", "io", "evaluation", "serve", "utils", "game", "ops",
             "optimize", "data", "tools", "stat", "diagnostics",
-            "obs", "parallel"} <= subpackages
+            "obs", "parallel", "analysis"} <= subpackages
     walked = {p.relative_to(PKG).parts[0] for p in SOURCES
               if p.is_relative_to(PKG)}
     assert subpackages - {PKG.name} <= walked

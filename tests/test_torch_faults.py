@@ -316,6 +316,8 @@ def test_ingest_budget_decisions_match_jax(budget, outcomes):
 
 
 def test_event_listener_failures_are_contained():
+    from photon_ml_tpu_torch.obs.metrics import REGISTRY
+
     bus = tevents.EventEmitter()
     seen = []
 
@@ -328,4 +330,5 @@ def test_event_listener_failures_are_contained():
                             iteration=0, message="m")
     bus.send_event(ev)
     assert seen == [ev]
-    assert tevents.LISTENER_ERRORS[broken.__qualname__] >= 1
+    errors = REGISTRY.counter("listener_errors").by_label("listener")
+    assert errors[broken.__qualname__] >= 1
