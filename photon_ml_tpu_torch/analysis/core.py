@@ -3,7 +3,7 @@
 Port of ``photon_ml_tpu/analysis/core.py``: the same ``Finding``,
 ``LintReport``, suppression grammar, W0 (suppression hygiene) and
 baseline format, with ``RULES`` and ``FAMILIES`` cut to the families the
-port runs (W0, W1 in torch form, W4, W5, W9, WA, WB).
+port runs (W0, W1, W6 and W8 in torch form, W4, W5, W9, WA, WB).
 
 Identity model: a finding's *baseline key* is ``(rule, path, message)``
 — deliberately line-number-free, so an unrelated edit that shifts a file
@@ -59,6 +59,23 @@ RULES: dict[str, str] = {
             "any checkpoint save site",
     "W502": "snapshot key written at a checkpoint save site but never "
             "read by any restore path",
+    "W601": "shard-runner collective over an axis name no mesh defines "
+            "(no *_AXIS constant, no literal run_shards/shard_map axis)",
+    "W602": "collective (shard runner, ProcessSpan, gang exchange, "
+            "torch.distributed) under Python control flow that branches "
+            "on a device tensor or on the process's or shard's identity "
+            "— shards or processes may disagree and hang the barrier",
+    "W603": "shard_map in_specs/out_specs arity disagrees with the "
+            "body's positional signature or its tuple returns",
+    "W604": "Placement / axis_devices / mesh.shape axis that no mesh "
+            "defines",
+    "W801": "reduction over a bf16/f16/runtime-selected-dtype value "
+            "without an f32 accumulator (no dtype= kwarg, no upcast)",
+    "W802": "float64 on the card (dtype=torch.float64, .double(), "
+            ".to(torch.float64)) — a fraction of the f32 rate and twice "
+            "the bytes",
+    "W804": "implicit bf16/f16 + f32/f64 promotion inside a loss or "
+            "gradient path",
     "W901": "shared attribute/global written without the lock that "
             "guards it elsewhere (thread-body write visible to "
             "unlocked readers, or lock held on some writes but not "
@@ -96,21 +113,21 @@ RULES: dict[str, str] = {
             "name (per-label breakdowns silently fragment)",
 }
 
-FAMILIES = ("W0", "W1", "W4", "W5", "W9", "WA", "WB")
+FAMILIES = ("W0", "W1", "W4", "W5", "W6", "W8", "W9", "WA", "WB")
 
-# The JAX linter's other families, and why the port does not run them yet
-# (``--rules`` naming one exits 2 with this reason).
+# The JAX linter's other families and rules, and why the port does not
+# run them yet (``--rules`` naming one exits 2 with this reason, and
+# ``--list-rules`` lists them as waiting).
 WAITING: dict[str, str] = {
     "W2": "jit purity: the port has no torch.compile and no CUDA graph to "
           "trace; it waits for the first CUDA-graph path",
     "W3": "buffer donation: the port donates no buffer; it waits for the "
           "first CUDA-graph path",
-    "W6": "collective safety: its torch form over the shard runner and "
-          "ProcessSpan is not written yet",
     "W7": "retrace risk: the port has no jit cache to re-trace; it waits "
           "for the first CUDA-graph path",
-    "W8": "precision discipline: its torch form (bf16 reductions without "
-          "an f32 accumulator, f64 on the card) is not written yet",
+    "W803": "a value round-tripped through numpy and fed back into a "
+            "jitted callable re-traces on the promoted dtype: the port "
+            "has no jit cache; it waits for the first CUDA-graph path",
 }
 
 

@@ -258,8 +258,8 @@ class _Interp:
         if self_tag is not None and pos and not static:
             env[pos[0].arg] = self_tag
         for p in params:
-            if p.annotation is not None and \
-                    self.mod.resolve(p.annotation) in _TENSOR_ANNOTATIONS:
+            if p.annotation is not None and self.index.resolve_alias(
+                    self.mod.resolve(p.annotation)) in _TENSOR_ANNOTATIONS:
                 env[p.arg] = DEVICE
         for d in fdef.args.defaults + fdef.args.kw_defaults:
             if d is not None:

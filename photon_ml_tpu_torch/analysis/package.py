@@ -10,10 +10,14 @@ classify; a name that cannot be resolved resolves to ``None`` and every
 downstream consumer treats unknown as "not mine" (lint stays precise
 rather than noisy).
 
-The port traces nothing, so the JAX module's jit bindings, call graph
-and mesh-axis universe (which only W2, W3, W6 and W7 read) are left out;
-the index instead records which package classes are ``torch.nn.Module``
-subclasses, whose instances the dataflow calls like functions.
+The port traces nothing, so the JAX module's jit bindings and call
+graph (which only W2, W3 and W7 read) are left out; the index instead
+records which package classes are ``torch.nn.Module`` subclasses, whose
+instances the dataflow calls like functions. The mesh-axis universe
+(W6) is built from the port's own defining sites: ``*_AXIS`` string
+constants and a literal axis given to the shard runner
+(``collectives.run_shards`` / ``shard_map``, the port's counterpart of
+``jax.pmap(axis_name=...)``).
 """
 
 from __future__ import annotations
@@ -241,6 +245,62 @@ def name_value(mod: ModuleInfo, index: "PackageIndex",
     return ("dynamic", None)
 
 
+# -- mesh-axis universe ----------------------------------------------------
+
+# The shard runner's entry points: a literal axis given to one of them
+# *defines* that axis for its body (``jax.pmap(axis_name=...)``'s role).
+# Collectives never add to the universe — otherwise a typo'd psum axis
+# would define itself and W601 could not fire.
+SHARD_RUNNERS = {"run_shards", "shard_map"}
+
+
+def call_arg(call: ast.Call, kwarg: str, pos: int) -> Optional[ast.expr]:
+    """A call's argument given as ``kwarg=`` or at position ``pos``."""
+    for kw in call.keywords:
+        if kw.arg == kwarg:
+            return kw.value
+    if pos < len(call.args):
+        return call.args[pos]
+    return None
+
+
+def is_shard_runner(mod: ModuleInfo, call: ast.Call,
+                    name: Optional[str] = None) -> bool:
+    """True for a call to ``collectives.run_shards`` / ``shard_map``
+    (``name`` narrows to one of them). Exact last-component match —
+    ``run_glm_shard_map`` is a *user* of the runner, not the runner."""
+    names = {name} if name is not None else SHARD_RUNNERS
+    d = mod.resolve(call.func)
+    if d is not None:
+        return d.rsplit(".", 1)[-1] in names
+    fname = call.func.id if isinstance(call.func, ast.Name) else (
+        call.func.attr if isinstance(call.func, ast.Attribute) else None)
+    return fname in names
+
+
+def collect_mesh_axes(index: "PackageIndex") -> set[str]:
+    """Every axis name the program can legitimately collective over:
+    ``*_AXIS`` string module constants (the package's naming convention
+    for mesh axes, ``parallel/mesh.py``) and the literal axes given to
+    the shard runner (``run_shards(body, devices, "mf", ...)``)."""
+    axes: set[str] = set()
+    for mod in index.modules:
+        for name, value in mod.constants.items():
+            if name.endswith("_AXIS") and isinstance(value, ast.Constant) \
+                    and isinstance(value.value, str):
+                axes.add(value.value)
+        for node in ast.walk(mod.tree):
+            if not (isinstance(node, ast.Call)
+                    and is_shard_runner(mod, node)):
+                continue
+            spec = call_arg(node, "axis_name", 2)
+            value = literal_in(mod, index, spec) \
+                if spec is not None else None
+            if isinstance(value, str):
+                axes.add(value)
+    return axes
+
+
 # -- package index ---------------------------------------------------------
 
 
@@ -260,6 +320,7 @@ class PackageIndex:
     # package classes deriving from torch.nn.Module: calling an instance
     # runs its forward and yields a device tensor
     module_classes: set[str] = dataclasses.field(default_factory=set)
+    mesh_axes: set[str] = dataclasses.field(default_factory=set)
 
     def resolve_constant(self, dotted: str):
         """Literal value of a fully-qualified module constant, following
@@ -273,6 +334,24 @@ class PackageIndex:
         if mod is None or attr not in mod.constants:
             return None
         return mod.literal(mod.constants[attr])
+
+    def resolve_alias(self, dotted: Optional[str]) -> Optional[str]:
+        """``dotted`` through module-level aliases of a dotted name
+        (``Tensor = torch.Tensor`` in a package module, imported or
+        local) to what it names; anything else is returned as it is."""
+        seen: set[str] = set()
+        while dotted is not None and "." in dotted and dotted not in seen:
+            seen.add(dotted)
+            mod_name, attr = dotted.rsplit(".", 1)
+            mod = self.by_module_name.get(mod_name)
+            node = mod.constants.get(attr) if mod is not None else None
+            if not isinstance(node, (ast.Name, ast.Attribute)):
+                break
+            target = mod.resolve(node)
+            if target is None:
+                break
+            dotted = target
+        return dotted
 
     def resolve_method(
         self, class_dotted: str, method: str
@@ -333,6 +412,7 @@ def build_index(modules: list[ModuleInfo]) -> PackageIndex:
                          by_module_name={m.module_name: m
                                          for m in modules})
     index.module_classes = _module_classes(classes)
+    index.mesh_axes = collect_mesh_axes(index)
     return index
 
 

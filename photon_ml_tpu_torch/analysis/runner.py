@@ -28,8 +28,9 @@ from pathlib import Path
 from typing import Iterable, Optional
 
 from photon_ml_tpu_torch.analysis import (
-    core, dataflow, rules_checkpoint, rules_faults, rules_protocol,
-    rules_sync, rules_telemetry, rules_threads,
+    core, dataflow, rules_checkpoint, rules_collectives, rules_dtype,
+    rules_faults, rules_protocol, rules_sync, rules_telemetry,
+    rules_threads,
 )
 from photon_ml_tpu_torch.analysis.cache import LintCache
 from photon_ml_tpu_torch.analysis.core import Finding, LintReport
@@ -41,12 +42,18 @@ RULE_MODULES = {
     "W1": rules_sync,
     "W4": rules_faults,
     "W5": rules_checkpoint,
+    "W6": rules_collectives,
+    "W8": rules_dtype,
     "W9": rules_threads,
     "WA": rules_protocol,
     "WB": rules_telemetry,
 }
 
 DEFAULT_PATHS = ("photon_ml_tpu_torch",)
+
+# the families that read the device dataflow (a per-shard value, f64 on
+# the card, a blocking copy of a device tensor)
+DATAFLOW_FAMILIES = {"W1", "W6", "W8"}
 
 # The port's own telemetry consumers. Loaded (when present and not
 # already in the lint path set) so WB03 sees the reads that check the
@@ -116,7 +123,7 @@ def collect_findings(
     index = build_index(modules)
     enabled = families or set(RULE_MODULES)
     flows: dict = {}
-    if "W1" in enabled:  # only the sync rules read the dataflow
+    if enabled & DATAFLOW_FAMILIES:
         dataflow.infer_device_functions(index)
         flows = {mod.relpath: dataflow.analyze_module(mod, index)
                  for mod in modules}

@@ -258,9 +258,11 @@ class ColumnSumPlan:
         g = r.index_select(0, self.rows.reshape(-1)).reshape(
             self.rows.shape)
         v = self.values.to(row_scalars.dtype)
+        # photonlint: allow-W801(row_scalars come in the batch's accumulator dtype, at least f32: EllBatch passes row_scalars.to(self.acc_dtype))
         parts = [((v * v) * g if square else v * g).sum(-1)]
         for idx in self.levels:
             ext = torch.cat([parts[-1], zero])
+            # photonlint: allow-W801(the partials are in row_scalars' dtype, the batch's accumulator dtype)
             parts.append(ext.index_select(0, idx.reshape(-1)).reshape(
                 idx.shape).sum(-1))
         return torch.cat([*parts, zero]).index_select(0, self.out)

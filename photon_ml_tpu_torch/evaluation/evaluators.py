@@ -106,6 +106,7 @@ def _device_metric(spec: EvaluatorSpec, scores: Tensor, labels: Tensor,
     adds in no fixed order, and f32 sums of 1e4-1e5 terms then move a
     metric by ~1e-6 from one evaluation of the same scores to the next."""
     f64 = torch.float64
+    # photonlint: allow-W802(metrics in f64 on the card by design: f32 segment sums of 1e4-1e5 terms move a metric ~1e-6 between evaluations; held to 1e-12)
     scores, labels = scores.to(f64), labels.to(f64)
     weights = None if weights is None else weights.to(f64)
     t = spec.evaluator_type

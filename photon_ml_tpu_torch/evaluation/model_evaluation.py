@@ -62,10 +62,12 @@ def _metric_names(task: TaskType) -> list[str]:
     return names
 
 
-def _model_metrics(task: TaskType, labels, z, weights, k: int) -> list:
+def _model_metrics(task: TaskType, labels: torch.Tensor, z: torch.Tensor,
+                   weights: torch.Tensor, k: int) -> list:
     """One model's metric tensors in ``_metric_names(task)`` order, in
     f64."""
     f64 = torch.float64
+    # photonlint: allow-W802(metrics in f64 on the card by design: f32 segment sums move a metric between evaluations; held to 1e-12)
     labels, z, weights = labels.to(f64), z.to(f64), weights.to(f64)
     if task == TaskType.LOGISTIC_REGRESSION:
         p = torch.sigmoid(z)

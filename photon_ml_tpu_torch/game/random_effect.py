@@ -795,6 +795,7 @@ class RandomEffectOptimizationProblem:
 
     def regularization_value(self, coefs: Tensor) -> float:
         val = self.regularization_value_device(coefs)
+        # photonlint: allow-W101(this IS the host-scalar accessor: one guarded scalar sync per sweep-end objective, annotated -> float)
         return val if isinstance(val, float) else float(val)
 
 

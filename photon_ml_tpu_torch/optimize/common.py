@@ -180,6 +180,7 @@ def _lane0_to_host(history: RunHistory, progressed: Tensor
              history.values[:1], history.grad_norms[:1]]
     if history.iterates is not None:
         parts.append(history.iterates[:1])
+    # photonlint: allow-W802(a few scalars widened on the card so f64 states and integer counts cross exactly in one copy)
     flat = torch.cat([p.reshape(-1).to(torch.float64) for p in parts]).cpu()
     record_host_fetch(site="optimizer.history")
     out, at = [], 0

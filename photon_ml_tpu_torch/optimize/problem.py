@@ -224,6 +224,7 @@ class GLMOptimizationProblem:
 
     def regularization_value(self, coef_normalized: Tensor) -> float:
         val = self.regularization_value_device(coef_normalized)
+        # photonlint: allow-W101(this IS the host-scalar accessor: one guarded scalar sync per objective evaluation, annotated -> float)
         return val if isinstance(val, float) else float(val)
 
 

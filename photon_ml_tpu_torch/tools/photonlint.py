@@ -11,6 +11,7 @@ the repo root)::
     python -m photon_ml_tpu_torch.tools.photonlint --write-baseline
     python -m photon_ml_tpu_torch.tools.photonlint --no-baseline
     python -m photon_ml_tpu_torch.tools.photonlint --rules W1,W4
+    python -m photon_ml_tpu_torch.tools.photonlint --rules W6,W8
     python -m photon_ml_tpu_torch.tools.photonlint --changed-files
     python -m photon_ml_tpu_torch.tools.photonlint --since origin/main
     python -m photon_ml_tpu_torch.tools.photonlint --stats
@@ -18,9 +19,10 @@ the repo root)::
     python -m photon_ml_tpu_torch.tools.photonlint --list-rules
 
 Exit codes: 0 clean (no non-baselined findings), 1 findings, 2 usage or
-internal error — among them a family the port does not run (W2, W3, W6,
-W7, W8) named in ``--rules``, and ``--trace-evidence``, which feeds W702
-of the waiting W7. The default baseline is
+internal error — among them a family or rule the port does not run (W2,
+W3, W7, W803) named in ``--rules``, and ``--trace-evidence``, which
+feeds W702 of the waiting W7. ``--list-rules`` lists the rules the port
+runs, then the waiting ones with their reasons. The default baseline is
 ``photon_ml_tpu_torch/tools/photonlint_baseline.json``, the default
 README the repo's ``README.md`` and the default cache
 ``.photonlint_torch_cache/`` under ``--root``; paths resolve relative to
@@ -73,7 +75,8 @@ def parse_args(argv):
         prog="photonlint",
         description="AST-based invariant checks over the port: sync "
                     "discipline, fault-point and checkpoint-schema drift, "
-                    "thread safety, wire-protocol and telemetry drift.")
+                    "collective safety, precision discipline, thread "
+                    "safety, wire-protocol and telemetry drift.")
     ap.add_argument("paths", nargs="*", default=None,
                     help="files/directories relative to --root "
                          "(default: photon_ml_tpu_torch)")
@@ -128,6 +131,8 @@ def main(argv=None) -> int:
     if ns.list_rules:
         for rule_id in sorted(RULES):
             print(f"{rule_id}  {RULES[rule_id]}")
+        for rule_id in sorted(WAITING):
+            print(f"{rule_id}  waiting, not run: {WAITING[rule_id]}")
         return 0
     if ns.trace_evidence is not None:
         return _refuse(f"--trace-evidence drives W702, and the port does "
@@ -137,7 +142,7 @@ def main(argv=None) -> int:
         families = {f.strip() for f in ns.rules.split(",") if f.strip()}
         waiting = sorted(families & set(WAITING))
         if waiting:
-            return _refuse("the port does not run famil(ies) "
+            return _refuse("the port does not run famil(ies) or rule(s) "
                            + "; ".join(f"{f} — {WAITING[f]}"
                                        for f in waiting))
         bad = families - set(FAMILIES)

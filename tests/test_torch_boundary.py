@@ -139,7 +139,8 @@ ANALYSIS_MODULES = [
     f"photon_ml_tpu_torch.analysis.{m}" for m in (
         "core", "package", "dataflow", "cache", "sarif", "rules_faults",
         "rules_checkpoint", "rules_threads", "rules_protocol",
-        "rules_telemetry", "rules_sync", "runner")] + [
+        "rules_telemetry", "rules_sync", "rules_collectives",
+        "rules_dtype", "runner")] + [
     "photon_ml_tpu_torch.tools.photonlint"]
 NAMED_MODULES = (FAULT_TOLERANCE_MODULES + NATIVE_INGEST_MODULES
                  + SECOND_ORDER_MODULES + SAMPLER_MODULES

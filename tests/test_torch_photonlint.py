@@ -11,7 +11,9 @@
   ``.numpy()``, ``torch.cuda.synchronize()``, a ``non_blocking=True``
   copy into pinned memory) have cases of their own.
 - The README table of telemetry names that differ in the port, as the
-  port's WB reads it, and the families the port does not run.
+  port's WB reads it, and the families and rules the port does not run
+  (W6 and W8 are held against the JAX rules in
+  ``test_torch_photonlint_w6_w8.py``).
 """
 
 import re
@@ -1050,7 +1052,9 @@ def test_port_delta_table_reconciles_wb(tmp_path):
 
 
 def test_port_runs_only_its_families():
-    assert FAMILIES == ("W0", "W1", "W4", "W5", "W9", "WA", "WB")
+    assert FAMILIES == ("W0", "W1", "W4", "W5", "W6", "W8", "W9", "WA",
+                        "WB")
     assert set(port_runner.RULE_MODULES) == set(FAMILIES) - {"W0"}
-    assert set(WAITING) == {"W2", "W3", "W6", "W7", "W8"}
+    assert set(WAITING) == {"W2", "W3", "W7", "W803"}
     assert {r[:2] for r in RULES} == set(FAMILIES)
+    assert "W803" not in RULES

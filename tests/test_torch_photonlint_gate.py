@@ -11,7 +11,12 @@
 4. Canaries: a copy of the port's tree, seeded with one known violation
    each, turns the run red — a removed ``record_host_fetch`` (W104), a
    renamed ``fault_point`` (W401 and W402), a dropped snapshot read
-   (W502) and an undocumented metric (WB01).
+   (W502), an undocumented metric (WB01), a typo'd axis in the score
+   exchange's ``qpsum`` (W601), a ``qpsum`` moved under ``if
+   dist.get_rank() == 0:`` (W602) and the gang's bf16 product with its
+   f32 upcast deleted (W801).
+5. The CLI refuses what the port does not run (W2, W3, W7, W803) with
+   exit 2 and lists it as waiting.
 """
 
 import json
@@ -129,6 +134,17 @@ def test_canaries_turn_the_run_red(tmp_path, cache_dir):
     with open(cd, "a") as fh:
         fh.write("\n\ndef _photonlint_canary_metric():\n"
                  "    REGISTRY.counter(\"photonlint_canary_metric\").inc()\n")
+    re_mod = pkg / "game" / "random_effect.py"
+    _seed(re_mod, "num_samples),\n                     ENTITY_AXIS,",
+          'num_samples),\n                     "entty",')
+    agg = pkg / "ops" / "aggregators.py"
+    _seed(agg, "    value = qpsum(value, axis_name, mode=collective_quant)\n",
+          "    import torch.distributed as dist\n"
+          "    if dist.get_rank() == 0:\n"
+          "        value = qpsum(value, axis_name, mode=collective_quant)\n")
+    gang = pkg / "parallel" / "multihost.py"
+    _seed(gang, "gather_rows(X_t.to(torch.float32) @ w_dev)",
+          "gather_rows(X_t @ w_dev)")
     report = runner.lint(tmp_path, readme=tmp_path / "README.md",
                          baseline=BASELINE, cache_dir=cache_dir)
     got = {(f.rule, f.path) for f in report.new}
@@ -143,22 +159,43 @@ def test_canaries_turn_the_run_red(tmp_path, cache_dir):
                for f in report.new)
     assert any(f.rule == "WB01" and "photonlint_canary_metric" in f.message
                for f in report.new)
-    assert {r for r, _ in got} == {"W104", "W401", "W402", "W502", "WB01"}
+    w601 = [f for f in report.new if f.rule == "W601"]
+    assert [f.path for f in w601] == [f"{PORT}/game/random_effect.py"]
+    assert "'entty'" in w601[0].message
+    w602 = [f for f in report.new if f.rule == "W602"]
+    assert [f.path for f in w602] == [f"{PORT}/ops/aggregators.py"]
+    assert "dist.get_rank()" in w602[0].message
+    w801 = [f for f in report.new if f.rule == "W801"]
+    assert [(f.path, gang.read_text().splitlines()[f.line - 1].strip())
+            for f in w801] == [(f"{PORT}/parallel/multihost.py",
+                                "scores_fixed = gather_rows(X_t @ w_dev)")]
+    assert {r for r, _ in got} == {"W104", "W401", "W402", "W502", "WB01",
+                                   "W601", "W602", "W801"}
 
 
 def test_cli_refuses_what_the_port_does_not_run():
     cli = [sys.executable, "-m", "photon_ml_tpu_torch.tools.photonlint",
            "--no-cache"]
     env = {**os.environ, "PYTHONPATH": str(REPO_ROOT)}
-    for extra, needle in ((["--rules", "W1,W6"], "W6"),
+    for extra, needle in ((["--rules", "W1,W2"], "W2"),
+                          (["--rules", "W3"], "W3"),
+                          (["--rules", "W6,W7"], "W7"),
+                          (["--rules", "W8,W803"], "W803"),
                           (["--trace-evidence", "spans"], "W7"),
                           (["--rules", "WZ"], "unknown")):
         proc = subprocess.run(cli + extra, capture_output=True, text=True,
                               timeout=120, cwd=REPO_ROOT, env=env)
         assert proc.returncode == 2, proc.stdout + proc.stderr
         assert needle in proc.stderr
+        assert proc.stdout == ""
     proc = subprocess.run(cli[:3] + ["--list-rules"], capture_output=True,
                           text=True, timeout=120, cwd=REPO_ROOT, env=env)
     assert proc.returncode == 0
-    families = {line[:2] for line in proc.stdout.splitlines()}
-    assert families == {"W0", "W1", "W4", "W5", "W9", "WA", "WB"}
+    rows = [line.split("  ", 1) for line in proc.stdout.splitlines()]
+    run = {rule[:2] for rule, what in rows
+           if not what.startswith("waiting")}
+    assert run == {"W0", "W1", "W4", "W5", "W6", "W8", "W9", "WA", "WB"}
+    waiting = [rule for rule, what in rows if what.startswith("waiting")]
+    assert waiting == ["W2", "W3", "W7", "W803"]
+    assert "W803" not in {rule for rule, what in rows
+                          if not what.startswith("waiting")}
