@@ -46,9 +46,11 @@ Phases, one JSON line each on stdout:
    model), then ``cli.game_scoring_driver`` in a process of its own on
    ``best/`` over the validation Avro (its peak host RSS is reported).
    Every part file must be decoded by the native columnar path
-   (``io/data_format.py`` ``INGEST_STATS``: no decline), and one training
-   part is loaded by the records path too, timed against the native
-   path and held equal to it array for array.
+   (``io/data_format.py`` ``INGEST_STATS``: no decline), and one file of
+   the same recipe and widths (the drill's 5,000-row validation file of
+   phase 7 (b), cut from a 62,513-row training part for phase 17) is
+   loaded by the records path too, timed against the native path and
+   held equal to it array for array.
    The driver appends an intercept, so the fixed effect has 65 f32
    columns and its launches must all take the path ``kernel_path`` picks
    for them (staged); the scores must equal the library's score of the
@@ -69,14 +71,16 @@ Phases, one JSON line each on stdout:
    to raise; fresh coordinates resume from the restored snapshot at
    (sweep 1, coordinate 1), and their final states must equal phase 5's
    uninterrupted run bit for bit. (b) the crash/resume drill
-   (``photon_ml_tpu_torch/tools/crash_resume_drill.py``) on the card: six
+   (``photon_ml_tpu_torch/tools/crash_resume_drill.py``) on the card: four
    driver processes on a 40,000 / 5,000-row Avro fixture at full width
-   (reference, a real kill mid-sweep, resume, a SIGTERM, relaunch, an
-   all-corrupt checkpoint directory), exit codes 0/19/75/0/0/3, the
-   resumed and relaunched runs bit-exact to the reference in states,
-   scores and objectives, every finishing process launching the kernel
-   on the path ``kernel_path`` picks for 65 f32 columns and reading every
-   part through the native path (its scan and load seconds reported).
+   (reference, a real kill mid-sweep, resume, an all-corrupt checkpoint
+   directory), exit codes 0/19/0/3, the resumed run bit-exact to the
+   reference in states, scores and objectives, every finishing process
+   launching the kernel on the path ``kernel_path`` picks for 65 f32
+   columns and reading every part through the native path (its scan and
+   load seconds reported). The drill's SIGTERM and relaunch roles are
+   phase 17 (a)'s (the same signal at the same update, held to this
+   reference), cut here for its time.
 
 8. second_order — TRON and OWL-QN (L1 / elastic net) on the card:
    (a) BASELINE config 2 at ``bench.py``'s shape (262,144 x 2,048 f32, the
@@ -204,14 +208,15 @@ Phases, one JSON line each on stdout:
    wide GAME fixture (25,000 / 6,250 rows, cut for time; 100,000
    hashed global features, 8 a row, a per-user bag over 2,000 users): the
    feature-indexing job with the off-heap store, the training driver
-   plain, with ``--random-effect-blocks-dir`` and with that and the
-   off-heap store (models record for record and metrics equal, no kernel
-   launch: the global shard is ELL), a wrong partition count refused,
-   and the scoring driver with and without the store (equal scores);
-   (e) the legacy driver on an rcv1.binary-shaped LibSVM file (20,242 /
-   10,000 rows, 47,236 features, ~74 non-zeros a row) with validation
-   and every diagnostic, the best model's AUC read back and scored on
-   the card equal to metrics.json's (rel 1e-6).
+   plain and with ``--random-effect-blocks-dir`` and the off-heap store
+   (models record for record and metrics equal, no kernel launch: the
+   global shard is ELL; the run with the blocks dir alone was cut for
+   phase 17), a wrong partition count refused, and the scoring driver
+   with and without the store (equal scores); (e) the legacy driver on
+   an rcv1.binary-shaped LibSVM file (20,242 / 10,000 rows, 47,236
+   features, ~74 non-zeros a row) with validation and every diagnostic,
+   the best model's AUC read back and scored on the card equal to
+   metrics.json's (rel 1e-6).
 
 13. bf16_serve — ``--precision bf16`` and the serving path: (a) phase 5's
    GLMix with X and the per-user blocks in bf16 (every launch stream at
@@ -227,14 +232,17 @@ Phases, one JSON line each on stdout:
    card serving phase 6's final f32 model (its ``best/`` is the first
    state, with no per-user coefficients) on a unix socket under the
    default 64 MB tier budget: 4 client threads send requests of 1-256
-   validation records (``SERVE_REQUESTS`` each, and a tail past the
-   swap), hot-swapped
+   consecutive records of the drill's 5,000-row validation file (same
+   recipe and widths; cut from 50,000 records of phase 6's validation
+   for phase 17) (``SERVE_REQUESTS`` each, and a tail past the swap),
+   hot-swapped
    to (b)'s model once half are answered with the canary gate open;
    every response equals, bit for bit, the scoring driver's scores
    (run on the same model and rows) before the flip or the library's
    scores of the candidate after it, none is shed, ``stats`` reports
    generation 2, and SIGTERM drains to exit 75; then the bf16 tier (all
-   users fit) on 4 x 15 requests, every score within its bf16 bound.
+   users fit) on 4 x ``BF16_TIER_REQUESTS`` requests, every score within
+   its bf16 bound.
    Rows per second, client p50/p99, the tier hit split, the
    ``serve_stage_ms`` totals, the swap's blackout and the service's
    peak device memory are printed. The f32-tier service runs traced
@@ -252,11 +260,12 @@ Phases, one JSON line each on stdout:
    member 1 is SIGKILLed once half are answered, every request must
    resolve with scores or a
    typed shed, and the router's ``serve_route`` ledger must account for
-   every dispatch; member 1 is relaunched and must be re-admitted
-   through the generation check, after which both members score; then
-   SIGTERM gives exit 75 for the router and the members. Rows per
-   second, p50/p99, the rows by shard, the members' tier hits, the
-   failovers and the re-admission time are printed.
+   every dispatch; then SIGTERM gives exit 75 for the router and the live
+   member. Rows per second, p50/p99, the rows by shard and the failovers
+   are printed. A killed member's relaunch, its generation-checked
+   re-admission and the checks after it (no shed, both members' tier
+   hits, the ledger) are phase 17 (b)'s, under the supervisor (cut here
+   for its time).
 15. mesh — the device mesh on four shards of the card: the multi-device
    gate, GLMix on data, entity and data x entity meshes (plain and int8
    on the wire) held to phase 5's run, and the training driver with
@@ -279,6 +288,31 @@ Phases, one JSON line each on stdout:
    (``MULTIHOST_RESUME``) and ends on the uninterrupted gang's npz bit
    for bit, and one member's SIGTERM stops a fresh gang with exit 75 on
    both members at one coordinate.
+17. supervise — run supervision through the port's own
+   ``photon_status`` and ``photon_supervise``: (a) the supervisor runs the
+   training driver (the drill's ``--worker-updates`` role, which reads
+   the kernel's launch count at every ``cd.update`` fault point) on
+   phase 7 (b)'s fixture with the drill's argv, ``--checkpoint-dir`` and
+   ``--trace-dir``, through a SIGTERM (exit 75), a hang that the
+   heartbeat flags (``stall_kill``, then ``escalate_kill``) and a kill
+   (exit 19): ``PHOTON_SUPERVISE_OK restarts=3``, the supervisor's
+   records in order, the last snapshot and the objectives after the last
+   resume bit for bit phase 7 (b)'s uninterrupted reference, every
+   incarnation launching the kernel on its path, the ``.prev`` files and
+   three ``run_restart`` records in the trace dir, ``photon_status``
+   reading it as finished; the seconds from each fault to the next
+   incarnation's first update, the stall verdict's latency and each
+   incarnation's wall time are printed; (b) ``photon_supervise --fleet
+   2 --router-listen --stop-file`` serving phase 6's final f32 model as
+   phase 14 does (``--serve-hbm-budget-mb 32`` a member), the members
+   armed with ``serve.batch@2=kill:1:19``: one client's requests of
+   phase 13 (c)'s records before and after one member's death all
+   resolve, every score the scoring driver's bit for bit, the member
+   relaunched and re-admitted, no request shed after that, both members'
+   tier hits non-zero (the relaunched one's since its relaunch), the
+   router's ``serve_route`` ledger resolving every dispatch, the stop
+   file draining the fleet to exit 0, and ``photon_status --fleet``
+   listing both members and the router.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
@@ -703,6 +737,23 @@ def run_scoring_driver(argv) -> dict:
             "parent_rss_bytes": parent_rss}
 
 
+#: what the phases that run the scoring driver in this process (8 (c),
+#: 9 (f), 10 (d), 13 (c)) say of it; a child of its own, as before PR
+#: 19, paid the interpreter's, torch's and the card's start again
+SCORING_IN_PROCESS = ("the scoring driver ran in this process, not a child "
+                      "of its own (phase 6 keeps the child for its host "
+                      "RSS); the checks are the same")
+
+
+def score_in_process(argv) -> dict:
+    """``cli.game_scoring_driver.run(argv)`` in this process: its metrics
+    and phase seconds."""
+    from photon_ml_tpu_torch.cli import game_scoring_driver as tsd
+
+    d = tsd.run(argv)
+    return {"metrics": d.metrics, "phase_seconds": d.phase_seconds}
+
+
 def datasets_equal(a, b) -> bool:
     """Two GameDatasets equal array for array: every CSR shard, the
     responses, offsets, weights, uids and id codes and vocabularies."""
@@ -976,8 +1027,9 @@ def write_driver_fixture(workdir, rows=DRIVER_ROWS, n_users=6040,
     return time.perf_counter() - t0
 
 
-def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
-                 n_movies=3706, d_global=64, avro_write_secs=None):
+def driver_phase(torch, dev, smi, workdir, one_part, rows=DRIVER_ROWS,
+                 n_users=6040, n_movies=3706, d_global=64,
+                 avro_write_secs=None):
     """The GLMix main path through the port's drivers (phase 6). Returns
     the phase record, the kernel launches of the training run, the
     kernel-vs-plain check on the driver's own fixed-effect batch and the
@@ -986,7 +1038,9 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     which stay in ``workdir``; raises on any failed check, the kernel's
     last. ``avro_write_secs`` says the fixture is in ``workdir`` already
     (:func:`write_driver_fixture`, run beside phases 2 and 3) and how long
-    its write took; without it the fixture is written here."""
+    its write took; without it the fixture is written here. ``one_part``
+    is the Avro file of the same recipe and widths that goes through both
+    ingest paths."""
     from photon_ml_tpu_torch.cli import game_training_driver as ttd
     from photon_ml_tpu_torch.game.dataset import build_fixed_effect_dataset
     from photon_ml_tpu_torch.io import data_format as tdf
@@ -1125,8 +1179,8 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
         raise AssertionError(f"the per-user scoring check scored "
                              f"nothing: {re_scoring}")
 
-    # one training part through both ingest paths: the same dataset
-    part = os.path.join(train, "part-00000.avro")
+    # one file through both ingest paths: the same dataset
+    part = one_part
     load_args = ([part], trainer.section_keys, trainer.index_maps)
     t0 = time.perf_counter()
     native = tdf.load_game_dataset_avro(*load_args, id_types=["userId"])
@@ -1136,10 +1190,18 @@ def driver_phase(torch, dev, smi, workdir, rows=DRIVER_ROWS, n_users=6040,
     records_secs = time.perf_counter() - t0
     if not datasets_equal(native, plain):
         raise AssertionError("native and records ingest of one part differ")
-    one_part = {"rows": int(native.num_samples), "native_secs": native_secs,
+    one_part = {"file": os.path.relpath(part, REPO),
+                "rows": int(native.num_samples), "native_secs": native_secs,
                 "records_secs": records_secs,
                 "records_over_native": records_secs / native_secs,
-                "datasets_equal": True}
+                "datasets_equal": True,
+                "reduced": {
+                    "rows": {"part": int(native.num_samples),
+                             "training_part": rows[0] // FIXTURE_PARTS[0]},
+                    "why": "the pure-Python records path took 17.4 s on "
+                           "a 62,513-row training part; the drill's "
+                           "validation file has the same columns, users "
+                           "and movies"}}
     del native, plain
 
     # the kernel on the driver's own fixed-effect batch, against its plain
@@ -1353,11 +1415,16 @@ def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
                 d_global=64, write_secs=None):
     """Phase 7 (b): the crash/resume drill through the drivers on the
     card, six processes on an Avro fixture at full width. Returns the
-    record, the launches by role and the fixture's (training, validation)
-    files, which stay in ``workdir``; raises on any failed check.
+    record, the launches by role, the fixture's (training, validation)
+    files, which stay in ``workdir``, and the reference role's output and
+    checkpoint directories (with its kernel path), kept in
+    ``workdir/reference``; raises on any failed check.
     ``write_secs`` says the fixture is in ``workdir`` already
     (:func:`write_drill_fixture`, run beside phases 2 and 3) and how long
-    its write took; without it the fixture is written here."""
+    its write took; without it the fixture is written here. The drill's
+    preempt and relaunch roles are left out: phase 17 (a) drills the same
+    SIGTERM at the same update, through the supervisor, against the same
+    reference."""
     from photon_ml_tpu_torch.tools import crash_resume_drill as drill
 
     fixture = os.path.join(workdir, "fixture")
@@ -1368,7 +1435,8 @@ def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
                             n_movies=n_movies, d_global=d_global)
         write_secs = time.perf_counter() - t
     record = drill.run_drill(fixture, os.path.join(workdir, "roles"),
-                             device=str(dev), timeout=600)
+                             device=str(dev), timeout=600,
+                             with_preempt=False)
     roles, launches = {}, {}
     for r, v in record["roles"].items():
         w = v["worker"] or {}
@@ -1390,6 +1458,15 @@ def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
             raise AssertionError(f"drill {r}: ingest left the native path: "
                                  f"{w['ingest_parts']}")
     ref = record["roles"]["reference"]["worker"]
+    # the uninterrupted reference's output and snapshots stay for phase
+    # 17 (a), whose supervised run must end on them
+    reference = {"out": os.path.join(workdir, "reference", "out"),
+                 "ckpt": os.path.join(workdir, "reference", "ckpt"),
+                 "expected_path": ref["expected_path"]}
+    shutil.rmtree(os.path.join(workdir, "reference"), ignore_errors=True)
+    for key in ("out", "ckpt"):
+        shutil.move(os.path.join(workdir, "roles", f"reference_{key}"),
+                    reference[key])
     shutil.rmtree(os.path.join(workdir, "roles"), ignore_errors=True)
     return {
         "reduced": {"rows": {"train": rows[0], "validate": rows[1],
@@ -1397,6 +1474,12 @@ def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
                     "why": "six driver processes each decode the Avro "
                            "again; the training rows keep the fixed effect "
                            "above the kernel's gate of 2**21 elements"},
+        "reduced_roles": {
+            "left_out": ["preempt", "relaunch"],
+            "why": "phase 17 (a) sends the same SIGTERM at update 0.1 "
+                   "and holds the relaunch to the same reference bit "
+                   "for bit; PERF.md section 4 gives the seconds before "
+                   "and after"},
         "sweeps": drill.SWEEPS, "fixture_write_secs": write_secs,
         "fixed_effect_columns": ref["fixed_effect_columns"],
         "expected_path": ref["expected_path"], "roles": roles,
@@ -1406,7 +1489,7 @@ def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
         "corrupted_steps": record["corrupted_steps"],
         "drill_secs": record["seconds"],
     }, launches, tuple(os.path.join(fixture, f)
-                       for f in ("train.avro", "validate.avro"))
+                       for f in ("train.avro", "validate.avro")), reference
 
 
 #: (n, d) -> (generator state after w_true, X, w_true): phases 8 and 11
@@ -1758,7 +1841,7 @@ def second_order_driver_phase(torch, dev, train, val, feature_sets,
     best = os.path.join(workdir, "poisson_enet", "best")
     score_out = os.path.join(workdir, "poisson_score")
     t0 = time.perf_counter()
-    scorer = run_scoring_driver([
+    scorer = score_in_process([
         "--input-data-dirs", val, "--game-model-input-dir", best,
         "--output-dir", score_out,
         "--feature-shard-id-to-feature-section-keys-map", DRIVER_SECTIONS,
@@ -1774,7 +1857,8 @@ def second_order_driver_phase(torch, dev, train, val, feature_sets,
     record = {"fixture": train,
               "reduced": {"why": "the drill's fixture (phase 7 (b)) since "
                                  "phase 16: two full-size driver runs took "
-                                 "~90 s, which phase 16 needs"},
+                                 "~90 s, which phase 16 needs",
+                          "scoring_driver": SCORING_IN_PROCESS},
               "runs": runs, "scoring_driver_secs": scoring_secs,
               "scoring_driver_poisson_loss": got,
               "scoring_phase_seconds": scorer["phase_seconds"]}
@@ -2256,7 +2340,7 @@ def cd_driver_phase(torch, dev, train, val, workdir):
                              f"{objs}")
     if hot["epilogue_fetches"] * 2 != hot["updates"]:
         raise AssertionError(f"blocks of two: {hot}")
-    scorer = run_scoring_driver([
+    scorer = score_in_process([
         "--input-data-dirs", val,
         "--game-model-input-dir", os.path.join(out, "best"),
         "--output-dir", os.path.join(workdir, "score_out"),
@@ -2277,6 +2361,7 @@ def cd_driver_phase(torch, dev, train, val, workdir):
                                    for s in grid["states"]],
             "best_metric": best, "scoring_driver_auc":
                 scorer["metrics"]["AUC"],
+            "reduced": {"scoring_driver": SCORING_IN_PROCESS},
             "hot_loop": hot, "solve_stats": solve,
             "launches": counts, "expected_path": path}, counts
 
@@ -2678,7 +2763,7 @@ def factored_driver_phase(torch, dev, train, val, workdir):
     if saved != ["perUserFac"] or kinds["perUserFac"] != "RandomEffectModel":
         raise AssertionError(f"factored driver saved {saved} as {kinds}")
     # both coordinates read the global shard only
-    scorer = run_scoring_driver([
+    scorer = score_in_process([
         "--input-data-dirs", val, "--game-model-input-dir", best_dir,
         "--output-dir", os.path.join(workdir, "score_out"),
         "--feature-shard-id-to-feature-section-keys-map",
@@ -2695,6 +2780,7 @@ def factored_driver_phase(torch, dev, train, val, workdir):
             "secs_per_update": [s["seconds"] for s in grid["states"]],
             "objectives": objs, "best_metric": best,
             "scoring_driver_auc": scorer["metrics"]["AUC"],
+            "reduced": {"scoring_driver": SCORING_IN_PROCESS},
             "saved_random_effects": saved, "loaded_as": kinds,
             "refit_kernel_vs_plain": refit_check, "launches": counts}, \
         counts
@@ -3855,8 +3941,9 @@ def metrics_without_seconds(out) -> dict:
 def wide_drivers_phase(torch, dev, workdir, rows=WIDE_ROWS,
                        features=WIDE_FEATURES, users=WIDE_USERS):
     """Phase 12 (d): the feature-indexing job and the GAME drivers on a
-    wide fixture: plain, ``--random-effect-blocks-dir``, and that with the
-    off-heap store; the scoring driver with and without the store."""
+    wide fixture: plain, and with ``--random-effect-blocks-dir`` and the
+    off-heap store together; the scoring driver with and without the
+    store."""
     from photon_ml_tpu_torch.cli import feature_indexing_job
     from photon_ml_tpu_torch.cli import game_scoring_driver
     from photon_ml_tpu_torch.cli import game_training_driver
@@ -3879,8 +3966,7 @@ def wide_drivers_phase(torch, dev, workdir, rows=WIDE_ROWS,
     offheap = ["--offheap-indexmap-dir", store,
                "--offheap-indexmap-num-partitions", "4"]
     outs = {}
-    for name, extra in (("plain", []), ("blocks", blocks),
-                        ("blocks_offheap", blocks + offheap)):
+    for name, extra in (("plain", []), ("blocks_offheap", blocks + offheap)):
         outs[name] = os.path.join(workdir, name)
         reset_counts(torch, dev)
         t0 = time.perf_counter()
@@ -3902,7 +3988,7 @@ def wide_drivers_phase(torch, dev, workdir, rows=WIDE_ROWS,
     metrics = {k: metrics_without_seconds(v) for k, v in outs.items()}
     same = {k: {"models": models[k] == models["plain"],
                 "metrics": metrics[k] == metrics["plain"]}
-            for k in ("blocks", "blocks_offheap")}
+            for k in ("blocks_offheap",)}
     if not all(all(v.values()) for v in same.values()):
         raise AssertionError(f"(d): the runs differ: {same}")
     try:
@@ -3944,6 +4030,12 @@ def wide_drivers_phase(torch, dev, workdir, rows=WIDE_ROWS,
             "validation_auc": [s["validation_metrics"]["AUC"]
                                for s in grid["states"]],
             "scores_equal_with_offheap": True,
+            "reduced": {
+                "left_out": "the run with --random-effect-blocks-dir "
+                            "alone",
+                "why": "the run with the blocks dir and the off-heap store "
+                       "together is held to the plain run; PERF.md "
+                       "section 4 gives the seconds before and after"},
             "stage_seconds": secs}, launches
 
 
@@ -4092,10 +4184,10 @@ def wide_streamed_phase(torch, dev, smi, data, workdir, hbm,
 #: request (rows drawn uniformly from 1 to it) against the f32 tier, with
 #: the hot-swap when half the requests have been answered; then requests
 #: per thread against the bf16 tier
-#: (30 requests a client, down from 100 and then 50, a cut of depth for
-#: the script's time limit: phases 13 (c) and 14 spent ~43 s on 100 a
-#: client on a slow host)
-SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_ROWS = 4, 30, 256
+#: (20 requests a client, down from 100, then 50 and 30, a cut of depth
+#: for the script's time limit: phases 13 (c) and 14 spent ~43 s on 100 a
+#: client on a slow host; 30 to 20 made room for phase 17)
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_ROWS = 4, 20, 256
 BF16_TIER_REQUESTS = 15
 #: bf16 rounds a coefficient to 8 significant bits: relative error at
 #: most 2^-8 (round to nearest)
@@ -4455,14 +4547,15 @@ def serve_trace_record(trace_dir, status) -> dict:
     return record
 
 
-def serve_phase(torch, dev, smi, driver_dir, bf16_model_dir, workdir):
+def serve_phase(torch, dev, smi, driver_dir, bf16_model_dir, workdir, pool):
     """Phase 13 (c): the port's scoring service as a process on the card,
     serving phase 6's final f32 model (``output/grid-0``: its ``best/`` is
     the first state, whose per-user model is empty) over a unix socket
     with the default 64 MB device-tier budget, under
-    ``SERVE_CLIENTS`` concurrent clients sending validation records of
-    phase 6's fixture; hot-swapped to (b)'s bf16-trained model once half
-    the requests are answered, with the canary gate open (as
+    ``SERVE_CLIENTS`` concurrent clients sending records of ``pool`` (an
+    Avro file of phase 6's recipe and widths); hot-swapped to (b)'s
+    bf16-trained model once half the requests are answered, with the
+    canary gate open (as
     ``bench.py:1534-1537``); then SIGTERM. Every score must equal, bit
     for bit, the scoring driver's (run here on that model and the rows)
     for its uid before the flip and the library's score of the candidate
@@ -4482,13 +4575,15 @@ def serve_phase(torch, dev, smi, driver_dir, bf16_model_dir, workdir):
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     f32_model = os.path.join(driver_dir, "train_out", "output", "grid-0")
-    part = os.path.join(driver_dir, "validate", "part-00000.avro")
+    # the requests' records: ``pool``, an Avro file of phase 6's recipe
+    # and widths
+    part = pool
     t0 = time.perf_counter()
     records = read_records(part)
     read_secs = time.perf_counter() - t0
     score_out = os.path.join(workdir, "score_out")
     t0 = time.perf_counter()
-    run_scoring_driver([
+    score_in_process([
         "--input-data-dirs", part, "--game-model-input-dir", f32_model,
         "--output-dir", score_out,
         "--feature-shard-id-to-feature-section-keys-map", DRIVER_SECTIONS,
@@ -4549,6 +4644,7 @@ def serve_phase(torch, dev, smi, driver_dir, bf16_model_dir, workdir):
             "--swap-canary-threshold-pct", "1e9",
             "--swap-probation-seconds", "0.5", "--device", str(dev)]
     record = {"phase": "serve", "nvidia_smi": smi, "records": len(records),
+              "records_file": os.path.relpath(part, REPO),
               "read_records_secs": read_secs,
               "scoring_driver_secs": scoring_driver_secs,
               "users": n_entities,
@@ -4689,8 +4785,6 @@ def serve_phase(torch, dev, smi, driver_dir, bf16_model_dir, workdir):
 #: phase 14: members behind the router, each with half the service's
 #: default 64 MB device-tier budget
 FLEET_MEMBERS, FLEET_HBM_BUDGET_MB = 2, 32
-#: phase 14: requests per client after the member's re-admission
-FLEET_AFTER_REQUESTS = 10
 
 
 def drive_fleet_clients(endpoint, records, requests, seed, num_shards,
@@ -4794,12 +4888,9 @@ def fleet_phase(torch, dev, smi, served, workdir):
     SIGKILLed once half are answered. Every score equals the scoring
     driver's for its uid bit for bit (phase 13 (c)'s reference), every
     request resolves with scores or a typed shed (none hangs), and the
-    router's ``serve_route`` ledger accounts for every dispatch. Member 1
-    is relaunched and must be re-admitted through the generation check;
-    ``FLEET_AFTER_REQUESTS`` more requests a client then reach both
-    members. SIGTERM: the router exits 75, then the members. Returns the
-    phase record."""
-    from photon_ml_tpu_torch.serve.protocol import ServeClient
+    router's ``serve_route`` ledger accounts for every dispatch. SIGTERM:
+    the router exits 75, then the live member. (Member 1's relaunch and
+    re-admission are phase 17 (b)'s.) Returns the phase record."""
 
     records, model_dir, ref = (served[k] for k in (
         "records", "model_dir", "driver_scores"))
@@ -4876,49 +4967,22 @@ def fleet_phase(torch, dev, smi, served, workdir):
             "kill_after_secs": killed["at"] - min(r[0] for r in responses),
             "scores_equal_scoring_driver": True}
 
-        # relaunch member 1 on the same socket: the router's health loop
-        # re-admits it through the generation check
-        t_launch = time.perf_counter()
-        members[1] = ServiceProcess(member_args(1), workdir, "member1b")
-        procs.append(members[1])
-        t_ready = time.perf_counter()
-        t_admitted = wait_member_state(router.endpoint, 1, "healthy",
-                                       admissions=2)
-        responses, sheds, failures, dispatches_after, shard_rows, secs = \
-            drive_fleet_clients(router.endpoint, records,
-                                FLEET_AFTER_REQUESTS, seed=43,
-                                num_shards=FLEET_MEMBERS)
-        if failures or sheds:
-            raise AssertionError(f"fleet after re-admission: "
-                                 f"{(failures + sheds)[:3]}")
-        check_scores(responses)
-        stats = router_stats(router.endpoint)
-        route_after = stats["route"]
-        resolved = sum(route_after.get(k, 0) for k in ("ok", "error",
-                                                        "shed"))
-        if resolved != dispatches + dispatches_after:
-            raise AssertionError(f"serve_route ledger {route_after} after "
-                                 f"re-admission")
-        hits = []
-        for m in members:
-            with ServeClient(m.endpoint, timeout=60.0) as c:
-                hits.append(c.stats()["tier_hits"])
-        if not all(sum(h.values()) for h in hits):
-            raise AssertionError(f"a member scored nothing: {hits}")
-        record["readmission"] = {
-            "relaunch_ready_secs": t_ready - t_launch,
-            "readmitted_after_ready_secs": t_admitted - t_ready,
-            "fleet": stats["fleet"]}
-        record["after_readmission"] = {
-            **latency_summary(responses, secs), "rows_by_shard": shard_rows,
-            "member_tier_hits": hits, "scores_equal_scoring_driver": True}
-
+        # member 1's relaunch and the router's generation-checked
+        # re-admission are phase 17 (b)'s, under the supervisor
+        record["reduced"] = {
+            "left_out": "member 1's relaunch, its re-admission and 10 "
+                        "more requests a client",
+            "why": "phase 17 (b) relaunches a killed member of the same "
+                   "fleet through photon_supervise and holds its "
+                   "re-admission, the scores after it (none shed), both "
+                   "members' tier hits and the serve_route ledger; "
+                   "PERF.md section 4 gives the seconds before and after"}
         rc = router.stop()
         err = router.stderr()
         if rc != 75 or "PHOTON_PREEMPTED" not in err or "Traceback" in err:
             raise AssertionError(f"router: exit {rc}:\n{err[-3000:]}")
-        rcs = [m.stop() for m in members]
-        if rcs != [75] * FLEET_MEMBERS:
+        rcs = [m.stop() for k, m in enumerate(members) if k != 1]
+        if rcs != [75] * (FLEET_MEMBERS - 1):
             raise AssertionError(f"members: exit {rcs}")
         record["exit_codes"] = {"router": rc, "members": rcs,
                                 "killed_member": killed["rc"]}
@@ -4960,7 +5024,16 @@ def bf16_serve_phase(torch, dev, smi, data, f32_glmix, drill_fixture,
     record["c_serve"], served = serve_phase(
         torch, dev, smi, driver_dir,
         os.path.join(bf16_out, "output", "grid-0"),
-        os.path.join(workdir, "serve"))
+        os.path.join(workdir, "serve"), pool=drill_fixture[1])
+    record["c_serve"]["reduced"] = {
+        "records": {"served": record["c_serve"]["records"],
+                    "validation_part": 50_000},
+        "why": "the requests draw 1 to 256 consecutive records from the "
+               "drill's 5,000-row validation file, not from the 50,000 of "
+               "phase 6's first validation part: its pure-Python read, "
+               "the scoring driver's reference and the row-dot check "
+               "shrink with it; PERF.md section 4 gives the seconds",
+        "scoring_driver": SCORING_IN_PROCESS}
     record["c_serve"]["seconds"] = time.perf_counter() - t1
     shutil.rmtree(workdir, ignore_errors=True)
     record["seconds"] = time.perf_counter() - t0
@@ -5928,6 +6001,496 @@ def gang_phase(torch, dev, smi, data, fixture, driver_dir, workdir,
             "seconds": time.perf_counter() - t0}, launches
 
 
+# -- phase 17: run supervision -------------------------------------------
+
+#: phase 17 (a)'s faults (the shared state dir fires each once across the
+#: incarnations): a SIGTERM in the per-user update of sweep 0 (exit 75 at
+#: step 1.0), a hang in the per-user update of sweep 1 (the stall kill)
+#: and a kill after sweep 2's fixed-effect solve, so that every
+#: incarnation runs a fixed-effect update before it ends
+SUPERVISE_FAULTS = ("cd.update@0.1=signal:1;cd.update@1.1=delay:1:300;"
+                    "cd.update@2.0=kill:1:19")
+#: the update each of the first three incarnations ends in, and where the
+#: fourth resumes
+SUPERVISE_FAULT_TAGS = ("0.1", "1.1", "2.0")
+SUPERVISE_RESUME_AT = (2, 0)
+SUPERVISE_STALL_SECONDS = 8.0
+SUPERVISE_FLAGS = ["--max-restarts", "5", "--backoff-base", "0.05",
+                   "--backoff-max", "0.2", "--poll-seconds", "0.2",
+                   "--grace-seconds", "3", "--startup-grace-seconds", "10"]
+#: the supervisor's records of (a), in order
+SUPERVISE_ACTIONS = ["launch", "exit", "backoff", "launch", "stall_kill",
+                     "escalate_kill", "exit", "backoff", "launch", "exit",
+                     "backoff", "launch", "done"]
+#: phase 17 (b): one client's requests before and after the member's
+#: death, of 1 to ``SUPERVISE_FLEET_MAX_ROWS`` records each. They come
+#: one at a time, so each reaches a member as a batch of one request
+#: (``serve.batch`` is tagged with a batch's request count); the member
+#: dies on its first batch of ``SUPERVISE_KILL_BATCH`` requests, which
+#: only the waves of ``SUPERVISE_KILL_WAVE`` concurrent requests of one
+#: shard's rows in between can form
+SUPERVISE_FLEET_REQUESTS, SUPERVISE_FLEET_MAX_ROWS = 20, 64
+SUPERVISE_KILL_BATCH, SUPERVISE_KILL_WAVE, SUPERVISE_KILL_ROWS = 2, 3, 32
+
+
+def supervisor_records(path) -> list:
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def status_tool(*args) -> tuple:
+    """``python -m photon_ml_tpu_torch.tools.photon_status <args> --json``
+    as a process: (exit code, status document)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "photon_ml_tpu_torch.tools.photon_status",
+         *args, "--json"], cwd=REPO, capture_output=True, text=True,
+        timeout=120)
+    try:
+        return out.returncode, json.loads(out.stdout)
+    except ValueError:
+        raise AssertionError(f"photon_status {args}: exit {out.returncode}"
+                             f"\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+
+
+def start_supervisor(args, env, log_path) -> subprocess.Popen:
+    """``python -m photon_ml_tpu_torch.tools.photon_supervise <args>`` in a
+    session of its own (see :func:`stop_supervisor`), its output to
+    ``log_path``."""
+    log = open(log_path, "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m",
+             "photon_ml_tpu_torch.tools.photon_supervise", *args],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True)
+    finally:
+        log.close()
+
+
+def stop_supervisor(proc) -> None:
+    """SIGKILL to the supervisor's whole process group: its children die
+    with it, whatever state a failed check left them in."""
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def supervised_run_phase(dev, fixture, reference, workdir, started=None):
+    """Phase 17 (a): the port's supervisor runs the port's training driver
+    (as the drill's ``--worker-updates`` role, which reads the kernel's
+    launch count at every ``cd.update`` fault point) on phase 7 (b)'s
+    fixture with the drill's argv, ``--checkpoint-dir`` and
+    ``--trace-dir``, through ``SUPERVISE_FAULTS``: a preemption (exit 75),
+    a hang that the heartbeat flags (``stall_kill``, then
+    ``escalate_kill``) and a kill (exit 19). The supervisor must end with
+    ``PHOTON_SUPERVISE_OK restarts=3``; the last snapshot and the
+    objectives after the last resume equal the drill's uninterrupted
+    ``reference`` role bit for bit; every incarnation launches the kernel,
+    all on the reference's path; the trace dir keeps the ``.prev`` files
+    and three ``run_restart`` records; ``photon_status`` reads it as
+    finished. The supervisor's ``Popen`` is appended to ``started``, so a
+    caller can end it. Returns the record and the launches by
+    incarnation."""
+    from photon_ml_tpu_torch.tools import crash_resume_drill as drill
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    out, ckpt, trace = (os.path.join(workdir, n)
+                        for n in ("out", "ckpt", "trace"))
+    argv = drill.driver_argv(*fixture, out, str(dev),
+                             num_iterations=drill.SWEEPS) + [
+        "--checkpoint-dir", ckpt, "--checkpoint-every-coordinates", "1",
+        "--trace-dir", trace, "--trace-heartbeat-seconds", "0.5",
+        "--trace-stall-seconds", str(SUPERVISE_STALL_SECONDS)]
+    env = {**os.environ, "PHOTON_FAULTS": SUPERVISE_FAULTS,
+           "PHOTON_FAULTS_STATE_DIR": os.path.join(workdir, "fault_state"),
+           "PHOTON_FAULTS_SEED": "42"}
+    log_path = os.path.join(workdir, "supervisor.out")
+    t0 = time.perf_counter()
+    proc = start_supervisor(
+        [*SUPERVISE_FLAGS, "--module",
+         "photon_ml_tpu_torch.tools.crash_resume_drill", "--",
+         "--worker-updates", *argv], env, log_path)
+    if started is not None:
+        started.append(proc)
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        stop_supervisor(proc)
+    secs = time.perf_counter() - t0
+    with open(log_path) as f:
+        stdout = f.read()
+    if rc != 0 or "PHOTON_SUPERVISE_OK restarts=3" not in stdout \
+            or "PHOTON_PREEMPTED step=1.0 " not in stdout:
+        raise AssertionError(f"supervised run: exit {rc}\n{stdout[-6000:]}")
+    incarnations = []
+    for line in stdout.splitlines():
+        if line.startswith("PHOTON_SUPERVISE launch"):
+            incarnations.append({"updates": [], "worker": None})
+        elif line.startswith(("DRILL_UPDATE ", "DRILL_WORKER ")):
+            rec = json.loads(line.split(" ", 1)[1])
+            if line.startswith("DRILL_UPDATE "):
+                incarnations[-1]["updates"].append(rec)
+            else:
+                incarnations[-1]["worker"] = rec
+    recs = supervisor_records(os.path.join(trace, "supervisor.jsonl"))
+    actions = [r["action"] for r in recs]
+    if actions != SUPERVISE_ACTIONS:
+        raise AssertionError(f"supervisor actions {actions}")
+    exits = [(r["rc"], r["preempted"], r["stall_killed"])
+             for r in recs if r["action"] == "exit"]
+    if exits != [(75, True, False), (-9, False, True), (19, False, False)]:
+        raise AssertionError(f"supervised exits {exits}")
+    tags = [inc["updates"][-1]["tag"] if inc["updates"] else None
+            for inc in incarnations]
+    if len(incarnations) != 4 or tags[:3] != list(SUPERVISE_FAULT_TAGS):
+        raise AssertionError(f"incarnations ended at updates {tags}")
+    # every incarnation reached an update and launched the kernel there,
+    # every time on the path the reference's fixed effect takes
+    launches = {}
+    for k, inc in enumerate(incarnations, 1):
+        by_path = (inc["worker"] or inc["updates"][-1])["launches_by_path"]
+        total = sum(by_path.values())
+        if dev.type == "cuda" and (
+                total <= 0 or by_path[reference["expected_path"]] != total):
+            raise AssertionError(f"incarnation {k}: kernel launches "
+                                 f"{by_path}, expected all on "
+                                 f"{reference['expected_path']}")
+        launches[f"supervised_{k}"] = by_path
+    # each relaunch resumed where the last one stopped (the driver's log
+    # is appended to by every incarnation)
+    with open(os.path.join(out, "game-training.log")) as f:
+        log = f.read()
+    for sweep, coordinate in ((1, 0), (1, 1), SUPERVISE_RESUME_AT):
+        line = (f"resuming from checkpoint at sweep {sweep} coordinate "
+                f"{coordinate}")
+        if line not in log:
+            raise AssertionError(f"supervised run: the log lacks {line!r}")
+    drill._check_ends_like_reference(
+        "supervised", drill._last_snapshot(ckpt),
+        drill._last_snapshot(reference["ckpt"]))
+    compared = drill._check_metrics_after_resume(
+        "supervised", out, reference["out"], SUPERVISE_RESUME_AT)
+    # the relaunches kept the evidence: .prev files and run_restart marks
+    files = set(os.listdir(trace))
+    prev = {"trace.json.prev", "spans.jsonl.prev", "run_manifest.json.prev"}
+    if not prev <= files:
+        raise AssertionError(f"trace dir without {prev - files}")
+    marks = []
+    with open(os.path.join(trace, "metrics.jsonl")) as f:
+        for line in f:
+            try:
+                m = json.loads(line)
+            except ValueError:
+                continue  # a line torn by a killed incarnation
+            if m.get("kind") == "run_restart":
+                marks.append("run_restart")
+            elif m.get("kind") == "run_end":
+                marks.append(f"run_end:{m['status']}")
+    if marks != ["run_end:preempted"] + ["run_restart"] * 3 \
+            + ["run_end:ok"]:
+        raise AssertionError(f"metrics.jsonl run marks {marks}")
+    status_rc, status = status_tool("--run-dir", trace)
+    if status_rc != 0 or status["status"] != "finished":
+        raise AssertionError(f"photon_status: exit {status_rc}, "
+                             f"{status['status']}")
+    t = {a: [r["t"] for r in recs if r["action"] == a]
+         for a in ("launch", "exit", "done", "stall_kill")}
+    ends = t["exit"] + t["done"]
+    fault_t = [next(u["t"] for u in inc["updates"] if u["tag"] == tag)
+               for inc, tag in zip(incarnations, SUPERVISE_FAULT_TAGS)]
+    first_update = [inc["updates"][0]["t"] for inc in incarnations[1:]]
+    return {
+        "reduced": {"rows": {"train": DRILL_ROWS[0],
+                             "validate": DRILL_ROWS[1],
+                             "configuration": 1_000_209},
+                    "why": "phase 7 (b)'s fixture and its uninterrupted "
+                           "reference; the training rows keep the fixed "
+                           "effect above the kernel's gate of 2**21 "
+                           "elements"},
+        "faults": SUPERVISE_FAULTS, "supervisor_flags": SUPERVISE_FLAGS,
+        "trace_stall_seconds": SUPERVISE_STALL_SECONDS,
+        "exits": exits, "restarts": 3,
+        "incarnation_wall_secs": [e - s for s, e in zip(t["launch"], ends)],
+        "fault_to_first_update_secs": [
+            f - k for k, f in zip(fault_t, first_update)],
+        "exit_to_first_update_secs": [
+            f - e for e, f in zip(t["exit"], first_update)],
+        "stall_verdict_secs": t["stall_kill"][0] - fault_t[1],
+        "updates_by_incarnation": [[u["tag"] for u in inc["updates"]]
+                                   for inc in incarnations],
+        "launches_by_incarnation": launches,
+        "expected_path": reference["expected_path"],
+        "bit_exact_to_reference": True,
+        "states_compared_after_resume": compared,
+        "run_marks": marks, "status": status["status"],
+        "status_exit": status_rc, "seconds": secs,
+    }, launches
+
+
+def supervised_fleet_phase(dev, served, workdir):
+    """Phase 17 (b): ``photon_supervise --fleet 2 --router-listen
+    --stop-file`` keeps two port services (``--serve-hbm-budget-mb 32``,
+    on the card by default) and the router alive, serving phase 6's final
+    f32 model as phase 14 does. The members carry
+    ``serve.batch@<SUPERVISE_KILL_BATCH>=kill:1:19`` with a shared state
+    dir; one client sends ``SUPERVISE_FLEET_REQUESTS`` requests of phase
+    13 (c)'s records, then waves of concurrent requests of one shard's
+    rows until that shard's member dies (once), waits for the supervisor
+    to relaunch the member and the router to re-admit it, and sends as
+    many again.
+    Every request resolves with scores or a typed shed, and none after
+    the re-admission is shed; every score equals the scoring driver's bit
+    for bit; both members' tier hits are non-zero (the relaunched one's
+    count only what it scored after its re-admission), and the router's
+    ``serve_route`` ledger resolves every dispatch; the stop file drains the
+    fleet and the supervisor exits 0; ``photon_status --fleet`` lists
+    both members and the router, exit 0. The members get no ``--device``
+    on the card, where they default to it. Returns the record."""
+    import threading
+
+    from photon_ml_tpu_torch.serve.fleet import entity_of_row, entity_shard
+    from photon_ml_tpu_torch.serve.protocol import (
+        ServeClient, ShardUnavailableError, ShedError, typed_error)
+
+    records, model_dir, ref = (served[k] for k in (
+        "records", "model_dir", "driver_scores"))
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    fleet_dir = os.path.join(workdir, "fleet")
+    stop_file = os.path.join(workdir, "STOP")
+    router_ep = "unix:" + os.path.join(workdir, "r.sock")
+    member_args = ["--game-model-input-dir", model_dir,
+                   "--feature-shard-id-to-feature-section-keys-map",
+                   DRIVER_SECTIONS, "--random-effect-id-set", "userId",
+                   "--serve-hbm-budget-mb", str(FLEET_HBM_BUDGET_MB),
+                   "--trace-heartbeat-seconds", "0.5"]
+    if dev.type != "cuda":
+        member_args += ["--device", str(dev)]
+    env = {**os.environ,
+           "PHOTON_FAULTS":
+               f"serve.batch@{SUPERVISE_KILL_BATCH}=kill:1:19",
+           "PHOTON_FAULTS_STATE_DIR": os.path.join(workdir, "fault_state")}
+    kill_shard = 0
+    # the router's default key: the first metadataMap id by name
+    kill_rows = [r for r in records if entity_shard(
+        entity_of_row(r, None), FLEET_MEMBERS) == kill_shard][
+        :SUPERVISE_KILL_WAVE * SUPERVISE_KILL_ROWS]
+    if len(kill_rows) != SUPERVISE_KILL_WAVE * SUPERVISE_KILL_ROWS:
+        raise AssertionError(f"shard {kill_shard} has {len(kill_rows)} "
+                             f"records")
+    sup_path = os.path.join(fleet_dir, "supervisor.jsonl")
+    log_path = os.path.join(workdir, "supervisor.out")
+    scored, sheds, failures = [], [], []
+    lock = threading.Lock()
+    # the router's dispatches: one per shard a request's rows touch
+    dispatches = [0]
+
+    def send(client, rows):
+        with lock:
+            dispatches[0] += len({entity_shard(entity_of_row(r, None),
+                                               FLEET_MEMBERS) for r in rows})
+        sent = time.perf_counter()
+        try:
+            resp = client.score(rows)
+        except Exception as e:  # noqa: BLE001 — a hung or broken request
+            failures.append(repr(e))
+            return
+        done = time.perf_counter()
+        if resp.get("kind") == "scores":
+            scored.append((sent, done, resp["uids"], resp["scores"]))
+        elif isinstance(typed_error(resp), (ShedError,
+                                            ShardUnavailableError)):
+            sheds.append((sent, resp["error"]))
+        else:
+            failures.append(str(resp))
+
+    def requests(client, seed):
+        rng = np.random.default_rng(seed)
+        for _ in range(SUPERVISE_FLEET_REQUESTS):
+            n = int(rng.integers(1, SUPERVISE_FLEET_MAX_ROWS + 1))
+            lo = int(rng.integers(0, len(records) - n))
+            send(client, records[lo:lo + n])
+
+    def wait_for(what, test, timeout=300.0):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            if proc.poll() is not None:
+                with open(log_path) as f:
+                    raise AssertionError(f"the fleet supervisor exited "
+                                         f"{proc.returncode} waiting for "
+                                         f"{what}:\n{f.read()[-4000:]}")
+            try:
+                if test():
+                    return time.perf_counter()
+            except (OSError, ConnectionError, ValueError, KeyError):
+                pass  # not listening yet
+            time.sleep(0.1)
+        raise AssertionError(f"the fleet never reached {what}")
+
+    def members_healthy(admissions=None):
+        members = router_stats(router_ep)["fleet"]["members"]
+        return all(m["state"] == "healthy"
+                   and m["admissions"] >= (admissions or {}).get(k, 1)
+                   for k, m in enumerate(members))
+
+    def died():
+        return any(r["action"] == "member_exit"
+                   for r in supervisor_records(sup_path))
+
+    def kill_wave():
+        def one(rows):
+            with ServeClient(router_ep, timeout=120.0) as c:
+                send(c, rows)
+
+        threads = [threading.Thread(target=one, args=(kill_rows[
+            i * SUPERVISE_KILL_ROWS:(i + 1) * SUPERVISE_KILL_ROWS],))
+            for i in range(SUPERVISE_KILL_WAVE)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    os.makedirs(fleet_dir)
+    t0 = time.perf_counter()
+    proc = start_supervisor(
+        ["--fleet", str(FLEET_MEMBERS), "--fleet-dir", fleet_dir,
+         "--router-listen", router_ep, "--stop-file", stop_file,
+         "--max-restarts", "3", "--backoff-base", "0.2", "--backoff-max",
+         "1", "--poll-seconds", "0.1", "--grace-seconds", "30", "--",
+         *member_args], env, log_path)
+    try:
+        ready = wait_for("two healthy members", members_healthy)
+        with ServeClient(router_ep, timeout=120.0) as client:
+            requests(client, seed=47)
+            t_kill = time.perf_counter()
+            waves = 0
+            while not died():
+                if waves == 20:
+                    raise AssertionError("20 waves formed no batch of "
+                                         f"{SUPERVISE_KILL_BATCH}")
+                kill_wave()
+                waves += 1
+            t_sent = time.perf_counter()
+
+            def relaunched():
+                return any(r["action"] == "relaunch_member"
+                           for r in supervisor_records(sup_path))
+
+            t_relaunch = wait_for("the member's relaunch", relaunched)
+            killed = next(r["member"] for r in supervisor_records(sup_path)
+                          if r["action"] == "member_exit")
+            t_admitted = wait_for(
+                "the member's re-admission",
+                lambda: members_healthy({killed: 2, 1 - killed: 1}))
+            requests(client, seed=53)
+            stats = router_stats(router_ep)
+        # each member's tier hits: the relaunched one's count only what it
+        # scored after its re-admission
+        hits = []
+        for k in range(FLEET_MEMBERS):
+            with ServeClient(f"unix:{fleet_dir}/member{k}.sock",
+                             timeout=60.0) as c:
+                hits.append(c.stats()["tier_hits"])
+        with open(stop_file, "w"):
+            pass
+        t_stop = time.perf_counter()
+        rc = proc.wait(timeout=300)
+        drain_secs = time.perf_counter() - t_stop
+    finally:
+        stop_supervisor(proc)
+    with open(log_path) as f:
+        stdout = f.read()
+    if rc != 0 or "PHOTON_SUPERVISE_OK" not in stdout:
+        raise AssertionError(f"fleet supervisor: exit {rc}\n"
+                             f"{stdout[-6000:]}")
+    if failures:
+        raise AssertionError(f"supervised fleet: {failures[:3]}")
+    late = [e for sent, e in sheds if sent >= t_admitted]
+    if late:
+        raise AssertionError(f"supervised fleet: {len(late)} sheds after "
+                             f"the re-admission: {late[:3]}")
+    bad = sum(ref[u] != s for _, _, uids, scores in scored
+              for u, s in zip(uids, scores))
+    if bad:
+        raise AssertionError(f"supervised fleet: {bad} scores differ from "
+                             f"the scoring driver's")
+    if not all(sum(h.values()) for h in hits):
+        raise AssertionError(f"a member scored nothing: {hits}")
+    route = stats["route"]
+    resolved = sum(route.get(k, 0) for k in ("ok", "error", "shed"))
+    if resolved != dispatches[0]:
+        raise AssertionError(f"serve_route ledger {route} resolves "
+                             f"{resolved} of {dispatches[0]} dispatches")
+    recs = supervisor_records(sup_path)
+    mine = [r["action"] for r in recs if r.get("member") == killed]
+    want = ["launch_member", "member_exit", "backoff", "relaunch_member",
+            "launch_member"]
+    if mine[:5] != want:
+        raise AssertionError(f"member {killed}'s records {mine}")
+    (death,) = [r for r in recs if r["action"] == "member_exit"
+                and r["rc"] != 0]
+    if death["rc"] != 19:
+        raise AssertionError(f"member {killed} exit {death['rc']}")
+    status_rc, status = status_tool("--fleet", "--run-dir", fleet_dir)
+    if status_rc != 0 or [r["member"] for r in status["fleet"]] != list(
+            range(FLEET_MEMBERS)) or status["router"] is None:
+        raise AssertionError(f"photon_status --fleet: exit {status_rc}, "
+                             f"{status}")
+    return {
+        "members": FLEET_MEMBERS,
+        "member_hbm_budget_mb": FLEET_HBM_BUDGET_MB,
+        "requests": len(scored) + len(sheds), "sheds": len(sheds),
+        "shed_reasons": sorted({e for _, e in sheds}),
+        "sheds_after_readmission": 0,
+        "dispatches": dispatches[0], "serve_route": route,
+        "member_tier_hits": hits,
+        "rows": sum(len(u) for _, _, u, _ in scored),
+        "scores_equal_scoring_driver": True,
+        "killed_member": killed, "killed_rc": death["rc"],
+        "fleet_ready_secs": ready - t0,
+        "kill_waves": waves, "kill_waves_secs": t_sent - t_kill,
+        "kill_to_relaunch_secs": t_relaunch - t_kill,
+        "relaunch_to_readmitted_secs": t_admitted - t_relaunch,
+        "drain_secs": drain_secs,
+        "supervisor_actions": [r["action"] for r in recs],
+        "fleet_after_readmission": stats["fleet"],
+        "status": status["status"], "status_exit": status_rc,
+        "status_members": [r["member"] for r in status["fleet"]],
+        "seconds": time.perf_counter() - t0,
+    }
+
+
+def supervise_phase(torch, dev, smi, fixture, reference, served, workdir):
+    """Phase 17: (a) a supervised training run through a preemption, a
+    stall kill and a crash, and beside it (b) the fleet under the
+    supervisor: they share nothing but the card and the host, so the
+    phase takes about (a)'s seconds, and each half's times include the
+    other's load. Returns the phase record and (a)'s launches by
+    incarnation."""
+    t0 = time.perf_counter()
+    started = []
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    run_job = pool.submit(supervised_run_phase, dev, fixture, reference,
+                          os.path.join(workdir, "run"), started)
+    try:
+        fleet = supervised_fleet_phase(dev, served,
+                                       os.path.join(workdir, "fleet"))
+    except BaseException:
+        for proc in started:  # (b) failed: (a) need not run on
+            stop_supervisor(proc)
+        raise
+    finally:
+        pool.shutdown(wait=True)
+    run, launches = run_job.result()
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"phase": "supervise", "nvidia_smi": smi, "a_run": run,
+            "b_fleet": fleet, "a_and_b_side_by_side": True,
+            "seconds": time.perf_counter() - t0}, launches
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -6188,6 +6751,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase, driver_launches, driver_by_path, driver_check, fixture = \
         driver_phase(torch, dev, smi, driver_dir,
+                     os.path.join(build, "drill", "fixture", "validate.avro"),
                      avro_write_secs=driver_write_secs)
     phase["seconds"] = time.perf_counter() - t0
     emit(phase)
@@ -6200,7 +6764,7 @@ def main() -> int:
     print("resume in process: " + json.dumps(in_process), file=sys.stderr,
           flush=True)
     t1 = time.perf_counter()
-    drill_rec, drill_launches, drill_fixture = drill_phase(
+    drill_rec, drill_launches, drill_fixture, drill_ref = drill_phase(
         dev, os.path.join(build, "drill"), write_secs=drill_write_secs)
     drill_rec["seconds"] = time.perf_counter() - t1
     emit({"phase": "resume", "nvidia_smi": smi, "in_process": in_process,
@@ -6278,14 +6842,13 @@ def main() -> int:
     fleet = fleet_phase(torch, dev, smi, served,
                         os.path.join(build, "fleet"))
     fleet["seconds"] = time.perf_counter() - t0
-    del served
     emit(fleet)
 
     # -- 15. the device mesh -------------------------------------------------
     mesh, mesh_launches, mesh_err, mesh_rows = mesh_phase(
         torch, dev, smi, data, glmix_phase5, drill_fixture, drill_f32,
         os.path.join(build, "mesh"), hbm)
-    for d in ("drill", "drill_f32", "mesh"):
+    for d in ("drill_f32", "mesh"):
         shutil.rmtree(os.path.join(build, d), ignore_errors=True)
     emit(mesh)
     for row in mesh_rows:
@@ -6295,9 +6858,17 @@ def main() -> int:
     # -- 16. the process gang ----------------------------------------------
     gang, gang_launches = gang_phase(torch, dev, smi, data, fixture,
                                      driver_dir, os.path.join(build, "gang"))
-    for d in (driver_dir, os.path.join(build, "gang")):
-        shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(os.path.join(build, "gang"), ignore_errors=True)
     emit(gang)
+
+    # -- 17. run supervision -------------------------------------------------
+    supervise, supervise_launches = supervise_phase(
+        torch, dev, smi, drill_fixture, drill_ref, served,
+        os.path.join(build, "supervise"))
+    del served
+    for d in (driver_dir, os.path.join(build, "drill")):
+        shutil.rmtree(d, ignore_errors=True)
+    emit(supervise)
 
     # -- kernels line, card line, result ---------------------------------------
     cd_runs = {f"cd_{k}": v for k, v in cd_launches.items()}
@@ -6310,6 +6881,7 @@ def main() -> int:
             "resume_before_kill": resume_crash,
             "resume_resumed": resume_resumed,
             **{f"drill_{r}": v for r, v in drill_launches.items()},
+            **supervise_launches,
             **{k: v["by_path"] for k, v in second_order_runs.items()},
             **{k: v["by_path"] for k, v in cd_runs.items()},
             **{k: v["by_path"] for k, v in fac_runs.items()},

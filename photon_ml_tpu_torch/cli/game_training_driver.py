@@ -1078,7 +1078,12 @@ def run(argv: Optional[Sequence[str]] = None
                           stop_file=ns.stop_file)
     stop.install_signal_handlers()
     driver.stop = stop
-    obs_run = start_observed_run_from_flags(ns, warn=driver.logger.warn)
+    # under a supervisor (photon_ml_tpu_torch/tools/photon_supervise.py or
+    # the multi-process re-exec), a relaunched incarnation rotates the
+    # previous one's telemetry to .prev instead of truncating the evidence
+    obs_run = start_observed_run_from_flags(
+        ns, warn=driver.logger.warn,
+        preserve_existing=bool(os.environ.get(_SUPERVISED_ENV)))
     try:
         driver.run()
     except clean_abort_types() as e:

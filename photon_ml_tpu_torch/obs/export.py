@@ -7,7 +7,8 @@ consumer of either package's stream reads the other's.
 The on-line half of the observability layer (``obs/run.py`` is the
 flush-at-exit half): a :class:`TelemetrySink` ships records as
 line-delimited JSON over a local TCP or Unix socket to whatever consumer
-is listening (``tools/photon_status.py`` is the first), with a file-tail
+is listening (``photon_ml_tpu_torch/tools/photon_status.py`` is the
+first), with a file-tail
 fallback when no consumer ever connects — so a long multi-host run is
 watchable WHILE it trains instead of opaque until it exits.
 

@@ -84,7 +84,8 @@ class Heartbeat:
             "stalled": stalled,
             # compact live counters: the telemetry stream / run-dir tail
             # answers "how hard is the run working" WITHOUT waiting for
-            # the exit snapshot (tools/photon_status.py reads these)
+            # the exit snapshot (photon_ml_tpu_torch/tools/
+            # photon_status.py reads these)
             "metric_totals": self._registry.totals(),
         }
         if stalled and not self.stalled:

@@ -206,15 +206,17 @@ class MetricsRegistry:
         """``{name: label-summed total}`` for counters and gauges plus
         ``{name: {"count", "sum"}}`` for histograms — the compact
         per-heartbeat snapshot the live telemetry stream (and
-        ``tools/photon_status.py``) rides on. The histogram entry keeps
-        a distribution like ``re_chunk_active_lanes`` visible live
+        ``photon_ml_tpu_torch/tools/photon_status.py``) rides on. The
+        histogram entry keeps a distribution like
+        ``re_chunk_active_lanes`` visible live
         (count and running sum; full bucket records still only ship in
         the exit snapshot). Scalar consumers key on scalar names, so
         the dict-valued entries never collide with them.
 
         A LABELED histogram's entry additionally carries ``series``:
         the per-label-set records (count/sum/min/max + cumulative
-        ``le`` buckets), so a consumer like ``photon_status --fleet``
+        ``le`` buckets), so a consumer like
+        ``photon_ml_tpu_torch/tools/photon_status.py --fleet``
         can estimate per-label percentiles (the
         ``serve_stage_ms{stage}`` breakdown) from heartbeat totals
         alone. Additive: scalar-shaped consumers never see it, and

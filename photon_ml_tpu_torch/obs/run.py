@@ -284,7 +284,8 @@ class ObservedRun:
         """Record how the run is ending ("ok" default, "abort" on a
         clean abort, "preempted" on a graceful stop honored at a commit
         barrier, "error" otherwise) — written as the ``run_end`` record
-        at :meth:`finish` so ``tools/photon_status.py`` can tell a
+        at :meth:`finish` so
+        ``photon_ml_tpu_torch/tools/photon_status.py`` can tell a
         finished run from an aborted or requeue-pending one."""
         self._exit_status = status
         self._exit_reason = reason

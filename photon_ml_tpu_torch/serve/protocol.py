@@ -50,7 +50,8 @@ Grammar (one JSON object per line):
   A refused swap carries the typed error name in ``error`` (the
   client-side exception is :class:`ModelSwapRefusedError`); a
   post-flip probation ROLLBACK happens after the reply and is
-  reported through ``stats``/``photon_status`` (``last_swap``), not
+  reported through ``stats`` /
+  ``photon_ml_tpu_torch/tools/photon_status.py`` (``last_swap``), not
   the ``swap_result``.
 
   ``member`` is the fleet router's member-role handshake

@@ -42,8 +42,9 @@ Thread layout mirrors ``serve/service.py``: an accept thread, one
 reader thread per client connection (each scatters its own requests
 across short-lived per-shard threads, drawing from the per-member
 connection pools), and the main thread as the health loop. SLO gauges (``serve_qps``/``serve_p50_ms``/
-``serve_p99_ms``) ride heartbeat totals so ``photon_status`` reads the
-router like any serving process. Exit discipline is the service's:
+``serve_p99_ms``) ride heartbeat totals so
+``photon_ml_tpu_torch/tools/photon_status.py`` reads the router like any
+serving process. Exit discipline is the service's:
 SIGTERM drains in-flight dispatches briefly and exits 75;
 ``--max-serve-seconds``/``--stop-file`` drain and exit 0. On
 readiness (listener bound + every reachable member admitted) the

@@ -1058,7 +1058,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     stop = StopController(max_train_seconds=ns.max_serve_seconds,
                           stop_file=ns.stop_file)
     stop.install_signal_handlers()
-    obs_run = start_observed_run_from_flags(ns, warn=logger.warn)
+    # a supervised relaunch keeps the crashed incarnation's telemetry
+    obs_run = start_observed_run_from_flags(
+        ns, warn=logger.warn,
+        preserve_existing=bool(os.environ.get("PHOTON_GAME_SUPERVISED")))
     service = None
     try:
         def load_model(model_dir):

@@ -51,6 +51,17 @@ CPU)::
 Without ``--fixture-dir`` a small fixture (2,000 / 500 rows of the GLMix
 recipe) is written into the work directory first. Exit 0 and a last line
 ``DRILL_OK ...`` mean the drill passed; any mismatch raises.
+
+``--worker-updates`` is the worker role that also prints one
+``DRILL_UPDATE {json}`` line (the ``cd.update`` tag, the wall clock, the
+kernel's launches by path so far) each time an update reaches its
+``cd.update`` fault point, before any armed fault fires there: a process
+that dies there (a ``kill``, a hang ended by SIGKILL) still shows what it
+launched. A supervisor runs it as its module::
+
+    python -m photon_ml_tpu_torch.tools.photon_supervise \
+        --module photon_ml_tpu_torch.tools.crash_resume_drill -- \
+        --worker-updates <driver argv>
 """
 
 from __future__ import annotations
@@ -106,13 +117,15 @@ def driver_argv(train: str, validate: str, output_dir: str, device: str,
 # -- the worker role ---------------------------------------------------------
 
 
-def run_worker(argv: list) -> None:
+def run_worker(argv: list, report_updates: bool = False) -> None:
     """One training driver run in this process. On a normal end, or an
     exit the driver chose (3, 75), prints one ``DRILL_WORKER {json}``
-    line and keeps the driver's exit code."""
+    line and keeps the driver's exit code. With ``report_updates``, one
+    ``DRILL_UPDATE {json}`` line at every ``cd.update`` fault point."""
     import torch
 
     from photon_ml_tpu_torch.cli import game_training_driver as ttd
+    from photon_ml_tpu_torch.game import coordinate_descent as tcd
     from photon_ml_tpu_torch.io.data_format import INGEST_STATS
     from photon_ml_tpu_torch.ops import kernels_build
     from photon_ml_tpu_torch.ops import pallas_kernels as pk
@@ -138,6 +151,19 @@ def run_worker(argv: list) -> None:
             rec["phase_seconds"] = driver.phase_seconds
         print("DRILL_WORKER " + json.dumps(rec), flush=True)
 
+    if report_updates:
+        fault_point = tcd.fault_point
+
+        def reporting_fault_point(point, tag=None, **kw):
+            if point == "cd.update":
+                print("DRILL_UPDATE " + json.dumps({
+                    "tag": tag, "t": time.time(),
+                    "launches_by_path": dict(
+                        pk.fused_value_gradient_sums.launches_by_path)}),
+                    flush=True)
+            return fault_point(point, tag=tag, **kw)
+
+        tcd.fault_point = reporting_fault_point
     try:
         driver = ttd.run(argv)
     except SystemExit as e:
@@ -375,10 +401,11 @@ def _check_metrics_after_resume(role: str, out_dir: str, ref_out: str,
 
 
 def run_drill(fixture_dir: str, workdir: str, device: str = "cuda",
-              timeout: float = 900.0) -> dict:
+              timeout: float = 900.0, with_preempt: bool = True) -> dict:
     """Run the six roles and every check; returns the record (per role:
     exit code, wall seconds, the worker's line). Raises on any
-    mismatch."""
+    mismatch. ``with_preempt=False`` leaves out the preempt and relaunch
+    roles (for a caller that drills the SIGTERM path another way)."""
     from photon_ml_tpu_torch.device import resolve_device
     from photon_ml_tpu_torch.utils.faults import corrupt_path
 
@@ -406,19 +433,21 @@ def run_drill(fixture_dir: str, workdir: str, device: str = "cuda",
 
     kill = f"cd.update@{KILL_AT[0]}.{KILL_AT[1]}=kill:1:{KILL_EXIT}"
     sig = f"cd.update@{SIGNAL_AT[0]}.{SIGNAL_AT[1]}=signal"
-    runs = _run_wave({"reference": (argv("reference"), ""),
-                      "crash": (argv("crash"), kill),
-                      "preempt": (argv("preempt"), sig)}, timeout)
-    for role in ("reference", "crash", "preempt"):
+    wave = {"reference": (argv("reference"), ""),
+            "crash": (argv("crash"), kill)}
+    if with_preempt:
+        wave["preempt"] = (argv("preempt"), sig)
+    runs = _run_wave(wave, timeout)
+    for role in wave:
         _expect_exit(role, runs[role])
     if os.path.exists(os.path.join(dirs["crash"][0], "metrics.json")):
         raise AssertionError("the crash role finished")
-    if f"PHOTON_PREEMPTED step={SIGNAL_AT[0] + 1}.0 " not in \
-            runs["preempt"]["stderr"]:
+    if with_preempt and f"PHOTON_PREEMPTED step={SIGNAL_AT[0] + 1}.0 " \
+            not in runs["preempt"]["stderr"]:
         raise AssertionError(f"preempt: no PHOTON_PREEMPTED line at "
                              f"step {SIGNAL_AT[0] + 1}.0:\n"
                              f"{runs['preempt']['stderr'][-2000:]}")
-    _say(f"wave 1: reference, crash (rc {KILL_EXIT}) and preempt (rc 75) "
+    _say(f"wave 1: {', '.join(wave)} "
          f"in {max(r['wall_secs'] for r in runs.values()):.1f}s")
 
     # a copy of the crash's snapshots with every step corrupted
@@ -431,22 +460,24 @@ def run_drill(fixture_dir: str, workdir: str, device: str = "cuda",
     for name in steps:
         corrupt_path(os.path.join(corrupt_ckpt, name))
 
-    runs.update(_run_wave({"resume": (argv("resume"), ""),
-                           "relaunch": (argv("relaunch"), ""),
-                           "corrupt": (argv("corrupt"), "")}, timeout))
-    for role in ("resume", "relaunch", "corrupt"):
+    wave = {"resume": (argv("resume"), ""), "corrupt": (argv("corrupt"), "")}
+    if with_preempt:
+        wave["relaunch"] = (argv("relaunch"), "")
+    runs.update(_run_wave(wave, timeout))
+    for role in wave:
         _expect_exit(role, runs[role])
     err = runs["corrupt"]["stderr"]
     if "PHOTON_ABORT kind=CheckpointCorruptionError" not in err \
             or "Traceback" in err:
         raise AssertionError(f"corrupt: not a clean abort:\n{err[-2000:]}")
-    _say("wave 2: resume, relaunch and corrupt (rc 3) "
-         f"in {max(runs[r]['wall_secs'] for r in ('resume', 'relaunch', 'corrupt')):.1f}s")
+    _say(f"wave 2: {', '.join(wave)} "
+         f"in {max(runs[r]['wall_secs'] for r in wave):.1f}s")
 
     ref = _last_snapshot(dirs["reference"][1])
     compared = {}
-    for role, resume_at in (("resume", KILL_AT),
-                            ("relaunch", (SIGNAL_AT[0] + 1, 0))):
+    resumed = [("resume", KILL_AT)] + ([("relaunch", (SIGNAL_AT[0] + 1, 0))]
+                                       if with_preempt else [])
+    for role, resume_at in resumed:
         log = open(os.path.join(dirs[role][0], "game-training.log")).read()
         line = (f"resuming from checkpoint at sweep {resume_at[0]} "
                 f"coordinate {resume_at[1]}")
@@ -455,7 +486,7 @@ def run_drill(fixture_dir: str, workdir: str, device: str = "cuda",
         _check_ends_like_reference(role, _last_snapshot(dirs[role][1]), ref)
         compared[role] = _check_metrics_after_resume(
             role, dirs[role][0], dirs["reference"][0], resume_at)
-    for role in ("reference", "resume", "relaunch"):
+    for role in ["reference"] + [r for r, _ in resumed]:
         w = runs[role]["worker"]
         launches = sum(w["launches_by_path"].values())
         if dev.type == "cuda" and (
@@ -484,8 +515,8 @@ def _expect_exit(role: str, run: dict) -> None:
 
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv[:1] == ["--worker"]:
-        run_worker(argv[1:])
+    if argv[:1] in (["--worker"], ["--worker-updates"]):
+        run_worker(argv[1:], report_updates=argv[0] == "--worker-updates")
         return
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--fixture-dir", default=None,

@@ -60,6 +60,11 @@
   an output is written.
 - The port's photonlint (``analysis/*`` and ``tools/photonlint``) is in
   both import checks.
+- Run supervision (``tools/photon_status``, ``tools/photon_supervise``)
+  is in both import checks; ``photon_status`` imports no torch, and the
+  supervisor imports it only for its device check, which refuses a child
+  whose ``--device`` is CUDA (the default) on a host without CUDA before
+  anything is spawned or written (the router is exempt).
 """
 
 import ast
@@ -135,6 +140,8 @@ MESH_MODULES = [
     "photon_ml_tpu_torch.utils.backend_probe",
     "photon_ml_tpu_torch.utils.compile_cache"]
 MULTIHOST_MODULES = ["photon_ml_tpu_torch.parallel.multihost"]
+SUPERVISION_MODULES = ["photon_ml_tpu_torch.tools.photon_status",
+                       "photon_ml_tpu_torch.tools.photon_supervise"]
 ANALYSIS_MODULES = [
     f"photon_ml_tpu_torch.analysis.{m}" for m in (
         "core", "package", "dataflow", "cache", "sarif", "rules_faults",
@@ -146,7 +153,8 @@ NAMED_MODULES = (FAULT_TOLERANCE_MODULES + NATIVE_INGEST_MODULES
                  + SECOND_ORDER_MODULES + SAMPLER_MODULES
                  + SINGLE_GLM_MODULES + WIDE_STREAMED_MODULES
                  + SERVE_MODULES + FLEET_TELEMETRY_MODULES + MESH_MODULES
-                 + MULTIHOST_MODULES + ANALYSIS_MODULES)
+                 + MULTIHOST_MODULES + ANALYSIS_MODULES
+                 + SUPERVISION_MODULES)
 
 
 def _forbidden(module: str) -> bool:
@@ -704,6 +712,54 @@ def test_router_imports_no_torch_and_takes_no_device():
     assert not hasattr(trouter.parse_args(["--members", "a"]), "device")
     with pytest.raises(SystemExit):
         trouter.parse_args(["--members", "a", "--device", "cuda"])
+
+
+def test_status_imports_no_torch_and_supervise_only_for_the_device():
+    code = ("import sys\n"
+            f"sys.path.insert(0, {str(REPO)!r})\n"
+            "import photon_ml_tpu_torch.tools.photon_status\n"
+            "a = 'torch' in sys.modules\n"
+            "import photon_ml_tpu_torch.tools.photon_supervise as s\n"
+            "b = 'torch' in sys.modules\n"
+            "s.check_device([], s.ROUTER_MODULE)\n"
+            "print(a, b, 'torch' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-I", "-c", code],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False", "False"]
+
+
+def test_supervisor_refuses_cpu_without_being_asked(no_cuda, tmp_path,
+                                                    monkeypatch):
+    """The supervisor adds no ``--device``: a child whose last
+    ``--device`` is CUDA (the default) is refused on a host without CUDA
+    before anything is spawned or written; the router is exempt."""
+    from photon_ml_tpu_torch.tools import photon_supervise as tsup
+
+    monkeypatch.setattr(tsup.subprocess, "Popen", lambda *a, **k:
+                        pytest.fail("the supervisor spawned a child"))
+    trace = tmp_path / "trace"
+    for args in (["--trace-dir", str(trace)],
+                 ["--trace-dir", str(trace), "--device", "cpu",
+                  "--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tsup.supervise(args)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tsup.supervise(args, module=tsup.SERVE_MODULE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsup.supervise_fleet(["--game-model-input-dir", "m"], fleet=2,
+                             fleet_dir=str(tmp_path / "fleet"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsup.main(["--", "--trace-dir", str(trace)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsup.main(["--fleet", "2", "--fleet-dir", str(tmp_path / "f2"),
+                   "--", "--game-model-input-dir", "m"])
+    assert not trace.exists()
+    assert not (tmp_path / "fleet").exists()
+    assert not (tmp_path / "f2").exists()
+    tsup.check_device([], tsup.ROUTER_MODULE)
+    tsup.check_device(["--device", "cuda", "--device", "cpu"],
+                      tsup.TRAIN_MODULE)
 
 
 def test_fleet_members_default_to_the_card(no_cuda, tmp_path):

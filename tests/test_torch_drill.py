@@ -4,7 +4,8 @@ drivers.
 - The crash/resume drill (``photon_ml_tpu_torch/tools/crash_resume_drill``)
   at a tiny size on the CPU: six driver processes end with exit codes
   0/19/75/0/0/3, and the resumed and relaunched runs end bit-exact to the
-  uninterrupted one.
+  uninterrupted one; without the preempt and relaunch roles, four end
+  with 0/19/0/3 and the resumed run bit-exact.
 - Degraded ingest: four part files, one corrupted, ``--max-shard-loss-frac
   0.3``: both packages' training drivers quarantine the same shard and
   agree per update to rel 1e-4; both scoring drivers score the same rows;
@@ -77,6 +78,24 @@ def test_drill_on_the_cpu(fixture_dir, tmp_path, monkeypatch):
         # CPU tensors take the plain version: no launch is counted
         assert sum(w["launches_by_path"].values()) == 0
     assert record["roles"]["crash"]["worker"] is None
+
+
+def test_drill_without_the_preempt_roles_on_the_cpu(fixture_dir, tmp_path,
+                                                    monkeypatch):
+    """``with_preempt=False``: four processes, exit codes 0/19/0/3, the
+    resumed run bit-exact to the uninterrupted one."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    record = drill.run_drill(str(fixture_dir), str(tmp_path / "roles"),
+                             device="cpu", timeout=300, with_preempt=False)
+    assert {r: v["exit"] for r, v in record["roles"].items()} == {
+        r: rc for r, rc in drill.EXPECTED_EXIT.items()
+        if r not in ("preempt", "relaunch")}
+    assert record["snapshot_step"] == 2 * drill.SWEEPS
+    assert record["states_compared_after_resume"] == {
+        "resume": 2 * drill.SWEEPS - 3}
+    for role in ("reference", "resume"):
+        w = record["roles"][role]["worker"]
+        assert w["exit"] == 0 and w["snapshot_bytes"] > 0
 
 
 def _argv(fixture_dir, out, *extra):
