@@ -71,16 +71,19 @@ Phases, one JSON line each on stdout:
    to raise; fresh coordinates resume from the restored snapshot at
    (sweep 1, coordinate 1), and their final states must equal phase 5's
    uninterrupted run bit for bit. (b) the crash/resume drill
-   (``photon_ml_tpu_torch/tools/crash_resume_drill.py``) on the card: four
-   driver processes on a 40,000 / 5,000-row Avro fixture at full width
-   (reference, a real kill mid-sweep, resume, an all-corrupt checkpoint
-   directory), exit codes 0/19/0/3, the resumed run bit-exact to the
-   reference in states, scores and objectives, every finishing process
-   launching the kernel on the path ``kernel_path`` picks for 65 f32
-   columns and reading every part through the native path (its scan and
-   load seconds reported). The drill's SIGTERM and relaunch roles are
-   phase 17 (a)'s (the same signal at the same update, held to this
-   reference), cut here for its time.
+   (``photon_ml_tpu_torch/tools/crash_resume_drill.py``) on the card: its
+   uninterrupted reference role as a driver process on a 40,000 /
+   5,000-row Avro fixture at full width, exit 0, launching the kernel on
+   the path ``kernel_path`` picks for 65 f32 columns and reading every
+   part through the native path (its scan and load seconds reported).
+   Phase 17 holds the drill's other roles to this reference: (a) the
+   preempt and relaunch roles' SIGTERM at update 0.1 through the
+   supervisor, and a SIGKILLed driver resumed at full width; (c) the
+   corrupt role on an all-corrupt copy of its snapshots. The crash and
+   resume roles are cut for their time: 17 (a) resumes a SIGKILLed
+   driver at this width and phase 18's smoke cell ``cd.update=kill``
+   sends the drill's kill at an update, each held to its reference bit
+   for bit.
 
 8. second_order — TRON and OWL-QN (L1 / elastic net) on the card:
    (a) BASELINE config 2 at ``bench.py``'s shape (262,144 x 2,048 f32, the
@@ -120,8 +123,9 @@ Phases, one JSON line each on stdout:
    per-user update of L-BFGS (phase 5's config), TRON and OWL-QN (phase
    8's per-user configs) as one dispatch, with lane compaction in chunks
    of 4 and with the auto-tuned chunk: coefficients, iterations and codes
-   bit for bit equal, with wall and device busy time (``torch.profiler``),
-   the solvers' reads and the lanes of every re-dispatched chunk, and a
+   bit for bit equal, with wall time (the single dispatch's device busy
+   time is phase 8's profile of the same update), the solvers' reads
+   and the lanes of every re-dispatched chunk, and a
    check at the buckets' shapes that a lane's margins and gradient sums,
    with the lanes padded as compaction pads them, do not depend on how
    many lanes share the dispatch; (c) two sweeps in blocks of two
@@ -180,7 +184,7 @@ Phases, one JSON line each on stdout:
    main-grid launch on the stream path (124 f32 columns), the best
    model's AUC from ``best/`` equal to ``metrics.json``'s, the last
    iterate's metrics the final model's; (c) the same LibSVM files
-   straight into the driver as a process (exit 0), its validation AUCs
+   straight into the driver (in this process), its validation AUCs
    (b)'s within rel 1e-4 and its sorted coefficients' distance to (b)'s
    reported; (d) OWL-QN + L1, TRON + L2 with STANDARDIZATION (never
    rising), and the same with a box on three features (finite and
@@ -281,28 +285,30 @@ Phases, one JSON line each on stdout:
    npz files, coefficients and objective within ``GANG_BOUNDS`` of
    phase 6's final state, then the scoring driver split over two
    processes, whose records equal phase 6's scoring run record for
-   record; (c) on the drill's rows as part files, two sweeps, a
-   supervised gang
-   (``--max-worker-restarts 1``, checkpoints) whose member 1 is
-   SIGKILLed after process 0's first snapshot re-forms, resumes
-   (``MULTIHOST_RESUME``) and ends on the uninterrupted gang's npz bit
-   for bit, and one member's SIGTERM stops a fresh gang with exit 75 on
-   both members at one coordinate.
+   record; (c) on the drill's rows as part files, two sweeps, three
+   gangs side by side: a supervised gang (``--max-worker-restarts 1``,
+   checkpoints) whose member 1 is SIGKILLed after process 0's first
+   snapshot re-forms, resumes (``MULTIHOST_RESUME``) and ends on the
+   uninterrupted gang's npz bit for bit, and one member's SIGTERM stops
+   a fresh gang with exit 75 on both members at one coordinate.
 17. supervise — run supervision through the port's own
    ``photon_status`` and ``photon_supervise``: (a) the supervisor runs the
    training driver (the drill's ``--worker-updates`` role, which reads
    the kernel's launch count at every ``cd.update`` fault point) on
    phase 7 (b)'s fixture with the drill's argv, ``--checkpoint-dir`` and
-   ``--trace-dir``, through a SIGTERM (exit 75), a hang that the
-   heartbeat flags (``stall_kill``, then ``escalate_kill``) and a kill
-   (exit 19): ``PHOTON_SUPERVISE_OK restarts=3``, the supervisor's
-   records in order, the last snapshot and the objectives after the last
-   resume bit for bit phase 7 (b)'s uninterrupted reference, every
-   incarnation launching the kernel on its path, the ``.prev`` files and
-   three ``run_restart`` records in the trace dir, ``photon_status``
+   ``--trace-dir``, through a SIGTERM at update 0.1 (exit 75) and a hang
+   at 1.1 that the heartbeat flags (``stall_kill``, then
+   ``escalate_kill``): ``PHOTON_SUPERVISE_OK restarts=2``, the
+   supervisor's records in order, the last snapshot and the objectives
+   after the last resume bit for bit phase 7 (b)'s uninterrupted
+   reference, every incarnation launching the kernel on its path, the
+   ``.prev`` files (``trace.json.prev`` the preempted incarnation's) and
+   two ``run_restart`` records in the trace dir, ``photon_status``
    reading it as finished; the seconds from each fault to the next
    incarnation's first update, the stall verdict's latency and each
-   incarnation's wall time are printed; (b) ``photon_supervise --fleet
+   incarnation's wall time are printed (the drill's kill at update 2.0
+   is phase 18's smoke cell ``cd.update=kill``, so it is not sent here);
+   (b) ``photon_supervise --fleet
    2 --router-listen --stop-file`` serving phase 6's final f32 model as
    phase 14 does (``--serve-hbm-budget-mb 32`` a member), the members
    armed with ``serve.batch@2=kill:1:19``: one client's requests of
@@ -312,7 +318,28 @@ Phases, one JSON line each on stdout:
    tier hits non-zero (the relaunched one's since its relaunch), the
    router's ``serve_route`` ledger resolving every dispatch, the stop
    file draining the fleet to exit 0, and ``photon_status --fleet``
-   listing both members and the router.
+   listing both members and the router; (c) the drill's corrupt role, a
+   driver process on the card over a copy of phase 7 (b)'s snapshots
+   with every step corrupted: exit 3, one ``PHOTON_ABORT
+   kind=CheckpointCorruptionError``, no traceback, no output. (a), (b)
+   and (c) run side by side.
+18. chaos — (a) the port's chaos campaign
+   (``photon_ml_tpu_torch/tools/chaos_drill.py``) on the card, its smoke
+   subset with every child on ``--device cuda``: the fault-free
+   reference, the 11 smoke cells (I/O retry, a corrupt shard quarantined,
+   the index map's clean abort, a torn checkpoint write, a poisoned
+   update, a kill and a SIGTERM at an update each resumed bit for bit,
+   the trace dir's and the telemetry exporter's I/O down, the OTLP
+   bridge against a dead collector, a fleet member killed mid-request
+   under ``photon_supervise --fleet 4``) and ``scenario.corrupt_shard``,
+   side by side through the tool's ``run_cell``: every cell passes, with
+   the outcomes the JAX package's gate asserts; (b) the port's OTLP
+   bridge over phase 6's traced training run: the document holds the
+   ``cd.sweep`` and ``cd.update`` spans and the
+   ``photon.telemetry_proto`` attribute. The fixture is the JAX
+   campaign's own (4 x 40 rows, 5 columns with the intercept): under the
+   kernel's gate, so no cell launches it; what the card adds is the
+   port's state on CUDA through every fault.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit) and
@@ -1413,18 +1440,18 @@ def write_drill_fixture(workdir, rows=DRILL_ROWS, n_users=6040,
 
 def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
                 d_global=64, write_secs=None):
-    """Phase 7 (b): the crash/resume drill through the drivers on the
-    card, six processes on an Avro fixture at full width. Returns the
-    record, the launches by role, the fixture's (training, validation)
-    files, which stay in ``workdir``, and the reference role's output and
-    checkpoint directories (with its kernel path), kept in
-    ``workdir/reference``; raises on any failed check.
+    """Phase 7 (b): the crash/resume drill's uninterrupted reference role
+    as a driver process on the card, on an Avro fixture at full width
+    (the drill's argv and worker role, through its ``run_roles``).
+    Returns the record, the launches by role, the fixture's (training,
+    validation) files, which stay in ``workdir``, and the reference
+    role's output and checkpoint directories (with its kernel path), kept
+    in ``workdir/reference`` for phase 17; raises on any failed check.
     ``write_secs`` says the fixture is in ``workdir`` already
     (:func:`write_drill_fixture`, run beside phases 2 and 3) and how long
     its write took; without it the fixture is written here. The drill's
-    preempt and relaunch roles are left out: phase 17 (a) drills the same
-    SIGTERM at the same update, through the supervisor, against the same
-    reference."""
+    other roles run elsewhere or not at all (``reduced_roles`` says
+    which)."""
     from photon_ml_tpu_torch.tools import crash_resume_drill as drill
 
     fixture = os.path.join(workdir, "fixture")
@@ -1434,62 +1461,61 @@ def drill_phase(dev, workdir, rows=DRILL_ROWS, n_users=6040, n_movies=3706,
         drill.write_fixture(fixture, rows=rows, n_users=n_users,
                             n_movies=n_movies, d_global=d_global)
         write_secs = time.perf_counter() - t
-    record = drill.run_drill(fixture, os.path.join(workdir, "roles"),
-                             device=str(dev), timeout=600,
-                             with_preempt=False)
-    roles, launches = {}, {}
-    for r, v in record["roles"].items():
-        w = v["worker"] or {}
-        secs = w.get("phase_seconds") or {}
-        roles[r] = {"exit": v["exit"], "wall_secs": v["wall_secs"],
-                    **{k: w.get(k) for k in (
-                        "launches_by_path", "snapshot_bytes", "snapshots",
-                        "save_secs", "restore_secs", "phase_seconds",
-                        "ingest_parts")},
-                    "feature_map_secs": secs.get("prepareFeatureMaps"),
-                    "load_secs": secs.get("prepareGameDataSet"),
-                    "worker_secs": w.get("wall_secs")}
-        if w:
-            launches[r] = w["launches_by_path"]
-        # a finishing worker read every part through the native path
-        if secs and (w["ingest_parts"]["declined_parts"]
-                     or w["ingest_parts"]["records_parts"]
-                     or not w["ingest_parts"]["native_parts"]):
-            raise AssertionError(f"drill {r}: ingest left the native path: "
-                                 f"{w['ingest_parts']}")
-    ref = record["roles"]["reference"]["worker"]
     # the uninterrupted reference's output and snapshots stay for phase
-    # 17 (a), whose supervised run must end on them
+    # 17, whose supervised run must end on them and whose corrupt role
+    # reads a corrupted copy of them
     reference = {"out": os.path.join(workdir, "reference", "out"),
-                 "ckpt": os.path.join(workdir, "reference", "ckpt"),
-                 "expected_path": ref["expected_path"]}
+                 "ckpt": os.path.join(workdir, "reference", "ckpt")}
     shutil.rmtree(os.path.join(workdir, "reference"), ignore_errors=True)
-    for key in ("out", "ckpt"):
-        shutil.move(os.path.join(workdir, "roles", f"reference_{key}"),
-                    reference[key])
-    shutil.rmtree(os.path.join(workdir, "roles"), ignore_errors=True)
+    t0 = time.perf_counter()
+    run = drill.run_roles({"reference": (drill.role_argv(
+        fixture, reference["out"], reference["ckpt"], str(dev)), "")},
+        timeout=600)["reference"]
+    drill.check_launches("reference", run, dev)
+    w = run["worker"]
+    secs = w["phase_seconds"]
+    # the reference read every part through the native path
+    if w["ingest_parts"]["declined_parts"] \
+            or w["ingest_parts"]["records_parts"] \
+            or not w["ingest_parts"]["native_parts"]:
+        raise AssertionError(f"drill reference: ingest left the native "
+                             f"path: {w['ingest_parts']}")
+    reference["expected_path"] = w["expected_path"]
+    role = {"exit": run["exit"], "wall_secs": run["wall_secs"],
+            **{k: w.get(k) for k in (
+                "launches_by_path", "snapshot_bytes", "snapshots",
+                "save_secs", "restore_secs", "phase_seconds",
+                "ingest_parts")},
+            "feature_map_secs": secs.get("prepareFeatureMaps"),
+            "load_secs": secs.get("prepareGameDataSet"),
+            "worker_secs": w.get("wall_secs")}
     return {
         "reduced": {"rows": {"train": rows[0], "validate": rows[1],
                              "configuration": 1_000_209},
-                    "why": "six driver processes each decode the Avro "
+                    "why": "the drill's driver processes each decode the Avro "
                            "again; the training rows keep the fixed effect "
                            "above the kernel's gate of 2**21 elements"},
         "reduced_roles": {
-            "left_out": ["preempt", "relaunch"],
-            "why": "phase 17 (a) sends the same SIGTERM at update 0.1 "
-                   "and holds the relaunch to the same reference bit "
+            "moved": {"preempt, relaunch": "phase 17 (a): the same SIGTERM "
+                                           "at update 0.1, relaunched by "
+                                           "the supervisor",
+                      "corrupt": "phase 17 (c), on a corrupted copy of "
+                                 "this reference's snapshots"},
+            "left_out": ["crash", "resume"],
+            "why": "phase 17 (a) resumes a SIGKILLed driver at this width "
+                   "against this reference bit for bit, and phase 18's "
+                   "smoke cell cd.update=kill sends the drill's kill at "
+                   "an update and holds the resume to its reference bit "
                    "for bit; PERF.md section 4 gives the seconds before "
                    "and after"},
         "sweeps": drill.SWEEPS, "fixture_write_secs": write_secs,
-        "fixed_effect_columns": ref["fixed_effect_columns"],
-        "expected_path": ref["expected_path"], "roles": roles,
-        "snapshot_step": record["snapshot_step"],
-        "states_compared_after_resume":
-            record["states_compared_after_resume"],
-        "corrupted_steps": record["corrupted_steps"],
-        "drill_secs": record["seconds"],
-    }, launches, tuple(os.path.join(fixture, f)
-                       for f in ("train.avro", "validate.avro")), reference
+        "fixed_effect_columns": w["fixed_effect_columns"],
+        "expected_path": w["expected_path"], "roles": {"reference": role},
+        "snapshot_step": drill._last_snapshot(reference["ckpt"])["step"],
+        "drill_secs": time.perf_counter() - t0,
+    }, {"reference": w["launches_by_path"]}, tuple(
+        os.path.join(fixture, f) for f in ("train.avro", "validate.avro")), \
+        reference
 
 
 #: (n, d) -> (generator state after w_true, X, w_true): phases 8 and 11
@@ -2128,13 +2154,12 @@ def compaction_profile(torch, dev, dataset, extra_scores):
     coordinate; the per-user configs of phases 5 and 8) as one dispatch,
     with chunk 4 and with the auto-tuned chunk: coefficients, iterations
     and codes bit for bit equal; wall time, the solvers' reads and the
-    active lanes of every re-dispatched chunk, and for the single
-    dispatch the device busy time under ``torch.profiler`` (the chunked
-    runs' profiles were cut for phase 16: a profiled update costs ~4 s of
-    trace processing, and the card's idle share is the single
-    dispatch's, PERF.md §5)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    active lanes of every re-dispatched chunk. No run is profiled here:
+    the single dispatch's device busy time and idle share are phase 8's
+    ``per_user_profile`` of the same update on the same coordinate (a
+    profiled update costs ~4 s of trace processing; the chunked runs'
+    profiles were cut for phase 16, the single dispatch's for phase
+    18)."""
     from photon_ml_tpu_torch.game import random_effect as gre
     from photon_ml_tpu_torch.game.coordinate import RandomEffectCoordinate
     from photon_ml_tpu_torch.optimize.config import (
@@ -2171,22 +2196,8 @@ def compaction_profile(torch, dev, dataset, extra_scores):
             if not equal:
                 problems.append(f"{case} {label}: not equal to the single "
                                 f"dispatch")
-            busy_us = profiled = None
-            if label == "single":
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    coord.update(None, extra_scores)
-                    sync(torch, dev)
-                    profiled = time.perf_counter() - t0
-                busy_us = trace_device_busy_us(prof)
             runs[label] = {
-                "wall_secs": wall, "wall_secs_profiled": profiled,
-                "device_busy_secs": (None if busy_us is None
-                                     else busy_us / 1e6),
-                "device_idle_share": (None if busy_us is None
-                                      else 1.0 - busy_us / 1e6 / profiled),
-                "solver_syncs": work["solver_syncs"],
+                "wall_secs": wall, "solver_syncs": work["solver_syncs"],
                 "dispatches": stats["dispatches"],
                 "chunks": stats["chunks"],
                 "redispatched_lanes": stats["lane_counts"],
@@ -2451,6 +2462,12 @@ def cd_extensions_phase(torch, dev, smi, data, coords, fixture, workdir):
             "pipelined": pipelined, "compaction": compaction,
             "blocked": blocked, "blocked_resume": resumed,
             "down_sampling": down, "driver": driver, "part_seconds": secs,
+            "reduced": {"b": "the single dispatch's profiled update is not "
+                             "run again here: its device busy time and "
+                             "idle share are phase 8's per_user_profile "
+                             "of the same update (~4 s of trace "
+                             "processing a solver); PERF.md section 4 "
+                             "gives the seconds before and after"},
             "seconds": time.perf_counter() - t_all}, launches
 
 
@@ -3259,19 +3276,14 @@ def single_glm_driver_phase(torch, dev, workdir, rows=A1A_ROWS):
                         "value": m.result.value} for m in drv.models],
     }
 
-    # (c) the same LibSVM files straight into the driver, as a process
+    # (c) the same LibSVM files straight into the driver (in this
+    # process: see the record's "reduced")
     out_c = os.path.join(workdir, "c")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "photon_ml_tpu_torch.cli.legacy_driver",
-         *legacy_argv(train_txt, test_txt, out_c, device,
-                      "--input-file-format", "LIBSVM",
-                      "--feature-dimension", str(A1A_FEATURES))],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    secs["driver_c_process"] = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"(c): exit {proc.returncode}:\n"
-                             f"{proc.stderr[-3000:]}")
+    run_legacy(legacy_argv(train_txt, test_txt, out_c, device,
+                           "--input-file-format", "LIBSVM",
+                           "--feature-dimension", str(A1A_FEATURES)))
+    secs["driver_c"] = time.perf_counter() - t0
     # the one-hot groups each sum to the intercept column, so along those
     # directions the objective is flat but for the L2 term, and where an
     # f32 solve stops on |df| <= 1e-6 |f0| leaves them loose (another
@@ -3362,6 +3374,11 @@ def single_glm_driver_phase(torch, dev, workdir, rows=A1A_ROWS):
         "b": rec_b, "c": {"sorted_coefficients_max_abs_diff": c_diff,
                           "auc_max_rel_diff": c_rel,
                           "metrics": metrics_c},
+        "reduced": {"c": "the LibSVM run goes through the legacy driver in "
+                         "this process, not a child of its own (a process "
+                         "start on the card is 10-15 s); its checks are "
+                         "the same; PERF.md section 4 gives the seconds "
+                         "before and after"},
         "d": runs_d, "e": {"objectives": objectives_e, "max_rel": e_rel},
         "objectives_b": objectives_b, "stage_seconds": secs,
     }, {"b_grid": grid_launches, **{f"d_{k}": v
@@ -5834,11 +5851,12 @@ def published_steps(ckpt) -> list:
 
 def gang_supervision_phase(torch, dev, workdir, rows=DRILL_ROWS,
                            n_users=6040, n_movies=3706, sweeps=2):
-    """Phase 16 (c): on the drill's rows as part files, an uninterrupted
-    gang beside a fresh gang whose member 1 is SIGTERMed (both members
-    must exit 75 at one coordinate); then a supervised gang whose member 1
-    is SIGKILLed after process 0's first snapshot, which must re-form,
-    resume and end on the uninterrupted gang's npz bit for bit."""
+    """Phase 16 (c): on the drill's rows as part files, side by side, an
+    uninterrupted gang, a fresh gang whose member 1 is SIGTERMed (both
+    members must exit 75 at one coordinate) and a supervised gang whose
+    member 1 is SIGKILLed after process 0's first snapshot, which must
+    re-form, resume and end on the uninterrupted gang's npz bit for
+    bit."""
     import signal
 
     from photon_ml_tpu_torch.io.data_format import NameAndTermFeatureSets
@@ -5865,27 +5883,64 @@ def gang_supervision_phase(torch, dev, workdir, rows=DRILL_ROWS,
     def npz(out, i):
         return dict(np.load(os.path.join(out, f"multihost_result.p{i}.npz")))
 
-    # the uninterrupted gang and the SIGTERMed one side by side (four
-    # processes on the card), then the supervised gang alone
+    # the uninterrupted gang, the SIGTERMed one and the supervised one
+    # side by side (six processes on the card): one loop sends the
+    # SIGTERM once member 1 of the stopped gang has read its parts, and
+    # the SIGKILL to the supervised member 1's worker once process 0 has
+    # published a snapshot, then waits for the re-formed gang's next one
     t1 = time.perf_counter()
-    ref_out, stop_out = (os.path.join(workdir, k) for k in ("reference",
-                                                            "stopped"))
-    ref_procs = start_gang(members(ref_out), workdir, "reference")
-    procs = start_gang(members(stop_out, "--num-iterations", "1000"),
-                       workdir, "stopped")
+    ref_out, stop_out, sup_out, ckpt = (
+        os.path.join(workdir, k)
+        for k in ("reference", "stopped", "supervised", "ckpt"))
+    gangs = {}
     try:
+        gangs["reference"] = start_gang(members(ref_out), workdir,
+                                        "reference")
+        gangs["stopped"] = start_gang(
+            members(stop_out, "--num-iterations", "1000"), workdir,
+            "stopped")
+        gangs["supervised"] = procs = start_gang(members(
+            sup_out, "--max-worker-restarts", "1", "--worker-backoff-base",
+            "0.5", "--heartbeat-timeout", "60", "--checkpoint-dir", ckpt,
+            "--checkpoint-every-coordinates", "1"), workdir, "supervised")
         log = os.path.join(stop_out, "game-training.p1.log")
-        deadline = time.time() + 120
-        while time.time() < deadline and not (
-                os.path.exists(log) and "part file(s)" in open(log).read()):
+        stopped = worker = t_kill = t_first = at_kill = None
+        deadline = time.time() + 180
+        while time.time() < deadline and (stopped is None or t_kill is None):
+            if stopped is None and os.path.exists(log) \
+                    and "part file(s)" in open(log).read():
+                gangs["stopped"][1].send_signal(signal.SIGTERM)
+                stopped = time.perf_counter()
+            if t_kill is None:
+                if worker is None:
+                    kids = children_of(procs[1].pid)
+                    worker = kids[0] if kids else None
+                if procs[1].poll() is not None:
+                    break
+                if worker is not None and published_steps(ckpt):
+                    os.kill(worker, signal.SIGKILL)
+                    t_kill = time.perf_counter()
+                    at_kill = max(published_steps(ckpt))
             time.sleep(0.01)
-        procs[1].send_signal(signal.SIGTERM)
+        if stopped is None or t_kill is None:
+            raise AssertionError(
+                f"no SIGTERM sent ({stopped is None}) or no worker or "
+                f"snapshot to kill after (worker {worker}, steps "
+                f"{published_steps(ckpt)})")
+        while t_first is None and time.time() < deadline + 180:
+            if max(published_steps(ckpt), default=-1) > at_kill:
+                t_first = time.perf_counter()
+            elif all(p.poll() is not None for p in procs):
+                break
+            time.sleep(0.01)
     except BaseException:
-        finish_gang(procs, workdir, "stopped", timeout=1)
-        finish_gang(ref_procs, workdir, "reference", timeout=1)
+        for name, gang in gangs.items():
+            finish_gang(gang, workdir, name, timeout=1)
         raise
-    outs = finish_gang(procs, workdir, "stopped", timeout=300)
-    ref_outs = finish_gang(ref_procs, workdir, "reference", timeout=300)
+    outs = finish_gang(gangs["stopped"], workdir, "stopped", timeout=300)
+    ref_outs = finish_gang(gangs["reference"], workdir, "reference",
+                           timeout=300)
+    sup_outs = finish_gang(procs, workdir, "supervised", timeout=300)
     steps = set()
     for i, (rc, so, err) in enumerate(outs):
         lines = [x for x in err.splitlines()
@@ -5902,45 +5957,7 @@ def gang_supervision_phase(torch, dev, workdir, rows=DRILL_ROWS,
             raise AssertionError(f"reference member {i} exited {rc}:\n"
                                  f"{err[-3000:]}")
     ref = npz(ref_out, 0)
-    side_by_side_secs = time.perf_counter() - t1
-
-    t1 = time.perf_counter()
-    sup_out, ckpt = (os.path.join(workdir, k) for k in ("supervised",
-                                                        "ckpt"))
-    procs = start_gang(members(
-        sup_out, "--max-worker-restarts", "1", "--worker-backoff-base",
-        "0.5", "--heartbeat-timeout", "60", "--checkpoint-dir", ckpt,
-        "--checkpoint-every-coordinates", "1"), workdir, "supervised")
-    try:
-        worker = None
-        deadline = time.time() + 120
-        while worker is None and time.time() < deadline:
-            kids = children_of(procs[1].pid)
-            worker = kids[0] if kids else None
-            time.sleep(0.01)
-        steps = []
-        while not steps and time.time() < deadline:
-            steps = published_steps(ckpt)
-            if procs[1].poll() is not None:
-                break
-            time.sleep(0.01)
-        if worker is None or not steps:
-            raise AssertionError(f"no worker or no snapshot to kill after "
-                                 f"(worker {worker}, steps {steps})")
-        os.kill(worker, signal.SIGKILL)
-        t_kill = time.perf_counter()
-        at_kill = max(published_steps(ckpt))
-        t_first = None
-        while t_first is None and time.time() < deadline + 180:
-            if max(published_steps(ckpt), default=-1) > at_kill:
-                t_first = time.perf_counter()
-            elif all(p.poll() is not None for p in procs):
-                break
-            time.sleep(0.01)
-    except BaseException:
-        finish_gang(procs, workdir, "supervised", timeout=1)
-        raise
-    outs = finish_gang(procs, workdir, "supervised", timeout=300)
+    outs = sup_outs
     for i, (rc, so, err) in enumerate(outs):
         if rc != 0 or f"SUPERVISOR_OK worker=p{i} restarts=1" not in so:
             raise AssertionError(f"supervised member {i} exited {rc}:\n"
@@ -5965,11 +5982,16 @@ def gang_supervision_phase(torch, dev, workdir, rows=DRILL_ROWS,
           file=sys.stderr, flush=True)
     return {"rows": {"train": rows[0], "validate": rows[1]},
             "parts": list(GANG_DRILL_PARTS), "fixture_write_secs": write_secs,
-            "reference_and_sigterm_secs": side_by_side_secs,
+            "reference_sigterm_supervised_side_by_side": True,
+            "reduced": "the supervised gang runs beside the uninterrupted "
+                       "and the SIGTERMed gangs, not after them (each "
+                       "gang's times include the others' load); PERF.md "
+                       "section 4 gives the seconds before and after",
             "supervised": {"resume": resume[0],
                            "supervisor_lines": supervisor_lines,
                            "kill_to_first_update_secs": t_first - t_kill,
                            "killed_after_step": at_kill,
+                           "sigterm_to_kill_secs": t_kill - stopped,
                            "bit_equal": True,
                            "seconds": time.perf_counter() - t1},
             "sigterm": sigterm,
@@ -6005,23 +6027,23 @@ def gang_phase(torch, dev, smi, data, fixture, driver_dir, workdir,
 
 #: phase 17 (a)'s faults (the shared state dir fires each once across the
 #: incarnations): a SIGTERM in the per-user update of sweep 0 (exit 75 at
-#: step 1.0), a hang in the per-user update of sweep 1 (the stall kill)
-#: and a kill after sweep 2's fixed-effect solve, so that every
-#: incarnation runs a fixed-effect update before it ends
-SUPERVISE_FAULTS = ("cd.update@0.1=signal:1;cd.update@1.1=delay:1:300;"
-                    "cd.update@2.0=kill:1:19")
-#: the update each of the first three incarnations ends in, and where the
-#: fourth resumes
-SUPERVISE_FAULT_TAGS = ("0.1", "1.1", "2.0")
-SUPERVISE_RESUME_AT = (2, 0)
+#: step 1.0) and a hang in the per-user update of sweep 1 (the stall
+#: kill), so that every incarnation runs a fixed-effect update before it
+#: ends. The drill's kill at update 2.0 is not sent here: it is phase
+#: 18's smoke cell ``cd.update=kill`` (resumed bit for bit), cut here for
+#: phase 18's time
+SUPERVISE_FAULTS = "cd.update@0.1=signal:1;cd.update@1.1=delay:1:300"
+#: the update each of the first two incarnations ends in, and where each
+#: relaunch resumes
+SUPERVISE_FAULT_TAGS = ("0.1", "1.1")
+SUPERVISE_RESUMES_AT = ((1, 0), (1, 1))
 SUPERVISE_STALL_SECONDS = 8.0
 SUPERVISE_FLAGS = ["--max-restarts", "5", "--backoff-base", "0.05",
                    "--backoff-max", "0.2", "--poll-seconds", "0.2",
                    "--grace-seconds", "3", "--startup-grace-seconds", "10"]
 #: the supervisor's records of (a), in order
 SUPERVISE_ACTIONS = ["launch", "exit", "backoff", "launch", "stall_kill",
-                     "escalate_kill", "exit", "backoff", "launch", "exit",
-                     "backoff", "launch", "done"]
+                     "escalate_kill", "exit", "backoff", "launch", "done"]
 #: phase 17 (b): one client's requests before and after the member's
 #: death, of 1 to ``SUPERVISE_FLEET_MAX_ROWS`` records each. They come
 #: one at a time, so each reaches a member as a batch of one request
@@ -6082,17 +6104,17 @@ def supervised_run_phase(dev, fixture, reference, workdir, started=None):
     (as the drill's ``--worker-updates`` role, which reads the kernel's
     launch count at every ``cd.update`` fault point) on phase 7 (b)'s
     fixture with the drill's argv, ``--checkpoint-dir`` and
-    ``--trace-dir``, through ``SUPERVISE_FAULTS``: a preemption (exit 75),
-    a hang that the heartbeat flags (``stall_kill``, then
-    ``escalate_kill``) and a kill (exit 19). The supervisor must end with
-    ``PHOTON_SUPERVISE_OK restarts=3``; the last snapshot and the
+    ``--trace-dir``, through ``SUPERVISE_FAULTS``: a preemption (exit 75)
+    and a hang that the heartbeat flags (``stall_kill``, then
+    ``escalate_kill``). The supervisor must end with
+    ``PHOTON_SUPERVISE_OK restarts=2``; the last snapshot and the
     objectives after the last resume equal the drill's uninterrupted
-    ``reference`` role bit for bit; every incarnation launches the kernel,
-    all on the reference's path; the trace dir keeps the ``.prev`` files
-    and three ``run_restart`` records; ``photon_status`` reads it as
-    finished. The supervisor's ``Popen`` is appended to ``started``, so a
-    caller can end it. Returns the record and the launches by
-    incarnation."""
+    ``reference`` role bit for bit; every incarnation launches the
+    kernel, all on the reference's path; the trace dir keeps the
+    ``.prev`` files and two ``run_restart`` records; ``photon_status``
+    reads it as finished. The supervisor's ``Popen`` is appended to
+    ``started``, so a caller can end it. Returns the record and the
+    launches by incarnation."""
     from photon_ml_tpu_torch.tools import crash_resume_drill as drill
 
     shutil.rmtree(workdir, ignore_errors=True)
@@ -6122,7 +6144,7 @@ def supervised_run_phase(dev, fixture, reference, workdir, started=None):
     secs = time.perf_counter() - t0
     with open(log_path) as f:
         stdout = f.read()
-    if rc != 0 or "PHOTON_SUPERVISE_OK restarts=3" not in stdout \
+    if rc != 0 or "PHOTON_SUPERVISE_OK restarts=2" not in stdout \
             or "PHOTON_PREEMPTED step=1.0 " not in stdout:
         raise AssertionError(f"supervised run: exit {rc}\n{stdout[-6000:]}")
     incarnations = []
@@ -6141,11 +6163,11 @@ def supervised_run_phase(dev, fixture, reference, workdir, started=None):
         raise AssertionError(f"supervisor actions {actions}")
     exits = [(r["rc"], r["preempted"], r["stall_killed"])
              for r in recs if r["action"] == "exit"]
-    if exits != [(75, True, False), (-9, False, True), (19, False, False)]:
+    if exits != [(75, True, False), (-9, False, True)]:
         raise AssertionError(f"supervised exits {exits}")
     tags = [inc["updates"][-1]["tag"] if inc["updates"] else None
             for inc in incarnations]
-    if len(incarnations) != 4 or tags[:3] != list(SUPERVISE_FAULT_TAGS):
+    if len(incarnations) != 3 or tags[:2] != list(SUPERVISE_FAULT_TAGS):
         raise AssertionError(f"incarnations ended at updates {tags}")
     # every incarnation reached an update and launched the kernel there,
     # every time on the path the reference's fixed effect takes
@@ -6163,7 +6185,7 @@ def supervised_run_phase(dev, fixture, reference, workdir, started=None):
     # is appended to by every incarnation)
     with open(os.path.join(out, "game-training.log")) as f:
         log = f.read()
-    for sweep, coordinate in ((1, 0), (1, 1), SUPERVISE_RESUME_AT):
+    for sweep, coordinate in SUPERVISE_RESUMES_AT:
         line = (f"resuming from checkpoint at sweep {sweep} coordinate "
                 f"{coordinate}")
         if line not in log:
@@ -6172,8 +6194,10 @@ def supervised_run_phase(dev, fixture, reference, workdir, started=None):
         "supervised", drill._last_snapshot(ckpt),
         drill._last_snapshot(reference["ckpt"]))
     compared = drill._check_metrics_after_resume(
-        "supervised", out, reference["out"], SUPERVISE_RESUME_AT)
+        "supervised", out, reference["out"], SUPERVISE_RESUMES_AT[-1])
     # the relaunches kept the evidence: .prev files and run_restart marks
+    # (trace.json is written at a graceful exit: the preempted
+    # incarnation's is rotated, and the killed one wrote none)
     files = set(os.listdir(trace))
     prev = {"trace.json.prev", "spans.jsonl.prev", "run_manifest.json.prev"}
     if not prev <= files:
@@ -6189,7 +6213,7 @@ def supervised_run_phase(dev, fixture, reference, workdir, started=None):
                 marks.append("run_restart")
             elif m.get("kind") == "run_end":
                 marks.append(f"run_end:{m['status']}")
-    if marks != ["run_end:preempted"] + ["run_restart"] * 3 \
+    if marks != ["run_end:preempted"] + ["run_restart"] * 2 \
             + ["run_end:ok"]:
         raise AssertionError(f"metrics.jsonl run marks {marks}")
     status_rc, status = status_tool("--run-dir", trace)
@@ -6210,9 +6234,16 @@ def supervised_run_phase(dev, fixture, reference, workdir, started=None):
                            "reference; the training rows keep the fixed "
                            "effect above the kernel's gate of 2**21 "
                            "elements"},
+        "reduced_faults": {
+            "left_out": ["cd.update@2.0=kill:1:19"],
+            "why": "phase 18's smoke cell cd.update=kill sends the same "
+                   "kill at an update and holds the resume to its "
+                   "reference bit for bit, and the hang's escalation "
+                   "here ends an incarnation with SIGKILL; PERF.md "
+                   "section 4 gives the seconds before and after"},
         "faults": SUPERVISE_FAULTS, "supervisor_flags": SUPERVISE_FLAGS,
         "trace_stall_seconds": SUPERVISE_STALL_SECONDS,
-        "exits": exits, "restarts": 3,
+        "exits": exits, "restarts": 2,
         "incarnation_wall_secs": [e - s for s, e in zip(t["launch"], ends)],
         "fault_to_first_update_secs": [
             f - k for k, f in zip(fault_t, first_update)],
@@ -6463,18 +6494,45 @@ def supervised_fleet_phase(dev, served, workdir):
     }
 
 
+def corrupt_role_phase(dev, fixture, reference, workdir) -> dict:
+    """Phase 17 (c): the crash/resume drill's corrupt role on the card, a
+    driver process (the drill's argv and worker role) over a copy of
+    phase 7 (b)'s snapshots with every step corrupted: it must refuse
+    them cleanly (exit 3, one ``PHOTON_ABORT
+    kind=CheckpointCorruptionError``, no traceback) and write no
+    metrics."""
+    from photon_ml_tpu_torch.tools import crash_resume_drill as drill
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    out, ckpt = (os.path.join(workdir, n) for n in ("out", "ckpt"))
+    steps = drill.corrupt_copy(reference["ckpt"], ckpt)
+    run = drill.run_roles({"corrupt": (drill.role_argv(
+        os.path.dirname(fixture[0]), out, ckpt, str(dev)), "")},
+        timeout=600)["corrupt"]
+    drill.check_clean_abort(run)
+    if os.path.exists(os.path.join(out, "metrics.json")):
+        raise AssertionError("corrupt role: it wrote metrics.json")
+    return {"exit": run["exit"], "corrupted_steps": steps,
+            "abort": [ln for ln in run["stderr"].splitlines()
+                      if ln.startswith("PHOTON_ABORT")],
+            "wall_secs": run["wall_secs"]}
+
+
 def supervise_phase(torch, dev, smi, fixture, reference, served, workdir):
-    """Phase 17: (a) a supervised training run through a preemption, a
-    stall kill and a crash, and beside it (b) the fleet under the
-    supervisor: they share nothing but the card and the host, so the
-    phase takes about (a)'s seconds, and each half's times include the
-    other's load. Returns the phase record and (a)'s launches by
-    incarnation."""
+    """Phase 17: (a) a supervised training run through a preemption and a
+    stall kill, and beside it (b) the fleet under the supervisor and (c)
+    the drill's corrupt role: they share nothing but the card and the
+    host, so the phase takes about (a)'s seconds, and each part's times
+    include the others' load. Returns the phase record and (a)'s
+    launches by incarnation."""
     t0 = time.perf_counter()
     started = []
-    pool = concurrent.futures.ThreadPoolExecutor(1)
+    pool = concurrent.futures.ThreadPoolExecutor(2)
     run_job = pool.submit(supervised_run_phase, dev, fixture, reference,
                           os.path.join(workdir, "run"), started)
+    corrupt_job = pool.submit(corrupt_role_phase, dev, fixture, reference,
+                              os.path.join(workdir, "corrupt"))
     try:
         fleet = supervised_fleet_phase(dev, served,
                                        os.path.join(workdir, "fleet"))
@@ -6485,10 +6543,162 @@ def supervise_phase(torch, dev, smi, fixture, reference, served, workdir):
     finally:
         pool.shutdown(wait=True)
     run, launches = run_job.result()
+    corrupt = corrupt_job.result()
     shutil.rmtree(workdir, ignore_errors=True)
     return {"phase": "supervise", "nvidia_smi": smi, "a_run": run,
-            "b_fleet": fleet, "a_and_b_side_by_side": True,
+            "b_fleet": fleet, "c_corrupt": corrupt,
+            "a_b_c_side_by_side": True,
             "seconds": time.perf_counter() - t0}, launches
+
+
+# -- phase 18: the chaos campaign ------------------------------------------
+
+#: the smoke cells' outcomes that ``tests/test_chaos_drill.py`` asserts
+#: (a value ending in "(" is a prefix)
+CHAOS_OUTCOMES = {
+    "io.avro_read=corrupt": "degraded(",
+    "scenario.corrupt_shard": "degraded(",
+    "cd.update=kill": "killed+resumed",
+    "cd.update=signal@per_update": "preempted+resumed",
+    "io.index_map=io_error": "clean_abort",
+    "obs.flush=io_error": "ok",
+    "obs.export=io_error": "ok+dropped(",
+}
+#: what the OTLP bridge's document of phase 6's traced training run holds
+CHAOS_BRIDGE_SPANS = ("cd.sweep", "cd.update")
+
+
+def chaos_bridge(train_trace, workdir) -> dict:
+    """Phase 18 (b): the port's OTLP bridge as a process over phase 6's
+    traced training run (``--run-dir … --out``): exit 0, the
+    ``cd.sweep`` and ``cd.update`` spans in the document, and the
+    ``photon.telemetry_proto`` attribute on every resource."""
+    out = os.path.join(workdir, "phase6_otlp.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "photon_ml_tpu_torch.tools.otlp_bridge",
+         "--run-dir", train_trace, "--out", out], cwd=REPO,
+        capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"otlp_bridge over phase 6's trace: exit "
+                             f"{proc.returncode}\n{proc.stderr[-3000:]}")
+    with open(out) as f:
+        docs = json.load(f)
+    resources = [r["resource"] for r in docs["traces"]["resourceSpans"]
+                 + docs["metrics"]["resourceMetrics"]]
+    protos = {a["value"].get("intValue") for res in resources
+              for a in res["attributes"]
+              if a["key"] == "photon.telemetry_proto"}
+    spans = collections.Counter(
+        s["name"] for rs in docs["traces"]["resourceSpans"]
+        for ss in rs["scopeSpans"] for s in ss["spans"])
+    metrics = sum(len(sm["metrics"])
+                  for rm in docs["metrics"]["resourceMetrics"]
+                  for sm in rm["scopeMetrics"])
+    if not resources or len(protos) != 1 or None in protos or any(
+            not any(a["key"] == "photon.telemetry_proto"
+                    for a in res["attributes"]) for res in resources):
+        raise AssertionError(f"otlp_bridge: photon.telemetry_proto "
+                             f"missing from a resource: {resources}")
+    missing = [n for n in CHAOS_BRIDGE_SPANS if not spans[n]]
+    if missing:
+        raise AssertionError(f"otlp_bridge: no {missing} span in "
+                             f"{sorted(spans)}")
+    return {"exit": proc.returncode, "stderr": proc.stderr.strip(),
+            "telemetry_proto": protos.pop(), "spans": sum(spans.values()),
+            "spans_by_name": {n: spans[n] for n in CHAOS_BRIDGE_SPANS},
+            "metrics": metrics, "document_bytes": os.path.getsize(out),
+            "seconds": secs}
+
+
+def chaos_campaign(workdir) -> dict:
+    """Phase 18 (a): the port's chaos campaign's smoke subset on the card
+    (``photon_ml_tpu_torch/tools/chaos_drill.py``, every child with
+    ``--device cuda``): the fault-free reference, the 11 smoke cells and
+    ``scenario.corrupt_shard``, each through the tool's own ``run_cell``
+    in a pool, side by side, in a directory of its own. The serving
+    fixture (a model and its reference scores on the card) is built
+    before the pool starts; the cells that read no reference objective
+    (the serve cells and the scenario) start at once, the others when the
+    reference is done (all of them at once with the reference took 60.5
+    s against 48.8-51.4 s: 8 cores, some 25 process starts). The report
+    is the tool's, in the tool's order; every cell must pass, with the
+    outcomes ``tests/test_chaos_drill.py`` asserts. The campaign's lines
+    go to stderr."""
+    from photon_ml_tpu_torch.tools import chaos_drill as chaos
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        chaos.check_device("cuda")
+        cells, skipped = chaos.plan_cells(True, None, "cuda")
+        fixture = chaos.build_fixture(workdir)
+        chaos.build_serve_fixture(workdir, "cuda")
+        fixture_secs = time.perf_counter() - t0
+        with concurrent.futures.ThreadPoolExecutor(len(cells) + 1) as pool:
+            jobs = {id(c): pool.submit(chaos.run_cell, c, fixture, workdir,
+                                       None, "cuda")
+                    for c in cells if c["serve"]}
+            scenario = pool.submit(chaos.run_corrupt_shard_scenario,
+                                   fixture, workdir, "cuda")
+            t1 = time.perf_counter()
+            reference = chaos.run_reference(fixture, workdir, "cuda")
+            reference_secs = time.perf_counter() - t1
+            jobs.update({id(c): pool.submit(chaos.run_cell, c, fixture,
+                                            workdir, reference, "cuda")
+                         for c in cells if not c["serve"]})
+            results = [jobs[id(c)].result() for c in cells]
+            results.append(scenario.result())
+        for r in results:
+            chaos.print_result(r)
+        report_path = os.path.join(workdir, "chaos_report.json")
+        rc = chaos.write_report(results, skipped, True, reference,
+                                report_path)
+    with open(report_path) as f:
+        report = json.load(f)
+    by_name = {r["cell"]: r for r in report["cells"]}
+    wrong = {n: by_name[n]["outcome"] for n, want in CHAOS_OUTCOMES.items()
+             if not (by_name[n]["outcome"] == want or (
+                 want.endswith("(")
+                 and by_name[n]["outcome"].startswith(want)))}
+    if rc != 0 or report["cells_failed"] != 0 or wrong:
+        raise AssertionError(
+            f"chaos smoke campaign on the card: exit {rc}, "
+            f"{report['cells_failed']} failed, outcomes {wrong}\n"
+            + "\n".join(f"{r['cell']}: {r['failures']}"
+                        for r in report["cells"] if not r["passed"]))
+    return {
+        "reduced": {
+            "fixture": "the JAX campaign's own: 4 Avro shards of 40 rows, "
+                       "4 global features (5 columns with the intercept) "
+                       "and a per-user shard of 2 over 5 users",
+            "kernel": "4 x 40 rows x 5 columns is under the fused "
+                      "kernel's gate (MIN_PALLAS_ELEMENTS, 2**21 "
+                      "elements), so no cell launches it; the card holds "
+                      "the port's state through every fault: snapshots "
+                      "fetched from it and restored onto it, the "
+                      "service's device tiers, the fleet"},
+        "reference_objective": reference,
+        "fixture_secs": fixture_secs, "reference_secs": reference_secs,
+        "cells_run": report["cells_run"],
+        "cells_failed": report["cells_failed"],
+        "cells": [{k: r.get(k) for k in ("cell", "outcome", "rc",
+                                         "seconds")}
+                  for r in report["cells"]],
+        "side_by_side": len(cells) + 1,
+        "seconds": time.perf_counter() - t0}
+
+
+def chaos_phase(smi, train_trace, workdir) -> dict:
+    """Phase 18: (a) the chaos campaign's smoke subset on the card, (b) the
+    OTLP bridge over phase 6's traced training run."""
+    t0 = time.perf_counter()
+    campaign = chaos_campaign(workdir)
+    bridge = chaos_bridge(train_trace, workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"phase": "chaos", "nvidia_smi": smi, "a_campaign": campaign,
+            "b_bridge": bridge, "seconds": time.perf_counter() - t0}
 
 
 def main() -> int:
@@ -6756,7 +6966,7 @@ def main() -> int:
     phase["seconds"] = time.perf_counter() - t0
     emit(phase)
 
-    # -- 7. resume: in process at full size, then real process deaths ------
+    # -- 7. resume: in process at full size, then the drill's processes ----
     t0 = time.perf_counter()
     in_process, resume_crash, resume_resumed = resume_phase(
         torch, dev, data, glmix_final, os.path.join(build, "resume_phase"))
@@ -6866,9 +7076,14 @@ def main() -> int:
         torch, dev, smi, drill_fixture, drill_ref, served,
         os.path.join(build, "supervise"))
     del served
-    for d in (driver_dir, os.path.join(build, "drill")):
-        shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(os.path.join(build, "drill"), ignore_errors=True)
     emit(supervise)
+
+    # -- 18. the chaos campaign and the OTLP bridge -------------------------
+    chaos = chaos_phase(smi, os.path.join(driver_dir, "train_trace"),
+                        os.path.join(build, "chaos"))
+    shutil.rmtree(driver_dir, ignore_errors=True)
+    emit(chaos)
 
     # -- kernels line, card line, result ---------------------------------------
     cd_runs = {f"cd_{k}": v for k, v in cd_launches.items()}

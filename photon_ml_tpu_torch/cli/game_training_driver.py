@@ -51,8 +51,9 @@ files, and the factored coordinate's) in bf16, as the JAX driver does
 (``:562-625``); labels, offsets, weights, coefficients and every
 reduction stay f32. The device mesh (``:763-790``): the driver builds
 the default mesh over every visible device of ``--device``'s type
-(``parallel/mesh.setup_default_mesh``; one card or the CPU gives none),
-with ``--re-entity-shards`` devices on the entity axis (``auto``: all of
+(``parallel/mesh.setup_default_mesh``; one card gives none, and the
+CPU is repeated once for each entity shard asked for), with
+``--re-entity-shards`` devices on the entity axis (``auto``: all of
 them; a count that does not divide the devices falls back to the largest
 divisor, and the manifest records the granted count), the rest on the
 data axis. Fixed-effect solves then split their rows over the data axis
@@ -167,6 +168,7 @@ from photon_ml_tpu_torch.parallel.mesh import (
     ENTITY_AXIS,
     get_default_mesh,
     largest_entity_divisor,
+    mesh_devices,
     set_default_mesh,
     setup_default_mesh,
     visible_devices,
@@ -775,13 +777,15 @@ class GameTrainingDriver:
 def resolve_entity_shards(ns: argparse.Namespace) -> None:
     """Set ``ns.re_entity_shards`` to the entity axis the mesh will grant:
     ``auto`` is every visible device of ``--device``'s type, and a count
-    that does not divide them falls back to the largest divisor. The run
-    manifest then records the granted count (``:1200-1213``); raises
-    ``RuntimeError`` for CUDA without it."""
-    n_dev = len(visible_devices(ns.device))
-    requested = (n_dev if ns.re_entity_shards == AUTO_ENTITY_SHARDS
-                 else ns.re_entity_shards)
-    ns.re_entity_shards = largest_entity_divisor(n_dev, max(1, requested))
+    that does not divide the mesh's devices (:func:`mesh_devices`: the
+    CPU repeats for each shard asked for) falls back to the largest
+    divisor. The run manifest then records the granted count
+    (``:1200-1213``); raises ``RuntimeError`` for CUDA without it."""
+    requested = max(1, (len(visible_devices(ns.device))
+                        if ns.re_entity_shards == AUTO_ENTITY_SHARDS
+                        else ns.re_entity_shards))
+    ns.re_entity_shards = largest_entity_divisor(
+        len(mesh_devices(requested, ns.device)), requested)
 
 
 def _check_multihost_args(ns: argparse.Namespace) -> None:

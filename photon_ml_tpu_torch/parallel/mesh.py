@@ -14,9 +14,12 @@ shard runner (``parallel/distributed.py``), and a random effect with
 ``entity_shards`` > 1 splits its lanes over the entity axis.
 
 :func:`setup_default_mesh` builds the mesh over every visible device of
-one type: all ``torch.cuda.device_count()`` cards for ``cuda``, the one
-CPU for ``cpu``; one device gives no mesh. Asking for CUDA without it
-raises, as every entry point of the port does. :func:`make_mesh` takes
+one type: all ``torch.cuda.device_count()`` cards for ``cuda``; for
+``cpu`` the one CPU, repeated once for each entity shard asked for
+(:func:`mesh_devices`), so that a driver's ``--re-entity-shards N`` on
+the CPU runs N shards as the JAX package's does on XLA's forced host
+devices; one device gives no mesh. Asking for CUDA without it raises,
+as every entry point of the port does. :func:`make_mesh` takes
 an explicit device list in which a device may repeat: that is how the
 CPU tests run 2, 4 or 8 shards in one process and the one card runs 4.
 
@@ -146,13 +149,23 @@ def visible_devices(device="cuda") -> list:
     return [torch.device("cpu")]
 
 
+def mesh_devices(num_entity: int = 1, device="cuda") -> list:
+    """The devices a driver's mesh spans: :func:`visible_devices`, but a
+    lone CPU once for each of ``num_entity`` entity shards (a device may
+    repeat in a mesh, as in the CPU tests)."""
+    devs = visible_devices(device)
+    if len(devs) == 1 and devs[0].type == "cpu":
+        return devs * max(1, int(num_entity))
+    return devs
+
+
 def setup_default_mesh(num_entity: int = 1, device="cuda"
                        ) -> Optional[Mesh]:
-    """Driver bootstrap: a mesh over all visible devices of ``device``'s
-    type made the process default; one device gives no mesh. An entity
-    axis that does not divide the device count falls back to
-    :func:`largest_entity_divisor` with a logged warning."""
-    devs = visible_devices(device)
+    """Driver bootstrap: a mesh over :func:`mesh_devices` made the process
+    default; one device gives no mesh. An entity axis that does not
+    divide the device count falls back to :func:`largest_entity_divisor`
+    with a logged warning."""
+    devs = mesh_devices(num_entity, device)
     first = resolve_device(device)
     if first in devs:  # the caller's device leads: shard 0 lives there
         devs.remove(first)

@@ -400,14 +400,77 @@ def _check_metrics_after_resume(role: str, out_dir: str, ref_out: str,
     return len(expect)
 
 
+def role_argv(fixture_dir: str, out_dir: str, ckpt_dir: str,
+              device: str) -> list:
+    """A role's driver argv: :func:`driver_argv` on ``fixture_dir``'s
+    ``train.avro`` and ``validate.avro`` for :data:`SWEEPS` sweeps, with
+    a snapshot into ``ckpt_dir`` after every coordinate."""
+    train, val = (os.path.join(fixture_dir, f)
+                  for f in ("train.avro", "validate.avro"))
+    return driver_argv(train, val, out_dir, str(device),
+                       num_iterations=SWEEPS) + [
+        "--checkpoint-dir", ckpt_dir, "--checkpoint-every-coordinates", "1"]
+
+
+def run_roles(roles: dict, timeout: float) -> dict:
+    """Start every role of ``roles`` ({name: (argv, faults)}) at once as a
+    worker process, wait for all, and hold each to its
+    :data:`EXPECTED_EXIT`; returns what :func:`_run_wave` returns."""
+    runs = _run_wave(roles, timeout)
+    for role in roles:
+        _expect_exit(role, runs[role])
+    _say(f"{', '.join(roles)} in "
+         f"{max(r['wall_secs'] for r in runs.values()):.1f}s")
+    return runs
+
+
+def corrupt_copy(src_ckpt: str, dst_ckpt: str) -> list:
+    """The corrupt role's checkpoint directory: a copy of ``src_ckpt``
+    with every snapshot step corrupted. Returns the steps' names."""
+    from photon_ml_tpu_torch.utils.faults import corrupt_path
+
+    shutil.copytree(src_ckpt, dst_ckpt)
+    steps = [n for n in sorted(os.listdir(dst_ckpt))
+             if n.startswith("step_") and not n.endswith(".tmp")]
+    if not steps:
+        raise AssertionError(f"no snapshot to corrupt in {src_ckpt}")
+    for name in steps:
+        corrupt_path(os.path.join(dst_ckpt, name))
+    return steps
+
+
+def check_clean_abort(run: dict) -> None:
+    """The corrupt role refused its checkpoint directory cleanly: one
+    ``PHOTON_ABORT kind=CheckpointCorruptionError`` and no traceback."""
+    err = run["stderr"]
+    if "PHOTON_ABORT kind=CheckpointCorruptionError" not in err \
+            or "Traceback" in err:
+        raise AssertionError(f"corrupt: not a clean abort:\n{err[-2000:]}")
+
+
+def check_launches(role: str, run: dict, dev) -> None:
+    """On the card a finishing role launched the fused kernel, every time
+    on the path ``kernel_path`` picks for its fixed effect, and built no
+    kernel of its own."""
+    w = run["worker"]
+    launches = sum(w["launches_by_path"].values())
+    if dev.type == "cuda" and (
+            launches <= 0
+            or w["launches_by_path"][w["expected_path"]] != launches):
+        raise AssertionError(f"{role}: kernel launches "
+                             f"{w['launches_by_path']}, expected all "
+                             f"on {w['expected_path']}")
+    if dev.type == "cuda" and any(w["kernel_build_secs"].values()):
+        raise AssertionError(f"{role}: rebuilt the kernels "
+                             f"{w['kernel_build_secs']}")
+
+
 def run_drill(fixture_dir: str, workdir: str, device: str = "cuda",
-              timeout: float = 900.0, with_preempt: bool = True) -> dict:
+              timeout: float = 900.0) -> dict:
     """Run the six roles and every check; returns the record (per role:
     exit code, wall seconds, the worker's line). Raises on any
-    mismatch. ``with_preempt=False`` leaves out the preempt and relaunch
-    roles (for a caller that drills the SIGTERM path another way)."""
+    mismatch."""
     from photon_ml_tpu_torch.device import resolve_device
-    from photon_ml_tpu_torch.utils.faults import corrupt_path
 
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -416,8 +479,6 @@ def run_drill(fixture_dir: str, workdir: str, device: str = "cuda",
 
         kernels_build.build_all()
     t_all = time.perf_counter()
-    train, val = (os.path.join(fixture_dir, f)
-                  for f in ("train.avro", "validate.avro"))
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     dirs = {r: (os.path.join(workdir, f"{r}_out"),
@@ -426,58 +487,31 @@ def run_drill(fixture_dir: str, workdir: str, device: str = "cuda",
     dirs["resume"], dirs["relaunch"] = dirs["crash"], dirs["preempt"]
 
     def argv(role):
-        out, ckpt = dirs[role]
-        return driver_argv(train, val, out, str(device),
-                           num_iterations=SWEEPS) + [
-            "--checkpoint-dir", ckpt, "--checkpoint-every-coordinates", "1"]
+        return role_argv(fixture_dir, *dirs[role], device)
 
     kill = f"cd.update@{KILL_AT[0]}.{KILL_AT[1]}=kill:1:{KILL_EXIT}"
     sig = f"cd.update@{SIGNAL_AT[0]}.{SIGNAL_AT[1]}=signal"
-    wave = {"reference": (argv("reference"), ""),
-            "crash": (argv("crash"), kill)}
-    if with_preempt:
-        wave["preempt"] = (argv("preempt"), sig)
-    runs = _run_wave(wave, timeout)
-    for role in wave:
-        _expect_exit(role, runs[role])
+    runs = run_roles({"reference": (argv("reference"), ""),
+                      "crash": (argv("crash"), kill),
+                      "preempt": (argv("preempt"), sig)}, timeout)
     if os.path.exists(os.path.join(dirs["crash"][0], "metrics.json")):
         raise AssertionError("the crash role finished")
-    if with_preempt and f"PHOTON_PREEMPTED step={SIGNAL_AT[0] + 1}.0 " \
+    if f"PHOTON_PREEMPTED step={SIGNAL_AT[0] + 1}.0 " \
             not in runs["preempt"]["stderr"]:
         raise AssertionError(f"preempt: no PHOTON_PREEMPTED line at "
                              f"step {SIGNAL_AT[0] + 1}.0:\n"
                              f"{runs['preempt']['stderr'][-2000:]}")
-    _say(f"wave 1: {', '.join(wave)} "
-         f"in {max(r['wall_secs'] for r in runs.values()):.1f}s")
 
-    # a copy of the crash's snapshots with every step corrupted
-    corrupt_ckpt = dirs["corrupt"][1]
-    shutil.copytree(dirs["crash"][1], corrupt_ckpt)
-    steps = [n for n in sorted(os.listdir(corrupt_ckpt))
-             if n.startswith("step_") and not n.endswith(".tmp")]
-    if not steps:
-        raise AssertionError("the crash role left no snapshot")
-    for name in steps:
-        corrupt_path(os.path.join(corrupt_ckpt, name))
-
-    wave = {"resume": (argv("resume"), ""), "corrupt": (argv("corrupt"), "")}
-    if with_preempt:
-        wave["relaunch"] = (argv("relaunch"), "")
-    runs.update(_run_wave(wave, timeout))
-    for role in wave:
-        _expect_exit(role, runs[role])
-    err = runs["corrupt"]["stderr"]
-    if "PHOTON_ABORT kind=CheckpointCorruptionError" not in err \
-            or "Traceback" in err:
-        raise AssertionError(f"corrupt: not a clean abort:\n{err[-2000:]}")
-    _say(f"wave 2: {', '.join(wave)} "
-         f"in {max(runs[r]['wall_secs'] for r in wave):.1f}s")
+    steps = corrupt_copy(dirs["crash"][1], dirs["corrupt"][1])
+    runs.update(run_roles({"resume": (argv("resume"), ""),
+                           "relaunch": (argv("relaunch"), ""),
+                           "corrupt": (argv("corrupt"), "")}, timeout))
+    check_clean_abort(runs["corrupt"])
 
     ref = _last_snapshot(dirs["reference"][1])
     compared = {}
-    resumed = [("resume", KILL_AT)] + ([("relaunch", (SIGNAL_AT[0] + 1, 0))]
-                                       if with_preempt else [])
-    for role, resume_at in resumed:
+    for role, resume_at in (("resume", KILL_AT),
+                            ("relaunch", (SIGNAL_AT[0] + 1, 0))):
         log = open(os.path.join(dirs[role][0], "game-training.log")).read()
         line = (f"resuming from checkpoint at sweep {resume_at[0]} "
                 f"coordinate {resume_at[1]}")
@@ -486,18 +520,8 @@ def run_drill(fixture_dir: str, workdir: str, device: str = "cuda",
         _check_ends_like_reference(role, _last_snapshot(dirs[role][1]), ref)
         compared[role] = _check_metrics_after_resume(
             role, dirs[role][0], dirs["reference"][0], resume_at)
-    for role in ["reference"] + [r for r, _ in resumed]:
-        w = runs[role]["worker"]
-        launches = sum(w["launches_by_path"].values())
-        if dev.type == "cuda" and (
-                launches <= 0
-                or w["launches_by_path"][w["expected_path"]] != launches):
-            raise AssertionError(f"{role}: kernel launches "
-                                 f"{w['launches_by_path']}, expected all "
-                                 f"on {w['expected_path']}")
-        if dev.type == "cuda" and any(w["kernel_build_secs"].values()):
-            raise AssertionError(f"{role}: rebuilt the kernels "
-                                 f"{w['kernel_build_secs']}")
+    for role in ("reference", "resume", "relaunch"):
+        check_launches(role, runs[role], dev)
     return {
         "roles": {r: {"exit": v["exit"], "wall_secs": v["wall_secs"],
                       "worker": v["worker"]} for r, v in runs.items()},

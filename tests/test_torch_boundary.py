@@ -65,6 +65,10 @@
   supervisor imports it only for its device check, which refuses a child
   whose ``--device`` is CUDA (the default) on a host without CUDA before
   anything is spawned or written (the router is exempt).
+- The chaos campaign and the OTLP bridge (``tools/chaos_drill``,
+  ``tools/otlp_bridge``) are in both import checks; the bridge imports no
+  torch, and the campaign refuses CUDA on a host without it before it
+  writes a fixture or starts a child (``test_torch_chaos_table.py``).
 """
 
 import ast
@@ -142,6 +146,8 @@ MESH_MODULES = [
 MULTIHOST_MODULES = ["photon_ml_tpu_torch.parallel.multihost"]
 SUPERVISION_MODULES = ["photon_ml_tpu_torch.tools.photon_status",
                        "photon_ml_tpu_torch.tools.photon_supervise"]
+CHAOS_MODULES = ["photon_ml_tpu_torch.tools.chaos_drill",
+                 "photon_ml_tpu_torch.tools.otlp_bridge"]
 ANALYSIS_MODULES = [
     f"photon_ml_tpu_torch.analysis.{m}" for m in (
         "core", "package", "dataflow", "cache", "sarif", "rules_faults",
@@ -154,7 +160,7 @@ NAMED_MODULES = (FAULT_TOLERANCE_MODULES + NATIVE_INGEST_MODULES
                  + SINGLE_GLM_MODULES + WIDE_STREAMED_MODULES
                  + SERVE_MODULES + FLEET_TELEMETRY_MODULES + MESH_MODULES
                  + MULTIHOST_MODULES + ANALYSIS_MODULES
-                 + SUPERVISION_MODULES)
+                 + SUPERVISION_MODULES + CHAOS_MODULES)
 
 
 def _forbidden(module: str) -> bool:
@@ -816,3 +822,33 @@ def _re_model():
 
     return RandomEffectModel("u", "g", np.arange(2), torch.zeros(2, 3),
                              entity_ids=np.array(["a", "b"]))
+
+
+def test_bridge_and_campaign_import_no_torch():
+    code = ("import sys\n"
+            f"sys.path.insert(0, {str(REPO)!r})\n"
+            "import photon_ml_tpu_torch.tools.otlp_bridge\n"
+            "a = 'torch' in sys.modules\n"
+            "import photon_ml_tpu_torch.tools.chaos_drill\n"
+            "print(a, 'torch' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-I", "-c", code],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False"]
+
+
+def test_campaign_refuses_cpu_without_being_asked(no_cuda, tmp_path,
+                                                  monkeypatch):
+    """The chaos campaign defaults every child to CUDA: without it, it
+    raises before it writes a fixture or starts a child."""
+    from photon_ml_tpu_torch.tools import chaos_drill as tchaos
+
+    monkeypatch.setattr(tchaos.subprocess, "run", lambda *a, **k:
+                        pytest.fail("the campaign started a child"))
+    workdir = tmp_path / "work"
+    for call in (lambda: tchaos.run_campaign(str(workdir), smoke=True),
+                 lambda: tchaos.main(["--smoke", "--workdir",
+                                      str(workdir)])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not workdir.exists()

@@ -4,8 +4,9 @@ drivers.
 - The crash/resume drill (``photon_ml_tpu_torch/tools/crash_resume_drill``)
   at a tiny size on the CPU: six driver processes end with exit codes
   0/19/75/0/0/3, and the resumed and relaunched runs end bit-exact to the
-  uninterrupted one; without the preempt and relaunch roles, four end
-  with 0/19/0/3 and the resumed run bit-exact.
+  uninterrupted one; the reference role alone through ``run_roles``, then
+  the corrupt role on a corrupted copy of its snapshots, end with 0 and
+  3 (the roles ``chip_smoke.py`` runs on their own).
 - Degraded ingest: four part files, one corrupted, ``--max-shard-loss-frac
   0.3``: both packages' training drivers quarantine the same shard and
   agree per update to rel 1e-4; both scoring drivers score the same rows;
@@ -80,22 +81,30 @@ def test_drill_on_the_cpu(fixture_dir, tmp_path, monkeypatch):
     assert record["roles"]["crash"]["worker"] is None
 
 
-def test_drill_without_the_preempt_roles_on_the_cpu(fixture_dir, tmp_path,
-                                                    monkeypatch):
-    """``with_preempt=False``: four processes, exit codes 0/19/0/3, the
-    resumed run bit-exact to the uninterrupted one."""
+def test_reference_and_corrupt_roles_alone_on_the_cpu(fixture_dir,
+                                                      tmp_path, monkeypatch):
+    """The drill's helpers one role at a time: the reference finishes with
+    a snapshot of its last update, and a copy of its snapshots with every
+    step corrupted is refused with a clean abort (exit 3)."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    record = drill.run_drill(str(fixture_dir), str(tmp_path / "roles"),
-                             device="cpu", timeout=300, with_preempt=False)
-    assert {r: v["exit"] for r, v in record["roles"].items()} == {
-        r: rc for r, rc in drill.EXPECTED_EXIT.items()
-        if r not in ("preempt", "relaunch")}
-    assert record["snapshot_step"] == 2 * drill.SWEEPS
-    assert record["states_compared_after_resume"] == {
-        "resume": 2 * drill.SWEEPS - 3}
-    for role in ("reference", "resume"):
-        w = record["roles"][role]["worker"]
-        assert w["exit"] == 0 and w["snapshot_bytes"] > 0
+    cpu = torch.device("cpu")
+    dirs = {r: (str(tmp_path / f"{r}_out"), str(tmp_path / f"{r}_ckpt"))
+            for r in ("reference", "corrupt")}
+    runs = drill.run_roles({"reference": (drill.role_argv(
+        str(fixture_dir), *dirs["reference"], "cpu"), "")}, timeout=300)
+    drill.check_launches("reference", runs["reference"], cpu)
+    w = runs["reference"]["worker"]
+    assert w["exit"] == 0 and w["snapshot_bytes"] > 0
+    assert drill._last_snapshot(dirs["reference"][1])["step"] \
+        == 2 * drill.SWEEPS
+    steps = drill.corrupt_copy(dirs["reference"][1], dirs["corrupt"][1])
+    assert steps[-1] == f"step_{2 * drill.SWEEPS:08d}"
+    runs = drill.run_roles({"corrupt": (drill.role_argv(
+        str(fixture_dir), *dirs["corrupt"], "cpu"), "")}, timeout=300)
+    assert runs["corrupt"]["exit"] == drill.EXPECTED_EXIT["corrupt"] == 3
+    drill.check_clean_abort(runs["corrupt"])
+    assert not os.path.exists(os.path.join(dirs["corrupt"][0],
+                                           "metrics.json"))
 
 
 def _argv(fixture_dir, out, *extra):

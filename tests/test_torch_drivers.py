@@ -471,7 +471,8 @@ TRAIN_UNPORTED = [
                                "--max-worker-restarts", "1"]),
 ]
 #: the device mesh's flags, refused until the mesh was ported: the
-#: driver takes them, and on the one CPU device grants one entity shard
+#: driver takes them; on the CPU it grants the entity shards asked for
+#: (the mesh repeats the CPU for each), and ``auto`` is the one CPU
 TRAIN_MESH_FLAGS = [
     ("--re-entity-shards", ["--re-entity-shards", "2"]),
     ("--re-entity-shards", ["--re-entity-shards", "auto"]),
@@ -507,7 +508,7 @@ def test_training_driver_accepts_the_mesh_flags(tmp_path, flag, extra):
     ttd.check_unported(ns)
     ttd.resolve_entity_shards(ns)
     driver = ttd.GameTrainingDriver(ns)
-    assert ns.re_entity_shards == 1  # one CPU device: one entity shard
+    assert ns.re_entity_shards == (2 if extra[-1] == "2" else 1)
     assert driver.ns.collective_quant == ("int8" if flag.endswith("quant")
                                           else "none")
 
