@@ -290,7 +290,12 @@ Phases, one JSON line each on stdout:
    checkpoints) whose member 1 is SIGKILLed after process 0's first
    snapshot re-forms, resumes (``MULTIHOST_RESUME``) and ends on the
    uninterrupted gang's npz bit for bit, and one member's SIGTERM stops
-   a fresh gang with exit 75 on both members at one coordinate.
+   a fresh gang with exit 75 on both members at one coordinate; the
+   uninterrupted gang runs with ``--trace-dir``, and the port's
+   ``trace_merge`` folds its two members' traces into two tracks aligned
+   on ``gang.form`` (both anchors ending at one timestamp, each track
+   monotonic), which ``trace_report --process 1 --json`` reads as
+   ``processes == [1]``.
 17. supervise — run supervision through the port's own
    ``photon_status`` and ``photon_supervise``: (a) the supervisor runs the
    training driver (the drill's ``--worker-updates`` role, which reads
@@ -318,7 +323,12 @@ Phases, one JSON line each on stdout:
    tier hits non-zero (the relaunched one's since its relaunch), the
    router's ``serve_route`` ledger resolving every dispatch, the stop
    file draining the fleet to exit 0, and ``photon_status --fleet``
-   listing both members and the router; (c) the drill's corrupt role, a
+   listing both members and the router; the port's ``trace_merge
+   --fleet`` over the fleet dir gives a router track and two member
+   tracks (its alignment printed), and ``trace_report --request`` on the
+   one request the client sent with a wire trace id gives a tree whose
+   root span and a member's ``serve.request`` lie on different tracks;
+   (c) the drill's corrupt role, a
    driver process on the card over a copy of phase 7 (b)'s snapshots
    with every step corrupted: exit 3, one ``PHOTON_ABORT
    kind=CheckpointCorruptionError``, no traceback, no output. (a), (b)
@@ -333,10 +343,17 @@ Phases, one JSON line each on stdout:
    bridge against a dead collector, a fleet member killed mid-request
    under ``photon_supervise --fleet 4``) and ``scenario.corrupt_shard``,
    side by side through the tool's ``run_cell``: every cell passes, with
-   the outcomes the JAX package's gate asserts; (b) the port's OTLP
-   bridge over phase 6's traced training run: the document holds the
-   ``cd.sweep`` and ``cd.update`` spans and the
-   ``photon.telemetry_proto`` attribute. The fixture is the JAX
+   the outcomes the JAX package's gate asserts; (b) beside (a), in a
+   thread, the port's OTLP bridge over phase 6's traced training run:
+   the document holds the ``cd.sweep`` and ``cd.update`` spans and the
+   ``photon.telemetry_proto`` attribute; and the port's trace tools over
+   the same run: ``trace_report`` (text, ``--json`` with ``cd.update``
+   attributed to both coordinates in both sweeps, ``--device`` with its
+   rows or its "no device-plane spans" line) and ``trace_diff`` of the
+   trace against itself (exit 0, PASS). Every trace tool runs as a
+   process (``python -m photon_ml_tpu_torch.tools.<tool>``), any exit
+   but the expected fails the script, and its seconds join its phase's
+   record. The fixture is the JAX
    campaign's own (4 x 40 rows, 5 columns with the intercept): under the
    kernel's gate, so no cell launches it; what the card adds is the
    port's state on CUDA through every fault.
@@ -5612,6 +5629,73 @@ def tagged(out: str, tag: str) -> dict:
     return json.loads(line[len(tag) + 1:])
 
 
+def trace_tool(tool, *args, want=0) -> tuple:
+    """``python -m photon_ml_tpu_torch.tools.<tool> <args>`` (the port's
+    ``trace_report``, ``trace_merge`` or ``trace_diff``) as a process from
+    the repository root: (stdout, seconds). Any exit but ``want`` fails
+    the script."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"photon_ml_tpu_torch.tools.{tool}", *args],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if proc.returncode != want:
+        raise AssertionError(f"{tool} {list(args)}: exit {proc.returncode}"
+                             f"\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-2000:]}")
+    return proc.stdout, secs
+
+
+def merged_tracks(doc) -> dict:
+    """A merged document's complete events by track (pid), each track
+    checked monotonic in ``ts``."""
+    tracks = collections.defaultdict(list)
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X":
+            tracks[e["pid"]].append(e)
+    for pid, events in tracks.items():
+        ts = [e["ts"] for e in events]
+        if ts != sorted(ts):
+            raise AssertionError(f"merged track {pid} is not monotonic")
+    return dict(tracks)
+
+
+def gang_trace_tools(trace_dir, workdir) -> dict:
+    """Phase 16 (c)'s traced reference gang through the port's tools:
+    ``trace_merge`` must give two tracks aligned on ``gang.form`` (both
+    anchors ending at one timestamp, each track monotonic) and
+    ``trace_report --process 1 --json`` of the merged document must give
+    ``processes == [1]``."""
+    merged = os.path.join(workdir, "reference_merged.json")
+    line, merge_secs = trace_tool("trace_merge", trace_dir, "--out", merged)
+    with open(merged) as f:
+        doc = json.load(f)
+    tracks = merged_tracks(doc)
+    # each track's first gang.form (the tracks are sorted by start)
+    ends = {pid: next((e["ts"] + e["dur"] for e in events
+                       if e["name"] == "gang.form"), None)
+            for pid, events in tracks.items()}
+    if (sorted(tracks) != [0, 1] or doc["otherData"]["alignment"]
+            != "gang.form" or None in ends.values()
+            or abs(ends[0] - ends[1]) > 1e-3):
+        raise AssertionError(f"trace_merge of the reference gang: tracks "
+                             f"{sorted(tracks)}, {doc['otherData']}, "
+                             f"anchor ends {ends}")
+    out, report_secs = trace_tool("trace_report", merged, "--process", "1",
+                                  "--json")
+    report = json.loads(out)
+    if report["processes"] != [1]:
+        raise AssertionError(f"trace_report --process 1: "
+                             f"{report['processes']}")
+    return {"merge": line.strip(), "alignment": "gang.form",
+            "spans_by_track": {pid: len(v) for pid, v in tracks.items()},
+            "anchor_end_us": ends[0],
+            "shifts_us": doc["otherData"]["shifts_us"],
+            "report_processes": report["processes"],
+            "report_spans": report["span_count"],
+            "merge_secs": merge_secs, "report_secs": report_secs}
+
+
 def gang_argv(train, out, feature_sets, device, *extra) -> list:
     """Phase 6's training argv (``driver_argv``) for a gang member: no
     validation or evaluators (the multi-process driver refuses both, as
@@ -5852,11 +5936,12 @@ def published_steps(ckpt) -> list:
 def gang_supervision_phase(torch, dev, workdir, rows=DRILL_ROWS,
                            n_users=6040, n_movies=3706, sweeps=2):
     """Phase 16 (c): on the drill's rows as part files, side by side, an
-    uninterrupted gang, a fresh gang whose member 1 is SIGTERMed (both
-    members must exit 75 at one coordinate) and a supervised gang whose
-    member 1 is SIGKILLed after process 0's first snapshot, which must
-    re-form, resume and end on the uninterrupted gang's npz bit for
-    bit."""
+    uninterrupted gang (traced: ``--trace-dir``), a fresh gang whose
+    member 1 is SIGTERMed (both members must exit 75 at one coordinate)
+    and a supervised gang whose member 1 is SIGKILLed after process 0's
+    first snapshot, which must re-form, resume and end on the
+    uninterrupted gang's npz bit for bit; then the port's trace tools
+    over the uninterrupted gang's trace dir (:func:`gang_trace_tools`)."""
     import signal
 
     from photon_ml_tpu_torch.io.data_format import NameAndTermFeatureSets
@@ -5892,10 +5977,13 @@ def gang_supervision_phase(torch, dev, workdir, rows=DRILL_ROWS,
     ref_out, stop_out, sup_out, ckpt = (
         os.path.join(workdir, k)
         for k in ("reference", "stopped", "supervised", "ckpt"))
+    ref_trace = os.path.join(workdir, "reference_trace")
     gangs = {}
     try:
-        gangs["reference"] = start_gang(members(ref_out), workdir,
-                                        "reference")
+        gangs["reference"] = start_gang(
+            members(ref_out, "--trace-dir", ref_trace,
+                    "--trace-heartbeat-seconds", "0.5"), workdir,
+            "reference")
         gangs["stopped"] = start_gang(
             members(stop_out, "--num-iterations", "1000"), workdir,
             "stopped")
@@ -5940,6 +6028,17 @@ def gang_supervision_phase(torch, dev, workdir, rows=DRILL_ROWS,
     outs = finish_gang(gangs["stopped"], workdir, "stopped", timeout=300)
     ref_outs = finish_gang(gangs["reference"], workdir, "reference",
                            timeout=300)
+    # the supervised gang is still resuming: the tools read the
+    # uninterrupted gang's trace meanwhile
+    try:
+        for i, (rc, so, err) in enumerate(ref_outs):
+            if rc != 0:
+                raise AssertionError(f"reference member {i} exited {rc}:\n"
+                                     f"{err[-3000:]}")
+        tools = gang_trace_tools(ref_trace, workdir)
+    except BaseException:
+        finish_gang(procs, workdir, "supervised", timeout=1)
+        raise
     sup_outs = finish_gang(procs, workdir, "supervised", timeout=300)
     steps = set()
     for i, (rc, so, err) in enumerate(outs):
@@ -5952,10 +6051,6 @@ def gang_supervision_phase(torch, dev, workdir, rows=DRILL_ROWS,
     if len(steps) != 1:
         raise AssertionError(f"the members stopped at {steps}")
     sigterm = {"exits": [o[0] for o in outs], "step": steps.pop()}
-    for i, (rc, so, err) in enumerate(ref_outs):
-        if rc != 0:
-            raise AssertionError(f"reference member {i} exited {rc}:\n"
-                                 f"{err[-3000:]}")
     ref = npz(ref_out, 0)
     outs = sup_outs
     for i, (rc, so, err) in enumerate(outs):
@@ -5975,6 +6070,11 @@ def gang_supervision_phase(torch, dev, workdir, rows=DRILL_ROWS,
                                  f"from the uninterrupted gang")
     supervisor_lines = [x for _, so, _ in outs for x in so.splitlines()
                         if x.startswith("SUPERVISOR_OK")]
+    print(f"phase 16 (c): the traced reference gang merged "
+          f"({tools['merge']}); trace_report --process 1 "
+          f"{tools['report_processes']}; tools "
+          f"{tools['merge_secs'] + tools['report_secs']:.2f} s",
+          file=sys.stderr, flush=True)
     print(f"phase 16 (c): {resume[0]}; " + "; ".join(supervisor_lines)
           + f"; kill to the re-formed gang's first update "
           f"{t_first - t_kill:.2f} s; the resumed npz = the uninterrupted "
@@ -5995,6 +6095,7 @@ def gang_supervision_phase(torch, dev, workdir, rows=DRILL_ROWS,
                            "bit_equal": True,
                            "seconds": time.perf_counter() - t1},
             "sigterm": sigterm,
+            "reference_trace_tools": tools,
             "seconds": time.perf_counter() - t0}
 
 
@@ -6053,6 +6154,10 @@ SUPERVISE_ACTIONS = ["launch", "exit", "backoff", "launch", "stall_kill",
 #: shard's rows in between can form
 SUPERVISE_FLEET_REQUESTS, SUPERVISE_FLEET_MAX_ROWS = 20, 64
 SUPERVISE_KILL_BATCH, SUPERVISE_KILL_WAVE, SUPERVISE_KILL_ROWS = 2, 3, 32
+#: phase 17 (b): the wire trace id of the one request the client asks to
+#: have traced, after the re-admission (the router and the members trace
+#: a request that carries one, whatever their sample rate)
+SUPERVISE_FLEET_TRACE_ID = "5eed" * 4
 
 
 def supervisor_records(path) -> list:
@@ -6319,13 +6424,13 @@ def supervised_fleet_phase(dev, served, workdir):
     # the router's dispatches: one per shard a request's rows touch
     dispatches = [0]
 
-    def send(client, rows):
+    def send(client, rows, trace_id=None):
         with lock:
             dispatches[0] += len({entity_shard(entity_of_row(r, None),
                                                FLEET_MEMBERS) for r in rows})
         sent = time.perf_counter()
         try:
-            resp = client.score(rows)
+            resp = client.score(rows, trace_id=trace_id)
         except Exception as e:  # noqa: BLE001 — a hung or broken request
             failures.append(repr(e))
             return
@@ -6417,6 +6522,8 @@ def supervised_fleet_phase(dev, served, workdir):
                 "the member's re-admission",
                 lambda: members_healthy({killed: 2, 1 - killed: 1}))
             requests(client, seed=53)
+            send(client, records[:SUPERVISE_FLEET_MAX_ROWS],
+                 trace_id=SUPERVISE_FLEET_TRACE_ID)
             stats = router_stats(router_ep)
         # each member's tier hits: the relaunched one's count only what it
         # scored after its re-admission
@@ -6470,6 +6577,13 @@ def supervised_fleet_phase(dev, served, workdir):
             range(FLEET_MEMBERS)) or status["router"] is None:
         raise AssertionError(f"photon_status --fleet: exit {status_rc}, "
                              f"{status}")
+    tools = fleet_trace_tools(fleet_dir, workdir)
+    print(f"phase 17 (b): {tools['merge']}; request "
+          f"{SUPERVISE_FLEET_TRACE_ID}: root on {tools['root_track']}, "
+          f"serve.request on {tools['member_tracks']}; "
+          f"{len(tools['trace_ids_across_tracks'])} trace id(s) across "
+          f"tracks; tools {tools['seconds']:.2f} s", file=sys.stderr,
+          flush=True)
     return {
         "members": FLEET_MEMBERS,
         "member_hbm_budget_mb": FLEET_HBM_BUDGET_MB,
@@ -6490,8 +6604,72 @@ def supervised_fleet_phase(dev, served, workdir):
         "fleet_after_readmission": stats["fleet"],
         "status": status["status"], "status_exit": status_rc,
         "status_members": [r["member"] for r in status["fleet"]],
+        "trace_tools": tools,
         "seconds": time.perf_counter() - t0,
     }
+
+
+def fleet_trace_tools(fleet_dir, workdir) -> dict:
+    """Phase 17 (b)'s fleet dir through the port's tools: ``trace_merge
+    --fleet`` must give a router track and two member tracks (its
+    alignment is reported: the services form no gang, so ``start_unix``
+    is expected), and ``trace_report --request`` on the client's traced
+    request must give a tree whose root span and a member's
+    ``serve.request`` lie on different tracks."""
+    t0 = time.perf_counter()
+    merged = os.path.join(workdir, "fleet_merged.json")
+    line, merge_secs = trace_tool("trace_merge", fleet_dir, "--fleet",
+                                  "--out", merged)
+    with open(merged) as f:
+        doc = json.load(f)
+    tracks = merged_tracks(doc)
+    # the tracks' names: the merge's metadata records that name a process
+    roles = {e["pid"]: e["args"]["name"].split(" ")[0]
+             for e in doc["traceEvents"]
+             if e.get("ph") == "M" and "name" in e.get("args", {})}
+    want = ["router"] + [f"member{k}" for k in range(FLEET_MEMBERS)]
+    if [roles[pid] for pid in sorted(roles)] != want or sorted(
+            tracks) != sorted(roles):
+        raise AssertionError(f"trace_merge --fleet: tracks {roles}, "
+                             f"events on {sorted(tracks)}")
+    on_tracks = collections.defaultdict(set)
+    for pid, events in tracks.items():
+        for e in events:
+            tid = (e.get("args") or {}).get("trace_id")
+            if tid:
+                on_tracks[tid].add(pid)
+    across = sorted(t for t, pids in on_tracks.items() if len(pids) > 1)
+    out, json_secs = trace_tool("trace_report", merged, "--request",
+                                SUPERVISE_FLEET_TRACE_ID, "--json")
+    roots = json.loads(out)["spans"]
+    members = []
+
+    def walk(node):
+        if node["name"] == "serve.request" and node is not roots[0]:
+            members.append(node)
+        for child in node["children"]:
+            walk(child)
+
+    for root in roots:
+        walk(root)
+    if len(roots) != 1 or roots[0]["pid"] != 0 or not members or any(
+            m["pid"] == roots[0]["pid"] for m in members):
+        raise AssertionError(f"trace_report --request: roots "
+                             f"{[(r['name'], r['pid']) for r in roots]}, "
+                             f"member serve.request on "
+                             f"{[m['pid'] for m in members]}")
+    text, text_secs = trace_tool("trace_report", merged, "--request",
+                                 SUPERVISE_FLEET_TRACE_ID)
+    return {"merge": line.strip(), "alignment": doc["otherData"]["alignment"],
+            "tracks": {roles[pid]: len(tracks[pid]) for pid in tracks},
+            "trace_ids_across_tracks": across,
+            "root_track": roles[roots[0]["pid"]],
+            "member_tracks": sorted({roles[m["pid"]] for m in members}),
+            "request_ms": roots[0]["dur_us"] / 1e3,
+            "request_lines": len(text.splitlines()),
+            "merge_secs": merge_secs,
+            "report_secs": json_secs + text_secs,
+            "seconds": time.perf_counter() - t0}
 
 
 def corrupt_role_phase(dev, fixture, reference, workdir) -> dict:
@@ -6612,6 +6790,59 @@ def chaos_bridge(train_trace, workdir) -> dict:
             "seconds": secs}
 
 
+def phase6_trace_tools(train_trace) -> dict:
+    """Phase 18 (b): the port's trace tools as processes over phase 6's
+    traced training run (1,000,209 rows, two sweeps): ``trace_report``
+    (text and ``--json``: ``cd.update`` attributed to both coordinates in
+    both sweeps), ``trace_report --device`` (its rows, or its line saying
+    the trace holds no ``build.compile`` span: every build was found in
+    the cache; the record says which) and ``trace_diff`` of the trace
+    against itself (exit 0, PASS, nothing added or removed)."""
+    trace_json = os.path.join(train_trace, "trace.json")
+    text, text_secs = trace_tool("trace_report", trace_json)
+    out, json_secs = trace_tool("trace_report", trace_json, "--json")
+    report = json.loads(out)
+    attributed = {(r["sweep"], r["coordinate"])
+                  for r in report["sweep_attribution"]}
+    want = {(s, c) for s in (0, 1) for c in ("fixed", "perUser")}
+    if not want <= attributed or report["processes"] != [0]:
+        raise AssertionError(f"trace_report --json: attribution "
+                             f"{sorted(attributed)}, processes "
+                             f"{report['processes']}")
+    device, device_secs = trace_tool("trace_report", trace_json, "--device")
+    out, device_json_secs = trace_tool("trace_report", trace_json,
+                                       "--device", "--json")
+    rows = json.loads(out)["device"]
+    view = "rows" if rows else "no build.compile span"
+    if not device.startswith("device plane (build.compile" if rows else
+                             "no device-plane spans in this trace"):
+        raise AssertionError(f"trace_report --device: {device[:400]}")
+    out, diff_secs = trace_tool("trace_diff", trace_json, trace_json,
+                                "--json")
+    diff = json.loads(out)
+    moved = [e["span"] for e in diff["spans"]
+             if e["status"] in ("added", "removed", "regressed")]
+    if diff["verdict"] != "PASS" or moved:
+        raise AssertionError(f"trace_diff of phase 6's trace against "
+                             f"itself: {diff['verdict']}, {moved}")
+    print(f"phase 18 (b): trace_report over phase 6's trace "
+          f"({report['span_count']} spans); --device: {view}; trace_diff "
+          f"against itself {diff['verdict']}", file=sys.stderr, flush=True)
+    return {"trace_json_bytes": os.path.getsize(trace_json),
+            "spans": report["span_count"],
+            "report_lines": len(text.splitlines()),
+            "sweep_attribution": report["sweep_attribution"],
+            "device_view": view, "device_rows": rows,
+            "device_text": device.strip().splitlines()[:8],
+            "diff_verdict": diff["verdict"],
+            "diff_spans": len(diff["spans"]),
+            "seconds": {"report": text_secs, "report_json": json_secs,
+                        "device": device_secs,
+                        "device_json": device_json_secs, "diff": diff_secs},
+            "tools_secs": text_secs + json_secs + device_secs
+                          + device_json_secs + diff_secs}
+
+
 def chaos_campaign(workdir) -> dict:
     """Phase 18 (a): the port's chaos campaign's smoke subset on the card
     (``photon_ml_tpu_torch/tools/chaos_drill.py``, every child with
@@ -6691,14 +6922,24 @@ def chaos_campaign(workdir) -> dict:
 
 
 def chaos_phase(smi, train_trace, workdir) -> dict:
-    """Phase 18: (a) the chaos campaign's smoke subset on the card, (b) the
-    OTLP bridge over phase 6's traced training run."""
+    """Phase 18: (a) the chaos campaign's smoke subset on the card, and
+    beside it, in a thread, (b) the OTLP bridge and the trace tools over
+    phase 6's traced training run (their processes share the host with
+    the campaign's, so their seconds include its load)."""
     t0 = time.perf_counter()
-    campaign = chaos_campaign(workdir)
-    bridge = chaos_bridge(train_trace, workdir)
-    shutil.rmtree(workdir, ignore_errors=True)
+    bridge_dir = workdir + "_bridge"
+    shutil.rmtree(bridge_dir, ignore_errors=True)
+    os.makedirs(bridge_dir)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        bridge = pool.submit(chaos_bridge, train_trace, bridge_dir)
+        tools = pool.submit(phase6_trace_tools, train_trace)
+        campaign = chaos_campaign(workdir)
+        bridge, tools = bridge.result(), tools.result()
+    for d in (workdir, bridge_dir):
+        shutil.rmtree(d, ignore_errors=True)
     return {"phase": "chaos", "nvidia_smi": smi, "a_campaign": campaign,
-            "b_bridge": bridge, "seconds": time.perf_counter() - t0}
+            "b_bridge": bridge, "b_trace_tools": tools,
+            "a_b_side_by_side": True, "seconds": time.perf_counter() - t0}
 
 
 def main() -> int:
@@ -7079,7 +7320,7 @@ def main() -> int:
     shutil.rmtree(os.path.join(build, "drill"), ignore_errors=True)
     emit(supervise)
 
-    # -- 18. the chaos campaign and the OTLP bridge -------------------------
+    # -- 18. the chaos campaign, the OTLP bridge and the trace tools -------
     chaos = chaos_phase(smi, os.path.join(driver_dir, "train_trace"),
                         os.path.join(build, "chaos"))
     shutil.rmtree(driver_dir, ignore_errors=True)

@@ -13,13 +13,13 @@ collectors consume a photon run with zero custom tooling:
 - spans (``spans.jsonl`` lines or ``kind: span`` stream records) become
   ``resourceSpans`` — one resource per process, parenting reconstructed
   per thread from span containment (start/end nesting — the same sweep
-  ``tools/trace_report.py`` uses for self-time), deterministic
-  hash-derived trace/span ids so identical inputs convert identically
-  (golden-fixture testable). Spans carrying propagated request-trace
-  labels (``trace_id``/``span_id``/``parent`` — the serve plane's wire
-  context) keep THOSE ids instead: the parent link then crosses
-  processes, so Jaeger stitches a client→router→member request into
-  one trace without any heuristic;
+  :mod:`photon_ml_tpu_torch.tools.trace_report` uses for self-time),
+  deterministic hash-derived trace/span ids so identical inputs convert
+  identically (golden-fixture testable). Spans carrying propagated
+  request-trace labels (``trace_id``/``span_id``/``parent`` — the serve
+  plane's wire context) keep THOSE ids instead: the parent link then
+  crosses processes, so Jaeger stitches a client→router→member request
+  into one trace without any heuristic;
 - ``metric_totals`` (run_end preferred, else the latest heartbeat)
   plus the exit snapshot's counter/gauge/histogram records become
   ``resourceMetrics`` (sums / gauges / histograms, cumulative

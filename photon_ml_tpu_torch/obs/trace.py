@@ -23,7 +23,8 @@ Export formats:
   as-is; nesting is implied by timestamp containment per ``tid``.
 - **Structured JSONL** (:meth:`Tracer.write_spans_jsonl`): one span per
   line with ``name``/``ts_us``/``dur_us``/``tid``/``depth``/labels, for
-  ad-hoc ``jq``/pandas analysis and ``tools/trace_report.py``.
+  ad-hoc ``jq``/pandas analysis and
+  :mod:`photon_ml_tpu_torch.tools.trace_report`.
 
 Per-thread nesting depth comes from a ``threading.local`` span stack; the
 stack snapshots also feed the heartbeat's stall report (which spans are
@@ -131,7 +132,7 @@ class Tracer:
         threads, so a context manager can't bracket them. Cross-process
         request linkage rides on ``labels``: ``trace_id``/``span_id``/
         ``parent`` labels stitch the trees back together in
-        ``tools/trace_merge.py`` / ``obs/otlp.py``."""
+        :mod:`photon_ml_tpu_torch.tools.trace_merge` / ``obs/otlp.py``."""
         self._record(name, start_ns, end_ns, depth, labels or None)
 
     def _record(self, name, start_ns, end_ns, depth, labels) -> None:

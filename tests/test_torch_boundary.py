@@ -69,6 +69,11 @@
   ``tools/otlp_bridge``) are in both import checks; the bridge imports no
   torch, and the campaign refuses CUDA on a host without it before it
   writes a fixture or starts a child (``test_torch_chaos_table.py``).
+- The trace tools (``tools/trace_report``, ``trace_merge``,
+  ``trace_diff``) are in both import checks and import no torch; they
+  import the standard library and each other only, and name no path
+  under the repository's ``tools/`` (``trace_diff`` imports its sibling
+  as a package module, with no ``sys.path`` insert).
 """
 
 import ast
@@ -148,6 +153,8 @@ SUPERVISION_MODULES = ["photon_ml_tpu_torch.tools.photon_status",
                        "photon_ml_tpu_torch.tools.photon_supervise"]
 CHAOS_MODULES = ["photon_ml_tpu_torch.tools.chaos_drill",
                  "photon_ml_tpu_torch.tools.otlp_bridge"]
+TRACE_TOOL_MODULES = [f"photon_ml_tpu_torch.tools.{m}" for m in (
+    "trace_report", "trace_merge", "trace_diff")]
 ANALYSIS_MODULES = [
     f"photon_ml_tpu_torch.analysis.{m}" for m in (
         "core", "package", "dataflow", "cache", "sarif", "rules_faults",
@@ -160,7 +167,8 @@ NAMED_MODULES = (FAULT_TOLERANCE_MODULES + NATIVE_INGEST_MODULES
                  + SINGLE_GLM_MODULES + WIDE_STREAMED_MODULES
                  + SERVE_MODULES + FLEET_TELEMETRY_MODULES + MESH_MODULES
                  + MULTIHOST_MODULES + ANALYSIS_MODULES
-                 + SUPERVISION_MODULES + CHAOS_MODULES)
+                 + SUPERVISION_MODULES + CHAOS_MODULES
+                 + TRACE_TOOL_MODULES)
 
 
 def _forbidden(module: str) -> bool:
@@ -852,3 +860,50 @@ def test_campaign_refuses_cpu_without_being_asked(no_cuda, tmp_path,
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert not workdir.exists()
+
+
+def test_trace_tools_import_no_torch():
+    code = ("import sys\n"
+            f"sys.path.insert(0, {str(REPO)!r})\n"
+            + "".join(f"import {m}\n" for m in TRACE_TOOL_MODULES)
+            + "print('torch' in sys.modules, "
+              "any(m.split('.')[0] in ('trace_report', 'trace_merge') "
+              "for m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-I", "-c", code],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False"]
+
+
+@pytest.mark.parametrize("module", TRACE_TOOL_MODULES)
+def test_trace_tools_name_no_path_of_the_repos_tools(module):
+    """Their imports are the standard library's and the port's own, and
+    no string outside a docstring names ``tools/`` (the JAX copies load
+    their sibling through a ``sys.path`` insert of that directory)."""
+    path = PKG / "tools" / (module.rsplit(".", 1)[1] + ".py")
+    tree = ast.parse(path.read_text())
+    docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                  if isinstance(node, (ast.Module, ast.FunctionDef,
+                                       ast.ClassDef))
+                  and node.body and isinstance(node.body[0], ast.Expr)
+                  and isinstance(node.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, node.lineno
+            names = [node.module]
+        else:
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docstrings):
+                assert "tools/" not in node.value, (path.name, node.lineno)
+            if isinstance(node, ast.Attribute) and node.attr == "path":
+                assert not (isinstance(node.value, ast.Name)
+                            and node.value.id == "sys"), \
+                    f"{path.name}:{node.lineno} touches sys.path"
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top in sys.stdlib_module_names or name in (
+                "photon_ml_tpu_torch.tools.trace_report",), \
+                f"{path.name}:{node.lineno} imports {name}"
